@@ -4,7 +4,10 @@ setup(
     name="triangle_splatting_tpu",
     version="0.1.0",
     packages=find_packages(include=["triangle_splatting_tpu",
-                                    "triangle_splatting_tpu.*"]),
+                                    "triangle_splatting_tpu.*",
+                                    "triangle_splatting_tpu_torch",
+                                    "triangle_splatting_tpu_torch.*"]),
+    package_data={"triangle_splatting_tpu_torch.ops.cuda": ["csrc/*.cu"]},
     install_requires=[
         "jax",
         "numpy",
@@ -14,6 +17,8 @@ setup(
     ],
     extras_require={
         "viz": ["opencv-python", "matplotlib", "tensorboard"],
+        # the PyTorch/CUDA port (triangle_splatting_tpu_torch)
+        "torch": ["torch"],
     },
     description="TPU-native 2D Triangle Splatting (2DTS) framework",
     python_requires=">=3.10",

@@ -1,0 +1,174 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: every test skips when ``torch.cuda.is_available()`` is
+false (decided in a fixture, never at import). On a machine with a GPU:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: the repository's conftest configures JAX, which the GPU
+machine does not need.) chip_smoke.py checks the same kernels at the
+800x800 / 100k-triangle bench shapes; these tests cover what it does not:
+partial tiles, gamma != 1, opaque stacks, NaN tails and the launch counts.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from triangle_splatting_tpu_torch.ops.binning import sort_pairs
+from triangle_splatting_tpu_torch.ops.cuda import blend as KB
+from triangle_splatting_tpu_torch.ops.cuda import streams as KS
+from triangle_splatting_tpu_torch.ops.projection import RasterSettings, preprocess_2d
+from triangle_splatting_tpu_torch.ops.rasterize import rasterize, triangle_field_matrix
+from triangle_splatting_tpu_torch.utils.testing import make_camera, make_random_scene
+
+pytestmark = pytest.mark.cuda
+
+CASES = [
+    # (P, W, H, seed, gamma, opacity_range)
+    (300, 64, 64, 0, 1.0, (0.3, 0.95)),
+    (300, 64, 64, 1, 1.0, (0.8, 0.95)),    # opaque stack: T crosses 1e-4
+    (400, 80, 48, 2, 3.7, (0.3, 0.95)),    # partial tiles, gamma != 1
+    (400, 70, 90, 3, 50.0, (0.3, 0.95)),   # solidify gamma
+]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def pipeline_inputs(case, dev):
+    """Sorted pairs and packed fields of a random scene, on ``dev``."""
+    P, W, H, seed, gamma, orange = case
+    s = make_random_scene(P, seed=seed, opacity_range=orange)
+    st = RasterSettings(image_width=W, image_height=H, rich_info=False)
+    cam = make_camera(W, H, device=dev)
+    op = torch.as_tensor(s["opacity"]).to(dev)
+    with torch.no_grad():
+        prep = preprocess_2d(torch.as_tensor(s["vertex"]).to(dev),
+                             torch.zeros((P, 2), device=dev),
+                             torch.as_tensor(s["rgb"]).to(dev), cam.world_view,
+                             cam.full_proj, cam.tan_fovx, cam.tan_fovy, st,
+                             opacity=op, gamma=torch.tensor(gamma, device=dev))
+        sp = sort_pairs(prep, st, 128 * 40)
+        assert not bool(sp.overflow)
+        pair_tri = KS.relayout_pairs_plain(sp.sorted_tri, sp.raw_starts, sp.astarts,
+                                           sp.tile_counts, sp.ma)
+        fmat = triangle_field_matrix(prep, op)
+        fields = torch.where((pair_tri >= 0)[:, None], fmat[pair_tri.clamp_min(0).long()],
+                             torch.zeros((), device=dev)).t().contiguous()
+    params = torch.tensor([gamma, 1.0, 0.9, 0.8, 10.0, 0, 0, 0], device=dev)
+    return sp, pair_tri, fields, params
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_relayout_kernel_exact(dev, case):
+    sp, pair_tri, _, _ = pipeline_inputs(case, dev)
+    n = KS.relayout_pairs.launches
+    got = KS.relayout_pairs(sp.sorted_tri, sp.raw_starts, sp.astarts, sp.tile_counts, sp.ma)
+    torch.cuda.synchronize()
+    assert KS.relayout_pairs.launches == n + 1
+    assert torch.equal(got, pair_tri)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_blend_kernels_match_plain(dev, case):
+    P, W, H, seed, gamma, orange = case
+    sp, _, fields, params = pipeline_inputs(case, dev)
+    geo = dict(image_width=W, image_height=H, tile_h=32, tile_w=32)
+    args = (fields, sp.astarts, sp.tile_counts, params)
+    out = KB.blend_forward(*args, **geo)
+    ref = KB.blend_forward_plain(*args, **geo)
+    torch.cuda.synchronize()
+    # same roundings per (pair, pixel); only the color sums are reordered
+    for k in (0, 1, 3):
+        assert float((out[k] - ref[k]).abs().max()) <= 1e-5 * (10.0 if k == 1 else 1.0)
+    assert torch.equal(out[4], ref[4])
+    assert float(out[2].abs().max()) == 0.0
+
+    gen = torch.Generator().manual_seed(seed)
+    g_color = (torch.randn((3, H, W), generator=gen) / (3 * H * W)).to(dev)
+    g_T = (torch.randn((H, W), generator=gen) / (H * W)).to(dev)
+    bw = args + (out[3], out[4], g_color, g_T)
+    got = KB.blend_backward(*bw, **geo)
+    want = KB.blend_backward_plain(*bw, **geo)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    # pixel sums in another order (warp tree vs torch.sum): rel 1e-4 of
+    # each row's max; padding, tail and rows 10..15 exactly zero
+    scale = want[:10].abs().amax(dim=1).clamp_min(1e-30)
+    assert float(((got[:10] - want[:10]).abs().amax(dim=1) / scale).max()) <= 1e-4
+    assert float(got[10:].abs().max()) == 0.0
+    ts, tc = sp.astarts.tolist(), sp.tile_counts.tolist()
+    for t in range(len(tc)):
+        assert not bool(got[:, ts[t] + tc[t]:ts[t + 1]].any())
+    assert not bool(got[:, ts[-1]:].any())
+
+
+@pytest.mark.parametrize("seed,M,P,maxlen,rows", [
+    (0, 128 * 37, 700, 12, 16), (1, 128 * 8, 2000, 1, 10), (2, 128 * 64, 9, 2000, 10)])
+def test_segment_reduce_kernel_matches_plain(dev, seed, M, P, maxlen, rows):
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, maxlen + 1, P)
+    nvalid = int(min(counts.sum(), M) * 0.9)
+    offs = np.minimum(np.concatenate([[0], np.cumsum(counts)]), M)
+    cols = rng.normal(size=(rows, M)).astype(np.float32)
+    cols[:, nvalid:] = np.nan                       # never read past nvalid
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    args = (t(cols), t(offs[:-1].astype(np.int32)), t(offs[1:].astype(np.int32)),
+            torch.tensor(nvalid, dtype=torch.int32, device=dev))
+    got = KS.segment_reduce_pairs(*args)
+    want = KS.segment_reduce_pairs_plain(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert not bool(got[rows:].any())
+
+
+def test_rasterize_cuda_matches_cpu(dev):
+    """The whole tile pipeline on the card vs its plain versions on the
+    CPU: forward and the gradients w.r.t. vertex, opacity, colors."""
+    s = make_random_scene(300, seed=4)
+    st = RasterSettings(image_width=96, image_height=64, rich_info=False)
+    target = torch.rand((3, 64, 96), generator=torch.Generator().manual_seed(0))
+    res = {}
+    for d in ("cpu", dev):
+        leaves = [torch.tensor(s[k], device=d, requires_grad=True)
+                  for k in ("vertex", "opacity", "rgb")]
+        out = rasterize(leaves[0], leaves[1], None, make_camera(96, 64, device=d), st,
+                        gamma=1.0, background=torch.ones(3, device=d), bg_depth=10.0,
+                        colors=leaves[2])
+        loss = (out["render"] - target.to(d)).abs().mean() + 0.3 * out["final_T"].mean()
+        res[str(d)] = (out, torch.autograd.grad(loss, leaves))
+    (oc, gc), (og, gg) = res["cpu"], res["cuda"]
+    # Two float32 pipelines on two devices (exp/log/sqrt differ by an ulp)
+    # may flip an isolated contributor boundary: the 1e-3/pixel budget.
+    assert float((og["render"].detach().cpu() - oc["render"].detach()).abs().max()) <= 1e-3
+    assert int((og["n_contrib"].cpu() != oc["n_contrib"]).sum()) <= 2
+    # Vertex gradients are discontinuous per pixel: the ecc subgradient
+    # lands on the argmin barycentric, which flips when two barycentrics
+    # tie to an ulp. On this scene float32 vs float64 on the CPU differ by
+    # 1.9e-2 of the max and 5.6e-3 in L2, so hold the vertex gradient in L2
+    # (rel 2e-2) and the smooth opacity / color gradients at rel 1e-4.
+    gv, cv = gg[0].cpu(), gc[0]
+    assert float((gv - cv).norm() / cv.norm()) <= 2e-2
+    for a, b in zip(gg[1:], gc[1:]):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_wrappers_reject_bad_inputs(dev):
+    f = torch.zeros((16, 256), device=dev, dtype=torch.float64)
+    ts = torch.zeros(5, dtype=torch.int32, device=dev)
+    tc = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        KB.blend_forward(f, ts, tc, torch.zeros(8, device=dev), image_width=64,
+                         image_height=64, tile_h=32, tile_w=32)
+    with pytest.raises(ValueError):
+        KB.blend_forward(f.float(), ts.cpu(), tc, torch.zeros(8, device=dev),
+                         image_width=64, image_height=64, tile_h=32, tile_w=32)
+    with pytest.raises(NotImplementedError):
+        KB.blend_forward(f.float(), ts, tc, torch.zeros(8, device=dev), image_width=64,
+                         image_height=64, tile_h=32, tile_w=32, rich=True)

@@ -1,0 +1,390 @@
+"""VanillaTS trainer, fixed-count photo path (port of
+``triangle_splatting_tpu/trainers/vanilla_ts.py``).
+
+One iteration: render one training camera through the kernel pipeline,
+L1 + w_ssim * (1 - SSIM) (+ the scaling / opacity regularizers), autograd
+backward, Adam (eps 1e-15) with per-group learning-rate schedules; SH
+bands come on along ``sh_schedule`` and gamma along ``gamma_schedule``.
+
+Config blocks this slice does not serve raise ``NotImplementedError`` at
+construction: adaptive density control (densification, pruning, clipping,
+opacity reset, statistic windows), the geometry / DoG / smoothness /
+vertex losses, color affine, ``render_up_scale``, data parallelism, and
+PLY / checkpoint / GLB saving at an iteration the run reaches.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import replace
+
+import numpy as np
+import torch
+
+from ..models import triangle as M
+from ..models.model_utils import get_color_tensor
+from ..ops.projection import RasterSettings
+from ..utils.camera import Camera
+from ..utils.config import Config
+from ..utils.scheduler import exponential_scheduler, exponential_step_scheduler
+from . import losses as L
+from .adc_utils import adapt_pair_budget
+from .base import BaseTrainer
+
+_ADC_BLOCKS = ("densification", "opacity_pruning", "opacity_clipping",
+               "scale_pruning", "scale_clipping", "contribution_pruning",
+               "opacity_reset", "statistic")
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+class VanillaTSTrainer(BaseTrainer):
+    def __init__(self, config: str | Config, exp_name: str | None = None,
+                 log_file: bool = True, impl: str = "cuda", device="cuda"):
+        super().__init__(config, exp_name, log_file, device)
+        self._check_supported()
+        # Full float32 for the SSIM convolutions and any matmul: TF32 keeps
+        # ~3 decimal digits, too few for SSIM's cancelling variance terms.
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        self.logger.info("TF32 disabled for cuDNN convolutions and matmuls")
+        mc = self.config.model
+        self.model_cfg = M.ModelConfig(
+            max_sh_degree=mc.max_sh_degree if mc.max_sh_degree is not None else 0,
+            use_color_affine=bool(mc.use_color_affine),
+            back_culling=bool(mc.back_culling),
+            back_culling_prob=mc.back_culling_prob if mc.back_culling_prob is not None else 1.0,
+            ste_threshold=mc.ste_threshold,
+            gamma_rescale=bool(mc.gamma_rescale),
+            render_up_scale=mc.render_up_scale,
+            rasterizer_type=mc.rasterizer_type or "2D",
+        )
+        self.impl = impl
+        self.params: M.TriangleParams | None = None
+        self.state: M.TriangleState | None = None
+        self.opt: M.AdamState | None = None
+        self._setup_schedulers()
+        self._rng = np.random.default_rng(self.seed)
+        self._sh_degree_host = 0
+        # pair budget per triangle, re-sized to measured need at log steps
+        self._ppt = self.config.model.pairs_per_triangle or 6
+        self._ppt_sized = False
+        # per-step losses of the last train() as device scalars (read them
+        # after training: no host sync inside the loop)
+        self.loss_history: list[torch.Tensor] = []
+
+    # ------------------------------------------------------------------
+    # setup
+    # ------------------------------------------------------------------
+    def _check_supported(self):
+        cfg = self.config
+        mc, t = cfg.model, cfg.trainer
+        iters = t.iterations or 30000
+
+        def refuse(what):
+            raise NotImplementedError(
+                f"{what} is not ported to triangle_splatting_tpu_torch yet")
+
+        if mc.use_color_affine:
+            refuse("model.use_color_affine")
+        if (mc.render_up_scale or 0) > 1:
+            refuse("model.render_up_scale")
+        if (mc.rasterizer_type or "2D") != "2D":
+            refuse(f"model.rasterizer_type {mc.rasterizer_type!r}")
+        sampling = mc.sampling or Config()
+        if (sampling.sample_method or "direct") not in ("direct", "random"):
+            refuse(f"model.sampling.sample_method {sampling.sample_method!r}")
+        mu = mc.model_update
+        for name in _ADC_BLOCKS:
+            if mu is not None and getattr(mu, name) is not None:
+                refuse(f"model.model_update.{name}")
+        if (t.w_dog or 0) > 0:
+            refuse("trainer.w_dog")
+        if (t.w_smoothness or 0) > 0:
+            refuse("trainer.w_smoothness")
+        if t.geometry_loss is not None and (t.geometry_loss.w_geometry or 0) > 0:
+            refuse("trainer.geometry_loss")
+        if t.vertex_reg is not None and (t.vertex_reg.w_vertex_reg or 0) > 0:
+            refuse("trainer.vertex_reg")
+        if int(t.data_parallel or 0) > 1:
+            refuse("trainer.data_parallel")
+        if t.eval_lpips:
+            refuse("trainer.eval_lpips")
+        if t.start_checkpoint or t.start_pointcloud:
+            refuse("trainer.start_checkpoint / start_pointcloud")
+        for key in ("save_iterations", "checkpoint_iterations", "save_glb_iterations"):
+            if any(0 < int(it) <= iters for it in (getattr(t, key) or [])):
+                refuse(f"trainer.{key} (PLY/checkpoint/GLB saving)")
+        for key in ("save_interval_iter", "ckpt_interval_iter"):
+            if (getattr(t, key) or 0) and getattr(t, key) <= iters:
+                refuse(f"trainer.{key} (PLY/checkpoint saving)")
+
+    def _setup_schedulers(self):
+        oc = self.config.model.optimizer
+        self.lr_schedulers = {}
+        if oc is not None:
+            for name in ("vertex", "opacity", "f_dc", "f_rest"):
+                sub = getattr(oc, name)
+                if sub is not None:
+                    self.lr_schedulers[name] = exponential_scheduler(**vars(sub))
+            if oc.vertex_scale_up_iter is not None and oc.vertex_scale_up is not None:
+                base = self.lr_schedulers["vertex"]
+                it0, mult = oc.vertex_scale_up_iter, oc.vertex_scale_up
+                self.lr_schedulers["vertex"] = (
+                    lambda it, base=base, it0=it0, mult=mult:
+                    base(it) * (1.0 if it <= it0 else mult))
+        self._mu = self.config.model.model_update
+        g = self._mu.gamma_schedule if self._mu is not None else None
+        if g is not None:
+            mk = exponential_step_scheduler if g.step_scheduler else exponential_scheduler
+            kw = dict(v_init=g.gamma_init, v_final=g.gamma_final,
+                      max_steps=g.end_iter - g.start_iter)
+            if g.step_scheduler:
+                kw["n_stage"] = g.n_stage
+            self.gamma_scheduler = mk(**kw)
+
+    def _lrs(self, iteration: int) -> dict:
+        lrs = {name: _f32(fn(iteration)) for name, fn in self.lr_schedulers.items()}
+        lrs.setdefault("affine", 0.0)
+        return lrs
+
+    def _settings_for(self, camera: Camera) -> RasterSettings:
+        return RasterSettings(
+            image_width=camera.image_width, image_height=camera.image_height,
+            max_sh_degree=self.model_cfg.max_sh_degree,
+            back_culling=self.model_cfg.back_culling,
+            rasterizer_type=self.model_cfg.rasterizer_type,
+            rich_info=False,
+            pairs_per_triangle=self._ppt)
+
+    def _loss_weights(self, iteration: int) -> dict:
+        t = self.config.trainer
+        w_ssim = t.w_ssim or 0.0
+        oreg = t.w_opacity_reg
+        w_quad = w_lin = 0.0
+        if oreg is not None:
+            if iteration > (oreg.linear_start_iter or 0):
+                w_lin = oreg.linear_reg or 0.0
+            elif iteration > (oreg.quad_start_iter or 0):
+                w_quad = oreg.quad_reg or 0.0
+        return {k: _f32(v) for k, v in dict(
+            l1=1.0 - w_ssim, ssim=w_ssim, scaling=t.w_scaling_reg or 0.0,
+            opacity_quad=w_quad, opacity_linear=w_lin).items()}
+
+    # ------------------------------------------------------------------
+    # step
+    # ------------------------------------------------------------------
+    def _camera_loss(self, settings: RasterSettings, p: M.TriangleParams,
+                     state: M.TriangleState, camera: Camera, background,
+                     weights: dict):
+        """Per-camera training loss (the photo path of the JAX twin)."""
+        pkg = M.forward(p, state, camera, background, self.model_cfg, settings,
+                        is_training=True, impl=self.impl, need_stats=False)
+        img = pkg["render"]
+        gt = camera.gt_image
+        if camera.alpha_mask is not None:
+            img = img * camera.alpha_mask
+            gt = gt * camera.alpha_mask
+        w = weights
+        loss = w["l1"] * L.l1(img, gt)
+        loss = loss + w["ssim"] * L.ssim_loss(img, gt)
+
+        alive_f = state.alive.to(img.dtype)
+        n_alive = torch.clamp_min(alive_f.sum(), 1.0)
+        loss = loss + w["scaling"] * ((pkg["scaling"] * alive_f).sum() / n_alive)
+        op = pkg["opacity"][:, 0]
+        quad = ((0.25 - (op - 0.5) ** 2) * alive_f).sum() / n_alive
+        lin = ((1.0 - op) * alive_f).sum() / n_alive
+        loss = loss + (w["opacity_quad"] * quad + w["opacity_linear"] * lin)
+        return loss, dict(overflow=pkg["overflow"], num_pairs=pkg["num_pairs"])
+
+    def _loss_and_grads(self, settings, params, state, camera, background,
+                        weights):
+        """Loss, per-parameter gradients (a TriangleParams) and aux."""
+        leaves = {k: t.detach().requires_grad_(True)
+                  for k, t in params.tensors().items()}
+        loss, aux = self._camera_loss(settings, M.TriangleParams(**leaves),
+                                      state, camera, background, weights)
+        names = list(leaves)
+        gs = torch.autograd.grad(loss, [leaves[n] for n in names],
+                                 allow_unused=True)
+        grads = M.TriangleParams(**{
+            n: torch.zeros_like(leaves[n]) if g is None else g
+            for n, g in zip(names, gs)})
+        return loss.detach(), grads, aux
+
+    def _train_step(self, settings, params, opt, state, camera, weights, lrs,
+                    background):
+        """One iteration: forward, loss, backward, Adam."""
+        loss, grads, aux = self._loss_and_grads(settings, params, state, camera,
+                                                background, weights)
+        params, opt = M.adam_update(params, opt, grads, lrs)
+        return params, opt, loss, aux
+
+    # ------------------------------------------------------------------
+    # loop
+    # ------------------------------------------------------------------
+    def _init_model(self):
+        if self.params is None:
+            self.logger.info("Initializing triangles from point cloud")
+            pcd = self.dataset.getPointCloud()
+            sampling = self.config.model.sampling or Config()
+            pts, cols, nrm = self._sample_points(pcd)
+            self.params, self.state = M.create_from_points(
+                pts, cols, nrm, self.model_cfg,
+                init_opacity=sampling.init_opacity if sampling.init_opacity is not None else 0.1,
+                capacity_factor=1.0,
+                duplicate_count=sampling.duplicate_count or 1,
+                seed=self.seed, device=self.device)
+            self.opt = M.AdamState.create(self.params)
+            self.logger.info(
+                f"Initialized {int(self.state.alive.sum())} triangles "
+                f"(capacity {self.params.capacity})")
+        return 0
+
+    def _sample_points(self, pcd):
+        sampling = self.config.model.sampling or Config()
+        pts = np.asarray(pcd.points, np.float32)
+        cols = np.asarray(pcd.colors, np.float32)
+        nrm = np.asarray(pcd.normals, np.float32)
+        if len(pts) == 0:
+            raise ValueError("Empty point cloud and no random_init support yet")
+        n_sample = sampling.n_sample_inside
+        if (sampling.sample_method or "direct") == "random" and n_sample \
+                and 0 < n_sample < len(pts):
+            idx = self._rng.permutation(len(pts))[:n_sample]
+            pts, cols, nrm = pts[idx], cols[idx], nrm[idx]
+        self.logger.info(f"Sampled {len(pts)} inside points "
+                         f"({sampling.sample_method or 'direct'})")
+        return pts, cols, nrm
+
+    def _model_update(self, iteration: int):
+        """gamma / SH schedules (the ADC blocks are refused at construction)."""
+        mu = self._mu
+        if mu is None:
+            return
+        g = mu.gamma_schedule
+        if g is not None and g.start_iter < iteration <= g.end_iter:
+            gamma = self.gamma_scheduler(iteration - g.start_iter)
+            self.state.gamma = torch.tensor(gamma, dtype=torch.float32,
+                                            device=self.device)
+        shs = mu.sh_schedule
+        if shs is not None:
+            deg = sum(1 for it in shs.one_up_iters if iteration > it)
+            deg = min(deg, self.model_cfg.max_sh_degree)
+            if deg != self._sh_degree_host:
+                self._sh_degree_host = deg
+                self.state.active_sh_degree = torch.tensor(
+                    deg, dtype=torch.int32, device=self.device)
+
+    def train(self):
+        try:
+            self._train()
+        except Exception as e:
+            self.logger.error(f"Training failed: {e}")
+            raise
+
+    def _train(self):
+        cfgt = self.config.trainer
+        first_iter = self._init_model()
+        if cfgt.initial_eval:
+            self._evaluate(first_iter)
+        self.logger.info("Training started")
+        self.loss_history = []
+        t_start = time.perf_counter()
+        for iteration in range(first_iter + 1, (cfgt.iterations or 30000) + 1):
+            camera = self.dataset.nextTrainData()
+            settings = self._settings_for(camera)
+            if self.model_cfg.back_culling and self.model_cfg.back_culling_prob < 1.0:
+                settings = replace(settings, back_culling=bool(
+                    self._rng.random() < self.model_cfg.back_culling_prob))
+            bg_name = cfgt.train_background or "random"
+            background = torch.as_tensor(get_color_tensor(bg_name, self._rng)).to(self.device)
+            cap_step = self.params.capacity
+            self.params, self.opt, loss, aux = self._train_step(
+                settings, self.params, self.opt, self.state, camera,
+                self._loss_weights(iteration), self._lrs(iteration), background)
+            self.loss_history.append(loss)
+
+            if cfgt.eval_interval_iter and iteration % cfgt.eval_interval_iter == 0:
+                self._evaluate(iteration)
+            self._model_update(iteration)
+
+            if cfgt.log_interval_iter and iteration % cfgt.log_interval_iter == 0:
+                loss_val = float(loss)
+                count = int(self.state.alive.sum())
+                num_pairs, overflow = int(aux["num_pairs"]), bool(aux["overflow"])
+                self.logger.info(
+                    f"[ITER {iteration}] Loss: {loss_val:.5f}, Triangles: {count}, "
+                    f"Gamma: {float(self.state.gamma):.3f}, SH: {self._sh_degree_host}, "
+                    f"pairs: {num_pairs}")
+                self.logger.add_scalar("Loss", loss_val, iteration)
+                self.logger.add_scalar("Triangle Count", count, iteration)
+                self.logger.add_scalar("Training Time (min)",
+                                       (time.perf_counter() - t_start) / 60, iteration)
+                # size the pair budget to measured need: the first sizing
+                # shrinks all the way to margin * need, later ones keep the
+                # anti-thrash hysteresis (as the JAX trainer does)
+                first_sizing = not self._ppt_sized
+                if not overflow:
+                    self._ppt_sized = True
+                new_ppt = adapt_pair_budget(
+                    self._ppt, num_pairs, cap_step, overflow,
+                    shrink_if_below=1.0 if first_sizing else 0.5)
+                if new_ppt != self._ppt:
+                    self._ppt = new_ppt
+                    self.logger.warning(f"pair budget re-sized: pairs_per_triangle -> {self._ppt}")
+
+            if cfgt.histogram_interval_iter and iteration % cfgt.histogram_interval_iter == 0:
+                alive = self.state.alive
+                self.logger.add_histogram(
+                    "Opacity", M.get_opacity(self.params)[alive, 0].cpu().numpy(), iteration)
+                self.logger.add_histogram(
+                    "Scaling", M.get_scaling(self.params)[alive].cpu().numpy(), iteration)
+        self.dataset.close()
+        self.logger.info("Training finished")
+
+    # ------------------------------------------------------------------
+    # eval
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def psnr_views(self, cameras, background, use_mask: bool = True) -> list[float]:
+        """PSNR of the current model on each camera's GT image."""
+        out = []
+        for camera in cameras:
+            pkg = M.forward(self.params, self.state, camera, background,
+                            self.model_cfg, self._settings_for(camera),
+                            is_training=False, impl=self.impl)
+            mask = camera.alpha_mask if use_mask else None
+            out.append(float(L.psnr(pkg["render"], camera.gt_image, mask)))
+        return out
+
+    @torch.no_grad()
+    def _evaluate(self, iteration: int):
+        cfgt = self.config.trainer
+        bg_name = cfgt.eval_background or "black"
+        background = torch.as_tensor(get_color_tensor(bg_name, self._rng)).to(self.device)
+        eval_mask = True if cfgt.eval_alpha_mask is None else bool(cfgt.eval_alpha_mask)
+        n_img = cfgt.eval_save_img_count or 3
+        psnrs, ssims = [], []
+        for i, camera in enumerate(self.dataset.getTestDataset()):
+            pkg = M.forward(self.params, self.state, camera, background,
+                            self.model_cfg, self._settings_for(camera),
+                            is_training=False, impl=self.impl)
+            img = pkg["render"]
+            mask = camera.alpha_mask if eval_mask else None
+            psnrs.append(float(L.psnr(img, camera.gt_image, mask)))
+            ssims.append(float(L.ssim(img.clamp(0, 1), camera.gt_image)))
+            if i < n_img:
+                self.logger.add_image(f"Pred {i}", img.cpu().numpy(), iteration)
+        self.logger.info(f"[ITER {iteration}] Eval PSNR: {np.mean(psnrs):.3f}, "
+                         f"SSIM: {np.mean(ssims):.3f}, views: {len(psnrs)}, "
+                         f"triangles: {int(self.state.alive.sum())}")
+        self.logger.add_scalar("Average PSNR", float(np.mean(psnrs)), iteration)
+        self.logger.add_scalar("Average SSIM", float(np.mean(ssims)), iteration)
+        return float(np.mean(psnrs))
+
+    def evaluate(self):
+        return self._evaluate(0)
