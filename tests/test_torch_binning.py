@@ -18,6 +18,7 @@ from triangle_splatting_tpu.utils.testing import make_camera, make_random_scene
 from triangle_splatting_tpu_torch.ops.binning import bin_triangles as t_bin
 from triangle_splatting_tpu_torch.ops.projection import Preprocessed as TPrep
 from triangle_splatting_tpu_torch.ops.projection import RasterSettings as TRS
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 FIELDS = ("pair_tri", "pair_valid", "tri_offsets", "tile_starts",
           "tile_counts", "num_pairs", "overflow")

@@ -16,6 +16,7 @@ from triangle_splatting_tpu.ops.projection import RasterSettings, preprocess_2d
 from triangle_splatting_tpu.ops.rasterize import pack_pair_fields, triangle_field_matrix
 from triangle_splatting_tpu.utils.testing import make_camera, make_random_scene
 from triangle_splatting_tpu_torch.ops.cuda import blend as TB
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CASES = [
     # (P, W, H, seed, gamma, opacity_range)
@@ -81,7 +82,7 @@ def test_forward_plain_matches_jax(case):
     P, W, H, seed, gamma, orange = case
     inp = packed_inputs(*case)
     want = jax_forward(inp, W, H)
-    before = TB.blend_forward.launches
+    before = dict(TB.blend_forward.launches)
     got = [x.numpy() for x in TB.blend_forward(
         *torch_args(inp), image_width=W, image_height=H, tile_h=32, tile_w=32)]
     assert TB.blend_forward.launches == before      # CPU: plain version
@@ -143,3 +144,39 @@ def test_backward_plain_matches_float64_autograd(case):
                             n_contrib, g_color, g_T, **geo)
     cols = real_slots(ts.numpy(), tc.numpy())
     assert row_rel_err(got.numpy(), want.numpy(), cols) <= 1e-9
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN48_GLOBAL__N__0b5508f7_15_parent_blend_cu_db7cfa6a20blend_forward_kernelEPKfiPKiS3_S1_iiiiiPfS4_S4_S4_Pi",
+     "blend_forward_kernel"),
+    ("_ZN40_GLOBAL__N__230fffe1_8_blend_cu_db7cfa6a21blend_backward_kernelILb0EEEvPKfiPKiS4_S2_iiiiiiS2_S4_S2_S2_Pf",
+     "blend_backward_kernel<false>"),
+    ("_ZN40_GLOBAL__N__230fffe1_8_blend_cu_db7cfa6a20blend_forward_kernelILb1EEEvPKfiPKiS4_S2_iiiiiPfS5_S5_S5_Pi",
+     "blend_forward_kernel<true>"),
+])
+def test_kernel_name_reads_mangled_entries(mangled, name):
+    """The names ptxas and cuobjdump print for the blend kernels, before
+    and after they became ``template <bool k3D>``."""
+    from triangle_splatting_tpu_torch.ops.cuda.compare_sass import kernel_name
+    assert kernel_name(mangled) == name
+
+
+def test_launch_counts_by_kernel_and_variant():
+    from triangle_splatting_tpu_torch.ops.cuda import launch_counts, reset_launches
+    from triangle_splatting_tpu_torch.ops.cuda import streams as TS
+    saved = {fn: fn.launches for fn in (TB.blend_forward, TB.blend_backward,
+                                        TS.relayout_pairs, TS.segment_reduce_pairs)}
+    try:
+        TB.blend_backward.launches = {"2D": 2, "3D": 5}
+        TS.segment_reduce_pairs.launches = 7
+        counts = launch_counts()
+        assert counts[("blend_backward", "3D")] == 5 and counts[("blend_backward", "2D")] == 2
+        assert counts[("segment_reduce_pairs", None)] == 7
+        reset_launches()
+        assert set(launch_counts()) == {(k, v) for k in ("blend_forward", "blend_backward")
+                                        for v in TB.VARIANTS} | {
+            ("relayout_pairs", None), ("segment_reduce_pairs", None)}
+        assert not any(launch_counts().values())
+    finally:
+        for fn, n in saved.items():
+            fn.launches = n

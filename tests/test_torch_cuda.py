@@ -7,8 +7,9 @@ false (decided in a fixture, never at import). On a machine with a GPU:
 
 (``--noconftest``: the repository's conftest configures JAX, which the GPU
 machine does not need.) chip_smoke.py checks the same kernels at the
-800x800 / 100k-triangle bench shapes; these tests cover what it does not:
-partial tiles, gamma != 1, opaque stacks, NaN tails and the launch counts.
+800x800 / 100k-triangle bench shapes (and the 3D kernels at 1600x1600);
+these tests cover what it does not: partial tiles, gamma != 1, opaque
+stacks, NaN tails and the launch counts per variant.
 """
 
 import numpy as np
@@ -18,8 +19,10 @@ import torch
 from triangle_splatting_tpu_torch.ops.binning import sort_pairs
 from triangle_splatting_tpu_torch.ops.cuda import blend as KB
 from triangle_splatting_tpu_torch.ops.cuda import streams as KS
-from triangle_splatting_tpu_torch.ops.projection import RasterSettings, preprocess_2d
-from triangle_splatting_tpu_torch.ops.rasterize import rasterize, triangle_field_matrix
+from triangle_splatting_tpu_torch.ops.projection import (RasterSettings, preprocess_2d,
+                                                         preprocess_3d)
+from triangle_splatting_tpu_torch.ops.rasterize import (rasterize, triangle_field_matrix,
+                                                        triangle_field_matrix_3d)
 from triangle_splatting_tpu_torch.utils.testing import make_camera, make_random_scene
 
 pytestmark = pytest.mark.cuda
@@ -40,24 +43,28 @@ def dev():
     return torch.device("cuda")
 
 
-def pipeline_inputs(case, dev):
+def pipeline_inputs(case, dev, variant="2D"):
     """Sorted pairs and packed fields of a random scene, on ``dev``."""
     P, W, H, seed, gamma, orange = case
     s = make_random_scene(P, seed=seed, opacity_range=orange)
-    st = RasterSettings(image_width=W, image_height=H, rich_info=False)
+    st = RasterSettings(image_width=W, image_height=H, rich_info=False,
+                        rasterizer_type=variant)
     cam = make_camera(W, H, device=dev)
     op = torch.as_tensor(s["opacity"]).to(dev)
+    pre = preprocess_2d if variant == "2D" else preprocess_3d
     with torch.no_grad():
-        prep = preprocess_2d(torch.as_tensor(s["vertex"]).to(dev),
-                             torch.zeros((P, 2), device=dev),
-                             torch.as_tensor(s["rgb"]).to(dev), cam.world_view,
-                             cam.full_proj, cam.tan_fovx, cam.tan_fovy, st,
-                             opacity=op, gamma=torch.tensor(gamma, device=dev))
+        prep = pre(torch.as_tensor(s["vertex"]).to(dev), torch.zeros((P, 2), device=dev),
+                   torch.as_tensor(s["rgb"]).to(dev), cam.world_view,
+                   cam.full_proj, cam.tan_fovx, cam.tan_fovy, st,
+                   opacity=op, gamma=torch.tensor(gamma, device=dev))
         sp = sort_pairs(prep, st, 128 * 40)
         assert not bool(sp.overflow)
         pair_tri = KS.relayout_pairs_plain(sp.sorted_tri, sp.raw_starts, sp.astarts,
                                            sp.tile_counts, sp.ma)
-        fmat = triangle_field_matrix(prep, op)
+        if variant == "2D":
+            fmat = triangle_field_matrix(prep, op)
+        else:
+            fmat = triangle_field_matrix_3d(prep, op, cam.tan_fovx, cam.tan_fovy, W, H)
         fields = torch.where((pair_tri >= 0)[:, None], fmat[pair_tri.clamp_min(0).long()],
                              torch.zeros((), device=dev)).t().contiguous()
     params = torch.tensor([gamma, 1.0, 0.9, 0.8, 10.0, 0, 0, 0], device=dev)
@@ -74,15 +81,31 @@ def test_relayout_kernel_exact(dev, case):
     assert torch.equal(got, pair_tri)
 
 
-@pytest.mark.parametrize("case", CASES)
-def test_blend_kernels_match_plain(dev, case):
+CASES_3D = [
+    (300, 64, 64, 0, 1.0, (0.3, 0.95)),
+    (300, 64, 64, 1, 1.0, (0.8, 0.95)),    # opaque stack: T crosses 1e-4
+    (400, 80, 48, 2, 7.3, (0.3, 0.95)),    # partial tiles, gamma != 1
+    (400, 70, 90, 3, 50.0, (0.3, 0.95)),   # solidify gamma
+]
+
+
+@pytest.mark.parametrize("variant,case", [
+    *(pytest.param("2D", c, id=f"case{i}") for i, c in enumerate(CASES)),
+    *(pytest.param("3D", c, id=f"3d-case{i}") for i, c in enumerate(CASES_3D))])
+def test_blend_kernels_match_plain(dev, variant, case):
+    """B1/B2 against their plain versions on the card, per variant ("3D":
+    the quotients a = A/D with a correctly rounded divide); the launches
+    count under the variant that ran."""
     P, W, H, seed, gamma, orange = case
-    sp, _, fields, params = pipeline_inputs(case, dev)
-    geo = dict(image_width=W, image_height=H, tile_h=32, tile_w=32)
+    live = KB.LIVE_GRAD_ROWS[(variant, False)]
+    sp, _, fields, params = pipeline_inputs(case, dev, variant)
+    geo = dict(image_width=W, image_height=H, tile_h=32, tile_w=32, variant=variant)
     args = (fields, sp.astarts, sp.tile_counts, params)
+    n_fwd, n_bwd = dict(KB.blend_forward.launches), dict(KB.blend_backward.launches)
     out = KB.blend_forward(*args, **geo)
     ref = KB.blend_forward_plain(*args, **geo)
     torch.cuda.synchronize()
+    assert KB.blend_forward.launches == {**n_fwd, variant: n_fwd[variant] + 1}
     # same roundings per (pair, pixel); only the color sums are reordered
     for k in (0, 1, 3):
         assert float((out[k] - ref[k]).abs().max()) <= 1e-5 * (10.0 if k == 1 else 1.0)
@@ -96,16 +119,45 @@ def test_blend_kernels_match_plain(dev, case):
     got = KB.blend_backward(*bw, **geo)
     want = KB.blend_backward_plain(*bw, **geo)
     torch.cuda.synchronize()
+    assert KB.blend_backward.launches == {**n_bwd, variant: n_bwd[variant] + 1}
     assert bool(torch.isfinite(got).all())
     # pixel sums in another order (warp tree vs torch.sum): rel 1e-4 of
-    # each row's max; padding, tail and rows 10..15 exactly zero
-    scale = want[:10].abs().amax(dim=1).clamp_min(1e-30)
-    assert float(((got[:10] - want[:10]).abs().amax(dim=1) / scale).max()) <= 1e-4
-    assert float(got[10:].abs().max()) == 0.0
+    # each live row's max; padding, tail and the other rows exactly zero
+    scale = want[:live].abs().amax(dim=1).clamp_min(1e-30)
+    assert float(((got[:live] - want[:live]).abs().amax(dim=1) / scale).max()) <= 1e-4
+    assert float(got[live:].abs().max()) == 0.0
     ts, tc = sp.astarts.tolist(), sp.tile_counts.tolist()
     for t in range(len(tc)):
         assert not bool(got[:, ts[t] + tc[t]:ts[t + 1]].any())
     assert not bool(got[:, ts[-1]:].any())
+
+
+def test_rasterize_3d_cuda_matches_cpu(dev):
+    """The 3D tile pipeline on the card vs its plain versions on the CPU,
+    forward and gradients, at the solidify end of the anneal (gamma 50)."""
+    s = make_random_scene(300, seed=5)
+    st = RasterSettings(image_width=96, image_height=64, rich_info=False,
+                        rasterizer_type="3D")
+    target = torch.rand((3, 64, 96), generator=torch.Generator().manual_seed(0))
+    res = {}
+    for d in ("cpu", dev):
+        leaves = [torch.tensor(s[k], device=d, requires_grad=True)
+                  for k in ("vertex", "opacity", "rgb")]
+        out = rasterize(leaves[0], leaves[1], None, make_camera(96, 64, device=d), st,
+                        gamma=50.0, background=torch.ones(3, device=d), bg_depth=10.0,
+                        colors=leaves[2])
+        # a squared error: no L1 kink for two renders to straddle
+        loss = ((out["render"] - target.to(d)) ** 2).mean() + 0.3 * out["final_T"].mean()
+        res[str(d)] = (out, torch.autograd.grad(loss, leaves))
+    (oc, gc), (og, gg) = res["cpu"], res["cuda"]
+    assert float((og["render"].detach().cpu() - oc["render"].detach()).abs().max()) <= 1e-3
+    assert int((og["n_contrib"].cpu() != oc["n_contrib"]).sum()) <= 2
+    # At gamma 50 a pixel's gradient lives on a band a few pixels wide at
+    # the triangle's edge, and an ulp of exp/log flips a pixel's alpha
+    # masks (1/255, 0.99) there: vertex gradients in L2 as in
+    # test_rasterize_cuda_matches_cpu, opacity / color in L2 at 1e-3
+    for a, b, tol in zip(gg, gc, (2e-2, 1e-3, 1e-3)):
+        assert float((a.cpu() - b).norm() / b.norm()) <= tol
 
 
 @pytest.mark.parametrize("seed,M,P,maxlen,rows", [
@@ -172,3 +224,6 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(NotImplementedError):
         KB.blend_forward(f.float(), ts, tc, torch.zeros(8, device=dev), image_width=64,
                          image_height=64, tile_h=32, tile_w=32, rich=True)
+    with pytest.raises(NotImplementedError):
+        KB.blend_forward(f.float(), ts, tc, torch.zeros(8, device=dev), image_width=64,
+                         image_height=64, tile_h=32, tile_w=32, variant="GS")

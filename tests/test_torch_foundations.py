@@ -27,6 +27,7 @@ from triangle_splatting_tpu_torch.ops.projection import preprocess_2d as t_pre
 from triangle_splatting_tpu_torch.trainers import losses as t_losses
 from triangle_splatting_tpu_torch.utils import scheduler as t_sched
 from triangle_splatting_tpu_torch.utils.camera import Camera as TCamera
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -18,6 +18,7 @@ from triangle_splatting_tpu.utils.testing import make_random_scene
 from triangle_splatting_tpu_torch.ops.projection import RasterSettings as TRS
 from triangle_splatting_tpu_torch.ops.rasterize import rasterize as t_rasterize
 from triangle_splatting_tpu_torch.utils.testing import make_camera as t_camera
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 W = H = 64
 P = 150
@@ -113,6 +114,15 @@ def test_unported_variants_raise():
                     need_stats=True)
     with pytest.raises(NotImplementedError):
         t_rasterize(v, o, None, cam, TRS(W, H, rich_info=True), colors=c)
+    # the 3D variant is ported (tests/test_torch_mesh.py) without its rich
+    # (depth/normal) and statistics streams
+    with pytest.raises(NotImplementedError):
+        t_rasterize(v, o, None, cam, TRS(W, H, rich_info=True,
+                                         rasterizer_type="3D"), colors=c)
     with pytest.raises(NotImplementedError):
         t_rasterize(v, o, None, cam, TRS(W, H, rich_info=False,
-                                         rasterizer_type="3D"), colors=c)
+                                         rasterizer_type="3D"), colors=c,
+                    need_stats=True)
+    with pytest.raises(NotImplementedError):
+        t_rasterize(v, o, None, cam, TRS(W, H, rich_info=False,
+                                         rasterizer_type="GS"), colors=c)

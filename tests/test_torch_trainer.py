@@ -14,6 +14,7 @@ from triangle_splatting_tpu_torch.convert import triangle_from_numpy, triangle_t
 from triangle_splatting_tpu_torch.models import triangle as TM
 from triangle_splatting_tpu_torch.trainers import build_trainer
 from triangle_splatting_tpu_torch.utils.config import dict_to_config
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 RES, N_TRI = 48, 120
 
@@ -186,6 +187,19 @@ def test_trainer_e2e_loss_falls(dataset, tmp_path):
     assert int(tr.state.active_sh_degree) == 1
 
 
+def mesh_recipe_block(name):
+    """One ADC block of config/NerfSynthetic_VanillaTS_mesh.yaml, on a 3D
+    model config (the mesh recipe's rasterizer)."""
+    from pathlib import Path
+
+    from triangle_splatting_tpu_torch.utils.config import loadConfig
+    mesh = loadConfig(Path(__file__).resolve().parents[1] / "config"
+                      / "NerfSynthetic_VanillaTS_mesh.yaml").to_dict()
+    return {"model": {"rasterizer_type": "3D", "ste_threshold": 0.3,
+                      "render_up_scale": 2,
+                      "model_update": {name: mesh["model"]["model_update"][name]}}}
+
+
 @pytest.mark.parametrize("patch", [
     {"model": {"model_update": {"densification": {"start_iter": 0}}}},
     {"model": {"model_update": {"statistic": {"start_iter": 0}}}},
@@ -193,6 +207,10 @@ def test_trainer_e2e_loss_falls(dataset, tmp_path):
     {"trainer": {"geometry_loss": {"w_geometry": 0.1}}},
     {"trainer": {"data_parallel": 2}},
     {"model": {"use_color_affine": True}},
+    mesh_recipe_block("statistic"),
+    mesh_recipe_block("scale_pruning"),
+    mesh_recipe_block("contribution_pruning"),
+    {"model": {"rasterizer_type": "GS"}},
 ])
 def test_unported_config_blocks_raise(dataset, tmp_path, patch):
     base = make_config(dataset, tmp_path / "out").to_dict()
@@ -201,5 +219,33 @@ def test_unported_config_blocks_raise(dataset, tmp_path, patch):
         for k, v in b.items():
             a[k] = merge(a.get(k) or {}, v) if isinstance(v, dict) else v
         return a
-    with pytest.raises(NotImplementedError):
-        build_trainer(dict_to_config(merge(base, patch)), device="cpu", log_file=False)
+    cfg = merge(base, patch)
+    # the refusal names the block
+    block = next(iter(cfg["model"]["model_update"].keys() - {"sh_schedule"}), None)
+    with pytest.raises(NotImplementedError, match=block):
+        build_trainer(dict_to_config(cfg), device="cpu", log_file=False)
+
+
+def test_mesh_recipe_without_adc_builds(dataset, tmp_path):
+    """The shipped mesh recipe builds once its three ADC blocks are
+    removed (3D, render_up_scale 2, STE, gamma rescale); as shipped it is
+    refused at construction, naming one of them."""
+    from pathlib import Path
+
+    from triangle_splatting_tpu_torch.utils.config import loadConfig
+
+    def recipe():
+        cfg = loadConfig(Path(__file__).resolve().parents[1] / "config"
+                         / "NerfSynthetic_VanillaTS_mesh.yaml")
+        cfg.dataset.local_dir = str(dataset)
+        cfg.trainer.output_dir = str(tmp_path / "out")
+        cfg.trainer.iterations = 50       # the saves at 20k / 60k lie beyond
+        return cfg
+    with pytest.raises(NotImplementedError,
+                       match="statistic|scale_pruning|contribution_pruning"):
+        build_trainer(recipe(), device="cpu", log_file=False)
+    cfg = recipe()
+    for name in ("statistic", "scale_pruning", "contribution_pruning"):
+        setattr(cfg.model.model_update, name, None)
+    tr = build_trainer(cfg, device="cpu", log_file=False)
+    assert tr.model_cfg.rasterizer_type == "3D" and tr.model_cfg.render_up_scale == 2

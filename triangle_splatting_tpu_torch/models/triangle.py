@@ -1,10 +1,11 @@
 """VanillaTS triangle model in PyTorch.
 
 Port of ``triangle_splatting_tpu/models/triangle.py`` for the fixed-count
-photo-training path: the parameter / state / Adam containers, the derived
-quantities, ``forward`` (STE, gamma rescale and background depth as the
-JAX function does them), ``adam_update`` (eps 1e-15) and
-``create_from_points``. Adaptive density control is not ported yet.
+photo and mesh training paths: the parameter / state / Adam containers,
+the derived quantities, ``forward`` (STE, gamma rescale, background depth
+and ``render_up_scale`` as the JAX function does them), ``adam_update``
+(eps 1e-15) and ``create_from_points``. Adaptive density control is not
+ported yet.
 
 Parameters stay plain dataclasses of tensors at a fixed capacity C with an
 ``alive`` mask, the layout the JAX package uses, so weights convert one to
@@ -14,7 +15,7 @@ one (``convert.py``).
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 from typing import Optional
 
 import numpy as np
@@ -149,6 +150,16 @@ def gamma_rescale_ratio(gamma) -> torch.Tensor:
 # Forward
 # ---------------------------------------------------------------------------
 
+def _downsample(x: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """(..., h, w) -> (..., H, W), antialiased bilinear (the triangle
+    filter widened by the scale, as ``jax.image.resize`` "linear")."""
+    lead = x.shape[:-2]
+    y = torch.nn.functional.interpolate(
+        x.reshape((1, -1) + x.shape[-2:]), size=(H, W), mode="bilinear",
+        align_corners=False, antialias=True)
+    return y.reshape(lead + (H, W))
+
+
 def forward(params: TriangleParams, state: TriangleState, camera: Camera,
             background: torch.Tensor, cfg: ModelConfig,
             settings: RasterSettings, *, is_training: bool = True,
@@ -159,11 +170,16 @@ def forward(params: TriangleParams, state: TriangleState, camera: Camera,
 
     ``center2d_offset`` (C, 2) zeros is the densification-statistics hook;
     its gradient is the screen-space centroid gradient.
+
+    With ``cfg.render_up_scale`` = up > 1 the scene is rasterized at up
+    times the camera's size, and render, depth and normal come back at the
+    camera's size through an antialiased bilinear resize (``F.interpolate``
+    with ``antialias=True``, which matches ``jax.image.resize(...,
+    "linear")``; a plain bilinear or average-pool downsample does not);
+    radii are divided by up.
     """
     if cfg.use_color_affine:
         raise NotImplementedError("color affine is not ported yet")
-    if (cfg.render_up_scale or 0) > 1:
-        raise NotImplementedError("render_up_scale is not ported yet")
     vertex = params.vertex
     opacity = get_opacity(params)[:, 0]
     shs = get_features(params)
@@ -182,12 +198,23 @@ def forward(params: TriangleParams, state: TriangleState, camera: Camera,
     dist = safe_norm(camera.camera_center[None, None, :] - vertex)
     bg_depth = torch.where(alive[:, None], dist, torch.zeros_like(dist)).amax()
 
+    up = cfg.render_up_scale if (cfg.render_up_scale or 0) > 1 else 1
+    H, W = settings.image_height, settings.image_width
+    if up > 1:
+        settings = replace(settings, image_width=W * up, image_height=H * up)
+
     out = rasterize(vertex, opacity, shs, camera, settings,
                     gamma=state.gamma, background=background,
                     bg_depth=bg_depth,
                     active_sh_degree=state.active_sh_degree,
                     center2d_offset=center2d_offset, alive_mask=alive,
                     impl=impl, max_pairs=max_pairs, need_stats=need_stats)
+
+    if up > 1:
+        out["render"] = _downsample(out["render"], H, W)
+        out["depth"] = _downsample(out["depth"], H, W)
+        out["normal"] = _downsample(out["normal"], H, W)
+        out["radii"] = out["radii"] // up
 
     render_pkg = dict(out)
     render_pkg.update(

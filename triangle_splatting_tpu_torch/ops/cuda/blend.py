@@ -1,18 +1,24 @@
 """Kernels B1 (``blend_forward``) and B2 (``blend_backward``): the tile
-alpha blend of the 2D rasterizer.
+alpha blend of the triangle rasterizers.
 
-Ports of ``triangle_splatting_tpu/ops/pallas/blend.py`` for the variant the
-photo-training path runs: ``"2D"``, rich info off, statistics off. Other
-variants raise ``NotImplementedError``. The CUDA kernels are in
-``csrc/blend.cu``. Each wrapper takes the kernel for CUDA tensors and the
-plain PyTorch version beside it for CPU tensors; there is no fallback from
-one to the other. ``<wrapper>.launches`` counts the kernel launches.
+Ports of ``triangle_splatting_tpu/ops/pallas/blend.py`` for the variants
+the photo and mesh training paths run: ``"2D"`` and ``"3D"``, each with
+rich info off and statistics off. Other variants raise
+``NotImplementedError``. The CUDA kernels are in ``csrc/blend.cu``. Each
+wrapper takes the kernel for CUDA tensors and the plain PyTorch version
+beside it for CPU tensors; there is no fallback from one to the other.
+``<wrapper>.launches`` counts the kernel launches per variant
+(``{"2D": n, "3D": n}``).
 
 Layout contract (shared with ``ops/binning.py``): ``pairs`` is the
 field-major (16, MP) float32 buffer, tile t owns slots
 [tile_starts[t], tile_starts[t] + tile_counts[t]) of it, and tile starts
 are multiples of ``ALIGN``. ``params`` is (8,) float32
 [gamma, bg_r, bg_g, bg_b, bg_depth, sx, sy, 0].
+
+Fields per pair: "2D" a1 = f0 + f1*px + f2*py, a2 from f3..f5, opacity 6,
+rgb 7..9; "3D" D = f0 + f1*px + f2*py, a1 = (f3 + f4*px + f5*py) / D,
+a2 = (f6 + f7*px + f8*py) / D, opacity 9, rgb 10..12.
 """
 
 from __future__ import annotations
@@ -39,11 +45,17 @@ LIVE_GRAD_ROWS = {
 }
 
 
-def _require_main_variant(variant: str, rich: bool, stats: bool) -> None:
-    if variant != "2D" or rich or stats:
+VARIANTS = ("2D", "3D")
+# per variant: (index of the opacity field, of the first rgb field)
+_OPAC_RGB = {"2D": (6, 7), "3D": (9, 10)}
+
+
+def _require_ported_variant(variant: str, rich: bool, stats: bool) -> None:
+    if variant not in VARIANTS or rich or stats:
         raise NotImplementedError(
-            f"blend kernels: only variant '2D' with rich=False, stats=False "
-            f"are ported (got variant={variant!r}, rich={rich}, stats={stats})")
+            f"blend kernels: only variants {VARIANTS} with rich=False, "
+            f"stats=False are ported (got variant={variant!r}, rich={rich}, "
+            f"stats={stats})")
 
 
 def _grid(image_width: int, image_height: int, tile_h: int, tile_w: int):
@@ -74,12 +86,23 @@ def _check_inputs(pairs, tile_starts, tile_counts, params, num_tiles):
 
 
 def alpha_terms_plain(f: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
-                      gamma: torch.Tensor, in_range: torch.Tensor):
-    """blend.py ``_alpha_terms`` (2D) on (n,) field rows against (npix,)
-    pixel coordinates -> (n, npix) terms, in the kernels' evaluation order."""
+                      gamma: torch.Tensor, in_range: torch.Tensor,
+                      variant: str = "2D"):
+    """blend.py ``_alpha_terms`` on (n,) field rows against (npix,) pixel
+    coordinates -> (n, npix) terms, in the kernels' evaluation order.
+    ``invD`` is the reciprocal plane denominator for "3D", None for "2D"."""
     col = lambda k: f[k][:, None]  # noqa: E731
-    a1 = col(0) + col(1) * px + col(2) * py
-    a2 = col(3) + col(4) * px + col(5) * py
+    if variant == "2D":
+        a1 = col(0) + col(1) * px + col(2) * py
+        a2 = col(3) + col(4) * px + col(5) * py
+        invD = None
+    else:
+        D = col(0) + col(1) * px + col(2) * py
+        okD = torch.abs(D) >= 1e-8                 # |ray . n| guard
+        invD = 1.0 / torch.where(okD, D, torch.ones_like(D))
+        a1 = (col(3) + col(4) * px + col(5) * py) * invD
+        a2 = (col(6) + col(7) * px + col(8) * py) * invD
+        in_range = in_range & okD
     a3 = 1.0 - a1 - a2
     mn = torch.minimum(torch.minimum(a1, a2), a3)
     ecc = 1.0 - 3.0 * mn
@@ -89,11 +112,11 @@ def alpha_terms_plain(f: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
         gamma == 1.0, eccs * eccs,
         torch.exp(torch.clamp((2.0 * gamma) * torch.log(eccs), -87.0, 44.0)))
     expp = torch.exp(-0.5 * powed)
-    alpha_un = col(6) * expp
+    alpha_un = col(_OPAC_RGB[variant][0]) * expp
     alpha = torch.clamp_max(alpha_un, ALPHA_MAX)
     ok = ok & (alpha >= ALPHA_MIN)
     alpha = torch.where(ok, alpha, torch.zeros_like(alpha))
-    return a1, a2, a3, eccs, expp, alpha_un, alpha, ok
+    return a1, a2, a3, eccs, expp, alpha_un, alpha, ok, invD
 
 
 def _tile_pixels(t: int, grid_w: int, tile_h: int, tile_w: int, dtype, dev):
@@ -129,7 +152,7 @@ def _tile(x: torch.Tensor, grid_h: int, grid_w: int, tile_h: int,
 
 def blend_forward_plain(pairs, tile_starts, tile_counts, params, *,
                         image_width: int, image_height: int, tile_h: int,
-                        tile_w: int):
+                        tile_w: int, variant: str = "2D"):
     """Plain PyTorch B1: per tile, the dense (n_pairs, npix) alpha matrix
     and an exclusive ``cumprod`` of (1 - alpha) along the pairs (a scan
     over a non-innermost dimension, evaluated sequentially, so its
@@ -138,6 +161,7 @@ def blend_forward_plain(pairs, tile_starts, tile_counts, params, *,
     dev, dt = pairs.device, pairs.dtype
     n_tiles, npix = grid_w * grid_h, tile_h * tile_w
     gamma, bg, bg_depth = params[0], params[1:4], params[4]
+    rgb0 = _OPAC_RGB[variant][1]
     starts = tile_starts.tolist()
     counts = tile_counts.tolist()
     color = []
@@ -154,12 +178,12 @@ def blend_forward_plain(pairs, tile_starts, tile_counts, params, *,
             continue
         f = pairs[:, starts[t]:starts[t] + n]
         in_range = torch.ones((n, 1), dtype=torch.bool, device=dev)
-        alpha = alpha_terms_plain(f, px, py, gamma, in_range)[6]
+        alpha = alpha_terms_plain(f, px, py, gamma, in_range, variant)[6]
         scan = torch.cumprod(torch.cat([T0[None], 1.0 - alpha], dim=0), dim=0)
         T_excl, T_incl = scan[:-1], scan[1:]
         alive = T_excl > T_EPS
         contrib = torch.where(alive, alpha * T_excl, torch.zeros_like(alpha))
-        color.append(f[7:10] @ contrib)
+        color.append(f[rgb0:rgb0 + 3] @ contrib)
         T_min = torch.where(alive, T_incl, torch.full_like(T_incl, 2.0)).amin(dim=0)
         final_t.append(torch.minimum(T0, T_min))
         ncon.append(alive.sum(dim=0).to(torch.int32))
@@ -186,11 +210,11 @@ def blend_forward(pairs: torch.Tensor, tile_starts: torch.Tensor,
     n_contrib (H, W) int32: the count of entries each pixel iterated while
     its exclusive transmittance stayed above T_EPS.
     """
-    _require_main_variant(variant, rich, stats)
+    _require_ported_variant(variant, rich, stats)
     grid_w, grid_h = _grid(image_width, image_height, tile_h, tile_w)
     dev = _check_inputs(pairs, tile_starts, tile_counts, params, grid_w * grid_h)
     kw = dict(image_width=image_width, image_height=image_height,
-              tile_h=tile_h, tile_w=tile_w)
+              tile_h=tile_h, tile_w=tile_w, variant=variant)
     if dev.type == "cpu":
         return blend_forward_plain(pairs, tile_starts, tile_counts, params, **kw)
     if dev.type != "cuda":
@@ -204,17 +228,17 @@ def blend_forward(pairs: torch.Tensor, tile_starts: torch.Tensor,
     final_t = torch.empty((H, W), dtype=torch.float32, device=dev)
     n_contrib = torch.empty((H, W), dtype=torch.int32, device=dev)
     lib = library("blend")
-    blend_forward.launches += 1
+    blend_forward.launches[variant] += 1
     check_launch(lib.ts_blend_forward(
         pairs.data_ptr(), pairs.shape[1], tile_starts.data_ptr(),
         tile_counts.data_ptr(), params.data_ptr(), W, H, tile_w, tile_h,
-        grid_w, grid_w * grid_h, color.data_ptr(), depth.data_ptr(),
-        normal.data_ptr(), final_t.data_ptr(), n_contrib.data_ptr(),
-        _stream()), "blend_forward")
+        grid_w, grid_w * grid_h, int(variant == "3D"), color.data_ptr(),
+        depth.data_ptr(), normal.data_ptr(), final_t.data_ptr(),
+        n_contrib.data_ptr(), _stream()), "blend_forward")
     return color, depth, normal, final_t, n_contrib
 
 
-blend_forward.launches = 0
+blend_forward.launches = dict.fromkeys(VARIANTS, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -223,7 +247,8 @@ blend_forward.launches = 0
 
 def blend_backward_plain(pairs, tile_starts, tile_counts, params, final_T,
                          n_contrib, g_color, g_final_T, *, image_width: int,
-                         image_height: int, tile_h: int, tile_w: int):
+                         image_height: int, tile_h: int, tile_w: int,
+                         variant: str = "2D"):
     """Plain PyTorch B2: the explicit back-to-front recurrence, per tile,
     written with tensors over the (n_pairs, npix) matrix.
 
@@ -232,11 +257,15 @@ def blend_backward_plain(pairs, tile_starts, tile_counts, params, final_T,
     a ``cumsum`` over the reversed entries seeded with the background term;
     both scans run over a non-innermost dimension, so they are sequential
     with the kernel's roundings. Only the sum over a tile's pixels is
-    ordered differently from the kernel."""
+    ordered differently from the kernel. "3D" chains the barycentric
+    gradients through the quotients a = A / D into the D, A1 and A2
+    coefficient rows."""
     grid_w, grid_h = _grid(image_width, image_height, tile_h, tile_w)
     dev, dt = pairs.device, pairs.dtype
     n_tiles = grid_w * grid_h
     gamma, bg = params[0], params[1:4]
+    rgb0 = _OPAC_RGB[variant][1]
+    live_rows = LIVE_GRAD_ROWS[(variant, False)]
     tl = lambda x: _tile(x, grid_h, grid_w, tile_h, tile_w)  # noqa: E731
     fT, nc, gcol, gft = tl(final_T), tl(n_contrib), tl(g_color), tl(g_final_T)
     starts = tile_starts.tolist()
@@ -252,13 +281,14 @@ def blend_backward_plain(pairs, tile_starts, tile_counts, params, final_T,
         f = pairs[:, starts[t]:starts[t] + n]
         gr, gg, gb = gcol[0, t], gcol[1, t], gcol[2, t]
         processed = torch.arange(n, device=dev)[:, None] < nc_eff[t][None, :]
-        a1, a2, a3, eccs, expp, alpha_un, alpha, ok = alpha_terms_plain(
-            f, px, py, gamma, processed)
+        a1, a2, a3, eccs, expp, alpha_un, alpha, ok, invD = alpha_terms_plain(
+            f, px, py, gamma, processed, variant)
         inv1m = 1.0 / (1.0 - alpha)
         scan_t = torch.cumprod(torch.cat([fT[t][None], inv1m.flip(0)]), dim=0)
         T = scan_t[1:].flip(0)                               # exclusive T
         contrib = alpha * T
-        gdot = f[7][:, None] * gr + f[8][:, None] * gg + f[9][:, None] * gb
+        gdot = (f[rgb0][:, None] * gr + f[rgb0 + 1][:, None] * gg
+                + f[rgb0 + 2][:, None] * gb)
         bg_dot = bg[0] * gr + bg[1] * gg + bg[2] * gb + gft[t]
         scan_a = torch.cumsum(torch.cat([(fT[t] * bg_dot)[None],
                                          (contrib * gdot).flip(0)]), dim=0)
@@ -279,9 +309,15 @@ def blend_backward_plain(pairs, tile_starts, tile_counts, params, final_T,
         s3 = torch.where(is3, d_ecc3, torch.zeros_like(d_ecc3))
         da1 = torch.where(is1, -d_ecc3, s3)
         da2 = torch.where(is2, -d_ecc3, s3)
-        rows = [da1, da1 * px, da1 * py, da2, da2 * px, da2 * py, d_opac,
-                contrib * gr, contrib * gg, contrib * gb]
-        out[:10, starts[t]:starts[t] + n] = torch.stack([r.sum(dim=1) for r in rows])
+        if variant == "2D":
+            affine = [da1, da2]
+        else:
+            dD = -(da1 * a1 + da2 * a2) * invD
+            affine = [dD, da1 * invD, da2 * invD]
+        rows = [r for g in affine for r in (g, g * px, g * py)]
+        rows += [d_opac, contrib * gr, contrib * gg, contrib * gb]
+        out[:live_rows, starts[t]:starts[t] + n] = torch.stack(
+            [r.sum(dim=1) for r in rows])
     return out
 
 
@@ -295,9 +331,10 @@ def blend_backward(pairs: torch.Tensor, tile_starts: torch.Tensor,
     """Backward tile blend: per-pair gradients (16, MP) of the packed
     fields, given the forward's final_T / n_contrib and the cotangents of
     color (3, H, W) and final_T (H, W). With rich info off the depth and
-    normal outputs carry no gradient. Rows 10..15, padding slots and slots
-    past the deepest contributor are zero."""
-    _require_main_variant(variant, rich, False)
+    normal outputs carry no gradient. Rows from ``LIVE_GRAD_ROWS`` on
+    (10 for "2D", 13 for "3D"), padding slots and slots past the deepest
+    contributor are zero."""
+    _require_ported_variant(variant, rich, False)
     grid_w, grid_h = _grid(image_width, image_height, tile_h, tile_w)
     dev = _check_inputs(pairs, tile_starts, tile_counts, params, grid_w * grid_h)
     H, W = image_height, image_width
@@ -311,7 +348,8 @@ def blend_backward(pairs: torch.Tensor, tile_starts: torch.Tensor,
                      (g_color, (3, H, W)), (g_final_T, (H, W))):
         if tuple(t.shape) != shape:
             raise ValueError(f"expected shape {shape}, got {tuple(t.shape)}")
-    kw = dict(image_width=W, image_height=H, tile_h=tile_h, tile_w=tile_w)
+    kw = dict(image_width=W, image_height=H, tile_h=tile_h, tile_w=tile_w,
+              variant=variant)
     if dev.type == "cpu":
         return blend_backward_plain(pairs, tile_starts, tile_counts, params,
                                     final_T, n_contrib, g_color, g_final_T, **kw)
@@ -321,14 +359,14 @@ def blend_backward(pairs: torch.Tensor, tile_starts: torch.Tensor,
         raise TypeError("blend_backward: the CUDA kernel takes float32 inputs")
     out = torch.empty_like(pairs)
     lib = library("blend")
-    blend_backward.launches += 1
+    blend_backward.launches[variant] += 1
     check_launch(lib.ts_blend_backward(
         pairs.data_ptr(), pairs.shape[1], tile_starts.data_ptr(),
         tile_counts.data_ptr(), params.data_ptr(), W, H, tile_w, tile_h,
-        grid_w, grid_w * grid_h, final_T.data_ptr(), n_contrib.data_ptr(),
-        g_color.data_ptr(), g_final_T.data_ptr(), out.data_ptr(), _stream()),
-        "blend_backward")
+        grid_w, grid_w * grid_h, int(variant == "3D"), final_T.data_ptr(),
+        n_contrib.data_ptr(), g_color.data_ptr(), g_final_T.data_ptr(),
+        out.data_ptr(), _stream()), "blend_backward")
     return out
 
 
-blend_backward.launches = 0
+blend_backward.launches = dict.fromkeys(VARIANTS, 0)

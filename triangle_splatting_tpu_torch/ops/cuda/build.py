@@ -38,9 +38,9 @@ SIGNATURES = {
         "ts_segment_reduce_pairs": (_P, _I, _I, _P, _P, _P, _I, _P, _P),
     },
     "blend": {
-        "ts_blend_forward": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        "ts_blend_forward": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _P, _P, _P, _P, _P, _P),
-        "ts_blend_backward": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        "ts_blend_backward": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P, _P, _P, _P, _P, _P),
     },
 }

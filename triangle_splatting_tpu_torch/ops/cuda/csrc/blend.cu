@@ -1,20 +1,26 @@
-// Tile alpha-blend kernels of the 2D triangle rasterizer, for Hopper (sm_90a).
+// Tile alpha-blend kernels of the triangle rasterizers, for Hopper (sm_90a).
 //
 // B1  blend_forward   replaces triangle_splatting_tpu/ops/pallas/blend.py
 //                     blend_forward (:514, kernel _fwd_kernel :290)
 // B2  blend_backward  replaces triangle_splatting_tpu/ops/pallas/blend.py
 //                     blend_backward (:956, kernel _bwd_kernel :606)
 //
-// Only the variant the photo-training path runs is here: "2D", rich info
-// off, contribution statistics off. Fields per pair (field-major (16, MP)):
-//   0..2 a1 = f0 + f1*px + f2*py, 3..5 a2 likewise, 6 opacity, 7..9 rgb.
+// Two variants, each with rich info and contribution statistics off, as
+// template instantiations of the same kernels (Variant<k3D> below):
+//   "2D" (photo training): 0..2 a1 = f0 + f1*px + f2*py, 3..5 a2 likewise,
+//        6 opacity, 7..9 rgb;
+//   "3D" (mesh training, perspective correct): 0..2 D = f0 + f1*px + f2*py,
+//        3..5 A1, 6..8 A2 likewise, a1 = A1 / D, a2 = A2 / D (the ray-plane
+//        barycentrics as ratios of three affine forms), 9 opacity,
+//        10..12 rgb.
 //
 // What bounds them on the H100. Per (pair, pixel) evaluation the forward
-// does ~30 float32 operations including one exp, the backward ~75 with one
-// division, and both read the pair fields from shared memory as broadcasts.
-// Their inputs and outputs are a few tens of MB, so the device-memory bound
-// is ~10 us while the float32 bound of the evaluations a frame needs
-// (67 TFLOP/s without tensor cores) is tens of us: both kernels are bound
+// does ~30 float32 operations including one exp ("3D": ~40 and one
+// division), the backward ~75 with one division ("3D": ~100 and two), and
+// both read the pair fields from shared memory as broadcasts. Their inputs
+// and outputs are a few tens of MB, so the device-memory bound is ~10-60 us
+// while the float32 bound of the evaluations a frame needs (67 TFLOP/s
+// without tensor cores) is tens to hundreds of us: both kernels are bound
 // by operations, and in practice by the latency of one sequential loop per
 // pixel.
 //
@@ -32,10 +38,11 @@
 //    over the warps in shared memory. There are no float atomics, and each
 //    output slot belongs to exactly one tile, so blocks never collide;
 //  - the per-(pair, pixel) arithmetic is written with explicitly rounded
-//    intrinsics (__fadd_rn, __fmul_rn, ...) in the order the plain PyTorch
-//    version evaluates it, so no multiply-add contraction changes a
-//    rounding: the alpha mask, the transmittance and hence n_contrib match
-//    the plain version bit for bit, and only the order of sums differs.
+//    intrinsics (__fadd_rn, __fmul_rn, __fdiv_rn, ...) in the order the
+//    plain PyTorch version evaluates it, so no multiply-add contraction
+//    changes a rounding: the alpha mask, the transmittance and hence
+//    n_contrib match the plain version bit for bit, and only the order of
+//    sums differs. The build has no --use_fast_math.
 //
 // C interface: each entry point launches on the given stream and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
@@ -48,32 +55,46 @@ constexpr float kTEps = (float)1e-4;             // blend.py T_EPS
 constexpr float kAlphaMin = (float)(1.0 / 255.0);  // blend.py ALPHA_MIN
 constexpr float kAlphaMax = (float)0.99;         // blend.py ALPHA_MAX
 constexpr float kEccMax = 10.0f;                 // blend.py ECC_MAX
-constexpr int kFwdFields = 10;                   // fields the forward reads
-constexpr int kLiveRows = 10;                    // LIVE_GRAD_ROWS[("2D", False)]
+constexpr float kMinAbsD = (float)1e-8;          // |ray . n| guard ("3D")
 constexpr int kNumFields = 16;
 constexpr int kFwdBatch = 256;                   // pairs staged per batch
-constexpr int kBwdBatch = 32;
 constexpr int kMaxWarps = 32;
 
+// Per variant: fields the kernels read, live gradient rows
+// (LIVE_GRAD_ROWS[(variant, False)]), the opacity and first rgb field, and
+// the backward's batch (its per-warp partial sums must fit the 48 KB of
+// static shared memory: 24 x 13 x 33 floats for "3D").
+template <bool k3D> struct Variant;
+template <> struct Variant<false> {
+  static constexpr int kFields = 10, kLive = 10, kOpac = 6, kRgb = 7, kBwdBatch = 32;
+};
+template <> struct Variant<true> {
+  static constexpr int kFields = 13, kLive = 13, kOpac = 9, kRgb = 10, kBwdBatch = 24;
+};
+
 struct AlphaTerms {
-  float a1, a2, a3, eccs, expp, alpha_un, alpha;
+  float a1, a2, a3, eccs, expp, alpha_un, alpha, invD;
   bool ok;
 };
 
-// blend.py _alpha_terms (:177-219) for the 2D variant, same evaluation
-// order, no contraction.
-__device__ __forceinline__ AlphaTerms alpha_terms(const float f0, const float f1,
-                                                  const float f2, const float f3,
-                                                  const float f4, const float f5,
-                                                  const float opac, float px,
-                                                  float py, float gamma) {
+__device__ __forceinline__ float affine(float c0, float cx, float cy, float px, float py) {
+  return __fadd_rn(__fadd_rn(c0, __fmul_rn(cx, px)), __fmul_rn(cy, py));
+}
+
+// blend.py _alpha_terms (:177-219) from the barycentrics on: the ecc
+// falloff and the alpha masks, same evaluation order as the plain version,
+// no contraction. ``ok_d`` is the "3D" plane guard (true for "2D").
+__device__ __forceinline__ AlphaTerms alpha_tail(const float a1, const float a2,
+                                                 const float invD, const bool ok_d,
+                                                 const float opac, float gamma) {
   AlphaTerms r;
-  r.a1 = __fadd_rn(__fadd_rn(f0, __fmul_rn(f1, px)), __fmul_rn(f2, py));
-  r.a2 = __fadd_rn(__fadd_rn(f3, __fmul_rn(f4, px)), __fmul_rn(f5, py));
+  r.a1 = a1;
+  r.a2 = a2;
+  r.invD = invD;
   r.a3 = __fsub_rn(__fsub_rn(1.0f, r.a1), r.a2);
   const float mn = fminf(fminf(r.a1, r.a2), r.a3);
   const float ecc = __fsub_rn(1.0f, __fmul_rn(3.0f, mn));
-  bool ok = (ecc >= 0.0f) && (ecc <= kEccMax);
+  bool ok = (ecc >= 0.0f) && (ecc <= kEccMax) && ok_d;
   r.eccs = fmaxf(ecc, 0.0f);
   float powed;
   if (gamma == 1.0f) {
@@ -91,6 +112,42 @@ __device__ __forceinline__ AlphaTerms alpha_terms(const float f0, const float f1
   return r;
 }
 
+// "2D": the barycentrics are affine in the pixel.
+__device__ __forceinline__ AlphaTerms alpha_terms_2d(
+    const float f0, const float f1, const float f2, const float f3, const float f4,
+    const float f5, const float opac, float px, float py, float gamma) {
+  return alpha_tail(affine(f0, f1, f2, px, py), affine(f3, f4, f5, px, py), 1.0f,
+                    true, opac, gamma);
+}
+
+// "3D": a1 = A1 / D and a2 = A2 / D, with the |D| >= 1e-8 guard and a
+// correctly rounded reciprocal, as the plain version's 1 / where(ok, D, 1).
+__device__ __forceinline__ AlphaTerms alpha_terms_3d(
+    const float f0, const float f1, const float f2, const float f3, const float f4,
+    const float f5, const float f6, const float f7, const float f8, const float opac,
+    float px, float py, float gamma) {
+  const float D = affine(f0, f1, f2, px, py);
+  const bool ok_d = fabsf(D) >= kMinAbsD;
+  const float invD = __fdiv_rn(1.0f, ok_d ? D : 1.0f);
+  return alpha_tail(__fmul_rn(affine(f3, f4, f5, px, py), invD),
+                    __fmul_rn(affine(f6, f7, f8, px, py), invD), invD, ok_d, opac,
+                    gamma);
+}
+
+// The alpha terms of entry j of the staged batch.
+template <bool k3D, int N, int B>
+__device__ __forceinline__ AlphaTerms alpha_terms(const float (&sf)[N][B], int j,
+                                                  float px, float py, float gamma) {
+  if constexpr (k3D) {
+    return alpha_terms_3d(sf[0][j], sf[1][j], sf[2][j], sf[3][j], sf[4][j], sf[5][j],
+                          sf[6][j], sf[7][j], sf[8][j], sf[9][j], px, py, gamma);
+  } else {
+    return alpha_terms_2d(sf[0][j], sf[1][j], sf[2][j], sf[3][j], sf[4][j], sf[5][j],
+                          sf[6][j], px, py, gamma);
+  }
+}
+
+template <bool k3D>
 __global__ void __launch_bounds__(1024) blend_forward_kernel(
     const float* __restrict__ pairs, int mp,
     const int* __restrict__ tile_starts, const int* __restrict__ tile_counts,
@@ -98,7 +155,8 @@ __global__ void __launch_bounds__(1024) blend_forward_kernel(
     int tile_h, int grid_w, float* __restrict__ color,
     float* __restrict__ depth, float* __restrict__ normal,
     float* __restrict__ final_T, int* __restrict__ n_contrib) {
-  __shared__ float sf[kFwdFields][kFwdBatch];
+  using V = Variant<k3D>;
+  __shared__ float sf[V::kFields][kFwdBatch];
   const int tile = blockIdx.x;
   const int tx = tile % grid_w, ty = tile / grid_w;
   const int lane = threadIdx.x;
@@ -118,23 +176,21 @@ __global__ void __launch_bounds__(1024) blend_forward_kernel(
     // previous batch's readers ahead of this batch's writers.
     if (__syncthreads_count(T > kTEps) == 0) break;
     const int nb = min(kFwdBatch, count - b0);
-    for (int i = threadIdx.x; i < kFwdFields * kFwdBatch; i += blockDim.x) {
+    for (int i = threadIdx.x; i < V::kFields * kFwdBatch; i += blockDim.x) {
       const int f = i / kFwdBatch, j = i % kFwdBatch;
       if (j < nb) sf[f][j] = pairs[(size_t)f * mp + start + b0 + j];
     }
     __syncthreads();
     for (int j = 0; j < nb && T > kTEps; ++j) {
       // every entry iterated while the exclusive T > T_EPS counts, also
-      // those skipped by the alpha cutoff (2D last_contributor semantics)
+      // those skipped by the alpha cutoff (2D/3D last_contributor semantics)
       ++nc;
-      const AlphaTerms a = alpha_terms(sf[0][j], sf[1][j], sf[2][j], sf[3][j],
-                                       sf[4][j], sf[5][j], sf[6][j], px, py,
-                                       gamma);
+      const AlphaTerms a = alpha_terms<k3D>(sf, j, px, py, gamma);
       if (a.ok) {
         const float contrib = __fmul_rn(a.alpha, T);
-        c0 = __fadd_rn(c0, __fmul_rn(sf[7][j], contrib));
-        c1 = __fadd_rn(c1, __fmul_rn(sf[8][j], contrib));
-        c2 = __fadd_rn(c2, __fmul_rn(sf[9][j], contrib));
+        c0 = __fadd_rn(c0, __fmul_rn(sf[V::kRgb][j], contrib));
+        c1 = __fadd_rn(c1, __fmul_rn(sf[V::kRgb + 1][j], contrib));
+        c2 = __fadd_rn(c2, __fmul_rn(sf[V::kRgb + 2][j], contrib));
         T = __fmul_rn(T, __fsub_rn(1.0f, a.alpha));
       }
     }
@@ -159,6 +215,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <bool k3D>
 __global__ void __launch_bounds__(1024) blend_backward_kernel(
     const float* __restrict__ pairs, int mp,
     const int* __restrict__ tile_starts, const int* __restrict__ tile_counts,
@@ -166,10 +223,13 @@ __global__ void __launch_bounds__(1024) blend_backward_kernel(
     int tile_h, int grid_w, int num_tiles, const float* __restrict__ final_T,
     const int* __restrict__ n_contrib, const float* __restrict__ g_color,
     const float* __restrict__ g_final_T, float* __restrict__ pair_grads) {
-  __shared__ float sf[kFwdFields][kBwdBatch];
+  using V = Variant<k3D>;
+  constexpr int kBatch = V::kBwdBatch;
+  constexpr int kLive = V::kLive;
+  __shared__ float sf[V::kFields][kBatch];
   // per batch entry, per gradient row, per warp (+1 pad against bank
   // conflicts in the cross-warp sum)
-  __shared__ float part[kBwdBatch][kLiveRows][kMaxWarps + 1];
+  __shared__ float part[kBatch][kLive][kMaxWarps + 1];
   __shared__ int s_jmax;
 
   const int tile = blockIdx.x;
@@ -221,7 +281,7 @@ __global__ void __launch_bounds__(1024) blend_backward_kernel(
   }
   for (int i = lane; i < jmax; i += blockDim.x) {
 #pragma unroll
-    for (int r = kLiveRows; r < kNumFields; ++r) pair_grads[(size_t)r * mp + start + i] = 0.0f;
+    for (int r = kLive; r < kNumFields; ++r) pair_grads[(size_t)r * mp + start + i] = 0.0f;
   }
 
   // Background term (everything behind the last entry) plus the direct
@@ -233,30 +293,28 @@ __global__ void __launch_bounds__(1024) blend_backward_kernel(
   float A = __fmul_rn(fT, bg_dot);
   float T = fT;
 
-  for (int b_end = jmax; b_end > 0; b_end -= kBwdBatch) {
-    const int b0 = max(0, b_end - kBwdBatch);
+  for (int b_end = jmax; b_end > 0; b_end -= kBatch) {
+    const int b0 = max(0, b_end - kBatch);
     const int nb = b_end - b0;
     __syncthreads();   // the previous batch's cross-warp sums are done
-    for (int i = lane; i < kFwdFields * kBwdBatch; i += blockDim.x) {
-      const int f = i / kBwdBatch, j = i % kBwdBatch;
+    for (int i = lane; i < V::kFields * kBatch; i += blockDim.x) {
+      const int f = i / kBatch, j = i % kBatch;
       if (j < nb) sf[f][j] = pairs[(size_t)f * mp + start + b0 + j];
     }
     __syncthreads();
     for (int j = nb - 1; j >= 0; --j) {
-      float g[kLiveRows];
+      float g[kLive];
 #pragma unroll
-      for (int k = 0; k < kLiveRows; ++k) g[k] = 0.0f;
+      for (int k = 0; k < kLive; ++k) g[k] = 0.0f;
       bool nonzero = false;
       if (b0 + j < nc_eff) {
-        const AlphaTerms a = alpha_terms(sf[0][j], sf[1][j], sf[2][j], sf[3][j],
-                                         sf[4][j], sf[5][j], sf[6][j], px, py,
-                                         gamma);
+        const AlphaTerms a = alpha_terms<k3D>(sf, j, px, py, gamma);
         const float inv1m = __fdiv_rn(1.0f, __fsub_rn(1.0f, a.alpha));
         T = __fmul_rn(T, inv1m);                      // exclusive T of entry j
         const float contrib = __fmul_rn(a.alpha, T);
         const float gdot = __fadd_rn(
-            __fadd_rn(__fmul_rn(sf[7][j], gr), __fmul_rn(sf[8][j], gg)),
-            __fmul_rn(sf[9][j], gb));
+            __fadd_rn(__fmul_rn(sf[V::kRgb][j], gr), __fmul_rn(sf[V::kRgb + 1][j], gg)),
+            __fmul_rn(sf[V::kRgb + 2][j], gb));
         const float dL_da = __fsub_rn(__fmul_rn(T, gdot), __fmul_rn(A, inv1m));
         A = __fadd_rn(A, __fmul_rn(contrib, gdot));   // suffix of later entries
         const float live = (a.ok && a.alpha_un < kAlphaMax) ? dL_da : 0.0f;
@@ -275,26 +333,38 @@ __global__ void __launch_bounds__(1024) blend_backward_kernel(
         const float s3 = is3 ? d_ecc3 : 0.0f;
         const float da1 = is1 ? -d_ecc3 : s3;
         const float da2 = is2 ? -d_ecc3 : s3;
-        g[0] = da1; g[1] = __fmul_rn(da1, px); g[2] = __fmul_rn(da1, py);
-        g[3] = da2; g[4] = __fmul_rn(da2, px); g[5] = __fmul_rn(da2, py);
-        g[6] = d_opac;
-        g[7] = __fmul_rn(contrib, gr);
-        g[8] = __fmul_rn(contrib, gg);
-        g[9] = __fmul_rn(contrib, gb);
+        if constexpr (k3D) {
+          // a_i = A_i / D: chain through the quotient into D, A1, A2
+          const float dD = __fmul_rn(
+              -__fadd_rn(__fmul_rn(da1, a.a1), __fmul_rn(da2, a.a2)), a.invD);
+          const float dA1 = __fmul_rn(da1, a.invD);
+          const float dA2 = __fmul_rn(da2, a.invD);
+          g[0] = dD; g[1] = __fmul_rn(dD, px); g[2] = __fmul_rn(dD, py);
+          g[3] = dA1; g[4] = __fmul_rn(dA1, px); g[5] = __fmul_rn(dA1, py);
+          g[6] = dA2; g[7] = __fmul_rn(dA2, px); g[8] = __fmul_rn(dA2, py);
+        } else {
+          g[0] = da1; g[1] = __fmul_rn(da1, px); g[2] = __fmul_rn(da1, py);
+          g[3] = da2; g[4] = __fmul_rn(da2, px); g[5] = __fmul_rn(da2, py);
+        }
+        // then opacity and rgb, the field order of the forward
+        g[V::kOpac] = d_opac;
+        g[V::kRgb] = __fmul_rn(contrib, gr);
+        g[V::kRgb + 1] = __fmul_rn(contrib, gg);
+        g[V::kRgb + 2] = __fmul_rn(contrib, gb);
         nonzero = a.alpha != 0.0f;
       }
       if (__any_sync(0xffffffffu, nonzero)) {
 #pragma unroll
-        for (int k = 0; k < kLiveRows; ++k) {
+        for (int k = 0; k < kLive; ++k) {
           const float v = warp_sum(g[k]);
           if (wl == 0) part[j][k][warp] = v;
         }
-      } else if (wl < kLiveRows) {
+      } else if (wl < kLive) {
         part[j][wl][warp] = 0.0f;
       }
     }
     __syncthreads();
-    for (int i = lane; i < kLiveRows * nb; i += blockDim.x) {
+    for (int i = lane; i < kLive * nb; i += blockDim.x) {
       const int k = i / nb, j = i % nb;
       float s = 0.0f;
       for (int w = 0; w < nwarps; ++w) s += part[j][k][w];
@@ -309,13 +379,14 @@ extern "C" int ts_blend_forward(const float* pairs, int mp,
                                 const int* tile_starts, const int* tile_counts,
                                 const float* params, int width, int height,
                                 int tile_w, int tile_h, int grid_w,
-                                int num_tiles, float* color, float* depth,
-                                float* normal, float* final_T, int* n_contrib,
-                                cudaStream_t stream) {
+                                int num_tiles, int three_d, float* color,
+                                float* depth, float* normal, float* final_T,
+                                int* n_contrib, cudaStream_t stream) {
   const int threads = tile_w * tile_h;
   if (threads <= 0 || threads > 1024 || threads % 32 != 0) return (int)cudaErrorInvalidValue;
   if (num_tiles > 0) {
-    blend_forward_kernel<<<num_tiles, threads, 0, stream>>>(
+    const auto kernel = three_d ? &blend_forward_kernel<true> : &blend_forward_kernel<false>;
+    kernel<<<num_tiles, threads, 0, stream>>>(
         pairs, mp, tile_starts, tile_counts, params, width, height, tile_w,
         tile_h, grid_w, color, depth, normal, final_T, n_contrib);
   }
@@ -326,14 +397,15 @@ extern "C" int ts_blend_backward(const float* pairs, int mp,
                                  const int* tile_starts, const int* tile_counts,
                                  const float* params, int width, int height,
                                  int tile_w, int tile_h, int grid_w,
-                                 int num_tiles, const float* final_T,
+                                 int num_tiles, int three_d, const float* final_T,
                                  const int* n_contrib, const float* g_color,
                                  const float* g_final_T, float* pair_grads,
                                  cudaStream_t stream) {
   const int threads = tile_w * tile_h;
   if (threads <= 0 || threads > 1024 || threads % 32 != 0) return (int)cudaErrorInvalidValue;
   if (num_tiles > 0) {
-    blend_backward_kernel<<<num_tiles, threads, 0, stream>>>(
+    const auto kernel = three_d ? &blend_backward_kernel<true> : &blend_backward_kernel<false>;
+    kernel<<<num_tiles, threads, 0, stream>>>(
         pairs, mp, tile_starts, tile_counts, params, width, height, tile_w,
         tile_h, grid_w, num_tiles, final_T, n_contrib, g_color, g_final_T,
         pair_grads);

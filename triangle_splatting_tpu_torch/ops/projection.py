@@ -1,9 +1,9 @@
 """Per-triangle screen-space preprocess (differentiable, plain PyTorch).
 
-Port of ``triangle_splatting_tpu/ops/projection.py`` (the 2D variant;
-``preprocess_3d`` is not ported yet). The math and the order of every
-floating-point operation follow the JAX function so both produce the same
-numbers on the same inputs; gradients come from autograd.
+Port of ``triangle_splatting_tpu/ops/projection.py``: ``preprocess_2d``
+and the perspective-correct ``preprocess_3d``. The math and the order of
+every floating-point operation follow the JAX functions so both produce
+the same numbers on the same inputs; gradients come from autograd.
 
 2D variant semantics:
 - linearized projection of centroid-relative vectors with view-space
@@ -13,8 +13,14 @@ numbers on the same inputs; gradients come from autograd.
   projected radii, optional backface culling on signed screen area;
 - the tight dilated bounding rectangle -> touched tiles + pixel radius.
 
+3D variant semantics: the triangle is dilated in world space about its
+centroid, all three dilated vertices are projected (near-culled if any
+lands behind the camera) and their screen bbox gives the touched tiles;
+the blend works on the view-space vertices and the raw plane normal.
+
 ``center2d_offset`` is a zeros (P, 2) input added to the projected
-centroid; its gradient is the densification statistic.
+centroid (2D) or to every vertex's view-space xy (3D); its gradient is the
+densification statistic.
 """
 
 from __future__ import annotations
@@ -127,8 +133,6 @@ def preprocess_2d(vertex: torch.Tensor, center2d_offset: torch.Tensor,
     same image with fewer tile pairs.
     """
     W, H = settings.image_width, settings.image_height
-    TW, TH = settings.tile_w, settings.tile_h
-    grid_w, grid_h = settings.grid_w, settings.grid_h
 
     center = vertex.mean(dim=1)                                     # (P, 3)
 
@@ -190,36 +194,12 @@ def preprocess_2d(vertex: torch.Tensor, center2d_offset: torch.Tensor,
         valid = valid & (torch.abs(area2) >= EPS)
 
     if opacity is not None and gamma is not None:
-        o = opacity.reshape(-1).detach()
-        g = torch.as_tensor(gamma, dtype=torch.float32, device=o.device).detach()
-        vis = o * 255.0 > 1.0 + 1e-6
-        valid = valid & vis                      # alpha < 1/255 everywhere
-        log_pow = torch.log(torch.clamp_min(
-            2.0 * torch.log(torch.clamp_min(255.0 * o, 1.0 + 1e-6)), 1e-12))
-        dilation = torch.clamp_max(torch.exp(log_pow / (2.0 * g)), 3.0)[:, None, None]
+        dilation, valid = _tight_dilation(opacity, gamma, valid)
     else:
         dilation = 3.0
     v_dil = center_2d[:, None, :] + dilation * r_2d                 # (P, 3, 2)
-    v_min = v_dil.amin(dim=1)
-    v_max = v_dil.amax(dim=1)
-
-    rect_min = torch.stack([
-        torch.clamp(_floor_i32(v_min[:, 0] / TW), 0, grid_w),
-        torch.clamp(_floor_i32(v_min[:, 1] / TH), 0, grid_h),
-    ], dim=-1)
-    rect_max = torch.stack([
-        torch.clamp(_floor_i32((v_max[:, 0] + TW - 1) / TW), 0, grid_w),
-        torch.clamp(_floor_i32((v_max[:, 1] + TH - 1) / TH), 0, grid_h),
-    ], dim=-1)
-    valid = valid & (rect_max[:, 0] > rect_min[:, 0]) & (rect_max[:, 1] > rect_min[:, 1])
-
-    tiles_touched = torch.where(
-        valid, (rect_max[:, 0] - rect_min[:, 0]) * (rect_max[:, 1] - rect_min[:, 1]),
-        torch.zeros_like(rect_max[:, 0])).to(torch.int32)
-    radii = torch.where(valid, _to_i32(torch.maximum(
-        torch.ceil((v_max[:, 0] - v_min[:, 0]) * 0.5),
-        torch.ceil((v_max[:, 1] - v_min[:, 1]) * 0.5),
-    )), torch.zeros_like(tiles_touched))
+    rect_min, rect_max, valid, tiles_touched, radii = _tile_rect(
+        v_dil.amin(dim=1), v_dil.amax(dim=1), valid, settings)
 
     n_safe = torch.where(n_view_norm < EPS, torch.ones_like(n_view_norm), n_view_norm)
     normal_view = n_view_raw / n_safe[:, None]
@@ -232,3 +212,123 @@ def preprocess_2d(vertex: torch.Tensor, center2d_offset: torch.Tensor,
         tiles_touched=tiles_touched, radii=radii,
         normal_view=normal_view, v_depth=v_depth,
     )
+
+
+def _tight_dilation(opacity, gamma, valid):
+    """Dilation of the tight bounding box (see ``preprocess_2d``) as a
+    (P, 1, 1) factor, no gradient; triangles whose alpha stays below 1/255
+    everywhere leave ``valid``."""
+    o = opacity.reshape(-1).detach()
+    g = torch.as_tensor(gamma, dtype=torch.float32, device=o.device).detach()
+    valid = valid & (o * 255.0 > 1.0 + 1e-6)
+    log_pow = torch.log(torch.clamp_min(
+        2.0 * torch.log(torch.clamp_min(255.0 * o, 1.0 + 1e-6)), 1e-12))
+    return torch.clamp_max(torch.exp(log_pow / (2.0 * g)), 3.0)[:, None, None], valid
+
+
+def _tile_rect(v_min, v_max, valid, settings: RasterSettings):
+    """Pixel bbox -> (rect_min, rect_max, valid, tiles_touched, radii)."""
+    TW, TH = settings.tile_w, settings.tile_h
+    grid_w, grid_h = settings.grid_w, settings.grid_h
+    rect_min = torch.stack([
+        torch.clamp(_floor_i32(v_min[:, 0] / TW), 0, grid_w),
+        torch.clamp(_floor_i32(v_min[:, 1] / TH), 0, grid_h),
+    ], dim=-1)
+    rect_max = torch.stack([
+        torch.clamp(_floor_i32((v_max[:, 0] + TW - 1) / TW), 0, grid_w),
+        torch.clamp(_floor_i32((v_max[:, 1] + TH - 1) / TH), 0, grid_h),
+    ], dim=-1)
+    valid = valid & (rect_max[:, 0] > rect_min[:, 0]) & (rect_max[:, 1] > rect_min[:, 1])
+    tiles_touched = torch.where(
+        valid, (rect_max[:, 0] - rect_min[:, 0]) * (rect_max[:, 1] - rect_min[:, 1]),
+        torch.zeros_like(rect_max[:, 0])).to(torch.int32)
+    radii = torch.where(valid, _to_i32(torch.maximum(
+        torch.ceil((v_max[:, 0] - v_min[:, 0]) * 0.5),
+        torch.ceil((v_max[:, 1] - v_min[:, 1]) * 0.5),
+    )), torch.zeros_like(tiles_touched))
+    return rect_min, rect_max, valid, tiles_touched, radii
+
+
+@dataclass(frozen=True)
+class Preprocessed3D:
+    """Per-triangle quantities of the perspective-correct 3D variant:
+    view-space vertices and the raw plane normal instead of screen-space
+    vertices."""
+    v1_view: torch.Tensor      # (P, 3)
+    v2_view: torch.Tensor
+    v3_view: torch.Tensor
+    normal_view: torch.Tensor  # (P, 3) UNNORMALIZED cross(v2 - v1, v3 - v1)
+    depth: torch.Tensor        # (P,) view z of the centroid (sort key)
+    rgb: torch.Tensor          # (P, 3)
+    valid: torch.Tensor        # (P,) bool
+    rect_min: torch.Tensor     # (P, 2) int32
+    rect_max: torch.Tensor     # (P, 2) int32
+    tiles_touched: torch.Tensor  # (P,) int32
+    radii: torch.Tensor        # (P,) int32
+    v_depth: torch.Tensor      # (P, 3) per-vertex view depth
+
+    def detach(self) -> "Preprocessed3D":
+        return Preprocessed3D(**{f.name: getattr(self, f.name).detach()
+                                 for f in fields(self)})
+
+
+def preprocess_3d(vertex: torch.Tensor, center2d_offset: torch.Tensor,
+                  rgb: torch.Tensor, world_view: torch.Tensor,
+                  full_proj: torch.Tensor, tan_fovx, tan_fovy,
+                  settings: RasterSettings,
+                  alive_mask: Optional[torch.Tensor] = None,
+                  opacity: Optional[torch.Tensor] = None,
+                  gamma=None) -> Preprocessed3D:
+    """Perspective-correct preprocess of (P, 3, 3) world-space triangles.
+
+    The triangle is dilated in world space about its centroid, each dilated
+    vertex is projected, and the screen bbox of the three projections gives
+    the touched tiles. ``center2d_offset`` is added to every vertex's
+    view-space xy, so its gradient is the view-space xy vertex gradient the
+    reference accumulates as its densification statistic.
+    """
+    W, H = settings.image_width, settings.image_height
+
+    v_view = (world_view[:3, 0] * vertex[..., 0:1]
+              + world_view[:3, 1] * vertex[..., 1:2]
+              + world_view[:3, 2] * vertex[..., 2:3]
+              + world_view[:3, 3])                              # (P, 3, 3)
+    offset3 = torch.cat([center2d_offset,
+                         torch.zeros_like(center2d_offset[:, :1])], -1)
+    v_view = v_view + offset3[:, None, :]
+    center_view = v_view.mean(dim=1)
+    normal_view = torch.linalg.cross(v_view[:, 1] - v_view[:, 0],
+                                     v_view[:, 2] - v_view[:, 0], dim=-1)
+    valid = safe_norm(normal_view) >= EPS
+    if settings.back_culling:
+        valid = valid & (normal_view[:, 2] < 0)
+    if alive_mask is not None:
+        valid = valid & alive_mask
+
+    center = vertex.mean(dim=1)
+    if opacity is not None and gamma is not None:
+        dilation, valid = _tight_dilation(opacity, gamma, valid)
+    else:
+        dilation = 3.0
+    v_dil = center[:, None, :] + dilation * (vertex - center[:, None, :])
+
+    flat = v_dil.reshape(-1, 3)
+    h = (full_proj[:, 0] * flat[:, 0:1] + full_proj[:, 1] * flat[:, 1:2]
+         + full_proj[:, 2] * flat[:, 2:3]) + full_proj[:, 3]    # (3P, 4)
+    w_inv = 1.0 / (torch.abs(h[:, 3]) + EPS)
+    proj = (h[:, :3] * w_inv[:, None]).reshape(-1, 3, 3)        # (P, 3, 3)
+    valid = valid & torch.all(proj[:, :, 2] > 0, dim=1)         # near culling
+
+    # projToPix: (v + 1) * S * 0.5 - 0.5
+    pix_x = (proj[:, :, 0] + 1.0) * (W * 0.5) - 0.5
+    pix_y = (proj[:, :, 1] + 1.0) * (H * 0.5) - 0.5
+    v_min = torch.stack([pix_x.amin(dim=1), pix_y.amin(dim=1)], -1)
+    v_max = torch.stack([pix_x.amax(dim=1), pix_y.amax(dim=1)], -1)
+    rect_min, rect_max, valid, tiles_touched, radii = _tile_rect(
+        v_min, v_max, valid, settings)
+
+    return Preprocessed3D(
+        v1_view=v_view[:, 0], v2_view=v_view[:, 1], v3_view=v_view[:, 2],
+        normal_view=normal_view, depth=center_view[:, 2], rgb=rgb,
+        valid=valid, rect_min=rect_min, rect_max=rect_max,
+        tiles_touched=tiles_touched, radii=radii, v_depth=v_view[:, :, 2])

@@ -1,9 +1,10 @@
 """Differentiable triangle-splat rasterization — the public op.
 
-Port of ``triangle_splatting_tpu/ops/rasterize.py`` (variant "2D"):
+Port of ``triangle_splatting_tpu/ops/rasterize.py`` (variants "2D" and
+"3D"):
 
   1. SH -> per-triangle color               PyTorch, autograd   (sh.py)
-  2. screen-space preprocess                PyTorch, autograd   (projection.py)
+  2. screen-space preprocess (2D or 3D)     PyTorch, autograd   (projection.py)
   3. tile binning (sort + ranges)           no grad, kernel B3  (binning.py)
   4. gather + pack per-pair fields          autograd.Function   (backward:
                                             owner sort + kernel B4)
@@ -27,8 +28,9 @@ from . import sh as sh_mod
 from .binning import Binning, bin_triangles
 from .cuda.blend import ALIGN, LIVE_GRAD_ROWS, blend_backward, blend_forward
 from .cuda.streams import segment_reduce_pairs
-from .oracle import blend_oracle
-from .projection import Preprocessed, RasterSettings, preprocess_2d
+from .oracle import blend_oracle, blend_oracle_3d
+from .projection import (Preprocessed, Preprocessed3D, RasterSettings,
+                         preprocess_2d, preprocess_3d)
 from ..utils.camera import Camera
 
 
@@ -37,7 +39,8 @@ def _round_up(x: int, m: int) -> int:
 
 
 def triangle_field_matrix(prep: Preprocessed, opacity: torch.Tensor) -> torch.Tensor:
-    """Per-triangle packed kernel fields (P, 16), differentiable.
+    """Per-triangle packed kernel fields (P, 16) of the 2D variant,
+    differentiable.
 
     The barycentrics are affine in pixel coordinates,
     ``a1 = cross(v2 - pix, v3 - pix) / area2 = f0 + f1*px + f2*py``, so the
@@ -59,6 +62,49 @@ def triangle_field_matrix(prep: Preprocessed, opacity: torch.Tensor) -> torch.Te
         vd[:, 2],                                  # d0
         nrm[:, 0], nrm[:, 1], nrm[:, 2],
         vd[:, 0] - vd[:, 2], vd[:, 1] - vd[:, 2],  # d1, d2
+    ], dim=1)                                      # (P, 16)
+    return torch.where(prep.valid[:, None], fields, torch.zeros_like(fields))
+
+
+def triangle_field_matrix_3d(prep: Preprocessed3D, opacity: torch.Tensor,
+                             tan_fovx, tan_fovy, width: int,
+                             height: int) -> torch.Tensor:
+    """Per-triangle packed kernel fields (P, 16) of the 3D variant,
+    differentiable.
+
+    The ray-plane barycentrics are ratios of affine forms in pixel
+    coordinates: with the pixel ray r, D = r.n, a1 = (r.u1) / D and
+    a2 = (r.u2) / D, where u1 = (C23*n - k*(n x (v2 - v3))) / n.n,
+    k = v1.n and C23 = (v2 x v3).n. Each 3-vector w becomes the affine
+    coefficients (c0, cx, cy) of r.w over the pixel grid. Fields: D 0..2,
+    A1 3..5, A2 6..8, opacity 9, rgb 10..12, K = k 13, zeros 14..15.
+    """
+    def cross(a, b):
+        return torch.linalg.cross(a, b, dim=-1)
+
+    n = prep.normal_view
+    v1, v2, v3 = prep.v1_view, prep.v2_view, prep.v3_view
+    nn = torch.sum(n * n, -1)
+    inv_nn = 1.0 / torch.where(prep.valid, torch.clamp_min(nn, 1e-20),
+                               torch.ones_like(nn))
+    k = torch.sum(v1 * n, -1)
+    C23 = torch.sum(cross(v2, v3) * n, -1)
+    C31 = torch.sum(cross(v3, v1) * n, -1)
+    u1 = (C23[:, None] * n - k[:, None] * cross(n, v2 - v3)) * inv_nn[:, None]
+    u2 = (C31[:, None] * n - k[:, None] * cross(n, v3 - v1)) * inv_nn[:, None]
+
+    def affine(w):
+        c0 = (w[:, 2] + w[:, 0] * tan_fovx * (1.0 - width) / width
+              + w[:, 1] * tan_fovy * (1.0 - height) / height)
+        cx = 2.0 * tan_fovx * w[:, 0] / width
+        cy = 2.0 * tan_fovy * w[:, 1] / height
+        return c0, cx, cy
+
+    rgb = prep.rgb
+    zero = torch.zeros_like(k)
+    fields = torch.stack([
+        *affine(n), *affine(u1), *affine(u2), opacity,
+        rgb[:, 0], rgb[:, 1], rgb[:, 2], k, zero, zero,
     ], dim=1)                                      # (P, 16)
     return torch.where(prep.valid[:, None], fields, torch.zeros_like(fields))
 
@@ -113,10 +159,10 @@ class BlendTiles(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, fields, tile_starts, tile_counts, params, cfg):
-        width, height, tile_h, tile_w = cfg
+        width, height, tile_h, tile_w, variant = cfg
         color, depth, normal, final_T, n_contrib = blend_forward(
             fields, tile_starts, tile_counts, params, image_width=width,
-            image_height=height, tile_h=tile_h, tile_w=tile_w)
+            image_height=height, tile_h=tile_h, tile_w=tile_w, variant=variant)
         ctx.save_for_backward(fields, tile_starts, tile_counts, params,
                               final_T, n_contrib)
         ctx.cfg = cfg
@@ -126,7 +172,7 @@ class BlendTiles(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_color, g_depth, g_normal, g_final_T, g_nc):
         fields, tile_starts, tile_counts, params, final_T, n_contrib = ctx.saved_tensors
-        width, height, tile_h, tile_w = ctx.cfg
+        width, height, tile_h, tile_w, variant = ctx.cfg
         if g_color is None:
             g_color = torch.zeros((3, height, width), dtype=fields.dtype,
                                   device=fields.device)
@@ -135,7 +181,7 @@ class BlendTiles(torch.autograd.Function):
         pair_grads = blend_backward(
             fields, tile_starts, tile_counts, params, final_T, n_contrib,
             g_color.contiguous(), g_final_T.contiguous(), image_width=width,
-            image_height=height, tile_h=tile_h, tile_w=tile_w)
+            image_height=height, tile_h=tile_h, tile_w=tile_w, variant=variant)
         return pair_grads, None, None, None, None
 
 
@@ -157,13 +203,15 @@ def rasterize(vertex: torch.Tensor, opacity: torch.Tensor,
     through the kernel wrappers (the CUDA kernels for CUDA tensors, their
     plain versions for CPU tensors); ``impl="oracle"`` the dense oracle.
 
-    Only the photo-training variant is ported: ``rasterizer_type`` "2D" with
-    ``rich_info`` off. The contribution statistics (kernel B5) are not
-    ported yet: ``need_stats=True`` raises, and contrib_sum/contrib_max are
-    zeros on the kernel path.
+    The kernel path serves ``rasterizer_type`` "2D" (photo training) and
+    "3D" (mesh training) with ``rich_info`` off. The contribution
+    statistics (kernel B5) are not ported yet: ``need_stats=True`` raises,
+    and contrib_sum/contrib_max are zeros on the kernel path.
     """
-    if settings.rasterizer_type != "2D":
-        raise NotImplementedError("rasterize: only rasterizer_type '2D' is ported")
+    variant = settings.rasterizer_type
+    if variant not in ("2D", "3D"):
+        raise NotImplementedError(
+            f"rasterize: rasterizer_type {variant!r} is not ported ('2D', '3D')")
     if impl not in ("cuda", "oracle"):
         raise ValueError(f"unknown impl {impl!r}")
     if impl == "cuda" and settings.rich_info:
@@ -190,13 +238,17 @@ def rasterize(vertex: torch.Tensor, opacity: torch.Tensor,
                              active_sh_degree, settings.max_sh_degree)
 
     opac1 = opacity[..., 0] if opacity.dim() == 2 else opacity
-    prep = preprocess_2d(vertex, center2d_offset, rgb, camera.world_view,
-                         camera.full_proj, camera.tan_fovx, camera.tan_fovy,
-                         settings, alive_mask=alive_mask, opacity=opac1,
-                         gamma=gamma)
+    pre_fn = preprocess_2d if variant == "2D" else preprocess_3d
+    prep = pre_fn(vertex, center2d_offset, rgb, camera.world_view,
+                  camera.full_proj, camera.tan_fovx, camera.tan_fovy,
+                  settings, alive_mask=alive_mask, opacity=opac1, gamma=gamma)
 
     if impl == "oracle":
-        out = blend_oracle(prep, opac1, gamma, background, bg_depth, settings)
+        if variant == "2D":
+            out = blend_oracle(prep, opac1, gamma, background, bg_depth, settings)
+        else:
+            out = blend_oracle_3d(prep, opac1, gamma, background, bg_depth,
+                                  camera.tan_fovx, camera.tan_fovy, settings)
         return dict(render=out.color, depth=out.depth, normal=out.normal,
                     radii=prep.radii, visible_mask=prep.radii > 0,
                     contrib_sum=out.contrib_sum, contrib_max=out.contrib_max,
@@ -208,13 +260,22 @@ def rasterize(vertex: torch.Tensor, opacity: torch.Tensor,
         max_pairs = _round_up(int(settings.pairs_per_triangle * P), ALIGN)
 
     binning = bin_triangles(prep.detach(), settings, max_pairs, align=ALIGN)
-    fmat = triangle_field_matrix(prep, opac1)
-    fields = pack_pair_fields(fmat, binning, LIVE_GRAD_ROWS[("2D", False)])
     zero = torch.zeros(1, dtype=dt, device=dev)
+    if variant == "2D":
+        fmat = triangle_field_matrix(prep, opac1)
+        sx = sy = zero
+    else:
+        fmat = triangle_field_matrix_3d(prep, opac1, camera.tan_fovx,
+                                        camera.tan_fovy, settings.image_width,
+                                        settings.image_height)
+        # normal reconstruction scales at the rendered size (rich path)
+        sx = (settings.image_width / (2.0 * camera.tan_fovx)).reshape(1)
+        sy = (settings.image_height / (2.0 * camera.tan_fovy)).reshape(1)
+    fields = pack_pair_fields(fmat, binning, LIVE_GRAD_ROWS[(variant, False)])
     params = torch.cat([gamma.reshape(1), background, bg_depth.reshape(1),
-                        zero, zero, zero]).detach()
+                        sx.to(dt), sy.to(dt), zero]).detach()
     cfg = (settings.image_width, settings.image_height, settings.tile_h,
-           settings.tile_w)
+           settings.tile_w, variant)
     color, depth, normal, final_T, n_contrib = BlendTiles.apply(
         fields, binning.tile_starts, binning.tile_counts, params, cfg)
     zeros_p = torch.zeros((P,), dtype=dt, device=dev)

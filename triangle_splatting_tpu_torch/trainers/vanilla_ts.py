@@ -1,16 +1,18 @@
-"""VanillaTS trainer, fixed-count photo path (port of
+"""VanillaTS trainer, fixed-count photo and mesh paths (port of
 ``triangle_splatting_tpu/trainers/vanilla_ts.py``).
 
-One iteration: render one training camera through the kernel pipeline,
-L1 + w_ssim * (1 - SSIM) (+ the scaling / opacity regularizers), autograd
-backward, Adam (eps 1e-15) with per-group learning-rate schedules; SH
-bands come on along ``sh_schedule`` and gamma along ``gamma_schedule``.
+One iteration: render one training camera through the kernel pipeline
+(the 2D or the 3D rasterizer, optionally at ``render_up_scale`` times the
+camera's size), L1 + w_ssim * (1 - SSIM) (+ the scaling / opacity
+regularizers), autograd backward, Adam (eps 1e-15) with per-group
+learning-rate schedules; SH bands come on along ``sh_schedule`` and gamma
+along ``gamma_schedule`` (the mesh recipe's solidify anneal).
 
 Config blocks this slice does not serve raise ``NotImplementedError`` at
 construction: adaptive density control (densification, pruning, clipping,
 opacity reset, statistic windows), the geometry / DoG / smoothness /
-vertex losses, color affine, ``render_up_scale``, data parallelism, and
-PLY / checkpoint / GLB saving at an iteration the run reaches.
+vertex losses, color affine, data parallelism, and PLY / checkpoint / GLB
+saving at an iteration the run reaches.
 """
 
 from __future__ import annotations
@@ -89,9 +91,7 @@ class VanillaTSTrainer(BaseTrainer):
 
         if mc.use_color_affine:
             refuse("model.use_color_affine")
-        if (mc.render_up_scale or 0) > 1:
-            refuse("model.render_up_scale")
-        if (mc.rasterizer_type or "2D") != "2D":
+        if (mc.rasterizer_type or "2D") not in ("2D", "3D"):
             refuse(f"model.rasterizer_type {mc.rasterizer_type!r}")
         sampling = mc.sampling or Config()
         if (sampling.sample_method or "direct") not in ("direct", "random"):
@@ -314,7 +314,7 @@ class VanillaTSTrainer(BaseTrainer):
 
             if cfgt.log_interval_iter and iteration % cfgt.log_interval_iter == 0:
                 loss_val = float(loss)
-                count = int(self.state.alive.sum())
+                count = self.triangle_count()
                 num_pairs, overflow = int(aux["num_pairs"]), bool(aux["overflow"])
                 self.logger.info(
                     f"[ITER {iteration}] Loss: {loss_val:.5f}, Triangles: {count}, "
@@ -345,6 +345,16 @@ class VanillaTSTrainer(BaseTrainer):
                     "Scaling", M.get_scaling(self.params)[alive].cpu().numpy(), iteration)
         self.dataset.close()
         self.logger.info("Training finished")
+
+    @torch.no_grad()
+    def triangle_count(self) -> int:
+        """Triangles logged as the count: those whose opacity passes the
+        STE threshold when one is set (mesh configs), else the alive ones."""
+        alive = self.state.alive
+        ste = self.model_cfg.ste_threshold
+        if ste is not None:
+            alive = alive & (M.get_opacity(self.params)[:, 0] > ste)
+        return int(alive.sum())
 
     # ------------------------------------------------------------------
     # eval

@@ -62,6 +62,39 @@ def make_random_scene(n: int, seed: int = 0, z_range=(3.0, 6.0),
                 sh_dc=((rgb - 0.5) / 0.28209479177387814)[:, None, :].astype(np.float32))
 
 
+def make_surface_scene(n_tri: int, seed: int = 0, opacity: float = 0.95):
+    """A closed opaque SURFACE as ground truth: a bumpy UV-sphere
+    triangulation, the realistic target of mesh training (the random soup
+    of semi-transparent triangles has no opaque-surface representation).
+    Same dict layout as ``make_random_scene``; the face count is the
+    closest UV grid <= n_tri (2 * nu * nv faces). The grid is
+    deterministic; ``seed`` is kept for the JAX twin's signature."""
+    nv = max(3, int(np.sqrt(n_tri / 4)))
+    nu = max(4, n_tri // (2 * nv))
+    th = np.linspace(0.0, np.pi, nv + 1)
+    ph = np.linspace(0.0, 2 * np.pi, nu + 1)
+    T, P = np.meshgrid(th, ph, indexing="ij")           # (nv+1, nu+1)
+    # low-frequency radial bumps -> non-trivial geometry
+    r = (0.85 + 0.12 * np.sin(3 * T) * np.cos(2 * P)
+         + 0.08 * np.cos(5 * P + 1.0) * np.sin(2 * T))
+    V = np.stack([r * np.sin(T) * np.cos(P), r * np.cos(T),
+                  r * np.sin(T) * np.sin(P)], axis=-1)  # (nv+1, nu+1, 3)
+    a, b = V[:-1, :-1], V[:-1, 1:]
+    c, d = V[1:, 1:], V[1:, :-1]
+    # faces (a, b, c) and (a, c, d) of each quad, in the JAX twin's order
+    vertex = np.stack([np.stack([a, b, c], -2), np.stack([a, c, d], -2)], 2)
+    vertex = vertex.reshape(-1, 3, 3).astype(np.float32)  # (F, 3, 3)
+    n = vertex.shape[0]
+    # smooth per-face color from the face centroid direction
+    cen = vertex.mean(1)
+    cn = cen / np.maximum(np.linalg.norm(cen, axis=1, keepdims=True), 1e-6)
+    rgb = np.clip(0.5 + 0.45 * np.stack(
+        [cn[:, 0], np.sin(2.0 * cn[:, 1]), cn[:, 2] * cn[:, 0]], axis=1),
+        0.05, 0.95).astype(np.float32)
+    return dict(vertex=vertex, opacity=np.full((n,), opacity, np.float32), rgb=rgb,
+                sh_dc=((rgb - 0.5) / 0.28209479177387814)[:, None, :].astype(np.float32))
+
+
 def pose_on_circle(theta: float, radius: float = 4.5, height: float = 0.0):
     """Camera on a circle looking at the origin, as a Blender/OpenGL c2w
     matrix."""
@@ -93,14 +126,17 @@ def build_synthetic_nerf_dataset(root, *, res: int = 48, n_tri: int = 120,
                                  size_range=(0.15, 0.3),
                                  pcd_noise: float = 0.05,
                                  pcd_points: int | None = None,
-                                 device="cuda"):
-    """Write a Blender/NeRF-Synthetic-format dataset of a known random
-    triangle scene to ``root`` (transforms_{train,test}.json + PNGs +
+                                 scene_kind: str = "soup", device="cuda"):
+    """Write a Blender/NeRF-Synthetic-format dataset of a known triangle
+    scene to ``root`` (transforms_{train,test}.json + PNGs +
     point_cloud.ply), rendering the GT images through this package's own
-    ``rasterize`` on ``device``. The scene, poses and point cloud are the
-    JAX builder's for the same arguments (its "soup" scene). The pair
-    budget is sized up front from the demanded pair count and grown until
-    no frame drops pairs. Returns ``root``."""
+    ``rasterize`` on ``device``. ``scene_kind``: "soup" = floating random
+    semi-transparent triangles (the photo stress test), "surface" = a
+    bumpy opaque closed surface (``make_surface_scene``, the mesh
+    recipe's target). The scene, poses and point cloud are the JAX
+    builder's for the same arguments. The pair budget is sized up front
+    from the demanded pair count and grown until no frame drops pairs.
+    Returns ``root``."""
     import json
     import math
     from dataclasses import replace
@@ -118,9 +154,13 @@ def build_synthetic_nerf_dataset(root, *, res: int = 48, n_tri: int = 120,
     root = Path(root)
     root.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(0)
-    scene = make_random_scene(n_tri, seed=seed, z_range=(-0.8, 0.8),
-                              xy_extent=0.8, size_range=size_range,
-                              opacity_range=(0.7, 0.95))
+    if scene_kind == "surface":
+        scene = make_surface_scene(n_tri, seed=seed)
+        n_tri = scene["vertex"].shape[0]          # the surface rounds to its grid
+    else:
+        scene = make_random_scene(n_tri, seed=seed, z_range=(-0.8, 0.8),
+                                  xy_extent=0.8, size_range=size_range,
+                                  opacity_range=(0.7, 0.95))
     vertex = torch.as_tensor(scene["vertex"]).to(dev)
     opacity = torch.as_tensor(scene["opacity"]).to(dev)
     rgb = torch.as_tensor(scene["rgb"]).to(dev)
