@@ -10,13 +10,17 @@ Phases (any failure exits non-zero before the final line):
              in parallel) and print the card's name and power limit;
 2. kernels — hold each kernel of the path against its plain PyTorch version
              at the shapes of the bench workload (800x800, 100k triangles,
-             rich off, stats off, pair budget sized by a probe frame) and time
-             both with CUDA events; then B1/B2 in variant "3D", and B3/B4
-             on their pairs (2,500 tiles, 13 live gradient rows), on a 100k
-             random scene at the mesh path's rendered size (1600x1600) at
-             gamma 1 and 50, timed at gamma 50;
+             rich off, pair budget sized by a probe frame) and time both
+             with CUDA events: B1 with stats off and on (the stats form's
+             blend outputs bit-identical to the stats-off kernel's, its
+             per-pair stream against the plain one), B2, B3, B4, and B5 on
+             the stream after the owner sort; then B1 (both forms) and B2
+             in variant "3D", B3/B4 on their pairs (2,500 tiles, 13 live
+             gradient rows) and B5, on a 100k random scene at the mesh
+             path's rendered size (1600x1600) at gamma 1 and 50, timed at
+             gamma 50;
 3. reference — the 2D and the 3D kernel pipelines against their dense
-             oracles on a small scene;
+             oracles on a small scene, render and contribution statistics;
 4. rasterize — time rasterize forward + backward on the bench workload;
 5. train   — build the synthetic NeRF-Synthetic dataset at 800x800 from
              100k triangles, train config/NerfSynthetic_VanillaTS.yaml for 50
@@ -29,7 +33,17 @@ Phases (any failure exits non-zero before the final line):
              rasterizer, 800x800 views rendered at 1600x1600, STE opacity,
              gamma annealed 1 -> 50 over steps 10-40), check the loss falls,
              gamma reaches 50 and that B1/B2 ran once per step in variant
-             "3D" and never in "2D"; then profile 10 more steps.
+             "3D" and never in "2D"; then profile 10 more steps;
+7. mesh_adc — train config/NerfSynthetic_VanillaTS_mesh.yaml with its
+             statistic / scale_pruning / contribution_pruning blocks on the
+             same surface for 50 steps (statistic window (5, 40], scale
+             pruning every 10 and contribution pruning every 20 steps from
+             5 to 40, target_point_num 93,000, the anneal at steps 10-40):
+             B1-3D's stats form, B5, B2-3D, B3 and B4 once per step, both
+             contribution prunings remove triangles, the alive count falls
+             by the logged counts; then profile 10 more steps.
+The photo and mesh phases also check that neither launched B5 or a stats
+form of B1.
 
 The last two lines are the per-kernel JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -74,27 +88,43 @@ BWD_OPS_PER_EVAL = 70
 # log-space ecc^(2 gamma - 1) (+7).
 FWD_OPS_PER_EVAL_3D = {True: 43, False: 48}      # keyed by gamma == 1
 BWD_OPS_PER_EVAL_3D = {True: 92, False: 104}
+# B1's stats form adds a sum and a max of each evaluated contribution over
+# the tile's pixels; B5 an add and a max per sorted pair.
+STATS_OPS_PER_EVAL = 2
+B5_OPS_PER_PAIR = 2
+# the mesh recipe with its ADC blocks, cut to the 50-step run (mesh_adc)
+ADC_STAT_WINDOW = (5, 40)
+ADC_SCALE_INTERVAL = 10
+ADC_CONTRIB_INTERVAL = 20
+ADC_TARGET = 93_000          # run_experiments.py's "ship" preset
 # ~1 ms of GPU clock cycles: longer than the host takes to enqueue one
 # kernel wrapper or library call (see cuda_ms)
 SPIN_CYCLES = 2_000_000
 
-TOL = dict(b1_abs=1e-5, b2_rel=1e-4, b4_rel=1e-5)
+TOL = dict(b1_abs=1e-5, b2_rel=1e-4, b4_rel=1e-5, stats_sum_rel=1e-5,
+           stats_max_rel=1e-6, b5_rel=1e-5, oracle_stats_abs=5e-4)
+_BLEND = "triangle_splatting_tpu/ops/pallas/blend.py"
+_STREAMS = "triangle_splatting_tpu/ops/pallas/streams.py"
 REPLACES = {
-    "blend_forward": "triangle_splatting_tpu/ops/pallas/blend.py:514",
-    "blend_backward": "triangle_splatting_tpu/ops/pallas/blend.py:956",
-    "relayout_pairs": "triangle_splatting_tpu/ops/pallas/streams.py:100",
-    "segment_reduce_pairs": "triangle_splatting_tpu/ops/pallas/streams.py:221",
-    "blend_forward_3d": "triangle_splatting_tpu/ops/pallas/blend.py:514",
-    "blend_backward_3d": "triangle_splatting_tpu/ops/pallas/blend.py:956",
+    "blend_forward": f"{_BLEND}:514",
+    "blend_backward": f"{_BLEND}:956",
+    "relayout_pairs": f"{_STREAMS}:100",
+    "segment_reduce_pairs": f"{_STREAMS}:221",
+    "blend_forward_3d": f"{_BLEND}:514",
+    "blend_backward_3d": f"{_BLEND}:956",
+    "blend_forward_stats": f"{_BLEND}:514",
+    "blend_forward_3d_stats": f"{_BLEND}:514",
+    "segment_reduce_stats": f"{_STREAMS}:356",
 }
-SOURCES = {
-    "blend_forward": "triangle_splatting_tpu_torch/ops/cuda/csrc/blend.cu",
-    "blend_backward": "triangle_splatting_tpu_torch/ops/cuda/csrc/blend.cu",
-    "relayout_pairs": "triangle_splatting_tpu_torch/ops/cuda/csrc/streams.cu",
-    "segment_reduce_pairs": "triangle_splatting_tpu_torch/ops/cuda/csrc/streams.cu",
-    "blend_forward_3d": "triangle_splatting_tpu_torch/ops/cuda/csrc/blend.cu",
-    "blend_backward_3d": "triangle_splatting_tpu_torch/ops/cuda/csrc/blend.cu",
-}
+_CSRC = "triangle_splatting_tpu_torch/ops/cuda/csrc"
+SOURCES = {name: f"{_CSRC}/{'streams' if _STREAMS in r else 'blend'}.cu"
+           for name, r in REPLACES.items()}
+# the training phase whose run each kernel's launches are read from: the
+# path that runs it (the 2D stats form is on none of them: no shipped
+# photo recipe has a statistic block, so its count is the photo run's 0)
+PATH_OF = dict.fromkeys(REPLACES, "train")
+PATH_OF.update(blend_forward_3d="mesh", blend_backward_3d="mesh",
+               blend_forward_3d_stats="mesh_adc", segment_reduce_stats="mesh_adc")
 
 
 class SmokeFailure(Exception):
@@ -149,11 +179,23 @@ def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
 
 
 def read_launches() -> dict:
-    """Launch counts under the kernel names of the JSON record (B1/B2 in
-    variant "3D" as ``<kernel>_3d``)."""
+    """Launch counts under the kernel names of the JSON record: B1/B2 in
+    variant "3D" as ``<kernel>_3d``, B1's stats forms as
+    ``blend_forward_stats`` ("2D") and ``blend_forward_3d_stats``."""
     from triangle_splatting_tpu_torch.ops.cuda import launch_counts
-    return {k if v in (None, "2D") else f"{k}_{v.lower()}": n
-            for (k, v), n in launch_counts().items()}
+    out = {}
+    for (k, form), n in launch_counts().items():
+        suffix = "" if form is None else form.lower().replace("2d", "").strip("_")
+        out[f"{k}_{suffix}" if suffix else k] = n
+    return out
+
+
+def check_no_stats_launches(launches: dict, phase: str) -> None:
+    """A path without a statistic block launches neither B5 nor a stats
+    form of B1."""
+    for name in ("segment_reduce_stats", "blend_forward_stats", "blend_forward_3d_stats"):
+        check(launches[name] == 0, f"{phase}: kernel {name} launched {launches[name]} times "
+              "on a path without statistics")
 
 
 # ---------------------------------------------------------------------------
@@ -268,13 +310,53 @@ def check_segment_reduce(grads, pair_tri, sp, what: str) -> dict:
     return dict(args=args, skey=skey, ref=ref, err=err, rel=rel)
 
 
+def check_segment_stats(pair_contrib, pair_tri, sp, what: str) -> dict:
+    """B5 against its plain version on B1's per-pair stream after the
+    owner sort (the inputs ``ops/rasterize.py:_contrib_stats`` gives it):
+    sums within rel 1e-5 of the largest, maxes exact. Returns the errors,
+    the argument tuple, the segment lengths and the library yardstick
+    (two ``torch.segment_reduce`` calls on the sorted stream)."""
+    import torch
+    from triangle_splatting_tpu_torch.ops.cuda import streams as KS
+
+    P = sp.tri_offsets.shape[0] - 1
+    key = torch.where(pair_tri >= 0, pair_tri, torch.full_like(pair_tri, P))
+    cols = pair_contrib.index_select(1, torch.sort(key, stable=True).indices)
+    starts = torch.minimum(sp.tri_offsets[:-1], sp.num_pairs).contiguous()
+    ends = torch.minimum(sp.tri_offsets[1:], sp.num_pairs).contiguous()
+    args = (cols[0], cols[1], starts, ends, sp.num_pairs)
+    sums, maxes = KS.segment_reduce_stats(*args)
+    ref_s, ref_m = KS.segment_reduce_stats_plain(*args)
+    torch.cuda.synchronize()
+    err_s = float((sums - ref_s).abs().max())
+    rel_s = err_s / max(float(ref_s.abs().max()), 1e-30)
+    err_m = float((maxes - ref_m).abs().max())
+    check(rel_s <= TOL["b5_rel"], f"segment_reduce_stats {what}: sum rel err {rel_s:.3e}")
+    check(err_m == 0.0, f"segment_reduce_stats {what}: max err {err_m:.3e}, expected exact")
+    n = int(sp.num_pairs)
+    lengths = ends - starts
+    data = (cols[0, :n].contiguous(), cols[1, :n].contiguous())
+
+    def library():
+        return (torch.segment_reduce(data[0], "sum", lengths=lengths, initial=0),
+                torch.segment_reduce(data[1], "max", lengths=lengths, initial=0))
+    lib_s, lib_m = library()
+    check(float((lib_s - ref_s).abs().max()) <= TOL["b5_rel"] * float(ref_s.abs().max())
+          and bool(torch.equal(lib_m, ref_m)), "segment_reduce yardstick disagrees with B5")
+    return dict(args=args, library=library, err=max(err_s, err_m), rel=rel_s,
+                bytes=4 * (2 * n + 2 * P + 1) + 4 * 2 * P, ops=B5_OPS_PER_PAIR * n)
+
+
 def check_blend(fields, sp, params, geo, target, what: str) -> dict:
     """B1 and B2 of ``geo["variant"]`` against their plain versions on the
     same packed pairs: n_contrib exact, color / final_T abs 1e-5, the live
     gradient rows rel 1e-4 of each row's max and the other rows zero. B2's
-    cotangent is that of the bench loss |render - target|. Returns the
-    errors, the argument tuples for timing, the evaluated (pair, pixel)
-    count and the bytes each kernel must move."""
+    cotangent is that of the bench loss |render - target|. B1's stats form
+    on the same pairs: color, final_T and n_contrib bit-identical to the
+    stats-off kernel's, the per-pair stream's sums within rel 1e-5 and its
+    maxes within rel 1e-6 of each row's max against the plain stream.
+    Returns the errors, the argument tuples for timing, the evaluated
+    (pair, pixel) count, the bytes each kernel must move and the stream."""
     import torch
     from triangle_splatting_tpu_torch.ops.cuda import blend as KB
 
@@ -282,7 +364,8 @@ def check_blend(fields, sp, params, geo, target, what: str) -> dict:
     live = KB.LIVE_GRAD_ROWS[(geo["variant"], False)]   # = fields B1 reads
     fwd = (fields, sp.astarts, sp.tile_counts, params)
     out1 = KB.blend_forward(*fwd, **geo)
-    ref1 = KB.blend_forward_plain(*fwd, **geo)
+    on1 = KB.blend_forward(*fwd, stats=True, **geo)
+    ref1 = KB.blend_forward_plain(*fwd, stats=True, **geo)
     torch.cuda.synchronize()
     e_color = float((out1[0] - ref1[0]).abs().max())
     e_T = float((out1[3] - ref1[3]).abs().max())
@@ -290,6 +373,17 @@ def check_blend(fields, sp, params, geo, target, what: str) -> dict:
     check(e_color <= TOL["b1_abs"] and e_T <= TOL["b1_abs"],
           f"blend_forward {what}: color/final_T err {e_color:.3e}/{e_T:.3e} > {TOL['b1_abs']}")
     check(e_nc == 0, f"blend_forward {what}: n_contrib differs in {e_nc} pixels")
+    same = [bool(torch.equal(a, b)) for a, b in zip(on1[:5], out1)]
+    check(all(same), f"blend_forward stats form {what}: blend outputs differ from the "
+          f"stats-off kernel's (color, depth, normal, final_T, n_contrib: {same})")
+    pc, pref = on1[5], ref1[5]
+    e_sum = float((pc[0] - pref[0]).abs().max())
+    e_max = float((pc[1] - pref[1]).abs().max())
+    rel_sum = e_sum / max(float(pref[0].abs().max()), 1e-30)
+    rel_max = e_max / max(float(pref[1].abs().max()), 1e-30)
+    check(rel_sum <= TOL["stats_sum_rel"] and rel_max <= TOL["stats_max_rel"],
+          f"blend_forward stats form {what}: stream err rel {rel_sum:.3e} (sum) / "
+          f"{rel_max:.3e} (max)")
 
     g_color = (torch.sign(out1[0] - target) / (3 * H * W)).contiguous()
     bw = fwd + (out1[3], out1[4], g_color, torch.zeros((H, W), device=fields.device))
@@ -309,8 +403,13 @@ def check_blend(fields, sp, params, geo, target, what: str) -> dict:
                 evals=float(out1[4].to(torch.float64).sum()),
                 b1_bytes=pairs_in + 4 * 9 * H * W,
                 b2_bytes=pairs_in + 4 * 6 * H * W + 4 * 16 * sp.ma,
+                pair_contrib=pc, stats_err=max(e_sum, e_max), stats_rel_sum=rel_sum,
+                stats_rel_max=rel_max, stats_bytes=pairs_in + 4 * 9 * H * W + 4 * 2 * sp.ma,
                 b1_tol=f"abs {TOL['b1_abs']} (color, final_T); n_contrib exact",
-                b2_tol=f"rel {TOL['b2_rel']} of each row's max")
+                b2_tol=f"rel {TOL['b2_rel']} of each row's max",
+                stats_tol=(f"blend outputs bit-identical to stats off; stream rel "
+                           f"{TOL['stats_sum_rel']} (sum) / {TOL['stats_max_rel']} (max) "
+                           "of each row's max"))
 
 
 def phase_kernels(b) -> dict:
@@ -380,6 +479,20 @@ def phase_kernels(b) -> dict:
             library_ms=None,
             bound=bound_ms(c["b2_bytes"], BWD_OPS_PER_EVAL * c["evals"]),
             tol=c["b2_tol"])
+        rec["blend_forward_stats"] = dict(
+            max_abs_err=c["stats_err"],
+            ms=cuda_ms(lambda: KB.blend_forward(*c["fwd"], stats=True, **geo), 20),
+            plain_ms=cuda_ms(lambda: KB.blend_forward_plain(*c["fwd"], stats=True, **geo), 3, 1),
+            library_ms=None,
+            bound=bound_ms(c["stats_bytes"],
+                           (FWD_OPS_PER_EVAL + STATS_OPS_PER_EVAL) * c["evals"]),
+            tol=c["stats_tol"])
+        # B5 on the 2D stream (its record is taken at the mesh shapes)
+        c5 = check_segment_stats(c["pair_contrib"], pair_tri, sp, "2D")
+        say("kernels", kernel="segment_reduce_stats", shapes="bench-800-100k",
+            max_abs_err=c5["err"], sum_rel_err=c5["rel"],
+            ms=cuda_ms(lambda: KS.segment_reduce_stats(*c5["args"]), 50),
+            library_ms=cuda_ms(c5["library"], 50), bound_ms=bound_ms(c5["bytes"], c5["ops"])[0])
         out2 = c["out2"]
 
         # ---- B4 segment_reduce_pairs (the pack backward's inputs)
@@ -463,18 +576,27 @@ def phase_kernels_3d(dev) -> dict:
             c = check_blend(pack_fields(fmat, pair_tri), sp, params, geo, target, what)
             live = KB.LIVE_GRAD_ROWS[("3D", False)]
             c4 = check_segment_reduce(c["out2"][:live], pair_tri, sp, what)
+            c5 = check_segment_stats(c["pair_contrib"], pair_tri, sp, what)
         ms1 = cuda_ms(lambda: KB.blend_forward(*c["fwd"], **geo), 20)
+        ms1s = cuda_ms(lambda: KB.blend_forward(*c["fwd"], stats=True, **geo), 20)
         ms2 = cuda_ms(lambda: KB.blend_backward(*c["bw"], **geo), 20)
+        ms5 = cuda_ms(lambda: KS.segment_reduce_stats(*c5["args"]), 50)
         g1 = gamma == 1.0
         bound1 = bound_ms(c["b1_bytes"], FWD_OPS_PER_EVAL_3D[g1] * c["evals"])
+        bound1s = bound_ms(c["stats_bytes"],
+                           (FWD_OPS_PER_EVAL_3D[g1] + STATS_OPS_PER_EVAL) * c["evals"])
         bound2 = bound_ms(c["b2_bytes"], BWD_OPS_PER_EVAL_3D[g1] * c["evals"])
+        bound5 = bound_ms(c5["bytes"], c5["ops"])
         say("kernels_3d", gamma=gamma, tiles=int(sp.tile_counts.shape[0]),
             num_pairs=int(sp.num_pairs), pairs_per_triangle=ppt,
             pair_pixel_evals=c["evals"], b1_err=c["b1_err"],
             b1_n_contrib_mismatch=c["n_contrib_mismatch"], b2_rel_err=c["b2_rel"],
             b2_max_abs_err=c["b2_err"], b1_ms=ms1, b1_bound_ms=bound1[0], b2_ms=ms2,
-            b2_bound_ms=bound2[0], b3_mismatch=err3, b4_rows=live, b4_rel_err=c4["rel"],
-            b4_max_abs_err=c4["err"],
+            b2_bound_ms=bound2[0], b1_stats_ms=ms1s, b1_stats_bound_ms=bound1s[0],
+            b1_stats_rel_err_sum=c["stats_rel_sum"], b1_stats_rel_err_max=c["stats_rel_max"],
+            b3_mismatch=err3, b4_rows=live, b4_rel_err=c4["rel"],
+            b4_max_abs_err=c4["err"], b5_sum_rel_err=c5["rel"], b5_max_abs_err=c5["err"],
+            b5_ms=ms5, b5_bound_ms=bound5[0],
             b3_ms=cuda_ms(lambda: KS.relayout_pairs(*args3), 50),
             b4_ms=cuda_ms(lambda: KS.segment_reduce_pairs(*c4["args"]), 50))
         if not g1:
@@ -486,6 +608,16 @@ def phase_kernels_3d(dev) -> dict:
                 max_abs_err=c["b2_err"], ms=ms2,
                 plain_ms=cuda_ms(lambda: KB.blend_backward_plain(*c["bw"], **geo), 3, 1),
                 library_ms=None, bound=bound2, tol=c["b2_tol"])
+            rec["blend_forward_3d_stats"] = dict(
+                max_abs_err=c["stats_err"], ms=ms1s,
+                plain_ms=cuda_ms(lambda: KB.blend_forward_plain(*c["fwd"], stats=True, **geo),
+                                 3, 1),
+                library_ms=None, bound=bound1s, tol=c["stats_tol"])
+            rec["segment_reduce_stats"] = dict(
+                max_abs_err=c5["err"], ms=ms5,
+                plain_ms=cuda_ms(lambda: KS.segment_reduce_stats_plain(*c5["args"]), 20),
+                library_ms=cuda_ms(c5["library"], 50), bound=bound5,
+                tol=f"sums rel {TOL['b5_rel']} of the max, maxes exact")
     for name, r in rec.items():
         say("kernels_3d", kernel=name, gamma=50.0, max_abs_err=r["max_abs_err"], tol=r["tol"],
             ms=round(r["ms"], 4), plain_ms=round(r["plain_ms"], 3),
@@ -495,7 +627,8 @@ def phase_kernels_3d(dev) -> dict:
 
 def phase_reference(dev) -> None:
     """The 2D and the 3D kernel pipelines vs their dense oracles on a small
-    scene (64x64); the 3D one at gamma 1 and 50."""
+    scene (64x64), with the contribution statistics (B1's stream, owner
+    sort, B5); the 3D one at gamma 1 and 50."""
     import torch
     from triangle_splatting_tpu_torch.ops.projection import RasterSettings
     from triangle_splatting_tpu_torch.ops.rasterize import rasterize
@@ -513,14 +646,21 @@ def phase_reference(dev) -> None:
                                        torch.as_tensor(s["opacity"]).to(dev), None, cam, st,
                                        gamma=gamma, background=torch.ones(3, device=dev),
                                        bg_depth=10.0, colors=torch.as_tensor(s["rgb"]).to(dev),
-                                       impl=impl)
+                                       impl=impl, need_stats=True)
         d = float((outs["cuda"]["render"] - outs["oracle"]["render"]).abs().max())
         nc = int((outs["cuda"]["n_contrib"] != outs["oracle"]["n_contrib"]).sum())
-        # the JAX package's Pallas-vs-oracle budget (tests/test_rasterize.py)
+        ds = {k: float((outs["cuda"][k] - outs["oracle"][k]).abs().max())
+              for k in ("contrib_sum", "contrib_max")}
+        # the JAX package's Pallas-vs-oracle budgets (tests/test_rasterize.py)
         check(d <= 6e-4, f"{variant} kernel pipeline vs oracle render err {d:.3e} > 6e-4")
         check(nc == 0, f"{variant} kernel pipeline vs oracle n_contrib differs in {nc} pixels")
+        check(max(ds.values()) <= TOL["oracle_stats_abs"],
+              f"{variant} kernel pipeline vs oracle statistics err {ds}")
+        check(float(outs["cuda"]["contrib_sum"].max()) > 0, f"{variant}: zero statistics")
         say("reference", variant=variant, gamma=gamma, render_max_abs_err=d,
-            n_contrib_mismatch=nc, tol="6e-4 abs")
+            n_contrib_mismatch=nc, contrib_sum_max_abs_err=ds["contrib_sum"],
+            contrib_max_max_abs_err=ds["contrib_max"],
+            tol=f"render 6e-4 abs, statistics {TOL['oracle_stats_abs']} abs")
 
 
 def phase_rasterize(b) -> float:
@@ -612,6 +752,7 @@ def phase_train(dev, root: Path) -> dict:
         check(launches[name] > 0, f"train: kernel {name} was never launched")
     check(launches["blend_forward_3d"] == launches["blend_backward_3d"] == 0,
           "train: the photo path launched a 3D blend kernel")
+    check_no_stats_launches(launches, "train")
     check(int(trainer.state.active_sh_degree) == 3, "train: SH degree did not reach 3")
     say("train", ms_per_step=round(secs / TRAIN_ITERS * 1e3, 3), steps=TRAIN_ITERS,
         peak_mem_gib=round(peak / 2**30, 3),
@@ -643,9 +784,9 @@ def profile_steps(trainer, phase: str = "profile", steps: int = 10) -> None:
         t0 = time.perf_counter()
         for i, camera in enumerate(cams):
             it = TRAIN_ITERS + 1 + i
-            trainer.params, trainer.opt, _, _ = trainer._train_step(
+            trainer.params, trainer.opt, trainer.state, _, _ = trainer._train_step(
                 trainer._settings_for(camera), trainer.params, trainer.opt,
-                trainer.state, camera, trainer._loss_weights(it), trainer._lrs(it), bg)
+                trainer.state, camera, trainer._loss_weights(it), trainer._lrs(it), bg, it)
             trainer._model_update(it)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
@@ -731,6 +872,7 @@ def phase_mesh_train(dev, root: Path) -> dict:
               f"mesh: kernel {name} launched {launches[name]} times in {TRAIN_ITERS} steps")
     check(launches["blend_forward"] == launches["blend_backward"] == 0,
           "mesh: the 3D path launched a 2D blend kernel")
+    check_no_stats_launches(launches, "mesh")
     say("mesh", ms_per_step=round(secs / TRAIN_ITERS * 1e3, 3), steps=TRAIN_ITERS,
         render_size=MESH_RES, peak_mem_gib=round(peak / 2**30, 3),
         triangles=int(trainer.state.alive.sum()), ste_triangles=trainer.triangle_count(),
@@ -738,6 +880,107 @@ def phase_mesh_train(dev, root: Path) -> dict:
         psnr_train_before=psnr0, psnr_train_after=psnr1, launches=launches,
         pairs_per_triangle=trainer._ppt)
     profile_steps(trainer, "mesh_profile")
+    return launches
+
+
+def phase_mesh_adc(dev, root: Path) -> dict:
+    """The mesh recipe as shipped, its statistic / scale_pruning /
+    contribution_pruning blocks included, cut to 50 steps: the statistic
+    window over steps (5, 40], scale pruning every 10 and contribution
+    pruning every 20 steps in (5, 40] (so at 20 and 40), the gamma anneal
+    at steps 10-40, and target_point_num 93,000 (run_experiments.py's
+    "ship" preset; the recipe ships null, on which the JAX trainer
+    raises). Every other knob is the recipe's. Each step renders with the
+    contribution statistics (B1-3D's stats form, owner sort, B5)."""
+    import numpy as np
+    import torch
+    from triangle_splatting_tpu_torch.ops.cuda import reset_launches
+    from triangle_splatting_tpu_torch.trainers import build_trainer
+    from triangle_splatting_tpu_torch.utils.config import loadConfig
+
+    cfg = loadConfig(REPO / "config" / "NerfSynthetic_VanillaTS_mesh.yaml")
+    mu = cfg.model.model_update
+    start, end = ADC_STAT_WINDOW
+    mu.statistic.start_iter, mu.statistic.end_iter = start, end
+    mu.scale_pruning.start_iter, mu.scale_pruning.end_iter = start, end
+    mu.scale_pruning.interval_iter = ADC_SCALE_INTERVAL
+    cp = mu.contribution_pruning
+    cp.start_iter, cp.end_iter, cp.interval_iter = start, end, ADC_CONTRIB_INTERVAL
+    cp.target_point_num = ADC_TARGET
+    mu.gamma_schedule.start_iter, mu.gamma_schedule.end_iter = 10, 40
+    cfg.dataset.local_dir = str(root)
+    t = cfg.trainer
+    t.output_dir = str(WORK / "out_mesh_adc")
+    t.iterations = TRAIN_ITERS
+    t.log_interval_iter = 10
+    t.initial_eval = False
+    t.use_tensorboard = False
+    t.seed = 0
+
+    trainer = build_trainer(cfg, log_file=False)
+    trainer._init_model()
+    alive0 = int(trainer.state.alive.sum())
+    # host time at the end of each step (the loop's last call), to split
+    # the steps at which a pruning fired from the others
+    stamps = []
+
+    def timed_model_update(it, update=trainer._model_update):
+        update(it)
+        stamps.append(time.perf_counter())
+    trainer._model_update = timed_model_update
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    del trainer._model_update
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    losses = torch.stack(trainer.loss_history).cpu().numpy()
+    n = TRAIN_ITERS
+    check(len(losses) == n, f"mesh_adc: expected {n} losses, got {len(losses)}")
+    check(bool(np.isfinite(losses).all()), "mesh_adc: non-finite loss")
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    check(last < first, f"mesh_adc: loss did not fall (first10 {first:.5f}, last10 {last:.5f})")
+    gamma = float(trainer.state.gamma)
+    check(abs(gamma - 50.0) <= 1e-3, f"mesh_adc: gamma ended at {gamma}, not 50")
+    for name in ("blend_forward_3d_stats", "segment_reduce_stats", "blend_backward_3d",
+                 "relayout_pairs", "segment_reduce_pairs"):
+        check(launches[name] == n, f"mesh_adc: kernel {name} launched {launches[name]} "
+              f"times in {n} steps")
+    for name in ("blend_forward", "blend_forward_3d", "blend_forward_stats", "blend_backward"):
+        check(launches[name] == 0, f"mesh_adc: kernel {name} launched {launches[name]} times")
+    hist = trainer.prune_history
+    contrib = [(it, k) for it, kind, k in hist if kind == "contribution"]
+    scale = [(it, k) for it, kind, k in hist if kind == "scale"]
+    due = [it for it in range(start + 1, end + 1) if it % ADC_CONTRIB_INTERVAL == 0]
+    check([it for it, _ in contrib] == due, f"mesh_adc: contribution pruning fired at "
+          f"{contrib}, due at {due}")
+    check(all(k > 0 for _, k in contrib), f"mesh_adc: a contribution pruning removed nothing {contrib}")
+    alive1 = int(trainer.state.alive.sum())
+    check(alive0 - alive1 == sum(k for _, _, k in hist),
+          f"mesh_adc: alive {alive0} -> {alive1}, logged prunes {hist}")
+    st = trainer.state
+    alive = st.alive
+    seen = float((st.gradient_denom[alive] >= 1).float().mean())
+    check(seen >= 0.5, f"mesh_adc: only {seen:.3f} of the alive rows have gradient_denom >= 1")
+    check(bool(torch.isfinite(st.gradient_accum).all()), "mesh_adc: non-finite gradient_accum")
+    fired = {it for it, _, _ in hist}
+    steps = np.diff(np.array([t0] + stamps)) * 1e3
+    quiet = [ms for it, ms in zip(range(1, n + 1), steps) if it not in fired]
+    say("mesh_adc", ms_per_step=round(secs / n * 1e3, 3), steps=n,
+        ms_per_step_without_firings=round(float(np.mean(quiet)), 3),
+        ms_firing_steps={it: round(float(steps[it - 1]), 3) for it in sorted(fired)},
+        render_size=MESH_RES, peak_mem_gib=round(peak / 2**30, 3), alive_before=alive0,
+        alive_after=alive1, contribution_pruned=contrib, scale_pruned=scale,
+        gradient_denom_seen_share=seen, ste_triangles=trainer.triangle_count(),
+        gamma_final=gamma, loss_first10=first, loss_last10=last, launches=launches,
+        pairs_per_triangle=trainer._ppt)
+    profile_steps(trainer, "mesh_adc_profile")
     return launches
 
 
@@ -766,15 +1009,17 @@ def main() -> int:
         phase_reference(dev)
         phase_rasterize(bench)
         shutil.rmtree(WORK, ignore_errors=True)
-        launches = phase_train(dev, build_dataset(dev, "soup"))
-        mesh_launches = phase_mesh_train(dev, build_dataset(dev, "surface"))
+        runs = dict(train=phase_train(dev, build_dataset(dev, "soup")))
+        surface = build_dataset(dev, "surface")
+        runs["mesh"] = phase_mesh_train(dev, surface)
+        runs["mesh_adc"] = phase_mesh_adc(dev, surface)
     except SmokeFailure as e:
         print(f"FAIL {e}", flush=True)
         return 1
     kernels = []
     for name, r in rec.items():
         # each kernel's launches in the training run of its own path
-        n = mesh_launches[name] if name.endswith("_3d") else launches[name]
+        n = runs[PATH_OF[name]][name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],

@@ -132,6 +132,92 @@ def test_blend_kernels_match_plain(dev, variant, case):
     assert not bool(got[:, ts[-1]:].any())
 
 
+@pytest.mark.parametrize("variant,case", [
+    *(pytest.param("2D", c, id=f"case{i}") for i, c in enumerate(CASES)),
+    *(pytest.param("3D", c, id=f"3d-case{i}") for i, c in enumerate(CASES_3D))])
+def test_blend_forward_stats_matches_plain(dev, variant, case):
+    """B1's stats form: color, final_T and n_contrib bit-identical to the
+    stats-off kernel's (the stream is a side output); the per-pair stream
+    against the plain version: the max exact (the same rounded per-pixel
+    values), the sum within 1e-5 of its row's max (warp trees in another
+    order); zeros where no pair is. Launches count under "<variant>_stats"."""
+    P, W, H, seed, gamma, orange = case
+    sp, _, fields, params = pipeline_inputs(case, dev, variant)
+    geo = dict(image_width=W, image_height=H, tile_h=32, tile_w=32, variant=variant)
+    args = (fields, sp.astarts, sp.tile_counts, params)
+    n_fwd = dict(KB.blend_forward.launches)
+    off = KB.blend_forward(*args, **geo)
+    on = KB.blend_forward(*args, stats=True, **geo)
+    ref = KB.blend_forward_plain(*args, stats=True, **geo)
+    torch.cuda.synchronize()
+    assert KB.blend_forward.launches == {**n_fwd, variant: n_fwd[variant] + 1,
+                                         f"{variant}_stats": n_fwd[f"{variant}_stats"] + 1}
+    for a, b in zip(on[:5], off):
+        assert torch.equal(a, b)
+    pc, want = on[5], ref[5]
+    assert pc.shape == (2, fields.shape[1]) and bool(torch.isfinite(pc).all())
+    assert torch.equal(pc[1], want[1])
+    assert float((pc[0] - want[0]).abs().max()) <= 1e-5 * float(want[0].abs().max())
+    assert float(want[0].max()) > 0 and not bool(pc[:, int(sp.astarts[-1]):].any())
+
+
+@pytest.mark.parametrize("seed,M,P,maxlen", [
+    (0, 128 * 37, 700, 12), (1, 128 * 8, 2000, 1), (2, 128 * 64, 9, 2000)])
+def test_segment_reduce_stats_kernel_matches_plain(dev, seed, M, P, maxlen):
+    """B5 against its plain version: sums within 1e-5 of the largest
+    (float32 loop against a float64 prefix sum), maxes exact, NaN past
+    nvalid never read, empty segments 0."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, maxlen + 1, P)
+    nvalid = int(min(counts.sum(), M) * 0.9)
+    offs = np.minimum(np.concatenate([[0], np.cumsum(counts)]), M)
+    sc = rng.uniform(0, 2, M).astype(np.float32)
+    mc = rng.uniform(0, 1, M).astype(np.float32)
+    sc[nvalid:] = np.nan
+    mc[nvalid:] = np.nan
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    args = (t(sc), t(mc), t(offs[:-1].astype(np.int32)), t(offs[1:].astype(np.int32)),
+            torch.tensor(nvalid, dtype=torch.int32, device=dev))
+    n = KS.segment_reduce_stats.launches
+    gs, gm = KS.segment_reduce_stats(*args)
+    ws, wm = KS.segment_reduce_stats_plain(*args)
+    torch.cuda.synchronize()
+    assert KS.segment_reduce_stats.launches == n + 1
+    assert bool(torch.isfinite(gs).all()) and bool(torch.isfinite(gm).all())
+    assert float((gs - ws).abs().max()) <= 1e-5 * float(ws.abs().max())
+    assert torch.equal(gm, wm)
+    empty = args[2] == args[3]
+    assert not bool(gs[empty].any()) and not bool(gm[empty].any())
+
+
+@pytest.mark.parametrize("variant", ["2D", "3D"])
+def test_rasterize_stats_cuda_matches_cpu(dev, variant):
+    """rasterize(need_stats=True) on the card (B1 stats form, owner sort,
+    B5) vs its plain versions on the CPU. Two float32 pipelines on two
+    devices (exp/log/sqrt differ by an ulp) may flip an isolated (pair,
+    pixel) across the alpha >= 1/255 cut, as test_rasterize_cuda_matches_cpu
+    allows: that moves the pair's contribution by < 1/255 and those of the
+    pixel's later pairs by < 1/255 together (on the H100 one 2D triangle
+    moved by 3.9e-3). So contrib_sum / contrib_max within the JAX package's
+    5e-4 budget (tests/test_rasterize.py) for all but a few triangles, and
+    within 2/255 for those."""
+    s = make_random_scene(300, seed=6)
+    st = RasterSettings(image_width=96, image_height=64, rich_info=False,
+                        rasterizer_type=variant)
+    res = {}
+    for d in ("cpu", dev):
+        out = rasterize(*(torch.as_tensor(s[k]).to(d) for k in ("vertex", "opacity")), None,
+                        make_camera(96, 64, device=d), st, gamma=1.0,
+                        background=torch.ones(3, device=d), bg_depth=10.0,
+                        colors=torch.as_tensor(s["rgb"]).to(d), need_stats=True)
+        res[str(d)] = {k: out[k].cpu() for k in ("contrib_sum", "contrib_max")}
+    for k in ("contrib_sum", "contrib_max"):
+        d = (res["cuda"][k] - res["cpu"][k]).abs()
+        assert float(d.max()) <= 2 / 255
+        assert int((d > 5e-4).sum()) <= 8
+    assert float(res["cuda"]["contrib_sum"].max()) > 1.0
+
+
 def test_rasterize_3d_cuda_matches_cpu(dev):
     """The 3D tile pipeline on the card vs its plain versions on the CPU,
     forward and gradients, at the solidify end of the anneal (gamma 50)."""

@@ -408,8 +408,8 @@ def test_one_mesh_train_step_matches_jax(dataset, tmp_path):
         assert rel(g, w) <= 5e-3, (name, rel(g, w))
     assert not bool(aux["overflow"])
     # and the step itself: Adam moves the parameters, the STE count is logged
-    p2, _, loss2, _ = tt._train_step(tt._settings_for(tcam), p, o, s, tcam,
-                                     tt._loss_weights(1), tt._lrs(1), torch.ones(3))
+    p2, _, _, loss2, _ = tt._train_step(tt._settings_for(tcam), p, o, s, tcam,
+                                        tt._loss_weights(1), tt._lrs(1), torch.ones(3), 1)
     assert float(loss2) == float(tl)
     assert not torch.equal(p2.vertex, p.vertex)
     tt.params, tt.state = p2, s
@@ -445,9 +445,9 @@ def test_mesh_anneal_losses_match_jax(dataset, tmp_path):
             jt._settings_for(jviews[k]), jt.params, jt.opt, jt.state,
             jviews[k].strip_static(), sched, None)
         jt._model_update(it)
-        tt.params, tt.opt, tl, _ = tt._train_step(
+        tt.params, tt.opt, tt.state, tl, _ = tt._train_step(
             tt._settings_for(tviews[k]), tt.params, tt.opt, tt.state, tviews[k],
-            tt._loss_weights(it), tt._lrs(it), torch.ones(3))
+            tt._loss_weights(it), tt._lrs(it), torch.ones(3), it)
         tt._model_update(it)
         losses[:, it - 1] = float(jl), float(tl)
         assert float(tt.state.gamma) == pytest.approx(float(jt.state.gamma), rel=1e-6)

@@ -110,19 +110,12 @@ def test_unported_variants_raise():
     v, o = torch.as_tensor(inp["vertex"]), torch.as_tensor(inp["opacity"])
     c = torch.full((P, 3), 0.5)
     with pytest.raises(NotImplementedError):
-        t_rasterize(v, o, None, cam, TRS(W, H, rich_info=False), colors=c,
-                    need_stats=True)
-    with pytest.raises(NotImplementedError):
         t_rasterize(v, o, None, cam, TRS(W, H, rich_info=True), colors=c)
     # the 3D variant is ported (tests/test_torch_mesh.py) without its rich
-    # (depth/normal) and statistics streams
+    # (depth/normal) stream; the statistics are (tests/test_torch_stats.py)
     with pytest.raises(NotImplementedError):
         t_rasterize(v, o, None, cam, TRS(W, H, rich_info=True,
                                          rasterizer_type="3D"), colors=c)
-    with pytest.raises(NotImplementedError):
-        t_rasterize(v, o, None, cam, TRS(W, H, rich_info=False,
-                                         rasterizer_type="3D"), colors=c,
-                    need_stats=True)
     with pytest.raises(NotImplementedError):
         t_rasterize(v, o, None, cam, TRS(W, H, rich_info=False,
                                          rasterizer_type="GS"), colors=c)

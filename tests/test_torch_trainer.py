@@ -187,29 +187,12 @@ def test_trainer_e2e_loss_falls(dataset, tmp_path):
     assert int(tr.state.active_sh_degree) == 1
 
 
-def mesh_recipe_block(name):
-    """One ADC block of config/NerfSynthetic_VanillaTS_mesh.yaml, on a 3D
-    model config (the mesh recipe's rasterizer)."""
-    from pathlib import Path
-
-    from triangle_splatting_tpu_torch.utils.config import loadConfig
-    mesh = loadConfig(Path(__file__).resolve().parents[1] / "config"
-                      / "NerfSynthetic_VanillaTS_mesh.yaml").to_dict()
-    return {"model": {"rasterizer_type": "3D", "ste_threshold": 0.3,
-                      "render_up_scale": 2,
-                      "model_update": {name: mesh["model"]["model_update"][name]}}}
-
-
 @pytest.mark.parametrize("patch", [
     {"model": {"model_update": {"densification": {"start_iter": 0}}}},
-    {"model": {"model_update": {"statistic": {"start_iter": 0}}}},
     {"trainer": {"save_iterations": [30]}},
     {"trainer": {"geometry_loss": {"w_geometry": 0.1}}},
     {"trainer": {"data_parallel": 2}},
     {"model": {"use_color_affine": True}},
-    mesh_recipe_block("statistic"),
-    mesh_recipe_block("scale_pruning"),
-    mesh_recipe_block("contribution_pruning"),
     {"model": {"rasterizer_type": "GS"}},
 ])
 def test_unported_config_blocks_raise(dataset, tmp_path, patch):
@@ -226,26 +209,26 @@ def test_unported_config_blocks_raise(dataset, tmp_path, patch):
         build_trainer(dict_to_config(cfg), device="cpu", log_file=False)
 
 
-def test_mesh_recipe_without_adc_builds(dataset, tmp_path):
-    """The shipped mesh recipe builds once its three ADC blocks are
-    removed (3D, render_up_scale 2, STE, gamma rescale); as shipped it is
-    refused at construction, naming one of them."""
+def test_mesh_recipe_builds(dataset, tmp_path):
+    """The shipped mesh recipe builds with its statistic, scale_pruning
+    and contribution_pruning blocks (3D, render_up_scale 2, STE, gamma
+    rescale). It ships target_point_num: null, and the first contribution
+    pruning raises the JAX trainer's ValueError
+    (tests/test_trainer_e2e.py::test_contribution_pruning_null_target_actionable)."""
     from pathlib import Path
 
     from triangle_splatting_tpu_torch.utils.config import loadConfig
-
-    def recipe():
-        cfg = loadConfig(Path(__file__).resolve().parents[1] / "config"
-                         / "NerfSynthetic_VanillaTS_mesh.yaml")
-        cfg.dataset.local_dir = str(dataset)
-        cfg.trainer.output_dir = str(tmp_path / "out")
-        cfg.trainer.iterations = 50       # the saves at 20k / 60k lie beyond
-        return cfg
-    with pytest.raises(NotImplementedError,
-                       match="statistic|scale_pruning|contribution_pruning"):
-        build_trainer(recipe(), device="cpu", log_file=False)
-    cfg = recipe()
-    for name in ("statistic", "scale_pruning", "contribution_pruning"):
-        setattr(cfg.model.model_update, name, None)
+    cfg = loadConfig(Path(__file__).resolve().parents[1] / "config"
+                     / "NerfSynthetic_VanillaTS_mesh.yaml")
+    cfg.dataset.local_dir = str(dataset)
+    cfg.trainer.output_dir = str(tmp_path / "out")
+    cfg.trainer.iterations = 50       # the saves at 20k / 60k lie beyond
     tr = build_trainer(cfg, device="cpu", log_file=False)
     assert tr.model_cfg.rasterizer_type == "3D" and tr.model_cfg.render_up_scale == 2
+    assert tr._track_stats and tr.scene_bbox is None
+    tr._init_model()
+    cp = cfg.model.model_update.contribution_pruning
+    assert cp.target_point_num is None
+    tr._model_update(cp.start_iter)             # not a firing: start is exclusive
+    with pytest.raises(ValueError, match="target_point_num"):
+        tr._model_update(cp.start_iter + cp.interval_iter)

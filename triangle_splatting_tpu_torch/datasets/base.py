@@ -129,6 +129,11 @@ class BaseDatasetFactory:
     def getPointCloud(self):
         raise NotImplementedError
 
+    def getSceneInfo(self) -> dict | None:
+        """Scene metadata (``bbox_xyz`` for scenes with a bounding box);
+        None: no box, every point counts as inside."""
+        return None
+
     def close(self) -> None:
         """Stop the prefetch threads."""
         if self._train_loader is not None:

@@ -1,11 +1,13 @@
 """VanillaTS triangle model in PyTorch.
 
-Port of ``triangle_splatting_tpu/models/triangle.py`` for the fixed-count
-photo and mesh training paths: the parameter / state / Adam containers,
-the derived quantities, ``forward`` (STE, gamma rescale, background depth
-and ``render_up_scale`` as the JAX function does them), ``adam_update``
-(eps 1e-15) and ``create_from_points``. Adaptive density control is not
-ported yet.
+Port of ``triangle_splatting_tpu/models/triangle.py`` for the photo and
+mesh training paths: the parameter / state / Adam containers, the derived
+quantities, ``forward`` (STE, gamma rescale, background depth and
+``render_up_scale`` as the JAX function does them), ``adam_update`` (eps
+1e-15), ``create_from_points``, and the adaptive density control the mesh
+recipe runs (statistics update, scale and contribution pruning). The
+other ADC operations (densify, opacity pruning / clipping, scale
+clipping, opacity reset) are not ported yet.
 
 Parameters stay plain dataclasses of tensors at a fixed capacity C with an
 ``alive`` mask, the layout the JAX package uses, so weights convert one to
@@ -26,7 +28,8 @@ from ..ops import sh as sh_mod
 from ..ops.projection import RasterSettings, safe_norm
 from ..ops.rasterize import rasterize
 from ..utils.camera import Camera
-from .model_utils import inter_point_distance_np, inverse_sigmoid_np
+from .adc_common import contribution_prune_mask, reset_contribution_stats
+from .model_utils import get_inside_mask, inter_point_distance_np, inverse_sigmoid_np
 
 
 @dataclass
@@ -274,6 +277,26 @@ def adam_update(params: TriangleParams, opt: AdamState,
                       step=step))
 
 
+def _mask_rows(leaf: torch.Tensor, mask: torch.Tensor, value=0.0) -> torch.Tensor:
+    """Set the rows of a (C, ...) leaf where mask is True to ``value``."""
+    m = mask.reshape((-1,) + (1,) * (leaf.dim() - 1))
+    return torch.where(m, torch.full_like(leaf, value), leaf)
+
+
+@torch.no_grad()
+def zero_moments(opt: AdamState, mask: torch.Tensor,
+                 groups=("vertex", "opacity", "f_dc", "f_rest")) -> AdamState:
+    """Reset the Adam moments of the selected rows (the reference's state
+    surgery on pruned rows)."""
+    def fix(tp: TriangleParams) -> TriangleParams:
+        kw = {}
+        for name in PARAM_GROUPS:
+            leaf = getattr(tp, name)
+            kw[name] = leaf if leaf is None or name not in groups else _mask_rows(leaf, mask)
+        return TriangleParams(**kw)
+    return AdamState(m=fix(opt.m), v=fix(opt.v), step=opt.step)
+
+
 # ---------------------------------------------------------------------------
 # Initialization (host side)
 # ---------------------------------------------------------------------------
@@ -360,3 +383,89 @@ def create_from_points(points: np.ndarray, colors: np.ndarray,
     state = TriangleState.create(cap, device=dev)
     state.alive = torch.as_tensor(np.arange(cap) < n).to(dev)
     return params, state
+
+
+# ---------------------------------------------------------------------------
+# Adaptive density control (fixed shape: rows die, the capacity stays)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def update_statistics(state: TriangleState, center2d_grad: torch.Tensor,
+                      radii: torch.Tensor, contrib_sum: torch.Tensor,
+                      contrib_max: torch.Tensor,
+                      visible: torch.Tensor) -> TriangleState:
+    """Accumulate the ADC statistics of one view over its visible rows: the
+    screen-space centroid gradient norm and a view count, the running max
+    of the per-view contribution sum and max, and of the radius."""
+    vis = visible
+    visf = vis.to(torch.float32)
+    gnorm = torch.linalg.vector_norm(center2d_grad, dim=-1)
+
+    def running_max(old, new):
+        return torch.where(vis, torch.maximum(old, new), old)
+
+    return replace(
+        state,
+        gradient_accum=state.gradient_accum + torch.where(vis, gnorm, torch.zeros_like(gnorm)),
+        gradient_denom=state.gradient_denom + visf,
+        contrib_sum=running_max(state.contrib_sum, contrib_sum),
+        contrib_max=running_max(state.contrib_max, contrib_max),
+        contrib_denom=state.contrib_denom + visf,
+        max_radii2d=running_max(state.max_radii2d, radii.to(torch.float32)),
+    )
+
+
+@torch.no_grad()
+def prune(params: TriangleParams, opt: AdamState, state: TriangleState,
+          prune_mask: torch.Tensor):
+    """Deactivate rows: their statistics and Adam moments are cleared so a
+    later reuse of the slot starts clean. Returns (params, opt, state)."""
+    prune_mask = prune_mask & state.alive
+
+    def zero(x):
+        return torch.where(prune_mask, torch.zeros_like(x), x)
+
+    state = replace(
+        state, alive=state.alive & ~prune_mask,
+        gradient_accum=zero(state.gradient_accum),
+        gradient_denom=zero(state.gradient_denom),
+        max_radii2d=zero(state.max_radii2d),
+        contrib_sum=zero(state.contrib_sum),
+        contrib_max=zero(state.contrib_max),
+        contrib_denom=zero(state.contrib_denom),
+    )
+    return params, zero_moments(opt, prune_mask), state
+
+
+@torch.no_grad()
+def scale_pruning(params, opt, state, radii_threshold, scale_threshold):
+    """Prune rows whose largest screen radius or mean side length exceeds
+    its threshold. Returns (params, opt, state, count)."""
+    mask = ((state.max_radii2d > radii_threshold)
+            | (get_scaling(params) > scale_threshold)) & state.alive
+    return prune(params, opt, state, mask) + (mask.sum(),)
+
+
+@torch.no_grad()
+def contribution_pruning(params, opt, state, *, min_view_count,
+                         target_point_num, prune_ratio, max_prune_ratio,
+                         contrib_max_ratio, scene_bbox=None,
+                         ste_threshold=None, inter_point_dist=None,
+                         sparsity_retain_ratio=0.0):
+    """Prune the lowest-contribution rows toward ``target_point_num``
+    (``adc_common.contribution_prune_mask``) and reset the contribution
+    statistics of every row the ranking considered. ``inter_point_dist``
+    (C,), if given, retains the sparsest rows of those to prune. Returns
+    (params, opt, state, count)."""
+    alive = state.alive
+    inside = get_inside_mask(get_xyz(params), scene_bbox) & alive
+    if ste_threshold is not None:
+        inside = inside & (get_opacity(params)[:, 0] > ste_threshold)
+    prune_mask, select = contribution_prune_mask(
+        state, inside, min_view_count=min_view_count,
+        target_point_num=target_point_num, prune_ratio=prune_ratio,
+        max_prune_ratio=max_prune_ratio, contrib_max_ratio=contrib_max_ratio,
+        inter_point_dist=inter_point_dist,
+        sparsity_retain_ratio=sparsity_retain_ratio)
+    state = reset_contribution_stats(state, select)
+    return prune(params, opt, state, prune_mask) + (prune_mask.sum(),)

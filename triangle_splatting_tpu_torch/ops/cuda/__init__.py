@@ -2,9 +2,10 @@
 ``ctypes`` wrappers and the plain PyTorch version beside each kernel.
 
 Each wrapper counts the launches of its kernel in ``<wrapper>.launches``:
-a dict by variant for the blend kernels, an int for the stream kernels.
-``reset_launches`` and ``launch_counts`` read and reset them all in one
-form."""
+a dict by form for the blend kernels (``"2D"``, ``"3D"``, and for the
+forward also ``"2D_stats"``, ``"3D_stats"``), an int for the stream
+kernels. ``reset_launches`` and ``launch_counts`` read and reset them all
+in one form."""
 
 
 def _counters() -> dict:
@@ -12,7 +13,8 @@ def _counters() -> dict:
     return {"blend_forward": blend.blend_forward,
             "blend_backward": blend.blend_backward,
             "relayout_pairs": streams.relayout_pairs,
-            "segment_reduce_pairs": streams.segment_reduce_pairs}
+            "segment_reduce_pairs": streams.segment_reduce_pairs,
+            "segment_reduce_stats": streams.segment_reduce_stats}
 
 
 def reset_launches() -> None:
@@ -22,8 +24,8 @@ def reset_launches() -> None:
 
 
 def launch_counts() -> dict[tuple[str, str | None], int]:
-    """Launches by (kernel, variant); the variant is None for kernels that
-    have one form only."""
+    """Launches by (kernel, form); the form is None for kernels that have
+    one form only."""
     out = {}
     for name, fn in _counters().items():
         if isinstance(fn.launches, dict):

@@ -3,12 +3,13 @@ alpha blend of the triangle rasterizers.
 
 Ports of ``triangle_splatting_tpu/ops/pallas/blend.py`` for the variants
 the photo and mesh training paths run: ``"2D"`` and ``"3D"``, each with
-rich info off and statistics off. Other variants raise
+rich info off; the forward with or without the per-pair contribution
+stream (``stats``) of the ADC statistic window. Other variants raise
 ``NotImplementedError``. The CUDA kernels are in ``csrc/blend.cu``. Each
 wrapper takes the kernel for CUDA tensors and the plain PyTorch version
 beside it for CPU tensors; there is no fallback from one to the other.
-``<wrapper>.launches`` counts the kernel launches per variant
-(``{"2D": n, "3D": n}``).
+``<wrapper>.launches`` counts the kernel launches per form: the variant,
+and for the forward with stats on ``"<variant>_stats"``.
 
 Layout contract (shared with ``ops/binning.py``): ``pairs`` is the
 field-major (16, MP) float32 buffer, tile t owns slots
@@ -50,12 +51,16 @@ VARIANTS = ("2D", "3D")
 _OPAC_RGB = {"2D": (6, 7), "3D": (9, 10)}
 
 
-def _require_ported_variant(variant: str, rich: bool, stats: bool) -> None:
-    if variant not in VARIANTS or rich or stats:
+def _require_ported_variant(variant: str, rich: bool) -> None:
+    if variant not in VARIANTS or rich:
         raise NotImplementedError(
-            f"blend kernels: only variants {VARIANTS} with rich=False, "
-            f"stats=False are ported (got variant={variant!r}, rich={rich}, "
-            f"stats={stats})")
+            f"blend kernels: only variants {VARIANTS} with rich=False are "
+            f"ported (got variant={variant!r}, rich={rich})")
+
+
+def _form(variant: str, stats: bool) -> str:
+    """Launch-count key of a forward form: "3D" or "3D_stats"."""
+    return f"{variant}_stats" if stats else variant
 
 
 def _grid(image_width: int, image_height: int, tile_h: int, tile_w: int):
@@ -152,11 +157,14 @@ def _tile(x: torch.Tensor, grid_h: int, grid_w: int, tile_h: int,
 
 def blend_forward_plain(pairs, tile_starts, tile_counts, params, *,
                         image_width: int, image_height: int, tile_h: int,
-                        tile_w: int, variant: str = "2D"):
+                        tile_w: int, variant: str = "2D", stats: bool = False):
     """Plain PyTorch B1: per tile, the dense (n_pairs, npix) alpha matrix
     and an exclusive ``cumprod`` of (1 - alpha) along the pairs (a scan
     over a non-innermost dimension, evaluated sequentially, so its
-    roundings are the kernel's). Works in the dtype of ``pairs``."""
+    roundings are the kernel's). With ``stats`` the per-pair stream is
+    the sum and the max over the tile's pixels of the ``contrib`` matrix,
+    zeros in every slot that holds no pair. Works in the dtype of
+    ``pairs``."""
     grid_w, grid_h = _grid(image_width, image_height, tile_h, tile_w)
     dev, dt = pairs.device, pairs.dtype
     n_tiles, npix = grid_w * grid_h, tile_h * tile_w
@@ -167,6 +175,7 @@ def blend_forward_plain(pairs, tile_starts, tile_counts, params, *,
     color = []
     final_t = []
     ncon = []
+    pair_contrib = torch.zeros((2, pairs.shape[1]), dtype=dt, device=dev) if stats else None
     for t in range(n_tiles):
         px, py = _tile_pixels(t, grid_w, tile_h, tile_w, dt, dev)
         T0 = ((px < image_width) & (py < image_height)).to(dt)
@@ -183,6 +192,9 @@ def blend_forward_plain(pairs, tile_starts, tile_counts, params, *,
         T_excl, T_incl = scan[:-1], scan[1:]
         alive = T_excl > T_EPS
         contrib = torch.where(alive, alpha * T_excl, torch.zeros_like(alpha))
+        if stats:
+            pair_contrib[0, starts[t]:starts[t] + n] = contrib.sum(dim=1)
+            pair_contrib[1, starts[t]:starts[t] + n] = contrib.amax(dim=1)
         color.append(f[rgb0:rgb0 + 3] @ contrib)
         T_min = torch.where(alive, T_incl, torch.full_like(T_incl, 2.0)).amin(dim=0)
         final_t.append(torch.minimum(T0, T_min))
@@ -193,9 +205,10 @@ def blend_forward_plain(pairs, tile_starts, tile_counts, params, *,
     color = color + final_t[None] * bg[:, None, None]
     depth = final_t * bg_depth
     geo = (grid_h, grid_w, tile_h, tile_w, image_height, image_width)
-    return (_untile(color, *geo), _untile(depth, *geo),
-            torch.zeros((3, image_height, image_width), dtype=dt, device=dev),
-            _untile(final_t, *geo), _untile(ncon, *geo))
+    out = (_untile(color, *geo), _untile(depth, *geo),
+           torch.zeros((3, image_height, image_width), dtype=dt, device=dev),
+           _untile(final_t, *geo), _untile(ncon, *geo))
+    return out + (pair_contrib,) if stats else out
 
 
 def blend_forward(pairs: torch.Tensor, tile_starts: torch.Tensor,
@@ -208,13 +221,17 @@ def blend_forward(pairs: torch.Tensor, tile_starts: torch.Tensor,
     Returns color (3, H, W), depth (H, W) (= final_T * bg_depth with rich
     off), normal (3, H, W) (zeros with rich off), final_T (H, W) and
     n_contrib (H, W) int32: the count of entries each pixel iterated while
-    its exclusive transmittance stayed above T_EPS.
+    its exclusive transmittance stayed above T_EPS. With ``stats`` a sixth
+    output, pair_contrib (2, MP): per pair slot the sum (row 0) and the max
+    (row 1) over the tile's pixels of alpha * T_excl while T_excl > T_EPS,
+    zeros in slots that hold no pair or that the tile never reached. The
+    first five outputs do not depend on ``stats``.
     """
-    _require_ported_variant(variant, rich, stats)
+    _require_ported_variant(variant, rich)
     grid_w, grid_h = _grid(image_width, image_height, tile_h, tile_w)
     dev = _check_inputs(pairs, tile_starts, tile_counts, params, grid_w * grid_h)
     kw = dict(image_width=image_width, image_height=image_height,
-              tile_h=tile_h, tile_w=tile_w, variant=variant)
+              tile_h=tile_h, tile_w=tile_w, variant=variant, stats=stats)
     if dev.type == "cpu":
         return blend_forward_plain(pairs, tile_starts, tile_counts, params, **kw)
     if dev.type != "cuda":
@@ -227,18 +244,23 @@ def blend_forward(pairs: torch.Tensor, tile_starts: torch.Tensor,
     normal = torch.empty((3, H, W), dtype=torch.float32, device=dev)
     final_t = torch.empty((H, W), dtype=torch.float32, device=dev)
     n_contrib = torch.empty((H, W), dtype=torch.int32, device=dev)
+    # every slot is written by the kernel (zeros where no pair contributes)
+    pair_contrib = (torch.empty((2, pairs.shape[1]), dtype=torch.float32, device=dev)
+                    if stats else None)
     lib = library("blend")
-    blend_forward.launches[variant] += 1
+    blend_forward.launches[_form(variant, stats)] += 1
     check_launch(lib.ts_blend_forward(
         pairs.data_ptr(), pairs.shape[1], tile_starts.data_ptr(),
         tile_counts.data_ptr(), params.data_ptr(), W, H, tile_w, tile_h,
-        grid_w, grid_w * grid_h, int(variant == "3D"), color.data_ptr(),
-        depth.data_ptr(), normal.data_ptr(), final_t.data_ptr(),
-        n_contrib.data_ptr(), _stream()), "blend_forward")
-    return color, depth, normal, final_t, n_contrib
+        grid_w, grid_w * grid_h, int(variant == "3D"), int(stats),
+        color.data_ptr(), depth.data_ptr(), normal.data_ptr(),
+        final_t.data_ptr(), n_contrib.data_ptr(),
+        pair_contrib.data_ptr() if stats else None, _stream()), "blend_forward")
+    out = (color, depth, normal, final_t, n_contrib)
+    return out + (pair_contrib,) if stats else out
 
 
-blend_forward.launches = dict.fromkeys(VARIANTS, 0)
+blend_forward.launches = {_form(v, s): 0 for s in (False, True) for v in VARIANTS}
 
 
 # ---------------------------------------------------------------------------
@@ -334,7 +356,7 @@ def blend_backward(pairs: torch.Tensor, tile_starts: torch.Tensor,
     normal outputs carry no gradient. Rows from ``LIVE_GRAD_ROWS`` on
     (10 for "2D", 13 for "3D"), padding slots and slots past the deepest
     contributor are zero."""
-    _require_ported_variant(variant, rich, False)
+    _require_ported_variant(variant, rich)
     grid_w, grid_h = _grid(image_width, image_height, tile_h, tile_w)
     dev = _check_inputs(pairs, tile_starts, tile_counts, params, grid_w * grid_h)
     H, W = image_height, image_width

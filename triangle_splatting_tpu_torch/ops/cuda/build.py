@@ -36,10 +36,11 @@ SIGNATURES = {
     "streams": {
         "ts_relayout_pairs": (_P, _P, _P, _P, _I, _P, _I, _P),
         "ts_segment_reduce_pairs": (_P, _I, _I, _P, _P, _P, _I, _P, _P),
+        "ts_segment_reduce_stats": (_P, _P, _I, _P, _P, _P, _I, _P, _P, _P),
     },
     "blend": {
         "ts_blend_forward": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _P, _P, _P, _P, _P, _P),
+                             _I, _P, _P, _P, _P, _P, _P, _P),
         "ts_blend_backward": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P, _P, _P, _P, _P, _P),
     },

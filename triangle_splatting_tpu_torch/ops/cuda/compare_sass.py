@@ -5,10 +5,12 @@
 NEW defaults to ``csrc/blend.cu``. Both are compiled for ``sm_90a`` with
 the flags of ``build.py`` into a cubin and disassembled with
 ``cuobjdump -sass``. Each kernel of OLD is matched to the kernel of NEW
-with the same name, or, where NEW made it a ``template <bool>``, to its
-``<false>`` instantiation. For each pair the script prints both ptxas
-resource lines and whether the two instruction streams are identical, and
-exits 1 if any differs. It needs ``nvcc`` and ``cuobjdump`` (CUDA toolkit).
+with the same name, or, where NEW added a trailing ``bool`` template
+parameter, to its ``false`` instantiation (``k`` to ``k<false>``,
+``k<true>`` to ``k<true, false>``). For each pair the script prints both
+ptxas resource lines and whether the two instruction streams are
+identical, and exits 1 if any differs. It needs ``nvcc`` and
+``cuobjdump`` (CUDA toolkit).
 """
 
 from __future__ import annotations
@@ -25,12 +27,24 @@ _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
 
 
 def kernel_name(mangled: str) -> str:
-    """``blend_forward_kernel`` or ``blend_forward_kernel<false>`` from a
-    mangled entry name."""
-    k = re.search(r"\d+([a-z_]*_kernel)(ILb([01])E)?", mangled)
+    """``blend_forward_kernel``, ``blend_forward_kernel<false>`` or
+    ``blend_forward_kernel<true, false>`` from a mangled entry name (bool
+    template arguments only)."""
+    k = re.search(r"\d+([a-z_]*_kernel)(I((?:Lb[01]E)+)E)?", mangled)
     if k is None:
         return mangled
-    return k.group(1) + {None: "", "0": "<false>", "1": "<true>"}[k.group(3)]
+    if k.group(3) is None:
+        return k.group(1)
+    args = ["true" if b == "1" else "false" for b in re.findall(r"Lb([01])E", k.group(3))]
+    return f"{k.group(1)}<{', '.join(args)}>"
+
+
+def counterpart(name: str) -> str:
+    """The name of ``name``'s instantiation with one more, trailing,
+    ``false`` bool template argument."""
+    if name.endswith(">"):
+        return name[:-1] + ", false>"
+    return name + "<false>"
 
 
 def compile_sass(src: Path, cubin: Path) -> tuple[dict, dict]:
@@ -72,7 +86,7 @@ def main(argv: list[str]) -> int:
         new, new_use = compile_sass(new_src, Path(tmp) / "new.cubin")
     differ = 0
     for k, insns in sorted(old.items()):
-        k_new = k if k in new else k + "<false>"
+        k_new = k if k in new else counterpart(k)
         if k_new not in new:
             print(f"{k}: no counterpart in {new_src.name}")
             differ += 1

@@ -5,14 +5,19 @@
 // B2  blend_backward  replaces triangle_splatting_tpu/ops/pallas/blend.py
 //                     blend_backward (:956, kernel _bwd_kernel :606)
 //
-// Two variants, each with rich info and contribution statistics off, as
-// template instantiations of the same kernels (Variant<k3D> below):
+// Two variants, each with rich info off, as template instantiations of the
+// same kernels (Variant<k3D> below):
 //   "2D" (photo training): 0..2 a1 = f0 + f1*px + f2*py, 3..5 a2 likewise,
 //        6 opacity, 7..9 rgb;
 //   "3D" (mesh training, perspective correct): 0..2 D = f0 + f1*px + f2*py,
 //        3..5 A1, 6..8 A2 likewise, a1 = A1 / D, a2 = A2 / D (the ray-plane
 //        barycentrics as ratios of three affine forms), 9 opacity,
 //        10..12 rgb.
+// The forward has a second template switch, kStats: the per-pair
+// contribution stream of the ADC statistic window (Pallas blend.py
+// :441-452, :475-493), (2, MP) float32 with row 0 = sum and row 1 = max
+// over the tile's pixels of contrib = alive ? alpha * T_excl : 0. With
+// kStats false the kernel is the stats-off kernel unchanged.
 //
 // What bounds them on the H100. Per (pair, pixel) evaluation the forward
 // does ~30 float32 operations including one exp ("3D": ~40 and one
@@ -42,7 +47,19 @@
 //    plain PyTorch version evaluates it, so no multiply-add contraction
 //    changes a rounding: the alpha mask, the transmittance and hence
 //    n_contrib match the plain version bit for bit, and only the order of
-//    sums differs. The build has no --use_fast_math.
+//    sums differs. The build has no --use_fast_math;
+//  - the stats form reduces each pair's contributions over the tile's
+//    pixels as B2 reduces its gradients: a fixed warp-shuffle tree for the
+//    sum and one for the max, then a fixed-order pass over the warps in
+//    shared memory. No float atomics, so the sums that rank triangles for
+//    pruning do not change from run to run. Its warps loop while any lane
+//    is live (__any_sync): a finished pixel contributes 0 and skips every
+//    state update, so color, final_T and n_contrib are those of the
+//    stats-off form bit for bit. It stages 128 pairs per batch, so the
+//    per-warp partials (128 x 33 x 2 floats) and the fields fit the 48 KB
+//    of static shared memory. Every slot of the (2, MP) stream is written:
+//    slots a tile never reached (early exit, alignment padding) and the
+//    buffer's tail past the last tile get zeros from the blocks.
 //
 // C interface: each entry point launches on the given stream and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
@@ -58,6 +75,7 @@ constexpr float kEccMax = 10.0f;                 // blend.py ECC_MAX
 constexpr float kMinAbsD = (float)1e-8;          // |ray . n| guard ("3D")
 constexpr int kNumFields = 16;
 constexpr int kFwdBatch = 256;                   // pairs staged per batch
+constexpr int kStatsBatch = 128;                 // ... in the stats form
 constexpr int kMaxWarps = 32;
 
 // Per variant: fields the kernels read, live gradient rows
@@ -147,16 +165,30 @@ __device__ __forceinline__ AlphaTerms alpha_terms(const float (&sf)[N][B], int j
   }
 }
 
-template <bool k3D>
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, off));
+  return v;
+}
+
+template <bool k3D, bool kStats>
 __global__ void __launch_bounds__(1024) blend_forward_kernel(
     const float* __restrict__ pairs, int mp,
     const int* __restrict__ tile_starts, const int* __restrict__ tile_counts,
     const float* __restrict__ params, int width, int height, int tile_w,
     int tile_h, int grid_w, float* __restrict__ color,
     float* __restrict__ depth, float* __restrict__ normal,
-    float* __restrict__ final_T, int* __restrict__ n_contrib) {
+    float* __restrict__ final_T, int* __restrict__ n_contrib,
+    float* __restrict__ pair_contrib) {
   using V = Variant<k3D>;
-  __shared__ float sf[V::kFields][kFwdBatch];
+  constexpr int kBatch = kStats ? kStatsBatch : kFwdBatch;
+  __shared__ float sf[V::kFields][kBatch];
   const int tile = blockIdx.x;
   const int tx = tile % grid_w, ty = tile / grid_w;
   const int lane = threadIdx.x;
@@ -171,28 +203,95 @@ __global__ void __launch_bounds__(1024) blend_forward_kernel(
   float T = inside ? 1.0f : 0.0f;
   float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
   int nc = 0;
-  for (int b0 = 0; b0 < count; b0 += kFwdBatch) {
+  int done = 0;   // stats form: slots of the tile whose stream is written
+  for (int b0 = 0; b0 < count; b0 += kBatch) {
     // Uniform across the block: doubles as the barrier that keeps the
     // previous batch's readers ahead of this batch's writers.
     if (__syncthreads_count(T > kTEps) == 0) break;
-    const int nb = min(kFwdBatch, count - b0);
-    for (int i = threadIdx.x; i < V::kFields * kFwdBatch; i += blockDim.x) {
-      const int f = i / kFwdBatch, j = i % kFwdBatch;
+    const int nb = min(kBatch, count - b0);
+    for (int i = threadIdx.x; i < V::kFields * kBatch; i += blockDim.x) {
+      const int f = i / kBatch, j = i % kBatch;
       if (j < nb) sf[f][j] = pairs[(size_t)f * mp + start + b0 + j];
     }
     __syncthreads();
-    for (int j = 0; j < nb && T > kTEps; ++j) {
-      // every entry iterated while the exclusive T > T_EPS counts, also
-      // those skipped by the alpha cutoff (2D/3D last_contributor semantics)
-      ++nc;
-      const AlphaTerms a = alpha_terms<k3D>(sf, j, px, py, gamma);
-      if (a.ok) {
-        const float contrib = __fmul_rn(a.alpha, T);
-        c0 = __fadd_rn(c0, __fmul_rn(sf[V::kRgb][j], contrib));
-        c1 = __fadd_rn(c1, __fmul_rn(sf[V::kRgb + 1][j], contrib));
-        c2 = __fadd_rn(c2, __fmul_rn(sf[V::kRgb + 2][j], contrib));
-        T = __fmul_rn(T, __fsub_rn(1.0f, a.alpha));
+    if constexpr (kStats) {
+      // per batch entry, per warp (+1 pad against bank conflicts)
+      __shared__ float psum[kStatsBatch][kMaxWarps + 1];
+      __shared__ float pmax[kStatsBatch][kMaxWarps + 1];
+      const int warp = lane >> 5, wl = lane & 31;
+      int j = 0;
+      for (; j < nb; ++j) {
+        // the warp steps while any of its pixels is live, so that all 32
+        // lanes reach the shuffle trees at the same entry
+        const bool live = T > kTEps;
+        if (!__any_sync(0xffffffffu, live)) break;
+        float contrib = 0.0f;
+        if (live) {
+          ++nc;
+          const AlphaTerms a = alpha_terms<k3D>(sf, j, px, py, gamma);
+          if (a.ok) {
+            contrib = __fmul_rn(a.alpha, T);
+            c0 = __fadd_rn(c0, __fmul_rn(sf[V::kRgb][j], contrib));
+            c1 = __fadd_rn(c1, __fmul_rn(sf[V::kRgb + 1][j], contrib));
+            c2 = __fadd_rn(c2, __fmul_rn(sf[V::kRgb + 2][j], contrib));
+            T = __fmul_rn(T, __fsub_rn(1.0f, a.alpha));
+          }
+        }
+        const float s = warp_sum(contrib);
+        const float m = warp_max(contrib);
+        if (wl == 0) {
+          psum[j][warp] = s;
+          pmax[j][warp] = m;
+        }
       }
+      // entries past the warp's last live pixel contribute nothing
+      for (int k = j + wl; k < nb; k += 32) {
+        psum[k][warp] = 0.0f;
+        pmax[k][warp] = 0.0f;
+      }
+      __syncthreads();
+      const int nwarps = blockDim.x >> 5;
+      for (int i = lane; i < nb; i += blockDim.x) {
+        float s = 0.0f, m = 0.0f;
+        for (int w = 0; w < nwarps; ++w) {
+          s += psum[i][w];
+          m = fmaxf(m, pmax[i][w]);
+        }
+        pair_contrib[start + b0 + i] = s;
+        pair_contrib[(size_t)mp + start + b0 + i] = m;
+      }
+      done = b0 + nb;
+    } else {
+      for (int j = 0; j < nb && T > kTEps; ++j) {
+        // every entry iterated while the exclusive T > T_EPS counts, also
+        // those skipped by the alpha cutoff (2D/3D last_contributor
+        // semantics)
+        ++nc;
+        const AlphaTerms a = alpha_terms<k3D>(sf, j, px, py, gamma);
+        if (a.ok) {
+          const float contrib = __fmul_rn(a.alpha, T);
+          c0 = __fadd_rn(c0, __fmul_rn(sf[V::kRgb][j], contrib));
+          c1 = __fadd_rn(c1, __fmul_rn(sf[V::kRgb + 1][j], contrib));
+          c2 = __fadd_rn(c2, __fmul_rn(sf[V::kRgb + 2][j], contrib));
+          T = __fmul_rn(T, __fsub_rn(1.0f, a.alpha));
+        }
+      }
+    }
+  }
+  if constexpr (kStats) {
+    // The tile's slots past the early exit and its alignment padding get
+    // zeros, and every block zeroes a strided share of the buffer's tail
+    // past the last tile's aligned end (slots of no tile).
+    const int end = tile_starts[tile + 1];
+    for (int i = start + done + lane; i < end; i += blockDim.x) {
+      pair_contrib[i] = 0.0f;
+      pair_contrib[(size_t)mp + i] = 0.0f;
+    }
+    const int tail0 = tile_starts[gridDim.x];
+    for (int i = tail0 + blockIdx.x * blockDim.x + lane; i < mp;
+         i += gridDim.x * blockDim.x) {
+      pair_contrib[i] = 0.0f;
+      pair_contrib[(size_t)mp + i] = 0.0f;
     }
   }
   if (!inside) return;
@@ -207,12 +306,6 @@ __global__ void __launch_bounds__(1024) blend_forward_kernel(
   normal[2 * hw + o] = 0.0f;
   final_T[o] = T;
   n_contrib[o] = nc;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
 }
 
 template <bool k3D>
@@ -379,16 +472,20 @@ extern "C" int ts_blend_forward(const float* pairs, int mp,
                                 const int* tile_starts, const int* tile_counts,
                                 const float* params, int width, int height,
                                 int tile_w, int tile_h, int grid_w,
-                                int num_tiles, int three_d, float* color,
-                                float* depth, float* normal, float* final_T,
-                                int* n_contrib, cudaStream_t stream) {
+                                int num_tiles, int three_d, int stats,
+                                float* color, float* depth, float* normal,
+                                float* final_T, int* n_contrib,
+                                float* pair_contrib, cudaStream_t stream) {
   const int threads = tile_w * tile_h;
   if (threads <= 0 || threads > 1024 || threads % 32 != 0) return (int)cudaErrorInvalidValue;
+  if (stats && pair_contrib == nullptr) return (int)cudaErrorInvalidValue;
   if (num_tiles > 0) {
-    const auto kernel = three_d ? &blend_forward_kernel<true> : &blend_forward_kernel<false>;
+    const auto kernel =
+        three_d ? (stats ? &blend_forward_kernel<true, true> : &blend_forward_kernel<true, false>)
+                : (stats ? &blend_forward_kernel<false, true> : &blend_forward_kernel<false, false>);
     kernel<<<num_tiles, threads, 0, stream>>>(
         pairs, mp, tile_starts, tile_counts, params, width, height, tile_w,
-        tile_h, grid_w, color, depth, normal, final_T, n_contrib);
+        tile_h, grid_w, color, depth, normal, final_T, n_contrib, pair_contrib);
   }
   return (int)cudaGetLastError();
 }

@@ -5,11 +5,16 @@
 // B4  segment_reduce_pairs  replaces triangle_splatting_tpu/ops/pallas/streams.py
 //                           segment_reduce_pairs (:221, kernel
 //                           _segment_reduce_kernel :186)
+// B5  segment_reduce_stats  replaces triangle_splatting_tpu/ops/pallas/streams.py
+//                           segment_reduce_stats (:356, kernel
+//                           _segment_stats_kernel :314)
 //
-// Both are pure data movement with a handful of integer or float operations
-// per element, so on the H100 they are bound by device-memory bytes
-// (3.35 TB/s): B3 moves one int32 in and one out per slot, B4 reads the
-// sorted gradient columns once and writes one column per triangle.
+// All three are pure data movement with a handful of integer or float
+// operations per element, so on the H100 they are bound by device-memory
+// bytes (3.35 TB/s): B3 moves one int32 in and one out per slot, B4 reads
+// the sorted gradient columns once and writes one column per triangle, B5
+// reads the two sorted contribution columns once and writes two values per
+// triangle.
 //
 // The Pallas kernels work around the TPU's lack of a vector gather (a
 // windowed DMA plus lane rotates for B3, a one-hot MXU matmul with a
@@ -24,6 +29,12 @@
 //    threads read neighbouring columns; the (R, P) output store is
 //    coalesced. Columns at or past `nvalid` are cut off the segment before
 //    any load, so NaN in the unused tail cannot leak into a sum.
+//  - B5: B4's design on two columns: one thread per segment sums the first
+//    column in float32 and maxes the second (contributions are >= 0, so the
+//    identity is 0 and an empty segment gives 0 for both), with the same
+//    nvalid cut and the same launch plumbing. The Pallas kernel's one-hot
+//    MXU products become a plain loop; no atomics, so the order of each sum
+//    is fixed.
 //
 // C interface: each entry point launches on the given stream and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
@@ -84,6 +95,27 @@ __global__ void segment_reduce_pairs_kernel(const float* __restrict__ cols,
   for (int r = 0; r < kMaxRows; ++r) out[(size_t)r * p + t] = r < nrows ? acc[r] : 0.0f;
 }
 
+__global__ void segment_reduce_stats_kernel(const float* __restrict__ sum_col,
+                                            const float* __restrict__ max_col,
+                                            int m, const int* __restrict__ starts,
+                                            const int* __restrict__ ends,
+                                            const int* __restrict__ nvalid_ptr,
+                                            int p, float* __restrict__ sums,
+                                            float* __restrict__ maxes) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= p) return;
+  const int nvalid = min(*nvalid_ptr, m);
+  const int s = starts[t];
+  const int e = min(ends[t], nvalid);
+  float acc = 0.0f, mx = 0.0f;
+  for (int pos = s; pos < e; ++pos) {
+    acc += sum_col[pos];
+    mx = fmaxf(mx, max_col[pos]);
+  }
+  sums[t] = acc;
+  maxes[t] = mx;
+}
+
 }  // namespace
 
 extern "C" int ts_relayout_pairs(const int* sorted_tri, const int* raw_starts,
@@ -109,6 +141,19 @@ extern "C" int ts_segment_reduce_pairs(const float* cols, int nrows, int m,
     const int blocks = (p + threads - 1) / threads;
     segment_reduce_pairs_kernel<<<blocks, threads, 0, stream>>>(
         cols, nrows, m, starts, ends, nvalid, p, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ts_segment_reduce_stats(const float* sum_col, const float* max_col,
+                                       int m, const int* starts, const int* ends,
+                                       const int* nvalid, int p, float* sums,
+                                       float* maxes, cudaStream_t stream) {
+  if (p > 0) {
+    const int threads = 256;
+    const int blocks = (p + threads - 1) / threads;
+    segment_reduce_stats_kernel<<<blocks, threads, 0, stream>>>(
+        sum_col, max_col, m, starts, ends, nvalid, p, sums, maxes);
   }
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-"""Kernels B3 (``relayout_pairs``) and B4 (``segment_reduce_pairs``).
+"""Kernels B3 (``relayout_pairs``), B4 (``segment_reduce_pairs``) and B5
+(``segment_reduce_stats``).
 
 Ports of ``triangle_splatting_tpu/ops/pallas/streams.py``: the CUDA
 kernels are in ``csrc/streams.cu``. Each wrapper takes the kernel for CUDA
@@ -150,3 +151,83 @@ def segment_reduce_pairs(cols: torch.Tensor, starts: torch.Tensor,
 
 
 segment_reduce_pairs.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B5 segment_reduce_stats
+# ---------------------------------------------------------------------------
+
+def segment_reduce_stats_plain(sum_col: torch.Tensor, max_col: torch.Tensor,
+                               starts: torch.Tensor, ends: torch.Tensor,
+                               nvalid: torch.Tensor):
+    """Plain PyTorch B5: the sums as B4's plain version takes them (an
+    exclusive prefix sum in float64, differences at the segment bounds),
+    the maxes as a masked segment max: each column below ``nvalid`` finds
+    its segment by a binary search over the starts and is scattered with
+    ``amax`` onto zeros (columns in no segment scatter a 0)."""
+    m, p = sum_col.shape[0], starts.shape[0]
+    dev, dt = sum_col.device, sum_col.dtype
+    pos = torch.arange(m, device=dev)
+    ok = pos < nvalid
+    clean = torch.where(ok, sum_col, torch.zeros_like(sum_col))
+    csum = torch.cat([torch.zeros(1, dtype=torch.float64, device=dev),
+                      torch.cumsum(clean.double(), dim=0)])
+    s = starts.long().clamp(0, m)
+    e = torch.maximum(ends.long().clamp(0, m), s)
+    sums = (csum[e] - csum[s]).to(dt)
+    maxes = torch.zeros((p,), dtype=dt, device=dev)
+    if p == 0 or m == 0:
+        return sums, maxes
+    # last segment whose start is <= pos (empty segments share their start
+    # with the next one and come first, so the last is the one that owns pos)
+    t = (torch.searchsorted(starts, pos.to(torch.int32), right=True) - 1).clamp(0, p - 1)
+    owned = ok & (pos >= starts[t]) & (pos < ends[t])
+    vals = torch.where(owned, max_col, torch.zeros_like(max_col))
+    maxes.scatter_reduce_(0, t, vals, reduce="amax", include_self=True)
+    return sums, maxes
+
+
+def segment_reduce_stats(sum_col: torch.Tensor, max_col: torch.Tensor,
+                         starts: torch.Tensor, ends: torch.Tensor,
+                         nvalid: torch.Tensor | int | None = None):
+    """Segment sum of ``sum_col`` and segment max of ``max_col``.
+
+    The per-triangle contribution statistics: after the per-pair
+    contribution stream is sorted by owning triangle, triangle t owns
+    columns [starts[t], ends[t]) of both (M,) float32 columns (values
+    >= 0). ``starts``/``ends`` are (P,) int32, nondecreasing and disjoint.
+    Empty segments give 0 for both (the max identity is 0). Columns at or
+    past ``nvalid`` (a 0-dim int32 tensor on the same device, or None for
+    M) count as 0 even when they hold NaN. Returns (sums, maxes), two (P,)
+    float32.
+    """
+    dev = sum_col.device
+    dt = torch.float32 if dev.type == "cuda" else sum_col.dtype
+    _check(sum_col, "sum_col", dt, 1, dev)
+    _check(max_col, "max_col", dt, 1, dev)
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"sum_col: expected float32, got {dt}")
+    _check(starts, "starts", torch.int32, 1, dev)
+    _check(ends, "ends", torch.int32, 1, dev)
+    m, p = sum_col.shape[0], starts.shape[0]
+    if max_col.shape[0] != m or ends.shape[0] != p:
+        raise ValueError("sum_col/max_col and starts/ends must have equal lengths")
+    if nvalid is None:
+        nvalid = m
+    nvalid = torch.as_tensor(nvalid, dtype=torch.int32, device=dev).reshape(())
+    if dev.type == "cpu":
+        return segment_reduce_stats_plain(sum_col, max_col, starts, ends, nvalid)
+    if dev.type != "cuda":
+        raise ValueError(f"segment_reduce_stats: unsupported device {dev}")
+    sums = torch.empty((p,), dtype=torch.float32, device=dev)
+    maxes = torch.empty((p,), dtype=torch.float32, device=dev)
+    lib = library("streams")
+    segment_reduce_stats.launches += 1
+    check_launch(lib.ts_segment_reduce_stats(
+        sum_col.data_ptr(), max_col.data_ptr(), m, starts.data_ptr(),
+        ends.data_ptr(), nvalid.data_ptr(), p, sums.data_ptr(),
+        maxes.data_ptr(), _stream()), "segment_reduce_stats")
+    return sums, maxes
+
+
+segment_reduce_stats.launches = 0

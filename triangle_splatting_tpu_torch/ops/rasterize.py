@@ -9,10 +9,12 @@ Port of ``triangle_splatting_tpu/ops/rasterize.py`` (variants "2D" and
   4. gather + pack per-pair fields          autograd.Function   (backward:
                                             owner sort + kernel B4)
   5. per-tile blend                         autograd.Function   (kernels B1/B2)
+  6. contribution statistics (need_stats)   no grad: B1's per-pair stream,
+                                            owner sort + kernel B5
 
 The two ``torch.autograd.Function``s take the place of the JAX package's
 two ``custom_vjp``s; every other gradient comes from autograd.
-``impl="oracle"`` swaps stages 3-5 for the dense oracle.
+``impl="oracle"`` swaps stages 3-6 for the dense oracle.
 
 On CUDA tensors stages 3-5 launch the hand-written kernels; on CPU tensors
 the kernels' plain PyTorch versions run instead (the tests).
@@ -27,7 +29,7 @@ import torch
 from . import sh as sh_mod
 from .binning import Binning, bin_triangles
 from .cuda.blend import ALIGN, LIVE_GRAD_ROWS, blend_backward, blend_forward
-from .cuda.streams import segment_reduce_pairs
+from .cuda.streams import segment_reduce_pairs, segment_reduce_stats
 from .oracle import blend_oracle, blend_oracle_3d
 from .projection import (Preprocessed, Preprocessed3D, RasterSettings,
                          preprocess_2d, preprocess_3d)
@@ -153,26 +155,32 @@ def pack_pair_fields(field_matrix: torch.Tensor, binning: Binning,
 class BlendTiles(torch.autograd.Function):
     """Kernels B1 (forward) and B2 (backward) around the packed fields.
 
-    Outputs color, depth, normal, final_T, n_contrib; gradients flow to
-    ``fields`` from the cotangents of color and final_T (depth and normal
-    carry none with rich info off, as in the JAX kernel)."""
+    Outputs color, depth, normal, final_T, n_contrib and the per-pair
+    contribution stream (2, MA) (an empty (2, 0) tensor when ``cfg``'s
+    stats flag is off); gradients flow to ``fields`` from the cotangents
+    of color and final_T (depth and normal carry none with rich info off,
+    as in the JAX kernel; n_contrib and the stream are not
+    differentiable)."""
 
     @staticmethod
     def forward(ctx, fields, tile_starts, tile_counts, params, cfg):
-        width, height, tile_h, tile_w, variant = cfg
-        color, depth, normal, final_T, n_contrib = blend_forward(
+        width, height, tile_h, tile_w, variant, stats = cfg
+        outs = blend_forward(
             fields, tile_starts, tile_counts, params, image_width=width,
-            image_height=height, tile_h=tile_h, tile_w=tile_w, variant=variant)
+            image_height=height, tile_h=tile_h, tile_w=tile_w, variant=variant,
+            stats=stats)
+        color, depth, normal, final_T, n_contrib = outs[:5]
+        pair_contrib = outs[5] if stats else fields.new_zeros((2, 0))
         ctx.save_for_backward(fields, tile_starts, tile_counts, params,
                               final_T, n_contrib)
         ctx.cfg = cfg
-        ctx.mark_non_differentiable(n_contrib)
-        return color, depth, normal, final_T, n_contrib
+        ctx.mark_non_differentiable(n_contrib, pair_contrib)
+        return color, depth, normal, final_T, n_contrib, pair_contrib
 
     @staticmethod
-    def backward(ctx, g_color, g_depth, g_normal, g_final_T, g_nc):
+    def backward(ctx, g_color, g_depth, g_normal, g_final_T, g_nc, g_pc):
         fields, tile_starts, tile_counts, params, final_T, n_contrib = ctx.saved_tensors
-        width, height, tile_h, tile_w, variant = ctx.cfg
+        width, height, tile_h, tile_w, variant, _ = ctx.cfg
         if g_color is None:
             g_color = torch.zeros((3, height, width), dtype=fields.dtype,
                                   device=fields.device)
@@ -183,6 +191,24 @@ class BlendTiles(torch.autograd.Function):
             g_color.contiguous(), g_final_T.contiguous(), image_width=width,
             image_height=height, tile_h=tile_h, tile_w=tile_w, variant=variant)
         return pair_grads, None, None, None, None
+
+
+@torch.no_grad()
+def _contrib_stats(pair_contrib: torch.Tensor, binning: Binning, P: int):
+    """Per-triangle (contrib_sum, contrib_max) from B1's per-pair stream
+    (``ops/rasterize.py:_contrib_stats`` of the JAX package): one stable
+    sort of the owner key (empty slots get P and sort to the tail), both
+    rows gathered by its indices, after which triangle t owns columns
+    [tri_offsets[t], tri_offsets[t+1]) clipped to num_pairs; then kernel
+    B5. No gradient: the statistics only feed the ADC decisions."""
+    key = torch.where(binning.pair_valid, binning.pair_tri,
+                      torch.full_like(binning.pair_tri, P))
+    order = torch.sort(key, stable=True).indices
+    cols = pair_contrib.index_select(1, order)
+    starts = torch.minimum(binning.tri_offsets[:-1], binning.num_pairs).contiguous()
+    ends = torch.minimum(binning.tri_offsets[1:], binning.num_pairs).contiguous()
+    return segment_reduce_stats(cols[0], cols[1], starts, ends,
+                                nvalid=binning.num_pairs)
 
 
 def rasterize(vertex: torch.Tensor, opacity: torch.Tensor,
@@ -204,9 +230,11 @@ def rasterize(vertex: torch.Tensor, opacity: torch.Tensor,
     plain versions for CPU tensors); ``impl="oracle"`` the dense oracle.
 
     The kernel path serves ``rasterizer_type`` "2D" (photo training) and
-    "3D" (mesh training) with ``rich_info`` off. The contribution
-    statistics (kernel B5) are not ported yet: ``need_stats=True`` raises,
-    and contrib_sum/contrib_max are zeros on the kernel path.
+    "3D" (mesh training) with ``rich_info`` off. ``need_stats=True`` (the
+    ADC statistic window) runs B1 with its per-pair contribution stream
+    and reduces it per triangle (owner sort + kernel B5) into contrib_sum /
+    contrib_max, without gradient; with ``need_stats=False`` they are
+    zeros and B5 does not run.
     """
     variant = settings.rasterizer_type
     if variant not in ("2D", "3D"):
@@ -217,9 +245,6 @@ def rasterize(vertex: torch.Tensor, opacity: torch.Tensor,
     if impl == "cuda" and settings.rich_info:
         raise NotImplementedError("rasterize: rich_info (depth/normal) kernels "
                                   "are not ported yet; use rich_info=False")
-    if impl == "cuda" and need_stats:
-        raise NotImplementedError("rasterize: need_stats=True needs kernel B5 "
-                                  "(segment_reduce_stats), not ported yet")
     dev, dt = vertex.device, vertex.dtype
     P = vertex.shape[0]
     if background is None:
@@ -275,12 +300,16 @@ def rasterize(vertex: torch.Tensor, opacity: torch.Tensor,
     params = torch.cat([gamma.reshape(1), background, bg_depth.reshape(1),
                         sx.to(dt), sy.to(dt), zero]).detach()
     cfg = (settings.image_width, settings.image_height, settings.tile_h,
-           settings.tile_w, variant)
-    color, depth, normal, final_T, n_contrib = BlendTiles.apply(
+           settings.tile_w, variant, need_stats)
+    color, depth, normal, final_T, n_contrib, pair_contrib = BlendTiles.apply(
         fields, binning.tile_starts, binning.tile_counts, params, cfg)
-    zeros_p = torch.zeros((P,), dtype=dt, device=dev)
+    if need_stats:
+        contrib_sum, contrib_max = _contrib_stats(pair_contrib, binning, P)
+    else:
+        contrib_sum = torch.zeros((P,), dtype=dt, device=dev)
+        contrib_max = torch.zeros((P,), dtype=dt, device=dev)
     return dict(render=color, depth=depth, normal=normal,
                 radii=prep.radii, visible_mask=prep.radii > 0,
-                contrib_sum=zeros_p, contrib_max=zeros_p.clone(),
+                contrib_sum=contrib_sum, contrib_max=contrib_max,
                 final_T=final_T, n_contrib=n_contrib,
                 overflow=binning.overflow, num_pairs=binning.num_pairs)

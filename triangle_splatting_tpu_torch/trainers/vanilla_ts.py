@@ -1,4 +1,4 @@
-"""VanillaTS trainer, fixed-count photo and mesh paths (port of
+"""VanillaTS trainer, photo and mesh paths (port of
 ``triangle_splatting_tpu/trainers/vanilla_ts.py``).
 
 One iteration: render one training camera through the kernel pipeline
@@ -6,13 +6,17 @@ One iteration: render one training camera through the kernel pipeline
 camera's size), L1 + w_ssim * (1 - SSIM) (+ the scaling / opacity
 regularizers), autograd backward, Adam (eps 1e-15) with per-group
 learning-rate schedules; SH bands come on along ``sh_schedule`` and gamma
-along ``gamma_schedule`` (the mesh recipe's solidify anneal).
+along ``gamma_schedule`` (the mesh recipe's solidify anneal). With a
+``statistic`` block every step renders with the contribution statistics
+and, inside the block's window, accumulates them with the screen-space
+centroid gradient; ``scale_pruning`` and ``contribution_pruning`` fire on
+their cadences (the mesh recipe's ADC).
 
 Config blocks this slice does not serve raise ``NotImplementedError`` at
-construction: adaptive density control (densification, pruning, clipping,
-opacity reset, statistic windows), the geometry / DoG / smoothness /
-vertex losses, color affine, data parallelism, and PLY / checkpoint / GLB
-saving at an iteration the run reaches.
+construction: the other ADC blocks (densification, opacity pruning /
+clipping, scale clipping, opacity reset), the geometry / DoG / smoothness
+/ vertex losses, color affine, data parallelism, and PLY / checkpoint /
+GLB saving at an iteration the run reaches.
 """
 
 from __future__ import annotations
@@ -30,12 +34,13 @@ from ..utils.camera import Camera
 from ..utils.config import Config
 from ..utils.scheduler import exponential_scheduler, exponential_step_scheduler
 from . import losses as L
-from .adc_utils import adapt_pair_budget
+from .adc_utils import (adapt_pair_budget, alive_inter_point_dist,
+                        resolve_contribution_pruning)
 from .base import BaseTrainer
 
+# ADC blocks of the JAX trainer this port does not run yet
 _ADC_BLOCKS = ("densification", "opacity_pruning", "opacity_clipping",
-               "scale_pruning", "scale_clipping", "contribution_pruning",
-               "opacity_reset", "statistic")
+               "scale_clipping", "opacity_reset")
 
 
 def _f32(x) -> float:
@@ -64,6 +69,10 @@ class VanillaTSTrainer(BaseTrainer):
             rasterizer_type=mc.rasterizer_type or "2D",
         )
         self.impl = impl
+        self.scene_bbox = None
+        scene_info = self.dataset.getSceneInfo()
+        if scene_info is not None:
+            self.scene_bbox = scene_info.get("bbox_xyz")
         self.params: M.TriangleParams | None = None
         self.state: M.TriangleState | None = None
         self.opt: M.AdamState | None = None
@@ -76,6 +85,8 @@ class VanillaTSTrainer(BaseTrainer):
         # per-step losses of the last train() as device scalars (read them
         # after training: no host sync inside the loop)
         self.loss_history: list[torch.Tensor] = []
+        # (iteration, "scale" | "contribution", rows pruned) per firing
+        self.prune_history: list[tuple[int, str, int]] = []
 
     # ------------------------------------------------------------------
     # setup
@@ -136,6 +147,9 @@ class VanillaTSTrainer(BaseTrainer):
                     lambda it, base=base, it0=it0, mult=mult:
                     base(it) * (1.0 if it <= it0 else mult))
         self._mu = self.config.model.model_update
+        # every step renders with the statistics while a statistic block
+        # exists (the JAX trainer's need_stats gating)
+        self._track_stats = self._mu is not None and self._mu.statistic is not None
         g = self._mu.gamma_schedule if self._mu is not None else None
         if g is not None:
             mk = exponential_step_scheduler if g.step_scheduler else exponential_scheduler
@@ -177,11 +191,13 @@ class VanillaTSTrainer(BaseTrainer):
     # step
     # ------------------------------------------------------------------
     def _camera_loss(self, settings: RasterSettings, p: M.TriangleParams,
-                     state: M.TriangleState, camera: Camera, background,
+                     c2d, state: M.TriangleState, camera: Camera, background,
                      weights: dict):
-        """Per-camera training loss (the photo path of the JAX twin)."""
+        """Per-camera training loss (the JAX twin's, for the blocks this
+        port serves). ``c2d`` is the (C, 2) centroid-offset leaf or None."""
         pkg = M.forward(p, state, camera, background, self.model_cfg, settings,
-                        is_training=True, impl=self.impl, need_stats=False)
+                        is_training=True, center2d_offset=c2d, impl=self.impl,
+                        need_stats=self._track_stats)
         img = pkg["render"]
         gt = camera.gt_image
         if camera.alpha_mask is not None:
@@ -198,30 +214,53 @@ class VanillaTSTrainer(BaseTrainer):
         quad = ((0.25 - (op - 0.5) ** 2) * alive_f).sum() / n_alive
         lin = ((1.0 - op) * alive_f).sum() / n_alive
         loss = loss + (w["opacity_quad"] * quad + w["opacity_linear"] * lin)
-        return loss, dict(overflow=pkg["overflow"], num_pairs=pkg["num_pairs"])
+        aux = dict(overflow=pkg["overflow"], num_pairs=pkg["num_pairs"])
+        if self._track_stats:
+            aux.update(radii=pkg["radii"], contrib_sum=pkg["contrib_sum"],
+                       contrib_max=pkg["contrib_max"],
+                       visible_mask=pkg["visible_mask"])
+        return loss, aux
 
     def _loss_and_grads(self, settings, params, state, camera, background,
                         weights):
-        """Loss, per-parameter gradients (a TriangleParams) and aux."""
+        """Loss, per-parameter gradients (a TriangleParams) and aux. While
+        statistics are tracked, the gradient of a zero (C, 2) centroid
+        offset is taken too and returned as ``aux["center2d_grad"]``."""
         leaves = {k: t.detach().requires_grad_(True)
                   for k, t in params.tensors().items()}
-        loss, aux = self._camera_loss(settings, M.TriangleParams(**leaves),
-                                      state, camera, background, weights)
         names = list(leaves)
-        gs = torch.autograd.grad(loss, [leaves[n] for n in names],
-                                 allow_unused=True)
-        grads = M.TriangleParams(**{
-            n: torch.zeros_like(leaves[n]) if g is None else g
-            for n, g in zip(names, gs)})
+        wrt = [leaves[n] for n in names]
+        c2d = None
+        if self._track_stats:
+            c2d = torch.zeros((params.capacity, 2), dtype=params.vertex.dtype,
+                              device=params.vertex.device, requires_grad=True)
+            wrt.append(c2d)
+        loss, aux = self._camera_loss(settings, M.TriangleParams(**leaves), c2d,
+                                      state, camera, background, weights)
+        gs = torch.autograd.grad(loss, wrt, allow_unused=True)
+        gs = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt, gs)]
+        if c2d is not None:
+            aux["center2d_grad"] = gs.pop()
+        grads = M.TriangleParams(**dict(zip(names, gs)))
         return loss.detach(), grads, aux
 
+    def _stat_gate(self, iteration: int) -> bool:
+        st = self._mu.statistic
+        return st.start_iter < iteration <= st.end_iter
+
     def _train_step(self, settings, params, opt, state, camera, weights, lrs,
-                    background):
-        """One iteration: forward, loss, backward, Adam."""
+                    background, iteration: int):
+        """One iteration: forward, loss, backward, Adam and, inside the
+        statistic window, the statistics update. Returns (params, opt,
+        state, loss, aux)."""
         loss, grads, aux = self._loss_and_grads(settings, params, state, camera,
                                                 background, weights)
         params, opt = M.adam_update(params, opt, grads, lrs)
-        return params, opt, loss, aux
+        if self._track_stats and self._stat_gate(iteration):
+            state = M.update_statistics(state, aux["center2d_grad"], aux["radii"],
+                                        aux["contrib_sum"], aux["contrib_max"],
+                                        aux["visible_mask"])
+        return params, opt, state, loss, aux
 
     # ------------------------------------------------------------------
     # loop
@@ -261,10 +300,48 @@ class VanillaTSTrainer(BaseTrainer):
         return pts, cols, nrm
 
     def _model_update(self, iteration: int):
-        """gamma / SH schedules (the ADC blocks are refused at construction)."""
+        """Scale and contribution pruning on their cadences, then the gamma
+        and SH schedules (the JAX trainer's order; the other ADC blocks are
+        refused at construction)."""
         mu = self._mu
         if mu is None:
             return
+
+        def active(args):
+            return (args is not None and args.start_iter < iteration <= args.end_iter
+                    and iteration % args.interval_iter == 0)
+
+        sp = mu.scale_pruning
+        if active(sp):
+            self.params, self.opt, self.state, n = M.scale_pruning(
+                self.params, self.opt, self.state, _f32(sp.radii_threshold),
+                _f32(sp.scale_threshold))
+            self._log_prune(iteration, "scale", int(n))
+
+        cp = mu.contribution_pruning
+        if active(cp):
+            target, ratio, prune_ratio, retain = resolve_contribution_pruning(cp, iteration)
+            if target is None:
+                raise ValueError(
+                    "model.model_update.contribution_pruning.target_point_"
+                    "num is null — set it (run_experiments.py mesh presets "
+                    "provide per-scene targets, e.g. --point_num) or add a "
+                    "downsample schedule before contribution pruning "
+                    "activates.")
+            ipd = None
+            if retain > 0:
+                ipd = alive_inter_point_dist(M.get_xyz(self.params), self.state.alive)
+            self.params, self.opt, self.state, n = M.contribution_pruning(
+                self.params, self.opt, self.state,
+                min_view_count=cp.min_view_count if cp.min_view_count is not None else 1,
+                target_point_num=int(target), prune_ratio=_f32(prune_ratio),
+                max_prune_ratio=_f32(cp.max_prune_ratio
+                                     if cp.max_prune_ratio is not None else 0.2),
+                contrib_max_ratio=_f32(ratio), scene_bbox=self.scene_bbox,
+                ste_threshold=self.model_cfg.ste_threshold,
+                inter_point_dist=ipd, sparsity_retain_ratio=retain)
+            self._log_prune(iteration, "contribution", int(n))
+
         g = mu.gamma_schedule
         if g is not None and g.start_iter < iteration <= g.end_iter:
             gamma = self.gamma_scheduler(iteration - g.start_iter)
@@ -278,6 +355,10 @@ class VanillaTSTrainer(BaseTrainer):
                 self._sh_degree_host = deg
                 self.state.active_sh_degree = torch.tensor(
                     deg, dtype=torch.int32, device=self.device)
+
+    def _log_prune(self, iteration: int, kind: str, n: int) -> None:
+        self.prune_history.append((iteration, kind, n))
+        self.logger.info(f"[ITER {iteration}, {kind} pruning] pruned {n}")
 
     def train(self):
         try:
@@ -303,9 +384,10 @@ class VanillaTSTrainer(BaseTrainer):
             bg_name = cfgt.train_background or "random"
             background = torch.as_tensor(get_color_tensor(bg_name, self._rng)).to(self.device)
             cap_step = self.params.capacity
-            self.params, self.opt, loss, aux = self._train_step(
+            self.params, self.opt, self.state, loss, aux = self._train_step(
                 settings, self.params, self.opt, self.state, camera,
-                self._loss_weights(iteration), self._lrs(iteration), background)
+                self._loss_weights(iteration), self._lrs(iteration), background,
+                iteration)
             self.loss_history.append(loss)
 
             if cfgt.eval_interval_iter and iteration % cfgt.eval_interval_iter == 0:
