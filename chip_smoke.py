@@ -41,9 +41,27 @@ Phases (any failure exits non-zero before the final line):
              5 to 40, target_point_num 93,000, the anneal at steps 10-40):
              B1-3D's stats form, B5, B2-3D, B3 and B4 once per step, both
              contribution prunings remove triangles, the alive count falls
-             by the logged counts; then profile 10 more steps.
-The photo and mesh phases also check that neither launched B5 or a stats
-form of B1.
+             by the logged counts; then profile 10 more steps;
+8. city    — write a synthetic city in MatrixCity's block_all layout (COLMAP
+             text models, 8 train / 2 test aerial PNGs at 1600x900, a
+             4M-point fused.ply) and train config/MatrixCity_VanillaTS_mesh.yaml
+             on it through build_trainer for 50 steps: the MatrixCity factory
+             and COLMAP readers, grid sampling at the recipe's 0.007 into
+             ~1M triangles, the 3D rasterizer with rich info (B1/B2-3D's
+             rich forms), the depth-normal consistency term from step 6,
+             opacity pruning and clipping and scale pruning on compressed
+             cadences, the gamma anneal to 50 over steps 10-40; then B1/B2
+             rich, B3 and B4 held against their plain versions on the last
+             step's own inputs, opacity clipping and pruning of a tenth or
+             more of the trained rows on the card against a CPU copy, and
+             10 profiled steps.
+The kernels phases also hold B1/B2 with rich info (depth and normal) against
+their plain versions, in "2D" at the bench shapes and in "3D" at gamma 1 and
+50, their color, final_T and n_contrib bit-identical to the forms without
+it, and B4 on their 16 / 14 live gradient rows; the reference phase runs
+both pipelines with rich info against the oracles. The photo and mesh
+phases also check that neither launched B5 or a stats form of B1, and
+none of the photo, mesh and mesh_adc phases launched a rich form.
 
 The last two lines are the per-kernel JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -88,6 +106,16 @@ BWD_OPS_PER_EVAL = 70
 # log-space ecc^(2 gamma - 1) (+7).
 FWD_OPS_PER_EVAL_3D = {True: 43, False: 48}      # keyed by gamma == 1
 BWD_OPS_PER_EVAL_3D = {True: 92, False: 104}
+# Rich info. "2D" forward: depth d0 + d1*a1 + d2*a2 against contrib (5
+# products, 3 adds) and three normal rows (3 + 3): +14; backward: d and
+# the four terms of gdot (12), the depth's share of the a1/a2 gradients
+# (5), six more rows (8 products) and their six pixel sums: +31. "3D"
+# forward: the ray depth K * (contrib * invD) and its add (3), the three
+# raw normal rows (6): +9; backward: t = K * invD and the four terms of
+# gdot (9), the depth's share of the D gradient (4), the normal's of the
+# three D rows (6), the K row (2) and its pixel sum (1): +22.
+RICH_FWD_OPS = {"2D": 14, "3D": 9}
+RICH_BWD_OPS = {"2D": 31, "3D": 22}
 # B1's stats form adds a sum and a max of each evaluated contribution over
 # the tile's pixels; B5 an add and a max per sorted pair.
 STATS_OPS_PER_EVAL = 2
@@ -102,7 +130,8 @@ ADC_TARGET = 93_000          # run_experiments.py's "ship" preset
 SPIN_CYCLES = 2_000_000
 
 TOL = dict(b1_abs=1e-5, b2_rel=1e-4, b4_rel=1e-5, stats_sum_rel=1e-5,
-           stats_max_rel=1e-6, b5_rel=1e-5, oracle_stats_abs=5e-4)
+           stats_max_rel=1e-6, b5_rel=1e-5, oracle_stats_abs=5e-4, rich_rel=1e-5,
+           oracle_rich_rel=1e-3)
 _BLEND = "triangle_splatting_tpu/ops/pallas/blend.py"
 _STREAMS = "triangle_splatting_tpu/ops/pallas/streams.py"
 REPLACES = {
@@ -115,6 +144,10 @@ REPLACES = {
     "blend_forward_stats": f"{_BLEND}:514",
     "blend_forward_3d_stats": f"{_BLEND}:514",
     "segment_reduce_stats": f"{_STREAMS}:356",
+    "blend_forward_rich": f"{_BLEND}:514",
+    "blend_backward_rich": f"{_BLEND}:956",
+    "blend_forward_3d_rich": f"{_BLEND}:514",
+    "blend_backward_3d_rich": f"{_BLEND}:956",
 }
 _CSRC = "triangle_splatting_tpu_torch/ops/cuda/csrc"
 SOURCES = {name: f"{_CSRC}/{'streams' if _STREAMS in r else 'blend'}.cu"
@@ -124,7 +157,26 @@ SOURCES = {name: f"{_CSRC}/{'streams' if _STREAMS in r else 'blend'}.cu"
 # photo recipe has a statistic block, so its count is the photo run's 0)
 PATH_OF = dict.fromkeys(REPLACES, "train")
 PATH_OF.update(blend_forward_3d="mesh", blend_backward_3d="mesh",
-               blend_forward_3d_stats="mesh_adc", segment_reduce_stats="mesh_adc")
+               blend_forward_3d_stats="mesh_adc", segment_reduce_stats="mesh_adc",
+               blend_forward_3d_rich="city", blend_backward_3d_rich="city")
+RICH_FORMS = ("blend_forward_rich", "blend_backward_rich", "blend_forward_3d_rich",
+              "blend_backward_3d_rich")
+# the MatrixCity recipe, cut to the 50-step city phase
+CITY_W, CITY_H = 1600, 900
+CITY_POINTS = 4_000_000
+CITY_TRIANGLES = (900_000, 1_100_000)   # what the recipe's 0.007 grid must give
+CITY_CUTS = dict(
+    iterations="50 of 90,000",
+    geometry_start="geometry_loss.start_iter 15,000 -> 5",
+    opacity_pruning="(6,000, 60,000] every 200, hold 90,000 -> fires every 10 in (5, 40], "
+                    "thresholds 0.005 -> 0.5 scheduled over (5, 60]",
+    opacity_clipping="(30,000, 60,000] every 200, hold 90,000 -> (10, 40] every 10",
+    scale_pruning="(1,000, 60,000] every 200 -> (5, 40] every 10",
+    gamma_anneal="30,000-60,000 -> 10-40",
+    opacity_reg="quad_start_iter 6,000 -> 5, linear_start_iter 60,000 -> 40",
+    log_interval="50 -> 10 (the pair budget is re-sized at log steps)",
+    initial_eval="before and after the counted run, outside it",
+    views="8 train / 2 test synthetic aerial views (MatrixCity: 6,000+)")
 
 
 class SmokeFailure(Exception):
@@ -188,6 +240,13 @@ def read_launches() -> dict:
         suffix = "" if form is None else form.lower().replace("2d", "").strip("_")
         out[f"{k}_{suffix}" if suffix else k] = n
     return out
+
+
+def check_no_rich_launches(launches: dict, phase: str) -> None:
+    """A path without a geometry term launches no rich form of B1/B2."""
+    for name in RICH_FORMS:
+        check(launches[name] == 0, f"{phase}: kernel {name} launched {launches[name]} times "
+              "on a path without rich info")
 
 
 def check_no_stats_launches(launches: dict, phase: str) -> None:
@@ -274,16 +333,23 @@ def check_relayout(sp, what: str):
     """B3 against its plain version on one frame's sorted pairs: exact.
     Returns the kernel's pair_tri, the argument tuple and the count of
     slots that differ (0)."""
+    args = (sp.sorted_tri, sp.raw_starts, sp.astarts, sp.tile_counts, sp.ma)
+    out, err = hold_relayout(args, what)
+    return out, args, err
+
+
+def hold_relayout(args, what: str):
+    """B3 against its plain version on one argument tuple: exact. Returns
+    the kernel's output and the count of slots that differ (0)."""
     import torch
     from triangle_splatting_tpu_torch.ops.cuda import streams as KS
 
-    args = (sp.sorted_tri, sp.raw_starts, sp.astarts, sp.tile_counts, sp.ma)
     out = KS.relayout_pairs(*args)
     ref = KS.relayout_pairs_plain(*args)
     torch.cuda.synchronize()
     err = int((out != ref).sum())
     check(err == 0, f"relayout_pairs {what}: disagrees with its plain version in {err} slots")
-    return out, args, err
+    return out, err
 
 
 def check_segment_reduce(grads, pair_tri, sp, what: str) -> dict:
@@ -292,7 +358,6 @@ def check_segment_reduce(grads, pair_tri, sp, what: str) -> dict:
     last), one segment per triangle; rel 1e-5 of the max. Returns the
     errors, the argument tuple and the sorted owner keys."""
     import torch
-    from triangle_splatting_tpu_torch.ops.cuda import streams as KS
 
     P = sp.tri_offsets.shape[0] - 1
     key = torch.where(pair_tri >= 0, pair_tri, torch.full_like(pair_tri, P))
@@ -300,14 +365,23 @@ def check_segment_reduce(grads, pair_tri, sp, what: str) -> dict:
     cols = grads.index_select(1, order).contiguous()
     starts = torch.minimum(sp.tri_offsets[:-1], sp.num_pairs).contiguous()
     ends = torch.minimum(sp.tri_offsets[1:], sp.num_pairs).contiguous()
-    args = (cols, starts, ends, sp.num_pairs)
+    return dict(hold_segment_reduce((cols, starts, ends, sp.num_pairs), what), skey=skey)
+
+
+def hold_segment_reduce(args, what: str) -> dict:
+    """B4 against its plain version on one argument tuple (cols, starts,
+    ends, nvalid): rel 1e-5 of the max. Returns the errors, the argument
+    tuple and the plain result."""
+    import torch
+    from triangle_splatting_tpu_torch.ops.cuda import streams as KS
+
     out = KS.segment_reduce_pairs(*args)
     ref = KS.segment_reduce_pairs_plain(*args)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     rel = err / max(float(ref.abs().max()), 1e-30)
     check(rel <= TOL["b4_rel"], f"segment_reduce_pairs {what}: rel err {rel:.3e} > {TOL['b4_rel']}")
-    return dict(args=args, skey=skey, ref=ref, err=err, rel=rel)
+    return dict(args=args, ref=ref, err=err, rel=rel)
 
 
 def check_segment_stats(pair_contrib, pair_tri, sp, what: str) -> dict:
@@ -398,7 +472,8 @@ def check_blend(fields, sp, params, geo, target, what: str) -> dict:
 
     num_pairs, T = int(sp.num_pairs), sp.tile_counts.shape[0]
     pairs_in = 4 * (live * num_pairs + 2 * T + 1 + 8)
-    return dict(fwd=fwd, bw=bw, out2=out2, b1_err=max(e_color, e_T), n_contrib_mismatch=e_nc,
+    return dict(fwd=fwd, bw=bw, out1=out1, g_color=g_color, out2=out2,
+                b1_err=max(e_color, e_T), n_contrib_mismatch=e_nc,
                 b2_err=float(diff2.max()), b2_rel=rel2,
                 evals=float(out1[4].to(torch.float64).sum()),
                 b1_bytes=pairs_in + 4 * 9 * H * W,
@@ -410,6 +485,75 @@ def check_blend(fields, sp, params, geo, target, what: str) -> dict:
                 stats_tol=(f"blend outputs bit-identical to stats off; stream rel "
                            f"{TOL['stats_sum_rel']} (sum) / {TOL['stats_max_rel']} (max) "
                            "of each row's max"))
+
+
+def check_blend_rich(fwd, geo, off, bw_cot, what: str) -> dict:
+    """B1 and B2 of ``geo["variant"]`` with rich info against their plain
+    versions on the same packed pairs ``fwd``: color / final_T abs 1e-5,
+    n_contrib exact, depth and normal rel 1e-5 of each output's max; the
+    rich forward's color, final_T and n_contrib bit-identical to ``off``,
+    the outputs of the kernel without rich info; B2 rel 1e-4 of each live
+    row's max (16 rows "2D", 14 "3D"), the other rows zero, and its depth
+    rows nonzero (the depth cotangent reached the kernel). ``bw_cot`` are
+    the cotangents (color, final_T, depth, normal). Returns the errors,
+    the argument tuples for timing, the evaluated (pair, pixel) count and
+    the bytes each kernel must move."""
+    import torch
+    from triangle_splatting_tpu_torch.ops.cuda import blend as KB
+
+    H, W, variant = geo["image_height"], geo["image_width"], geo["variant"]
+    live = KB.LIVE_GRAD_ROWS[(variant, True)]
+    on = KB.blend_forward(*fwd, rich=True, **geo)
+    ref = KB.blend_forward_plain(*fwd, rich=True, **geo)
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(on[k], off[k])) for k in (0, 3, 4)]
+    check(all(same), f"blend_forward rich {what}: color, final_T, n_contrib differ from the "
+          f"form without rich info: {same}")
+    e_ct = max(float((on[k] - ref[k]).abs().max()) for k in (0, 3))
+    e_nc = int((on[4] != ref[4]).sum())
+    rel_dn = [float((on[k] - ref[k]).abs().max()) / max(float(ref[k].abs().max()), 1e-30)
+              for k in (1, 2)]
+    check(e_ct <= TOL["b1_abs"] and e_nc == 0, f"blend_forward rich {what}: color/final_T err "
+          f"{e_ct:.3e}, n_contrib differs in {e_nc} pixels")
+    check(max(rel_dn) <= TOL["rich_rel"], f"blend_forward rich {what}: depth / normal rel err "
+          f"{rel_dn} > {TOL['rich_rel']}")
+    check(float(on[2].abs().max()) > 0, f"blend_forward rich {what}: zero normal")
+    bw = fwd + (on[3], on[4]) + tuple(bw_cot)
+    out2 = KB.blend_backward(*bw, rich=True, **geo)
+    ref2 = KB.blend_backward_plain(*bw, rich=True, **geo)
+    torch.cuda.synchronize()
+    diff2 = (out2 - ref2).abs()
+    rel2 = float((diff2.amax(dim=1) / ref2.abs().amax(dim=1).clamp_min(1e-30))[:live].max())
+    check(bool(torch.isfinite(out2).all()), f"blend_backward rich {what}: non-finite values")
+    check(live == 16 or float(out2[live:].abs().max()) == 0.0,
+          f"blend_backward rich {what}: rows {live}.. not zero")
+    check(rel2 <= TOL["b2_rel"], f"blend_backward rich {what}: rel err {rel2:.3e} > {TOL['b2_rel']}")
+    depth_rows = (13,) if variant == "3D" else (10, 14, 15)
+    row_max = [float(out2[r].abs().max()) for r in depth_rows]
+    check(min(row_max) > 0, f"blend_backward rich {what}: depth rows {depth_rows} zero {row_max}")
+    num_pairs = int(fwd[2].to(torch.int64).sum())
+    T = fwd[2].shape[0]
+    pairs_in = 4 * (live * num_pairs + 2 * T + 1 + 8)
+    return dict(fwd=fwd, bw=bw, out2=out2,
+                b1_err=max(e_ct, max(rel_dn) * float(ref[1].abs().max())),
+                rel_depth=rel_dn[0], rel_normal=rel_dn[1], b2_err=float(diff2.max()), b2_rel=rel2,
+                depth_row_max=row_max, evals=float(on[4].to(torch.float64).sum()),
+                b1_bytes=pairs_in + 4 * 9 * H * W,
+                b2_bytes=pairs_in + 4 * 10 * H * W + 4 * 16 * fwd[0].shape[1],
+                b1_tol=(f"abs {TOL['b1_abs']} (color, final_T), rel {TOL['rich_rel']} of the max "
+                        "(depth, normal); n_contrib exact; color, final_T, n_contrib "
+                        "bit-identical to rich off"),
+                b2_tol=f"rel {TOL['b2_rel']} of each row's max")
+
+
+def rich_cotangents(c, H: int, W: int, dev, seed: int = 0):
+    """(color, final_T, depth, normal) cotangents for B2's rich form: the
+    bench loss's color cotangent and random ones for depth and normal."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    return (c["g_color"], torch.zeros((H, W), device=dev),
+            (torch.randn((H, W), generator=gen) / (H * W)).to(dev),
+            (torch.randn((3, H, W), generator=gen) / (3 * H * W)).to(dev))
 
 
 def phase_kernels(b) -> dict:
@@ -487,6 +631,29 @@ def phase_kernels(b) -> dict:
             bound=bound_ms(c["stats_bytes"],
                            (FWD_OPS_PER_EVAL + STATS_OPS_PER_EVAL) * c["evals"]),
             tol=c["stats_tol"])
+        # ---- B1 / B2 with rich info, "2D"; B4 on their 16 live rows
+        r = check_blend_rich(c["fwd"], geo, c["out1"], rich_cotangents(c, H, W, dev), "2D")
+        rec["blend_forward_rich"] = dict(
+            max_abs_err=r["b1_err"],
+            ms=cuda_ms(lambda: KB.blend_forward(*r["fwd"], rich=True, **geo), 20),
+            plain_ms=cuda_ms(lambda: KB.blend_forward_plain(*r["fwd"], rich=True, **geo), 3, 1),
+            library_ms=None,
+            bound=bound_ms(r["b1_bytes"], (FWD_OPS_PER_EVAL + RICH_FWD_OPS["2D"]) * r["evals"]),
+            tol=r["b1_tol"])
+        rec["blend_backward_rich"] = dict(
+            max_abs_err=r["b2_err"],
+            ms=cuda_ms(lambda: KB.blend_backward(*r["bw"], rich=True, **geo), 20),
+            plain_ms=cuda_ms(lambda: KB.blend_backward_plain(*r["bw"], rich=True, **geo), 3, 1),
+            library_ms=None,
+            bound=bound_ms(r["b2_bytes"], (BWD_OPS_PER_EVAL + RICH_BWD_OPS["2D"]) * r["evals"]),
+            tol=r["b2_tol"])
+        live_r = KB.LIVE_GRAD_ROWS[("2D", True)]
+        c4r = check_segment_reduce(r["out2"][:live_r], pair_tri, sp, "2D rich")
+        say("kernels", kernel="blend_rich", variant="2D", b1_rel_err_depth=r["rel_depth"],
+            b1_rel_err_normal=r["rel_normal"], b2_rel_err=r["b2_rel"],
+            b2_depth_row_max=r["depth_row_max"], b4_rows=live_r, b4_rel_err=c4r["rel"],
+            b4_max_abs_err=c4r["err"])
+
         # B5 on the 2D stream (its record is taken at the mesh shapes)
         c5 = check_segment_stats(c["pair_contrib"], pair_tri, sp, "2D")
         say("kernels", kernel="segment_reduce_stats", shapes="bench-800-100k",
@@ -577,6 +744,22 @@ def phase_kernels_3d(dev) -> dict:
             live = KB.LIVE_GRAD_ROWS[("3D", False)]
             c4 = check_segment_reduce(c["out2"][:live], pair_tri, sp, what)
             c5 = check_segment_stats(c["pair_contrib"], pair_tri, sp, what)
+            r = check_blend_rich(c["fwd"], geo, c["out1"], rich_cotangents(c, R, R, dev),
+                                 what)
+            live_r = KB.LIVE_GRAD_ROWS[("3D", True)]
+            c4r = check_segment_reduce(r["out2"][:live_r], pair_tri, sp, what + " rich")
+        ms1r = cuda_ms(lambda: KB.blend_forward(*r["fwd"], rich=True, **geo), 20)
+        ms2r = cuda_ms(lambda: KB.blend_backward(*r["bw"], rich=True, **geo), 20)
+        rich_ops = (FWD_OPS_PER_EVAL_3D[gamma == 1.0] + RICH_FWD_OPS["3D"],
+                    BWD_OPS_PER_EVAL_3D[gamma == 1.0] + RICH_BWD_OPS["3D"])
+        say("kernels_3d", kernel="blend_rich", gamma=gamma, b1_rel_err_depth=r["rel_depth"],
+            b1_rel_err_normal=r["rel_normal"], b1_max_abs_err=r["b1_err"],
+            b2_rel_err=r["b2_rel"], b2_max_abs_err=r["b2_err"],
+            b2_depth_row_max=r["depth_row_max"], b4_rows=live_r, b4_rel_err=c4r["rel"],
+            b4_max_abs_err=c4r["err"], b1_rich_ms=ms1r,
+            b1_rich_bound_ms=bound_ms(r["b1_bytes"], rich_ops[0] * r["evals"])[0],
+            b2_rich_ms=ms2r,
+            b2_rich_bound_ms=bound_ms(r["b2_bytes"], rich_ops[1] * r["evals"])[0])
         ms1 = cuda_ms(lambda: KB.blend_forward(*c["fwd"], **geo), 20)
         ms1s = cuda_ms(lambda: KB.blend_forward(*c["fwd"], stats=True, **geo), 20)
         ms2 = cuda_ms(lambda: KB.blend_backward(*c["bw"], **geo), 20)
@@ -628,7 +811,10 @@ def phase_kernels_3d(dev) -> dict:
 def phase_reference(dev) -> None:
     """The 2D and the 3D kernel pipelines vs their dense oracles on a small
     scene (64x64), with the contribution statistics (B1's stream, owner
-    sort, B5); the 3D one at gamma 1 and 50."""
+    sort, B5), and again with rich info (depth and normal); the 3D one at
+    gamma 1 and 50."""
+    import dataclasses
+
     import torch
     from triangle_splatting_tpu_torch.ops.projection import RasterSettings
     from triangle_splatting_tpu_torch.ops.rasterize import rasterize
@@ -657,10 +843,32 @@ def phase_reference(dev) -> None:
         check(max(ds.values()) <= TOL["oracle_stats_abs"],
               f"{variant} kernel pipeline vs oracle statistics err {ds}")
         check(float(outs["cuda"]["contrib_sum"].max()) > 0, f"{variant}: zero statistics")
+        # with rich info (no statistics: the kernels do not run both)
+        st_r = dataclasses.replace(st, rich_info=True)
+        rich = {}
+        for impl in ("cuda", "oracle"):
+            with torch.no_grad():
+                rich[impl] = rasterize(torch.as_tensor(s["vertex"]).to(dev),
+                                       torch.as_tensor(s["opacity"]).to(dev), None, cam, st_r,
+                                       gamma=gamma, background=torch.ones(3, device=dev),
+                                       bg_depth=10.0, colors=torch.as_tensor(s["rgb"]).to(dev),
+                                       impl=impl)
+        dr = float((rich["cuda"]["render"] - outs["oracle"]["render"]).abs().max())
+        ncr = int((rich["cuda"]["n_contrib"] != rich["oracle"]["n_contrib"]).sum())
+        rel_dn = {k: float((rich["cuda"][k] - rich["oracle"][k]).abs().max())
+                  / float(rich["oracle"][k].abs().max()) for k in ("depth", "normal")}
+        check(dr <= 6e-4 and ncr == 0, f"{variant} rich pipeline vs oracle: render err {dr:.3e}, "
+              f"n_contrib differs in {ncr} pixels")
+        check(max(rel_dn.values()) <= TOL["oracle_rich_rel"],
+              f"{variant} rich pipeline vs oracle: depth / normal rel err {rel_dn}")
+        check(bool(torch.equal(rich["cuda"]["render"], outs["cuda"]["render"])),
+              f"{variant}: the rich pipeline's render differs from the pipeline without it")
         say("reference", variant=variant, gamma=gamma, render_max_abs_err=d,
             n_contrib_mismatch=nc, contrib_sum_max_abs_err=ds["contrib_sum"],
-            contrib_max_max_abs_err=ds["contrib_max"],
-            tol=f"render 6e-4 abs, statistics {TOL['oracle_stats_abs']} abs")
+            contrib_max_max_abs_err=ds["contrib_max"], rich_render_max_abs_err=dr,
+            rich_depth_rel_err=rel_dn["depth"], rich_normal_rel_err=rel_dn["normal"],
+            tol=(f"render 6e-4 abs, statistics {TOL['oracle_stats_abs']} abs, depth and "
+                 f"normal rel {TOL['oracle_rich_rel']} of the max"))
 
 
 def phase_rasterize(b) -> float:
@@ -753,6 +961,7 @@ def phase_train(dev, root: Path) -> dict:
     check(launches["blend_forward_3d"] == launches["blend_backward_3d"] == 0,
           "train: the photo path launched a 3D blend kernel")
     check_no_stats_launches(launches, "train")
+    check_no_rich_launches(launches, "train")
     check(int(trainer.state.active_sh_degree) == 3, "train: SH degree did not reach 3")
     say("train", ms_per_step=round(secs / TRAIN_ITERS * 1e3, 3), steps=TRAIN_ITERS,
         peak_mem_gib=round(peak / 2**30, 3),
@@ -763,7 +972,7 @@ def phase_train(dev, root: Path) -> dict:
     return launches
 
 
-def profile_steps(trainer, phase: str = "profile", steps: int = 10) -> None:
+def profile_steps(trainer, phase: str = "profile", steps: int = 10, bg=None) -> None:
     """Where a train step's time goes at the end of a training phase:
     torch.profiler over ``steps`` more iterations, each the body of the
     trainer's loop (next camera, train step, schedules) without its
@@ -776,7 +985,8 @@ def profile_steps(trainer, phase: str = "profile", steps: int = 10) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    bg = torch.ones(3, device=trainer.device)        # train_background "white"
+    if bg is None:
+        bg = torch.ones(3, device=trainer.device)    # train_background "white"
     cams = [trainer.dataset.nextTrainData() for _ in range(steps)]
     trainer.dataset.close()
 
@@ -873,6 +1083,7 @@ def phase_mesh_train(dev, root: Path) -> dict:
     check(launches["blend_forward"] == launches["blend_backward"] == 0,
           "mesh: the 3D path launched a 2D blend kernel")
     check_no_stats_launches(launches, "mesh")
+    check_no_rich_launches(launches, "mesh")
     say("mesh", ms_per_step=round(secs / TRAIN_ITERS * 1e3, 3), steps=TRAIN_ITERS,
         render_size=MESH_RES, peak_mem_gib=round(peak / 2**30, 3),
         triangles=int(trainer.state.alive.sum()), ste_triangles=trainer.triangle_count(),
@@ -954,6 +1165,7 @@ def phase_mesh_adc(dev, root: Path) -> dict:
               f"times in {n} steps")
     for name in ("blend_forward", "blend_forward_3d", "blend_forward_stats", "blend_backward"):
         check(launches[name] == 0, f"mesh_adc: kernel {name} launched {launches[name]} times")
+    check_no_rich_launches(launches, "mesh_adc")
     hist = trainer.prune_history
     contrib = [(it, k) for it, kind, k in hist if kind == "contribution"]
     scale = [(it, k) for it, kind, k in hist if kind == "scale"]
@@ -982,6 +1194,309 @@ def phase_mesh_adc(dev, root: Path) -> dict:
         pairs_per_triangle=trainer._ppt)
     profile_steps(trainer, "mesh_adc_profile")
     return launches
+
+
+def build_city(dev) -> Path:
+    """The synthetic city (``make_city_scene``: a 6 x 6 ground and 16
+    buildings, ~40k opaque triangles) written in MatrixCity's block_all
+    layout: 8 train / 2 test aerial views at 1600x900 and a 4M-point
+    fused.ply; prints the host seconds of each step. Returns the root."""
+    from triangle_splatting_tpu_torch.utils.testing import make_city_scene, write_matrix_city
+
+    t0 = time.perf_counter()
+    scene = make_city_scene(0)
+    root = WORK / "matrix_city"
+    secs = write_matrix_city(root, scene, width=CITY_W, height=CITY_H, n_train=8, n_test=2,
+                             n_points=CITY_POINTS, device=dev)
+    secs["total"] = time.perf_counter() - t0
+    say("city_data", gt_triangles=int(scene["vertex"].shape[0]), points=CITY_POINTS,
+        host_seconds={k: round(v, 3) for k, v in secs.items()})
+    return root
+
+
+def phase_city(dev, root: Path) -> tuple[dict, dict]:
+    """config/MatrixCity_VanillaTS_mesh.yaml as shipped, on the synthetic
+    city, with the cuts of CITY_CUTS (the recipe's cadences compressed
+    into 50 steps). Gates: losses finite and falling; the geometry term
+    > 0 and finite from step 6; gamma 50 at the end; each opacity pruning
+    lowers the alive count by its logged count and each clipping changes
+    exactly its logged count of opacities; B1/B2-3D's rich forms, B3 and
+    B4 once per step and no other blend form, no B5; B2's K row (13) zero
+    at step 5 and nonzero at steps 6 and 50 (the geometry term's weight
+    turns on at 6). Then B1/B2 rich, B3 and B4 against their plain
+    versions on the last step's own inputs (the main path's shapes) and
+    opacity clipping and pruning on the card against the CPU
+    (``check_opacity_adc``). Returns the launches and the kernel records."""
+    import numpy as np
+    import torch
+    from triangle_splatting_tpu_torch.ops import binning as BN
+    from triangle_splatting_tpu_torch.ops import rasterize as RZ
+    from triangle_splatting_tpu_torch.ops.cuda import blend as KB
+    from triangle_splatting_tpu_torch.ops.cuda import reset_launches
+    from triangle_splatting_tpu_torch.ops.cuda import streams as KS
+    from triangle_splatting_tpu_torch.trainers import build_trainer
+    from triangle_splatting_tpu_torch.utils.config import loadConfig
+
+    cfg = loadConfig(REPO / "config" / "MatrixCity_VanillaTS_mesh.yaml")
+    cfg.dataset.local_dir = str(root)
+    mu = cfg.model.model_update
+    op, oc, sp = mu.opacity_pruning, mu.opacity_clipping, mu.scale_pruning
+    op.start_iter, op.end_iter, op.hold_iter, op.interval_iter = 5, 60, 40, 10
+    oc.start_iter, oc.end_iter, oc.hold_iter, oc.interval_iter = 10, 40, 40, 10
+    sp.start_iter, sp.end_iter, sp.interval_iter = 5, 40, 10
+    mu.gamma_schedule.start_iter, mu.gamma_schedule.end_iter = 10, 40
+    t = cfg.trainer
+    n = TRAIN_ITERS
+    t.iterations = n
+    t.output_dir = str(WORK / "out_city")
+    t.geometry_loss.start_iter = 5
+    t.w_opacity_reg.quad_start_iter, t.w_opacity_reg.linear_start_iter = 5, 40
+    t.log_interval_iter = 10
+    t.initial_eval = False
+    saves = (t.save_iterations or []) + (t.checkpoint_iterations or []) + (t.save_glb_iterations or [])
+    check(all(it > n for it in saves), "city: a save iteration lies inside the run")
+    say("city", cell="matrixcity-mesh-1600x900-1m", cuts=CITY_CUTS)
+
+    t0 = time.perf_counter()
+    trainer = build_trainer(cfg, log_file=False)
+    host = dict(load_cameras=time.perf_counter() - t0)
+    timed = {}
+
+    def timer(name, fn):
+        def wrapped(*a, **kw):
+            t1 = time.perf_counter()
+            out = fn(*a, **kw)
+            timed[name] = time.perf_counter() - t1
+            return out
+        return wrapped
+    trainer.dataset.getPointCloud = timer("load_point_cloud", trainer.dataset.getPointCloud)
+    trainer._sample_points = timer("grid_sampling", trainer._sample_points)
+    t0 = time.perf_counter()
+    trainer._init_model()
+    host["init_model"] = time.perf_counter() - t0
+    host.update(timed)
+    alive0 = int(trainer.state.alive.sum())
+    check(CITY_TRIANGLES[0] <= alive0 <= CITY_TRIANGLES[1],
+          f"city: grid sampling gave {alive0} triangles, not {CITY_TRIANGLES}")
+    psnr0 = trainer._evaluate(0)
+
+    # The spies act at three steps only and pass every other call straight
+    # through: at step 5 (the last with the geometry weight 0, so the depth
+    # cotangent is exactly 0), step 6 (the first with it on) and the last
+    # step they read B2's K row, and at the last step they keep the inputs
+    # of B1-B4, held against the plain versions after the run. The ADC spy
+    # snapshots the alive mask and the opacities only at the blocks'
+    # cadence steps.
+    k_steps = (5, 6, n)
+    step = {"next": 1}           # the step the next launches belong to
+    last, k_rows, firings = {}, {}, []
+    real = dict(fwd=RZ.blend_forward, bwd=RZ.blend_backward, b3=BN.relayout_pairs,
+                b4=RZ.segment_reduce_pairs)
+
+    def spy(name):
+        def wrapped(*a, **kw):
+            out = real[name](*a, **kw)
+            if step["next"] == n:
+                last[name] = (a, kw)
+            if name == "bwd" and step["next"] in k_steps:
+                k_rows[step["next"]] = out[13].abs().max()
+            return out
+        return wrapped
+
+    update0 = trainer._model_update
+
+    def update_spy(it):
+        step["next"] = it + 1
+        if all(it % b.interval_iter for b in (op, oc, sp)):
+            return update0(it)
+        alive, opac = trainer.state.alive.clone(), trainer.params.opacity.clone()
+        n_hist = len(trainer.prune_history)
+        update0(it)
+        fired = trainer.prune_history[n_hist:]
+        if fired:
+            firings.append(dict(
+                it=it, logged=fired,
+                alive_drop=int(alive.sum()) - int(trainer.state.alive.sum()),
+                opacity_changed=int((trainer.params.opacity != opac).any(dim=1).sum())))
+    RZ.blend_forward, RZ.blend_backward = spy("fwd"), spy("bwd")
+    BN.relayout_pairs, RZ.segment_reduce_pairs = spy("b3"), spy("b4")
+    trainer._model_update = update_spy
+    try:
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        RZ.blend_forward, RZ.blend_backward = real["fwd"], real["bwd"]
+        BN.relayout_pairs, RZ.segment_reduce_pairs = real["b3"], real["b4"]
+        del trainer._model_update
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    losses = torch.stack(trainer.loss_history).cpu().numpy()
+    geos = torch.stack(trainer.geo_history).cpu().numpy()
+    k_max = {it: float(k_rows[it]) for it in sorted(k_rows)}
+    check(len(losses) == n, f"city: expected {n} losses, got {len(losses)}")
+    check(bool(np.isfinite(losses).all()), "city: non-finite loss")
+    first, last10 = float(losses[:10].mean()), float(losses[-10:].mean())
+    check(last10 < first, f"city: loss did not fall (first10 {first:.5f}, last10 {last10:.5f})")
+    check(bool(np.isfinite(geos).all() and (geos[5:] > 0).all()),
+          f"city: geometry term not > 0 and finite from step 6: {geos.tolist()}")
+    gamma = float(trainer.state.gamma)
+    check(abs(gamma - 50.0) <= 1e-3, f"city: gamma ended at {gamma}, not 50")
+    # before the geometry term starts (weight 0 through step 5) the depth
+    # cotangent is exactly 0, from step 6 on it reaches B2's K row
+    check(list(k_max) == list(k_steps) and k_max[5] == 0.0 and k_max[6] > 0 and k_max[n] > 0,
+          f"city: B2's K row (the depth cotangent) at steps {k_steps}: {k_max}")
+    for name in ("blend_forward_3d_rich", "blend_backward_3d_rich", "relayout_pairs",
+                 "segment_reduce_pairs"):
+        check(launches[name] == n, f"city: kernel {name} launched {launches[name]} times "
+              f"in {n} steps")
+    for name, cnt in launches.items():
+        if name.startswith("blend_") and not name.endswith("_3d_rich") or name == "segment_reduce_stats":
+            check(cnt == 0, f"city: kernel {name} launched {cnt} times")
+    kinds = {}
+    for f in firings:
+        for it, kind, cnt in f["logged"]:
+            kinds.setdefault(kind, []).append((it, cnt))
+        pruned = sum(cnt for _, kind, cnt in f["logged"] if kind != "clipping")
+        clipped = sum(cnt for _, kind, cnt in f["logged"] if kind == "clipping")
+        check(f["alive_drop"] == pruned, f"city: step {f['it']} pruned {f['alive_drop']} rows, "
+              f"logged {f['logged']}")
+        check(f["opacity_changed"] == clipped, f"city: step {f['it']} changed "
+              f"{f['opacity_changed']} opacities, logged {f['logged']}")
+    due = {"opacity": list(range(10, 41, 10)), "clipping": [20, 30, 40],
+           "scale": list(range(10, 41, 10))}
+    for kind, its in due.items():
+        check([it for it, _ in kinds.get(kind, [])] == its,
+              f"city: {kind} fired at {kinds.get(kind)}, due at {its}")
+    alive1 = int(trainer.state.alive.sum())
+    check(alive0 - alive1 == sum(cnt for kind in ("opacity", "scale")
+                                 for _, cnt in kinds.get(kind, [])),
+          f"city: alive {alive0} -> {alive1}, logged {kinds}")
+    psnr1 = trainer._evaluate(n)
+    say("city", ms_per_step=round(secs / n * 1e3, 3), steps=n, resolution=[CITY_W, CITY_H],
+        peak_mem_gib=round(peak / 2**30, 3), host_seconds={k: round(v, 3) for k, v in host.items()},
+        triangles_init=alive0, triangles_end=alive1, firings=kinds, gamma_final=gamma,
+        loss_first=float(losses[0]), loss_last=float(losses[-1]), loss_first10=first,
+        loss_last10=last10, geometry_step6=float(geos[5]), geometry_last=float(geos[-1]),
+        k_row_max=k_max, psnr_test_before=psnr0, psnr_test_after=psnr1,
+        launches=launches, pairs_per_triangle=trainer._ppt)
+
+    # B1/B2 rich on the last step's own inputs: the main path's shapes
+    (fa, fkw), (ba, bkw) = last["fwd"], last["bwd"]
+    geo = {k: fkw[k] for k in ("image_width", "image_height", "tile_h", "tile_w", "variant")}
+    fwd = tuple(x.detach() for x in fa[:4])          # no autograd history
+    with torch.no_grad():
+        off = KB.blend_forward(*fwd, **geo)
+        r = check_blend_rich(fwd, geo, off, [x.detach() for x in ba[6:10]], "3D, city")
+        num_pairs = int(fwd[2].to(torch.int64).sum())
+        g50 = False          # the last step runs at gamma 50
+        rec = {
+            "blend_forward_3d_rich": dict(
+                max_abs_err=r["b1_err"],
+                ms=cuda_ms(lambda: KB.blend_forward(*r["fwd"], rich=True, **geo), 20),
+                plain_ms=cuda_ms(lambda: KB.blend_forward_plain(*r["fwd"], rich=True, **geo), 2, 1),
+                library_ms=None,
+                bound=bound_ms(r["b1_bytes"], (FWD_OPS_PER_EVAL_3D[g50] + RICH_FWD_OPS["3D"])
+                               * r["evals"]),
+                tol=r["b1_tol"]),
+            "blend_backward_3d_rich": dict(
+                max_abs_err=r["b2_err"],
+                ms=cuda_ms(lambda: KB.blend_backward(*r["bw"], rich=True, **geo), 20),
+                plain_ms=cuda_ms(lambda: KB.blend_backward_plain(*r["bw"], rich=True, **geo), 2, 1),
+                library_ms=None,
+                bound=bound_ms(r["b2_bytes"], (BWD_OPS_PER_EVAL_3D[g50] + RICH_BWD_OPS["3D"])
+                               * r["evals"]),
+                tol=r["b2_tol"]),
+        }
+        for name, x in rec.items():
+            say("city_kernels", kernel=name, max_abs_err=x["max_abs_err"], tol=x["tol"],
+                ms=round(x["ms"], 4), plain_ms=round(x["plain_ms"], 3),
+                bound_ms=round(x["bound"][0], 5), bound_by=x["bound"][1])
+        say("city_kernels", tiles=int(fwd[2].shape[0]), num_pairs=num_pairs, ma=int(fwd[0].shape[1]),
+            pair_pixel_evals=r["evals"], b1_rel_err_depth=r["rel_depth"],
+            b1_rel_err_normal=r["rel_normal"], b2_rel_err=r["b2_rel"],
+            b2_k_row_max=r["depth_row_max"])
+        # B3 and B4 on the last step's own inputs: 1,450 tiles with a
+        # partial last row, and B2-3D-rich's 14 live rows per pair
+        a3 = last["b3"][0] + tuple(last["b3"][1].values())
+        a4 = tuple(x.detach() if torch.is_tensor(x) else x
+                   for x in last["b4"][0] + tuple(last["b4"][1].values()))
+        _, err3 = hold_relayout(a3, "city")
+        c4 = hold_segment_reduce(a4, "city")
+        T, ma, np3 = int(a3[3].shape[0]), int(a3[4]), int(a3[3].sum())
+        rows4, P, np4 = int(a4[0].shape[0]), int(a4[1].shape[0]), int(a4[3])
+        b3 = bound_ms(4 * (np3 + 3 * (T + 1) + ma))
+        b4 = bound_ms(4 * (rows4 * np4 + 2 * P + 1) + 4 * 16 * P, rows4 * np4)
+        say("city_kernels", kernel="relayout_pairs", max_abs_err=err3, tol="exact", tiles=T,
+            num_pairs=np3, ma=ma, ms=round(cuda_ms(lambda: KS.relayout_pairs(*a3), 50), 4),
+            plain_ms=round(cuda_ms(lambda: KS.relayout_pairs_plain(*a3), 10), 3),
+            bound_ms=round(b3[0], 5), bound_by=b3[1])
+        say("city_kernels", kernel="segment_reduce_pairs", max_abs_err=c4["err"],
+            rel_err=c4["rel"], tol=f"rel {TOL['b4_rel']} of the max", rows=rows4,
+            triangles=P, num_pairs=np4,
+            ms=round(cuda_ms(lambda: KS.segment_reduce_pairs(*a4), 50), 4),
+            plain_ms=round(cuda_ms(lambda: KS.segment_reduce_pairs_plain(*a4), 10), 3),
+            bound_ms=round(b4[0], 5), bound_by=b4[1])
+        del last, r, fwd, off, a3, a4, c4
+        check_opacity_adc(trainer.params, trainer.opt, trainer.state)
+    profile_steps(trainer, "city_profile", bg=torch.zeros(3, device=dev))
+    return launches, rec
+
+
+def check_opacity_adc(params, opt, state) -> None:
+    """Opacity clipping and opacity pruning of the trained model on the card
+    against the same calls on a CPU copy. The run's own firings change no
+    row at the recipe's thresholds, so these pick thresholds that select
+    a tenth or more of the live rows each: the midpoint of the first gap
+    wider than 1e-6 between sorted live opacities from the 90% (clipping)
+    and the 10% (pruning) quantile on (a block of tied opacities pushes it
+    further), so that an ulp of the sigmoid cannot move a row across.
+    Counts, opacities, Adam moments, alive masks and statistics must agree
+    exactly. The calls return new tensors, so
+    the trainer's model stays as it was."""
+    import dataclasses
+
+    import torch
+    from triangle_splatting_tpu_torch.models import triangle as M
+
+    def to_cpu(x):
+        if isinstance(x, M.AdamState):
+            return dataclasses.replace(x, m=to_cpu(x.m), v=to_cpu(x.v))
+        return dataclasses.replace(x, **{f.name: getattr(x, f.name).cpu()
+                                         for f in dataclasses.fields(x)
+                                         if torch.is_tensor(getattr(x, f.name))})
+
+    def leaves(p, o, s):
+        yield from (("params." + k, t) for k, t in p.tensors().items())
+        yield from (("adam.m." + k, t) for k, t in o.m.tensors().items())
+        yield from (("adam.v." + k, t) for k, t in o.v.tensors().items())
+        yield from (("state." + f.name, getattr(s, f.name)) for f in dataclasses.fields(s))
+
+    host = (to_cpu(params), to_cpu(opt), to_cpu(state))
+    live = torch.sort(M.get_opacity(host[0])[:, 0][host[2].alive]).values.double()
+    gaps = live[1:] - live[:-1]
+    for kind, fn, q in (("clipping", M.opacity_clipping, 0.9),
+                        ("pruning", M.opacity_pruning, 0.1)):
+        k = int(q * live.numel())
+        wide = torch.nonzero(gaps[k:] > 1e-6)
+        check(wide.numel() > 0, f"city opacity {kind}: no gap > 1e-6 above the {q} quantile")
+        i = k + int(wide[0])                     # the gap lies between live[i] and live[i + 1]
+        thr = float(live[i] + live[i + 1]) / 2
+        expect = live.numel() - (i + 1) if kind == "clipping" else i + 1
+        *dev_out, n_dev = fn(params, opt, state, thr)
+        *cpu_out, n_cpu = fn(*host, thr)
+        check(int(n_dev) == int(n_cpu) == expect > 0,
+              f"city opacity {kind}: card {int(n_dev)}, CPU {int(n_cpu)} rows, expected {expect}")
+        differ = [name for (name, a), (_, b) in zip(leaves(*dev_out), leaves(*cpu_out))
+                  if not torch.equal(a.cpu(), b)]
+        check(not differ, f"city opacity {kind}: card and CPU differ in {differ}")
+        say("city_adc", kind=kind, threshold=thr, rows=int(n_dev), live=int(live.numel()),
+            card_vs_cpu="exact")
 
 
 def main() -> int:
@@ -1013,6 +1528,9 @@ def main() -> int:
         surface = build_dataset(dev, "surface")
         runs["mesh"] = phase_mesh_train(dev, surface)
         runs["mesh_adc"] = phase_mesh_adc(dev, surface)
+        shutil.rmtree(surface, ignore_errors=True)
+        runs["city"], city_rec = phase_city(dev, build_city(dev))
+        rec.update(city_rec)
     except SmokeFailure as e:
         print(f"FAIL {e}", flush=True)
         return 1

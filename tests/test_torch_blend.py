@@ -155,16 +155,21 @@ def test_backward_plain_matches_float64_autograd(case):
      "blend_forward_kernel<true>"),
     ("_ZN40_GLOBAL__N__230fffe1_8_blend_cu_db7cfa6a20blend_forward_kernelILb1ELb0EEEvPKfiPKiS4_S2_iiiiiPfS5_S5_S5_PiS5_",
      "blend_forward_kernel<true, false>"),
+    ("_ZN40_GLOBAL__N__230fffe1_8_blend_cu_db7cfa6a20blend_forward_kernelILb1ELb0ELb1EEEvPKfiPKiS4_S2_iiiiiPfS5_S5_S5_PiS5_",
+     "blend_forward_kernel<true, false, true>"),
 ])
 def test_kernel_name_reads_mangled_entries(mangled, name):
     """The names ptxas and cuobjdump print for the blend kernels, before
     and after they became ``template <bool k3D>`` and the forward
-    ``template <bool k3D, bool kStats>``; an old kernel's counterpart is
-    the instantiation with one more, trailing, ``false``."""
+    ``template <bool k3D, bool kStats>``, then ``<..., bool kRich>``; an
+    old kernel's counterpart is the instantiation with one more, trailing,
+    ``false``."""
     from triangle_splatting_tpu_torch.ops.cuda.compare_sass import counterpart, kernel_name
     assert kernel_name(mangled) == name
     assert counterpart("blend_forward_kernel<true>") == "blend_forward_kernel<true, false>"
     assert counterpart("blend_forward_kernel") == "blend_forward_kernel<false>"
+    assert counterpart("blend_forward_kernel<true, true>") == \
+        "blend_forward_kernel<true, true, false>"
 
 
 def test_launch_counts_by_kernel_and_variant():
@@ -174,18 +179,23 @@ def test_launch_counts_by_kernel_and_variant():
                                         TS.relayout_pairs, TS.segment_reduce_pairs,
                                         TS.segment_reduce_stats)}
     try:
-        TB.blend_backward.launches = {"2D": 2, "3D": 5}
-        TB.blend_forward.launches = dict(TB.blend_forward.launches, **{"3D_stats": 3})
+        TB.blend_backward.launches = dict(TB.blend_backward.launches, **{"2D": 2, "3D": 5,
+                                                                          "3D_rich": 6})
+        TB.blend_forward.launches = dict(TB.blend_forward.launches, **{"3D_stats": 3,
+                                                                        "2D_rich": 1})
         TS.segment_reduce_pairs.launches = 7
         TS.segment_reduce_stats.launches = 4
         counts = launch_counts()
         assert counts[("blend_backward", "3D")] == 5 and counts[("blend_backward", "2D")] == 2
         assert counts[("blend_forward", "3D_stats")] == 3
+        assert counts[("blend_forward", "2D_rich")] == 1
+        assert counts[("blend_backward", "3D_rich")] == 6
         assert counts[("segment_reduce_pairs", None)] == 7
         assert counts[("segment_reduce_stats", None)] == 4
         reset_launches()
-        forms = {"blend_forward": [*TB.VARIANTS, *(f"{v}_stats" for v in TB.VARIANTS)],
-                 "blend_backward": TB.VARIANTS}
+        forms = {"blend_forward": [*TB.VARIANTS, *(f"{v}_stats" for v in TB.VARIANTS),
+                                   *(f"{v}_rich" for v in TB.VARIANTS)],
+                 "blend_backward": [*TB.VARIANTS, *(f"{v}_rich" for v in TB.VARIANTS)]}
         assert set(launch_counts()) == {(k, v) for k, vs in forms.items() for v in vs} | {
             ("relayout_pairs", None), ("segment_reduce_pairs", None),
             ("segment_reduce_stats", None)}

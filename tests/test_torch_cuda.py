@@ -92,6 +92,94 @@ CASES_3D = [
 @pytest.mark.parametrize("variant,case", [
     *(pytest.param("2D", c, id=f"case{i}") for i, c in enumerate(CASES)),
     *(pytest.param("3D", c, id=f"3d-case{i}") for i, c in enumerate(CASES_3D))])
+def test_blend_rich_kernels_match_plain(dev, variant, case):
+    """B1/B2 with rich info against their plain versions on the card: the
+    rich forward's color, final_T and n_contrib bit-identical to the
+    kernel without rich info, its depth and normal within rel 1e-5 of
+    their max (sums in another order); the rich backward's live rows
+    (16 "2D", 14 "3D") rel 1e-4 of each row's max; launches count under
+    "<variant>_rich"."""
+    P, W, H, seed, gamma, orange = case
+    live = KB.LIVE_GRAD_ROWS[(variant, True)]
+    sp, _, fields, params = pipeline_inputs(case, dev, variant)
+    if variant == "3D":
+        cam = make_camera(W, H, device=dev)
+        params[5], params[6] = W / (2.0 * cam.tan_fovx), H / (2.0 * cam.tan_fovy)
+    geo = dict(image_width=W, image_height=H, tile_h=32, tile_w=32, variant=variant)
+    args = (fields, sp.astarts, sp.tile_counts, params)
+    n_fwd, n_bwd = dict(KB.blend_forward.launches), dict(KB.blend_backward.launches)
+    out = KB.blend_forward(*args, rich=True, **geo)
+    off = KB.blend_forward(*args, **geo)
+    ref = KB.blend_forward_plain(*args, rich=True, **geo)
+    torch.cuda.synchronize()
+    form = f"{variant}_rich"
+    assert KB.blend_forward.launches == {**n_fwd, form: n_fwd[form] + 1,
+                                         variant: n_fwd[variant] + 1}
+    for k in (0, 3, 4):
+        assert torch.equal(out[k], off[k]), k
+    assert torch.equal(out[4], ref[4])
+    for k in (0, 3):
+        assert float((out[k] - ref[k]).abs().max()) <= 1e-5
+    for k in (1, 2):
+        scale = float(ref[k].abs().max())
+        assert float((out[k] - ref[k]).abs().max()) <= 1e-5 * scale, k
+    assert float(out[2].abs().max()) > 0
+
+    gen = torch.Generator().manual_seed(seed)
+    n = H * W
+    cots = [(torch.randn(shape, generator=gen) / (c * n)).to(dev)
+            for shape, c in (((3, H, W), 3), ((H, W), 1), ((H, W), 1), ((3, H, W), 3))]
+    bw = args + (out[3], out[4], *cots)
+    got = KB.blend_backward(*bw, rich=True, **geo)
+    want = KB.blend_backward_plain(*bw, rich=True, **geo)
+    torch.cuda.synchronize()
+    assert KB.blend_backward.launches == {**n_bwd, form: n_bwd[form] + 1}
+    assert bool(torch.isfinite(got).all())
+    scale = want[:live].abs().amax(dim=1).clamp_min(1e-30)
+    assert float(((got[:live] - want[:live]).abs().amax(dim=1) / scale).max()) <= 1e-4
+    assert not bool(got[live:].any())               # "2D": all 16 rows are live
+    assert float(got[live - 1].abs().max()) > 0     # the depth row reached the kernel
+    ts, tc = sp.astarts.tolist(), sp.tile_counts.tolist()
+    for t in range(len(tc)):
+        assert not bool(got[:, ts[t] + tc[t]:ts[t + 1]].any())
+
+
+@pytest.mark.parametrize("variant", ["2D", "3D"])
+def test_rasterize_rich_cuda_matches_cpu(dev, variant):
+    """rasterize(rich_info=True) on the card vs its plain versions on the
+    CPU, forward and gradients of a loss that reads render, depth and
+    normal, at gamma 1 ("2D") and 50 ("3D")."""
+    s = make_random_scene(300, seed=7)
+    st = RasterSettings(image_width=96, image_height=64, rich_info=True,
+                        rasterizer_type=variant)
+    gen = torch.Generator().manual_seed(1)
+    target = torch.rand((3, 64, 96), generator=gen)
+    w_d = torch.randn((64, 96), generator=gen) / (64 * 96)
+    w_n = torch.randn((3, 64, 96), generator=gen) / (64 * 96)
+    gamma = 1.0 if variant == "2D" else 50.0
+    res = {}
+    for d in ("cpu", dev):
+        leaves = [torch.tensor(s[k], device=d, requires_grad=True)
+                  for k in ("vertex", "opacity", "rgb")]
+        out = rasterize(leaves[0], leaves[1], None, make_camera(96, 64, device=d), st,
+                        gamma=gamma, background=torch.ones(3, device=d), bg_depth=10.0,
+                        colors=leaves[2])
+        loss = (((out["render"] - target.to(d)) ** 2).mean() + (out["depth"] * w_d.to(d)).sum()
+                + (out["normal"] * w_n.to(d)).sum())
+        res[str(d)] = (out, torch.autograd.grad(loss, leaves))
+    (oc, gc), (og, gg) = res["cpu"], res["cuda"]
+    for k in ("render", "depth", "normal"):
+        a, b = og[k].detach().cpu(), oc[k].detach()
+        assert float((a - b).abs().max()) <= 1e-3 * max(1.0, float(b.abs().max())), k
+    assert int((og["n_contrib"].cpu() != oc["n_contrib"]).sum()) <= 2
+    # the budgets of test_rasterize_3d_cuda_matches_cpu
+    for a, b, tol in zip(gg, gc, (2e-2, 1e-3, 1e-3)):
+        assert float((a.cpu() - b).norm() / b.norm()) <= tol
+
+
+@pytest.mark.parametrize("variant,case", [
+    *(pytest.param("2D", c, id=f"case{i}") for i, c in enumerate(CASES)),
+    *(pytest.param("3D", c, id=f"3d-case{i}") for i, c in enumerate(CASES_3D))])
 def test_blend_kernels_match_plain(dev, variant, case):
     """B1/B2 against their plain versions on the card, per variant ("3D":
     the quotients a = A/D with a correctly rounded divide); the launches
@@ -309,7 +397,7 @@ def test_wrappers_reject_bad_inputs(dev):
                          image_width=64, image_height=64, tile_h=32, tile_w=32)
     with pytest.raises(NotImplementedError):
         KB.blend_forward(f.float(), ts, tc, torch.zeros(8, device=dev), image_width=64,
-                         image_height=64, tile_h=32, tile_w=32, rich=True)
+                         image_height=64, tile_h=32, tile_w=32, rich=True, stats=True)
     with pytest.raises(NotImplementedError):
         KB.blend_forward(f.float(), ts, tc, torch.zeros(8, device=dev), image_width=64,
                          image_height=64, tile_h=32, tile_w=32, variant="GS")

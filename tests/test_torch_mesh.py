@@ -278,7 +278,7 @@ def test_downsample_matches_jax_image_resize():
     for shape, out in (((3, 64, 48), (3, 32, 24)), ((30, 22), (15, 11))):
         x = rng.uniform(size=shape).astype(np.float32)
         want = np.asarray(jax.image.resize(jnp.asarray(x), out, "linear"))
-        got = TM._downsample(torch.as_tensor(x), *out[-2:]).numpy()
+        got = TM.resize_linear(torch.as_tensor(x), *out[-2:]).numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
     plain = torch.nn.functional.interpolate(torch.as_tensor(x)[None, None], size=out,
                                             mode="bilinear", align_corners=False)[0, 0]

@@ -109,13 +109,12 @@ def test_unported_variants_raise():
     cam = t_camera(W, H, device="cpu")
     v, o = torch.as_tensor(inp["vertex"]), torch.as_tensor(inp["opacity"])
     c = torch.full((P, 3), 0.5)
-    with pytest.raises(NotImplementedError):
-        t_rasterize(v, o, None, cam, TRS(W, H, rich_info=True), colors=c)
-    # the 3D variant is ported (tests/test_torch_mesh.py) without its rich
-    # (depth/normal) stream; the statistics are (tests/test_torch_stats.py)
-    with pytest.raises(NotImplementedError):
-        t_rasterize(v, o, None, cam, TRS(W, H, rich_info=True,
-                                         rasterizer_type="3D"), colors=c)
+    # rich info (tests/test_torch_rich.py) and the statistics
+    # (tests/test_torch_stats.py) are ported, but not both at once
+    for variant in ("2D", "3D"):
+        with pytest.raises(NotImplementedError):
+            t_rasterize(v, o, None, cam, TRS(W, H, rich_info=True, rasterizer_type=variant),
+                        colors=c, need_stats=True)
     with pytest.raises(NotImplementedError):
         t_rasterize(v, o, None, cam, TRS(W, H, rich_info=False,
                                          rasterizer_type="GS"), colors=c)

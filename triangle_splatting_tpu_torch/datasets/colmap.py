@@ -2,10 +2,11 @@
 ``triangle_splatting_tpu/datasets/colmap.py``).
 
 ``ColmapDataset`` maps an index to a port ``Camera`` with its decoded
-ground-truth image on the factory's device. Reading COLMAP sparse models
-(cameras/images.bin|txt) is not ported yet: ``ColmapDatasetFactory`` serves
-subclasses that supply camera records themselves (NeRF-Synthetic), and
-point clouds in PLY.
+ground-truth image on the factory's device. ``ColmapDatasetFactory`` reads
+the sparse model under ``sparse/0`` (``.bin`` or ``.txt``) and holds out
+every ``hold_interval``-th view (default 8) as the test split; subclasses
+(NeRF-Synthetic, MatrixCity) supply their own camera records. Point
+clouds load from COLMAP ``points3D.bin`` or PLY.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from ..utils.camera import Camera, world_to_view_matrix
 from ..utils.config import Config
 from ..utils.logger import Logger
 from .base import BaseDatasetFactory
-from .colmap_loader import CameraInfo
+from .colmap_loader import CameraInfo, read_points3D_binary, readColmapCameras
 
 
 def solve_target_res(target_res, orig_w: int, orig_h: int) -> tuple[int, int]:
@@ -124,9 +125,19 @@ class ColmapDatasetFactory(BaseDatasetFactory):
                                            device)
 
     def _getCameraInfos(self):
-        raise NotImplementedError(
-            "reading COLMAP sparse models is not ported yet; the port serves "
-            "the NeRF-Synthetic dataset type")
+        root = self.root
+        for images, cameras in [("sparse/0/images.bin", "sparse/0/cameras.bin"),
+                                ("sparse/0/images.txt", "sparse/0/cameras.txt")]:
+            if (root / images).exists() and (root / cameras).exists():
+                infos = readColmapCameras(root / images, root / cameras, "images")
+                break
+        else:
+            raise FileNotFoundError(f"No COLMAP sparse model under {root}/sparse/0")
+        infos = sorted(infos, key=lambda x: x.image_name)
+        hold = self._config.hold_interval or 8
+        train = [c for i, c in enumerate(infos) if i % hold != 0]
+        test = [c for i, c in enumerate(infos) if i % hold == 0]
+        return train, test
 
     def getPointCloud(self) -> PointCloud:
         pcd_path = self._config.pcd_path
@@ -134,6 +145,12 @@ class ColmapDatasetFactory(BaseDatasetFactory):
             return PointCloud()
         path = self.root / pcd_path
         self._logger.info(f"Fetching point cloud from {path}")
+        if str(path).endswith(".bin"):
+            xyz, rgb, _ = read_points3D_binary(path)
+            return PointCloud(xyz, rgb)
         if str(path).endswith(".ply"):
+            # a plain point cloud (the JAX loader tries a Gaussian PLY first
+            # and falls back to this; the Gaussian loader comes with the
+            # Gaussian path)
             return PointCloud().fetchPly(path)
-        raise NotImplementedError(f"point cloud format not ported yet: {path}")
+        raise ValueError(f"Unsupported point cloud format: {path}")

@@ -5,9 +5,9 @@ mesh training paths: the parameter / state / Adam containers, the derived
 quantities, ``forward`` (STE, gamma rescale, background depth and
 ``render_up_scale`` as the JAX function does them), ``adam_update`` (eps
 1e-15), ``create_from_points``, and the adaptive density control the mesh
-recipe runs (statistics update, scale and contribution pruning). The
-other ADC operations (densify, opacity pruning / clipping, scale
-clipping, opacity reset) are not ported yet.
+recipes run (statistics update, scale, contribution and opacity pruning,
+opacity clipping). The other ADC operations (densify, scale clipping,
+opacity reset) are not ported yet.
 
 Parameters stay plain dataclasses of tensors at a fixed capacity C with an
 ``alive`` mask, the layout the JAX package uses, so weights convert one to
@@ -29,7 +29,8 @@ from ..ops.projection import RasterSettings, safe_norm
 from ..ops.rasterize import rasterize
 from ..utils.camera import Camera
 from .adc_common import contribution_prune_mask, reset_contribution_stats
-from .model_utils import get_inside_mask, inter_point_distance_np, inverse_sigmoid_np
+from .model_utils import (get_inside_mask, inter_point_distance_np, inverse_sigmoid_np,
+                          resize_linear)
 
 
 @dataclass
@@ -153,16 +154,6 @@ def gamma_rescale_ratio(gamma) -> torch.Tensor:
 # Forward
 # ---------------------------------------------------------------------------
 
-def _downsample(x: torch.Tensor, H: int, W: int) -> torch.Tensor:
-    """(..., h, w) -> (..., H, W), antialiased bilinear (the triangle
-    filter widened by the scale, as ``jax.image.resize`` "linear")."""
-    lead = x.shape[:-2]
-    y = torch.nn.functional.interpolate(
-        x.reshape((1, -1) + x.shape[-2:]), size=(H, W), mode="bilinear",
-        align_corners=False, antialias=True)
-    return y.reshape(lead + (H, W))
-
-
 def forward(params: TriangleParams, state: TriangleState, camera: Camera,
             background: torch.Tensor, cfg: ModelConfig,
             settings: RasterSettings, *, is_training: bool = True,
@@ -214,9 +205,9 @@ def forward(params: TriangleParams, state: TriangleState, camera: Camera,
                     impl=impl, max_pairs=max_pairs, need_stats=need_stats)
 
     if up > 1:
-        out["render"] = _downsample(out["render"], H, W)
-        out["depth"] = _downsample(out["depth"], H, W)
-        out["normal"] = _downsample(out["normal"], H, W)
+        out["render"] = resize_linear(out["render"], H, W)
+        out["depth"] = resize_linear(out["depth"], H, W)
+        out["normal"] = resize_linear(out["normal"], H, W)
         out["radii"] = out["radii"] // up
 
     render_pkg = dict(out)
@@ -435,6 +426,24 @@ def prune(params: TriangleParams, opt: AdamState, state: TriangleState,
         contrib_denom=zero(state.contrib_denom),
     )
     return params, zero_moments(opt, prune_mask), state
+
+
+@torch.no_grad()
+def opacity_pruning(params, opt, state, threshold):
+    """Prune alive rows whose opacity is below ``threshold``. Returns
+    (params, opt, state, count)."""
+    mask = (get_opacity(params)[:, 0] < threshold) & state.alive
+    return prune(params, opt, state, mask) + (mask.sum(),)
+
+
+@torch.no_grad()
+def opacity_clipping(params, opt, state, threshold):
+    """Push the opacity logit of alive rows above ``threshold`` to 10 and
+    zero their ``opacity`` Adam moments (the other groups keep theirs).
+    Returns (params, opt, state, count)."""
+    mask = (get_opacity(params)[:, 0] > threshold) & state.alive
+    params = replace(params, opacity=_mask_rows(params.opacity, mask, 10.0))
+    return params, zero_moments(opt, mask, groups=("opacity",)), state, mask.sum()
 
 
 @torch.no_grad()

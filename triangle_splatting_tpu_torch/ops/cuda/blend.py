@@ -3,13 +3,15 @@ alpha blend of the triangle rasterizers.
 
 Ports of ``triangle_splatting_tpu/ops/pallas/blend.py`` for the variants
 the photo and mesh training paths run: ``"2D"`` and ``"3D"``, each with
-rich info off; the forward with or without the per-pair contribution
-stream (``stats``) of the ADC statistic window. Other variants raise
+rich info (the depth and normal outputs and their cotangents) off or on;
+the forward also with the per-pair contribution stream (``stats``) of the
+ADC statistic window, with rich info off. "GS" and rich with stats raise
 ``NotImplementedError``. The CUDA kernels are in ``csrc/blend.cu``. Each
 wrapper takes the kernel for CUDA tensors and the plain PyTorch version
 beside it for CPU tensors; there is no fallback from one to the other.
 ``<wrapper>.launches`` counts the kernel launches per form: the variant,
-and for the forward with stats on ``"<variant>_stats"``.
+``"<variant>_stats"`` for the forward with stats on and
+``"<variant>_rich"`` with rich info on.
 
 Layout contract (shared with ``ops/binning.py``): ``pairs`` is the
 field-major (16, MP) float32 buffer, tile t owns slots
@@ -18,8 +20,12 @@ are multiples of ``ALIGN``. ``params`` is (8,) float32
 [gamma, bg_r, bg_g, bg_b, bg_depth, sx, sy, 0].
 
 Fields per pair: "2D" a1 = f0 + f1*px + f2*py, a2 from f3..f5, opacity 6,
-rgb 7..9; "3D" D = f0 + f1*px + f2*py, a1 = (f3 + f4*px + f5*py) / D,
-a2 = (f6 + f7*px + f8*py) / D, opacity 9, rgb 10..12.
+rgb 7..9, and for rich info d0 10, normal 11..13, d1 14, d2 15 (depth
+d0 + d1*a1 + d2*a2); "3D" D = f0 + f1*px + f2*py, a1 = (f3 + f4*px +
+f5*py) / D, a2 = (f6 + f7*px + f8*py) / D, opacity 9, rgb 10..12, and for
+rich info K 13 (ray depth K / D; the raw normal is
+(sx*N1, sy*N2, N0 - cW*N1 - cH*N2) of N = sum contrib * (f0, f1, f2),
+cW = (1 - W) / 2, cH = (1 - H) / 2).
 """
 
 from __future__ import annotations
@@ -51,16 +57,26 @@ VARIANTS = ("2D", "3D")
 _OPAC_RGB = {"2D": (6, 7), "3D": (9, 10)}
 
 
-def _require_ported_variant(variant: str, rich: bool) -> None:
-    if variant not in VARIANTS or rich:
+def _require_ported_variant(variant: str, rich: bool, stats: bool = False) -> None:
+    if variant not in VARIANTS:
         raise NotImplementedError(
-            f"blend kernels: only variants {VARIANTS} with rich=False are "
-            f"ported (got variant={variant!r}, rich={rich})")
+            f"blend kernels: only variants {VARIANTS} are ported (got variant={variant!r})")
+    if rich and stats:
+        raise NotImplementedError(
+            f"blend_forward: rich=True with stats=True is not ported (variant {variant!r})")
 
 
-def _form(variant: str, stats: bool) -> str:
-    """Launch-count key of a forward form: "3D" or "3D_stats"."""
-    return f"{variant}_stats" if stats else variant
+def _form(variant: str, stats: bool = False, rich: bool = False) -> str:
+    """Launch-count key of a form: "3D", "3D_stats" or "3D_rich"."""
+    return f"{variant}_stats" if stats else f"{variant}_rich" if rich else variant
+
+
+def _normal_3d(N: torch.Tensor, params: torch.Tensor, width: int, height: int):
+    """(3, ...) raw normal sum N of the D rows -> the "3D" rich normal
+    (sx*N1, sy*N2, N0 - cW*N1 - cH*N2)."""
+    cW, cH = (1.0 - width) / 2.0, (1.0 - height) / 2.0
+    return torch.stack([params[5] * N[1], params[6] * N[2],
+                        N[0] - cW * N[1] - cH * N[2]])
 
 
 def _grid(image_width: int, image_height: int, tile_h: int, tile_w: int):
@@ -157,14 +173,16 @@ def _tile(x: torch.Tensor, grid_h: int, grid_w: int, tile_h: int,
 
 def blend_forward_plain(pairs, tile_starts, tile_counts, params, *,
                         image_width: int, image_height: int, tile_h: int,
-                        tile_w: int, variant: str = "2D", stats: bool = False):
+                        tile_w: int, variant: str = "2D", stats: bool = False,
+                        rich: bool = False):
     """Plain PyTorch B1: per tile, the dense (n_pairs, npix) alpha matrix
     and an exclusive ``cumprod`` of (1 - alpha) along the pairs (a scan
     over a non-innermost dimension, evaluated sequentially, so its
     roundings are the kernel's). With ``stats`` the per-pair stream is
     the sum and the max over the tile's pixels of the ``contrib`` matrix,
-    zeros in every slot that holds no pair. Works in the dtype of
-    ``pairs``."""
+    zeros in every slot that holds no pair. With ``rich`` the depth and
+    normal rows are products of their fields with the ``contrib`` matrix,
+    as the color. Works in the dtype of ``pairs``."""
     grid_w, grid_h = _grid(image_width, image_height, tile_h, tile_w)
     dev, dt = pairs.device, pairs.dtype
     n_tiles, npix = grid_w * grid_h, tile_h * tile_w
@@ -172,7 +190,7 @@ def blend_forward_plain(pairs, tile_starts, tile_counts, params, *,
     rgb0 = _OPAC_RGB[variant][1]
     starts = tile_starts.tolist()
     counts = tile_counts.tolist()
-    color = []
+    color, depth_acc, normal = [], [], []
     final_t = []
     ncon = []
     pair_contrib = torch.zeros((2, pairs.shape[1]), dtype=dt, device=dev) if stats else None
@@ -182,12 +200,15 @@ def blend_forward_plain(pairs, tile_starts, tile_counts, params, *,
         n = counts[t]
         if n == 0:
             color.append(torch.zeros((3, npix), dtype=dt, device=dev))
+            depth_acc.append(torch.zeros((npix,), dtype=dt, device=dev))
+            normal.append(torch.zeros((3, npix), dtype=dt, device=dev))
             final_t.append(T0)
             ncon.append(torch.zeros((npix,), dtype=torch.int32, device=dev))
             continue
         f = pairs[:, starts[t]:starts[t] + n]
         in_range = torch.ones((n, 1), dtype=torch.bool, device=dev)
-        alpha = alpha_terms_plain(f, px, py, gamma, in_range, variant)[6]
+        a1, a2, _, _, _, _, alpha, _, invD = alpha_terms_plain(f, px, py, gamma,
+                                                               in_range, variant)
         scan = torch.cumprod(torch.cat([T0[None], 1.0 - alpha], dim=0), dim=0)
         T_excl, T_incl = scan[:-1], scan[1:]
         alive = T_excl > T_EPS
@@ -196,6 +217,13 @@ def blend_forward_plain(pairs, tile_starts, tile_counts, params, *,
             pair_contrib[0, starts[t]:starts[t] + n] = contrib.sum(dim=1)
             pair_contrib[1, starts[t]:starts[t] + n] = contrib.amax(dim=1)
         color.append(f[rgb0:rgb0 + 3] @ contrib)
+        if rich and variant == "3D":
+            depth_acc.append(f[13] @ (contrib * invD))
+            normal.append(_normal_3d(f[0:3] @ contrib, params, image_width, image_height))
+        elif rich:
+            depth_acc.append(f[10] @ contrib + f[14] @ (contrib * a1)
+                             + f[15] @ (contrib * a2))
+            normal.append(f[11:14] @ contrib)
         T_min = torch.where(alive, T_incl, torch.full_like(T_incl, 2.0)).amin(dim=0)
         final_t.append(torch.minimum(T0, T_min))
         ncon.append(alive.sum(dim=0).to(torch.int32))
@@ -205,8 +233,12 @@ def blend_forward_plain(pairs, tile_starts, tile_counts, params, *,
     color = color + final_t[None] * bg[:, None, None]
     depth = final_t * bg_depth
     geo = (grid_h, grid_w, tile_h, tile_w, image_height, image_width)
-    out = (_untile(color, *geo), _untile(depth, *geo),
-           torch.zeros((3, image_height, image_width), dtype=dt, device=dev),
+    if rich:
+        depth = torch.stack(depth_acc) + depth
+        normal = _untile(torch.stack(normal, dim=1), *geo)
+    else:
+        normal = torch.zeros((3, image_height, image_width), dtype=dt, device=dev)
+    out = (_untile(color, *geo), _untile(depth, *geo), normal,
            _untile(final_t, *geo), _untile(ncon, *geo))
     return out + (pair_contrib,) if stats else out
 
@@ -218,20 +250,22 @@ def blend_forward(pairs: torch.Tensor, tile_starts: torch.Tensor,
                   stats: bool = False):
     """Forward tile blend.
 
-    Returns color (3, H, W), depth (H, W) (= final_T * bg_depth with rich
-    off), normal (3, H, W) (zeros with rich off), final_T (H, W) and
+    Returns color (3, H, W), depth (H, W) (accumulated depth + final_T *
+    bg_depth; final_T * bg_depth with rich off), normal (3, H, W) (the
+    raw accumulated normal; zeros with rich off), final_T (H, W) and
     n_contrib (H, W) int32: the count of entries each pixel iterated while
     its exclusive transmittance stayed above T_EPS. With ``stats`` a sixth
     output, pair_contrib (2, MP): per pair slot the sum (row 0) and the max
     (row 1) over the tile's pixels of alpha * T_excl while T_excl > T_EPS,
     zeros in slots that hold no pair or that the tile never reached. The
-    first five outputs do not depend on ``stats``.
+    first five outputs do not depend on ``stats``, and color, final_T and
+    n_contrib not on ``rich``.
     """
-    _require_ported_variant(variant, rich)
+    _require_ported_variant(variant, rich, stats)
     grid_w, grid_h = _grid(image_width, image_height, tile_h, tile_w)
     dev = _check_inputs(pairs, tile_starts, tile_counts, params, grid_w * grid_h)
     kw = dict(image_width=image_width, image_height=image_height,
-              tile_h=tile_h, tile_w=tile_w, variant=variant, stats=stats)
+              tile_h=tile_h, tile_w=tile_w, variant=variant, stats=stats, rich=rich)
     if dev.type == "cpu":
         return blend_forward_plain(pairs, tile_starts, tile_counts, params, **kw)
     if dev.type != "cuda":
@@ -248,11 +282,11 @@ def blend_forward(pairs: torch.Tensor, tile_starts: torch.Tensor,
     pair_contrib = (torch.empty((2, pairs.shape[1]), dtype=torch.float32, device=dev)
                     if stats else None)
     lib = library("blend")
-    blend_forward.launches[_form(variant, stats)] += 1
+    blend_forward.launches[_form(variant, stats, rich)] += 1
     check_launch(lib.ts_blend_forward(
         pairs.data_ptr(), pairs.shape[1], tile_starts.data_ptr(),
         tile_counts.data_ptr(), params.data_ptr(), W, H, tile_w, tile_h,
-        grid_w, grid_w * grid_h, int(variant == "3D"), int(stats),
+        grid_w, grid_w * grid_h, int(variant == "3D"), int(stats), int(rich),
         color.data_ptr(), depth.data_ptr(), normal.data_ptr(),
         final_t.data_ptr(), n_contrib.data_ptr(),
         pair_contrib.data_ptr() if stats else None, _stream()), "blend_forward")
@@ -260,7 +294,9 @@ def blend_forward(pairs: torch.Tensor, tile_starts: torch.Tensor,
     return out + (pair_contrib,) if stats else out
 
 
-blend_forward.launches = {_form(v, s): 0 for s in (False, True) for v in VARIANTS}
+blend_forward.launches = dict.fromkeys(
+    (_form(v, s, r) for s, r in ((False, False), (True, False), (False, True))
+     for v in VARIANTS), 0)
 
 
 # ---------------------------------------------------------------------------
@@ -268,9 +304,9 @@ blend_forward.launches = {_form(v, s): 0 for s in (False, True) for v in VARIANT
 # ---------------------------------------------------------------------------
 
 def blend_backward_plain(pairs, tile_starts, tile_counts, params, final_T,
-                         n_contrib, g_color, g_final_T, *, image_width: int,
-                         image_height: int, tile_h: int, tile_w: int,
-                         variant: str = "2D"):
+                         n_contrib, g_color, g_final_T, g_depth=None, g_normal=None,
+                         *, image_width: int, image_height: int, tile_h: int,
+                         tile_w: int, variant: str = "2D", rich: bool = False):
     """Plain PyTorch B2: the explicit back-to-front recurrence, per tile,
     written with tensors over the (n_pairs, npix) matrix.
 
@@ -281,15 +317,25 @@ def blend_backward_plain(pairs, tile_starts, tile_counts, params, final_T,
     with the kernel's roundings. Only the sum over a tile's pixels is
     ordered differently from the kernel. "3D" chains the barycentric
     gradients through the quotients a = A / D into the D, A1 and A2
-    coefficient rows."""
+    coefficient rows. With ``rich`` the depth and normal cotangents
+    ``g_depth`` (H, W) and ``g_normal`` (3, H, W) enter gdot, the
+    background term and their own rows ("3D": the normal's through the D
+    rows)."""
     grid_w, grid_h = _grid(image_width, image_height, tile_h, tile_w)
     dev, dt = pairs.device, pairs.dtype
     n_tiles = grid_w * grid_h
     gamma, bg = params[0], params[1:4]
     rgb0 = _OPAC_RGB[variant][1]
-    live_rows = LIVE_GRAD_ROWS[(variant, False)]
+    live_rows = LIVE_GRAD_ROWS[(variant, rich)]
     tl = lambda x: _tile(x, grid_h, grid_w, tile_h, tile_w)  # noqa: E731
     fT, nc, gcol, gft = tl(final_T), tl(n_contrib), tl(g_color), tl(g_final_T)
+    if rich:
+        gdep, gnrm = tl(g_depth), tl(g_normal)
+        if variant == "3D":
+            # the normal cotangent against the raw D-row sums N0, N1, N2
+            cW, cH = (1.0 - image_width) / 2.0, (1.0 - image_height) / 2.0
+            gnrm = torch.stack([gnrm[2], params[5] * gnrm[0] - cW * gnrm[2],
+                                params[6] * gnrm[1] - cH * gnrm[2]])
     starts = tile_starts.tolist()
     counts = tile_counts.tolist()
     nc_eff = torch.minimum(nc, tile_counts[:, None])
@@ -312,6 +358,17 @@ def blend_backward_plain(pairs, tile_starts, tile_counts, params, final_T,
         gdot = (f[rgb0][:, None] * gr + f[rgb0 + 1][:, None] * gg
                 + f[rgb0 + 2][:, None] * gb)
         bg_dot = bg[0] * gr + bg[1] * gg + bg[2] * gb + gft[t]
+        if rich:
+            gd, gn = gdep[t], gnrm[:, t]
+            if variant == "3D":
+                tr = f[13][:, None] * invD                   # ray depth K / D
+                gdot = (gdot + tr * gd + f[0][:, None] * gn[0]
+                        + f[1][:, None] * gn[1] + f[2][:, None] * gn[2])
+            else:
+                d = f[10][:, None] + f[14][:, None] * a1 + f[15][:, None] * a2
+                gdot = (gdot + d * gd + f[11][:, None] * gn[0]
+                        + f[12][:, None] * gn[1] + f[13][:, None] * gn[2])
+            bg_dot = bg_dot + params[4] * gd
         scan_a = torch.cumsum(torch.cat([(fT[t] * bg_dot)[None],
                                          (contrib * gdot).flip(0)]), dim=0)
         A = scan_a[:-1].flip(0)                              # later entries
@@ -331,13 +388,26 @@ def blend_backward_plain(pairs, tile_starts, tile_counts, params, final_T,
         s3 = torch.where(is3, d_ecc3, torch.zeros_like(d_ecc3))
         da1 = torch.where(is1, -d_ecc3, s3)
         da2 = torch.where(is2, -d_ecc3, s3)
+        if rich and variant == "2D":
+            cgd = contrib * gd
+            da1 = da1 + cgd * f[14][:, None]
+            da2 = da2 + cgd * f[15][:, None]
         if variant == "2D":
             affine = [da1, da2]
         else:
             dD = -(da1 * a1 + da2 * a2) * invD
+            if rich:
+                dD = dD - gd * contrib * tr * invD
             affine = [dD, da1 * invD, da2 * invD]
         rows = [r for g in affine for r in (g, g * px, g * py)]
+        if rich and variant == "3D":
+            rows[0:3] = [r + contrib * g for r, g in zip(rows[0:3], gn)]
         rows += [d_opac, contrib * gr, contrib * gg, contrib * gb]
+        if rich and variant == "3D":
+            rows += [contrib * invD * gd]
+        elif rich:
+            rows += [contrib * gd, contrib * gn[0], contrib * gn[1], contrib * gn[2],
+                     contrib * a1 * gd, contrib * a2 * gd]
         out[:live_rows, starts[t]:starts[t] + n] = torch.stack(
             [r.sum(dim=1) for r in rows])
     return out
@@ -347,48 +417,62 @@ def blend_backward(pairs: torch.Tensor, tile_starts: torch.Tensor,
                    tile_counts: torch.Tensor, params: torch.Tensor,
                    final_T: torch.Tensor, n_contrib: torch.Tensor,
                    g_color: torch.Tensor, g_final_T: torch.Tensor | None = None,
+                   g_depth: torch.Tensor | None = None,
+                   g_normal: torch.Tensor | None = None,
                    *, image_width: int, image_height: int, tile_h: int,
                    tile_w: int, rich: bool = False,
                    variant: str = "2D") -> torch.Tensor:
     """Backward tile blend: per-pair gradients (16, MP) of the packed
     fields, given the forward's final_T / n_contrib and the cotangents of
-    color (3, H, W) and final_T (H, W). With rich info off the depth and
+    color (3, H, W) and final_T (H, W), and with ``rich`` of depth (H, W)
+    and normal (3, H, W) (None: zeros). With rich info off the depth and
     normal outputs carry no gradient. Rows from ``LIVE_GRAD_ROWS`` on
-    (10 for "2D", 13 for "3D"), padding slots and slots past the deepest
-    contributor are zero."""
+    (10 for "2D", 13 for "3D"; 16 and 14 with rich), padding slots and
+    slots past the deepest contributor are zero."""
     _require_ported_variant(variant, rich)
     grid_w, grid_h = _grid(image_width, image_height, tile_h, tile_w)
     dev = _check_inputs(pairs, tile_starts, tile_counts, params, grid_w * grid_h)
     H, W = image_height, image_width
     if g_final_T is None:
         g_final_T = torch.zeros((H, W), dtype=pairs.dtype, device=dev)
-    _check(final_T, "final_T", pairs.dtype, 2, dev)
-    _check(n_contrib, "n_contrib", torch.int32, 2, dev)
-    _check(g_color, "g_color", pairs.dtype, 3, dev)
-    _check(g_final_T, "g_final_T", pairs.dtype, 2, dev)
-    for t, shape in ((final_T, (H, W)), (n_contrib, (H, W)),
-                     (g_color, (3, H, W)), (g_final_T, (H, W))):
+    checks = [(final_T, "final_T", pairs.dtype, (H, W)),
+              (n_contrib, "n_contrib", torch.int32, (H, W)),
+              (g_color, "g_color", pairs.dtype, (3, H, W)),
+              (g_final_T, "g_final_T", pairs.dtype, (H, W))]
+    if rich:
+        if g_depth is None:
+            g_depth = torch.zeros((H, W), dtype=pairs.dtype, device=dev)
+        if g_normal is None:
+            g_normal = torch.zeros((3, H, W), dtype=pairs.dtype, device=dev)
+        checks += [(g_depth, "g_depth", pairs.dtype, (H, W)),
+                   (g_normal, "g_normal", pairs.dtype, (3, H, W))]
+    for t, name, dtype, shape in checks:
+        _check(t, name, dtype, len(shape), dev)
         if tuple(t.shape) != shape:
-            raise ValueError(f"expected shape {shape}, got {tuple(t.shape)}")
+            raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
     kw = dict(image_width=W, image_height=H, tile_h=tile_h, tile_w=tile_w,
-              variant=variant)
+              variant=variant, rich=rich)
     if dev.type == "cpu":
         return blend_backward_plain(pairs, tile_starts, tile_counts, params,
-                                    final_T, n_contrib, g_color, g_final_T, **kw)
+                                    final_T, n_contrib, g_color, g_final_T,
+                                    g_depth, g_normal, **kw)
     if dev.type != "cuda":
         raise ValueError(f"blend_backward: unsupported device {dev}")
     if pairs.dtype != torch.float32 or params.dtype != torch.float32:
         raise TypeError("blend_backward: the CUDA kernel takes float32 inputs")
     out = torch.empty_like(pairs)
     lib = library("blend")
-    blend_backward.launches[variant] += 1
+    blend_backward.launches[_form(variant, rich=rich)] += 1
     check_launch(lib.ts_blend_backward(
         pairs.data_ptr(), pairs.shape[1], tile_starts.data_ptr(),
         tile_counts.data_ptr(), params.data_ptr(), W, H, tile_w, tile_h,
-        grid_w, grid_w * grid_h, int(variant == "3D"), final_T.data_ptr(),
-        n_contrib.data_ptr(), g_color.data_ptr(), g_final_T.data_ptr(),
-        out.data_ptr(), _stream()), "blend_backward")
+        grid_w, grid_w * grid_h, int(variant == "3D"), int(rich),
+        final_T.data_ptr(), n_contrib.data_ptr(), g_color.data_ptr(),
+        g_final_T.data_ptr(), g_depth.data_ptr() if rich else None,
+        g_normal.data_ptr() if rich else None, out.data_ptr(), _stream()),
+        "blend_backward")
     return out
 
 
-blend_backward.launches = dict.fromkeys(VARIANTS, 0)
+blend_backward.launches = dict.fromkeys((_form(v, rich=r) for r in (False, True)
+                                         for v in VARIANTS), 0)

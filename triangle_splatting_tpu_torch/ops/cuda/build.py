@@ -40,9 +40,9 @@ SIGNATURES = {
     },
     "blend": {
         "ts_blend_forward": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _P, _P, _P, _P, _P, _P, _P),
+                             _I, _I, _P, _P, _P, _P, _P, _P, _P),
         "ts_blend_backward": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _P, _P, _P, _P, _P, _P),
+                              _I, _P, _P, _P, _P, _P, _P, _P, _P),
     },
 }
 

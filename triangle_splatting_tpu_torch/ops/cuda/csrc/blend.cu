@@ -5,23 +5,29 @@
 // B2  blend_backward  replaces triangle_splatting_tpu/ops/pallas/blend.py
 //                     blend_backward (:956, kernel _bwd_kernel :606)
 //
-// Two variants, each with rich info off, as template instantiations of the
-// same kernels (Variant<k3D> below):
+// Two variants as template instantiations of the same kernels
+// (Variant<k3D, kRich> below):
 //   "2D" (photo training): 0..2 a1 = f0 + f1*px + f2*py, 3..5 a2 likewise,
-//        6 opacity, 7..9 rgb;
+//        6 opacity, 7..9 rgb; with rich info 10 d0, 11..13 normal,
+//        14 d1, 15 d2 (depth d0 + d1*a1 + d2*a2);
 //   "3D" (mesh training, perspective correct): 0..2 D = f0 + f1*px + f2*py,
 //        3..5 A1, 6..8 A2 likewise, a1 = A1 / D, a2 = A2 / D (the ray-plane
 //        barycentrics as ratios of three affine forms), 9 opacity,
-//        10..12 rgb.
-// The forward has a second template switch, kStats: the per-pair
+//        10..12 rgb; with rich info 13 K (ray depth K / D; the raw normal
+//        comes from the D rows, Pallas blend.py :411-420).
+// The forward has two more template switches. kStats: the per-pair
 // contribution stream of the ADC statistic window (Pallas blend.py
 // :441-452, :475-493), (2, MP) float32 with row 0 = sum and row 1 = max
-// over the tile's pixels of contrib = alive ? alpha * T_excl : 0. With
-// kStats false the kernel is the stats-off kernel unchanged.
+// over the tile's pixels of contrib = alive ? alpha * T_excl : 0. kRich:
+// the depth and normal accumulators (Pallas :403-420, :504-506); the
+// backward takes their cotangents (:653-677, :768-784, :858-906). With a
+// switch false the kernel is the kernel without it, unchanged; rich and
+// stats together are not instantiated (no shipped recipe runs both).
 //
 // What bounds them on the H100. Per (pair, pixel) evaluation the forward
 // does ~30 float32 operations including one exp ("3D": ~40 and one
-// division), the backward ~75 with one division ("3D": ~100 and two), and
+// division; rich info adds ~14 / ~9), the backward ~75 with one division
+// ("3D": ~100 and two; rich info adds ~31 / ~22), and
 // both read the pair fields from shared memory as broadcasts. Their inputs
 // and outputs are a few tens of MB, so the device-memory bound is ~10-60 us
 // while the float32 bound of the evaluations a frame needs (67 TFLOP/s
@@ -59,7 +65,15 @@
 //    per-warp partials (128 x 33 x 2 floats) and the fields fit the 48 KB
 //    of static shared memory. Every slot of the (2, MP) stream is written:
 //    slots a tile never reached (early exit, alignment padding) and the
-//    buffer's tail past the last tile get zeros from the blocks.
+//    buffer's tail past the last tile get zeros from the blocks;
+//  - the rich forms add four per-pixel accumulators (depth and the three
+//    normal rows) to the forward and the depth / normal cotangents to the
+//    backward's gdot, background term and gradient rows. They leave every
+//    other operation as it is, so color, final_T and n_contrib are those
+//    of the forms without rich info bit for bit. The backward's 16 ("2D")
+//    or 14 ("3D") live rows take 57-58 registers and per-warp partials of
+//    22 x 16 x 33 or 24 x 14 x 33 floats, which with the staged fields
+//    keep the batch in static shared memory (47,876 B and 45,700 B).
 //
 // C interface: each entry point launches on the given stream and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
@@ -78,16 +92,24 @@ constexpr int kFwdBatch = 256;                   // pairs staged per batch
 constexpr int kStatsBatch = 128;                 // ... in the stats form
 constexpr int kMaxWarps = 32;
 
-// Per variant: fields the kernels read, live gradient rows
-// (LIVE_GRAD_ROWS[(variant, False)]), the opacity and first rgb field, and
-// the backward's batch (its per-warp partial sums must fit the 48 KB of
-// static shared memory: 24 x 13 x 33 floats for "3D").
-template <bool k3D> struct Variant;
-template <> struct Variant<false> {
+// Per variant and rich switch: fields the kernels read, live gradient rows
+// (LIVE_GRAD_ROWS[(variant, rich)]), the opacity and first rgb field, and
+// the backward's batch (its per-warp partial sums and the staged fields
+// must fit the 48 KB of static shared memory: 24 x 13 x 33 floats for
+// "3D"; 22 x 16 x 33 + 16 x 22 floats = 47,872 B for "2D" rich, 24 x 14 x
+// 33 + 14 x 24 = 45,696 B for "3D" rich).
+template <bool k3D, bool kRich> struct Variant;
+template <> struct Variant<false, false> {
   static constexpr int kFields = 10, kLive = 10, kOpac = 6, kRgb = 7, kBwdBatch = 32;
 };
-template <> struct Variant<true> {
+template <> struct Variant<true, false> {
   static constexpr int kFields = 13, kLive = 13, kOpac = 9, kRgb = 10, kBwdBatch = 24;
+};
+template <> struct Variant<false, true> {
+  static constexpr int kFields = 16, kLive = 16, kOpac = 6, kRgb = 7, kBwdBatch = 22;
+};
+template <> struct Variant<true, true> {
+  static constexpr int kFields = 14, kLive = 14, kOpac = 9, kRgb = 10, kBwdBatch = 24;
 };
 
 struct AlphaTerms {
@@ -177,7 +199,7 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <bool k3D, bool kStats>
+template <bool k3D, bool kStats, bool kRich>
 __global__ void __launch_bounds__(1024) blend_forward_kernel(
     const float* __restrict__ pairs, int mp,
     const int* __restrict__ tile_starts, const int* __restrict__ tile_counts,
@@ -186,7 +208,8 @@ __global__ void __launch_bounds__(1024) blend_forward_kernel(
     float* __restrict__ depth, float* __restrict__ normal,
     float* __restrict__ final_T, int* __restrict__ n_contrib,
     float* __restrict__ pair_contrib) {
-  using V = Variant<k3D>;
+  static_assert(!(kStats && kRich), "rich and stats together are not instantiated");
+  using V = Variant<k3D, kRich>;
   constexpr int kBatch = kStats ? kStatsBatch : kFwdBatch;
   __shared__ float sf[V::kFields][kBatch];
   const int tile = blockIdx.x;
@@ -202,6 +225,7 @@ __global__ void __launch_bounds__(1024) blend_forward_kernel(
 
   float T = inside ? 1.0f : 0.0f;
   float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
+  float dacc = 0.0f, n0 = 0.0f, n1 = 0.0f, n2 = 0.0f;   // rich form
   int nc = 0;
   int done = 0;   // stats form: slots of the tile whose stream is written
   for (int b0 = 0; b0 < count; b0 += kBatch) {
@@ -273,6 +297,22 @@ __global__ void __launch_bounds__(1024) blend_forward_kernel(
           c0 = __fadd_rn(c0, __fmul_rn(sf[V::kRgb][j], contrib));
           c1 = __fadd_rn(c1, __fmul_rn(sf[V::kRgb + 1][j], contrib));
           c2 = __fadd_rn(c2, __fmul_rn(sf[V::kRgb + 2][j], contrib));
+          if constexpr (kRich && k3D) {
+            // ray depth K / D, and the raw normal sum of the D rows
+            dacc = __fadd_rn(dacc, __fmul_rn(sf[13][j], __fmul_rn(contrib, a.invD)));
+            n0 = __fadd_rn(n0, __fmul_rn(sf[0][j], contrib));
+            n1 = __fadd_rn(n1, __fmul_rn(sf[1][j], contrib));
+            n2 = __fadd_rn(n2, __fmul_rn(sf[2][j], contrib));
+          } else if constexpr (kRich) {
+            // depth d0 + d1 * a1 + d2 * a2, normal rows 11..13
+            dacc = __fadd_rn(dacc, __fadd_rn(
+                __fadd_rn(__fmul_rn(sf[10][j], contrib),
+                          __fmul_rn(sf[14][j], __fmul_rn(contrib, a.a1))),
+                __fmul_rn(sf[15][j], __fmul_rn(contrib, a.a2))));
+            n0 = __fadd_rn(n0, __fmul_rn(sf[11][j], contrib));
+            n1 = __fadd_rn(n1, __fmul_rn(sf[12][j], contrib));
+            n2 = __fadd_rn(n2, __fmul_rn(sf[13][j], contrib));
+          }
           T = __fmul_rn(T, __fsub_rn(1.0f, a.alpha));
         }
       }
@@ -300,23 +340,40 @@ __global__ void __launch_bounds__(1024) blend_forward_kernel(
   color[o] = __fadd_rn(c0, __fmul_rn(T, params[1]));
   color[hw + o] = __fadd_rn(c1, __fmul_rn(T, params[2]));
   color[2 * hw + o] = __fadd_rn(c2, __fmul_rn(T, params[3]));
-  depth[o] = __fmul_rn(T, params[4]);
-  normal[o] = 0.0f;
-  normal[hw + o] = 0.0f;
-  normal[2 * hw + o] = 0.0f;
+  if constexpr (kRich) {
+    depth[o] = __fadd_rn(dacc, __fmul_rn(T, params[4]));
+    if constexpr (k3D) {
+      // n = (sx N1, sy N2, N0 - cW N1 - cH N2), cW = (1 - W) / 2
+      const float cW = __fmul_rn(__fsub_rn(1.0f, (float)width), 0.5f);
+      const float cH = __fmul_rn(__fsub_rn(1.0f, (float)height), 0.5f);
+      normal[o] = __fmul_rn(params[5], n1);
+      normal[hw + o] = __fmul_rn(params[6], n2);
+      normal[2 * hw + o] = __fsub_rn(__fsub_rn(n0, __fmul_rn(cW, n1)), __fmul_rn(cH, n2));
+    } else {
+      normal[o] = n0;
+      normal[hw + o] = n1;
+      normal[2 * hw + o] = n2;
+    }
+  } else {
+    depth[o] = __fmul_rn(T, params[4]);
+    normal[o] = 0.0f;
+    normal[hw + o] = 0.0f;
+    normal[2 * hw + o] = 0.0f;
+  }
   final_T[o] = T;
   n_contrib[o] = nc;
 }
 
-template <bool k3D>
+template <bool k3D, bool kRich>
 __global__ void __launch_bounds__(1024) blend_backward_kernel(
     const float* __restrict__ pairs, int mp,
     const int* __restrict__ tile_starts, const int* __restrict__ tile_counts,
     const float* __restrict__ params, int width, int height, int tile_w,
     int tile_h, int grid_w, int num_tiles, const float* __restrict__ final_T,
     const int* __restrict__ n_contrib, const float* __restrict__ g_color,
-    const float* __restrict__ g_final_T, float* __restrict__ pair_grads) {
-  using V = Variant<k3D>;
+    const float* __restrict__ g_final_T, float* __restrict__ pair_grads,
+    const float* __restrict__ g_depth, const float* __restrict__ g_normal) {
+  using V = Variant<k3D, kRich>;
   constexpr int kBatch = V::kBwdBatch;
   constexpr int kLive = V::kLive;
   __shared__ float sf[V::kFields][kBatch];
@@ -347,6 +404,28 @@ __global__ void __launch_bounds__(1024) blend_backward_kernel(
   const float gg = inside ? g_color[hw + o] : 0.0f;
   const float gb = inside ? g_color[2 * hw + o] : 0.0f;
   const float gft = inside ? g_final_T[o] : 0.0f;
+  // rich: the depth cotangent and the normal cotangent folded into the
+  // rows it multiplies ("3D": gn0 = g_nz, gn1 = sx g_nx - cW g_nz,
+  // gn2 = sy g_ny - cH g_nz, the D rows of the raw normal; "2D": the
+  // normal fields 11..13 directly)
+  float gd = 0.0f, gn0 = 0.0f, gn1 = 0.0f, gn2 = 0.0f;
+  if constexpr (kRich) {
+    if (inside) {
+      gd = g_depth[o];
+      const float gnx = g_normal[o], gny = g_normal[hw + o], gnz = g_normal[2 * hw + o];
+      if constexpr (k3D) {
+        const float cW = __fmul_rn(__fsub_rn(1.0f, (float)width), 0.5f);
+        const float cH = __fmul_rn(__fsub_rn(1.0f, (float)height), 0.5f);
+        gn0 = gnz;
+        gn1 = __fsub_rn(__fmul_rn(params[5], gnx), __fmul_rn(cW, gnz));
+        gn2 = __fsub_rn(__fmul_rn(params[6], gny), __fmul_rn(cH, gnz));
+      } else {
+        gn0 = gnx;
+        gn1 = gny;
+        gn2 = gnz;
+      }
+    }
+  }
 
   // Slots of the whole buffer past the last tile's aligned end belong to
   // no tile: every block zeroes a strided share of them.
@@ -379,10 +458,11 @@ __global__ void __launch_bounds__(1024) blend_backward_kernel(
 
   // Background term (everything behind the last entry) plus the direct
   // final_T cotangent: A = T_final * (bg . g + g_T).
-  const float bg_dot = __fadd_rn(
+  float bg_dot = __fadd_rn(
       __fadd_rn(__fadd_rn(__fmul_rn(params[1], gr), __fmul_rn(params[2], gg)),
                 __fmul_rn(params[3], gb)),
       gft);
+  if constexpr (kRich) bg_dot = __fadd_rn(bg_dot, __fmul_rn(params[4], gd));
   float A = __fmul_rn(fT, bg_dot);
   float T = fT;
 
@@ -405,9 +485,24 @@ __global__ void __launch_bounds__(1024) blend_backward_kernel(
         const float inv1m = __fdiv_rn(1.0f, __fsub_rn(1.0f, a.alpha));
         T = __fmul_rn(T, inv1m);                      // exclusive T of entry j
         const float contrib = __fmul_rn(a.alpha, T);
-        const float gdot = __fadd_rn(
+        float gdot = __fadd_rn(
             __fadd_rn(__fmul_rn(sf[V::kRgb][j], gr), __fmul_rn(sf[V::kRgb + 1][j], gg)),
             __fmul_rn(sf[V::kRgb + 2][j], gb));
+        float tr = 0.0f;   // "3D" rich: the ray depth K / D
+        if constexpr (kRich && k3D) {
+          tr = __fmul_rn(sf[13][j], a.invD);
+          gdot = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(gdot, __fmul_rn(tr, gd)),
+                                               __fmul_rn(sf[0][j], gn0)),
+                                     __fmul_rn(sf[1][j], gn1)),
+                           __fmul_rn(sf[2][j], gn2));
+        } else if constexpr (kRich) {
+          const float d = __fadd_rn(__fadd_rn(sf[10][j], __fmul_rn(sf[14][j], a.a1)),
+                                    __fmul_rn(sf[15][j], a.a2));
+          gdot = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(gdot, __fmul_rn(d, gd)),
+                                               __fmul_rn(sf[11][j], gn0)),
+                                     __fmul_rn(sf[12][j], gn1)),
+                           __fmul_rn(sf[13][j], gn2));
+        }
         const float dL_da = __fsub_rn(__fmul_rn(T, gdot), __fmul_rn(A, inv1m));
         A = __fadd_rn(A, __fmul_rn(contrib, gdot));   // suffix of later entries
         const float live = (a.ok && a.alpha_un < kAlphaMax) ? dL_da : 0.0f;
@@ -424,15 +519,31 @@ __global__ void __launch_bounds__(1024) blend_backward_kernel(
         const bool is3 = !is1 && !is2;
         const float d_ecc3 = __fmul_rn(3.0f, dL_decc);
         const float s3 = is3 ? d_ecc3 : 0.0f;
-        const float da1 = is1 ? -d_ecc3 : s3;
-        const float da2 = is2 ? -d_ecc3 : s3;
+        float da1 = is1 ? -d_ecc3 : s3;
+        float da2 = is2 ? -d_ecc3 : s3;
+        if constexpr (kRich && !k3D) {
+          // the depth's barycentric terms d1 * a1 + d2 * a2
+          const float cgd = __fmul_rn(contrib, gd);
+          da1 = __fadd_rn(da1, __fmul_rn(cgd, sf[14][j]));
+          da2 = __fadd_rn(da2, __fmul_rn(cgd, sf[15][j]));
+        }
         if constexpr (k3D) {
           // a_i = A_i / D: chain through the quotient into D, A1, A2
-          const float dD = __fmul_rn(
+          float dD = __fmul_rn(
               -__fadd_rn(__fmul_rn(da1, a.a1), __fmul_rn(da2, a.a2)), a.invD);
+          if constexpr (kRich) {
+            // ray depth t = K / D
+            dD = __fsub_rn(dD, __fmul_rn(__fmul_rn(__fmul_rn(gd, contrib), tr), a.invD));
+          }
           const float dA1 = __fmul_rn(da1, a.invD);
           const float dA2 = __fmul_rn(da2, a.invD);
           g[0] = dD; g[1] = __fmul_rn(dD, px); g[2] = __fmul_rn(dD, py);
+          if constexpr (kRich) {
+            // the raw normal sums the D rows against contrib
+            g[0] = __fadd_rn(g[0], __fmul_rn(contrib, gn0));
+            g[1] = __fadd_rn(g[1], __fmul_rn(contrib, gn1));
+            g[2] = __fadd_rn(g[2], __fmul_rn(contrib, gn2));
+          }
           g[3] = dA1; g[4] = __fmul_rn(dA1, px); g[5] = __fmul_rn(dA1, py);
           g[6] = dA2; g[7] = __fmul_rn(dA2, px); g[8] = __fmul_rn(dA2, py);
         } else {
@@ -444,6 +555,16 @@ __global__ void __launch_bounds__(1024) blend_backward_kernel(
         g[V::kRgb] = __fmul_rn(contrib, gr);
         g[V::kRgb + 1] = __fmul_rn(contrib, gg);
         g[V::kRgb + 2] = __fmul_rn(contrib, gb);
+        if constexpr (kRich && k3D) {
+          g[13] = __fmul_rn(__fmul_rn(contrib, a.invD), gd);               // K
+        } else if constexpr (kRich) {
+          g[10] = __fmul_rn(contrib, gd);                                  // d0
+          g[11] = __fmul_rn(contrib, gn0);                                 // normal
+          g[12] = __fmul_rn(contrib, gn1);
+          g[13] = __fmul_rn(contrib, gn2);
+          g[14] = __fmul_rn(__fmul_rn(contrib, a.a1), gd);                 // d1
+          g[15] = __fmul_rn(__fmul_rn(contrib, a.a2), gd);                 // d2
+        }
         nonzero = a.alpha != 0.0f;
       }
       if (__any_sync(0xffffffffu, nonzero)) {
@@ -472,17 +593,22 @@ extern "C" int ts_blend_forward(const float* pairs, int mp,
                                 const int* tile_starts, const int* tile_counts,
                                 const float* params, int width, int height,
                                 int tile_w, int tile_h, int grid_w,
-                                int num_tiles, int three_d, int stats,
+                                int num_tiles, int three_d, int stats, int rich,
                                 float* color, float* depth, float* normal,
                                 float* final_T, int* n_contrib,
                                 float* pair_contrib, cudaStream_t stream) {
   const int threads = tile_w * tile_h;
   if (threads <= 0 || threads > 1024 || threads % 32 != 0) return (int)cudaErrorInvalidValue;
   if (stats && pair_contrib == nullptr) return (int)cudaErrorInvalidValue;
+  if (stats && rich) return (int)cudaErrorInvalidValue;
   if (num_tiles > 0) {
     const auto kernel =
-        three_d ? (stats ? &blend_forward_kernel<true, true> : &blend_forward_kernel<true, false>)
-                : (stats ? &blend_forward_kernel<false, true> : &blend_forward_kernel<false, false>);
+        three_d ? (stats ? &blend_forward_kernel<true, true, false>
+                         : rich ? &blend_forward_kernel<true, false, true>
+                                : &blend_forward_kernel<true, false, false>)
+                : (stats ? &blend_forward_kernel<false, true, false>
+                         : rich ? &blend_forward_kernel<false, false, true>
+                                : &blend_forward_kernel<false, false, false>);
     kernel<<<num_tiles, threads, 0, stream>>>(
         pairs, mp, tile_starts, tile_counts, params, width, height, tile_w,
         tile_h, grid_w, color, depth, normal, final_T, n_contrib, pair_contrib);
@@ -494,18 +620,22 @@ extern "C" int ts_blend_backward(const float* pairs, int mp,
                                  const int* tile_starts, const int* tile_counts,
                                  const float* params, int width, int height,
                                  int tile_w, int tile_h, int grid_w,
-                                 int num_tiles, int three_d, const float* final_T,
-                                 const int* n_contrib, const float* g_color,
-                                 const float* g_final_T, float* pair_grads,
-                                 cudaStream_t stream) {
+                                 int num_tiles, int three_d, int rich,
+                                 const float* final_T, const int* n_contrib,
+                                 const float* g_color, const float* g_final_T,
+                                 const float* g_depth, const float* g_normal,
+                                 float* pair_grads, cudaStream_t stream) {
   const int threads = tile_w * tile_h;
   if (threads <= 0 || threads > 1024 || threads % 32 != 0) return (int)cudaErrorInvalidValue;
+  if (rich && (g_depth == nullptr || g_normal == nullptr)) return (int)cudaErrorInvalidValue;
   if (num_tiles > 0) {
-    const auto kernel = three_d ? &blend_backward_kernel<true> : &blend_backward_kernel<false>;
+    const auto kernel =
+        three_d ? (rich ? &blend_backward_kernel<true, true> : &blend_backward_kernel<true, false>)
+                : (rich ? &blend_backward_kernel<false, true> : &blend_backward_kernel<false, false>);
     kernel<<<num_tiles, threads, 0, stream>>>(
         pairs, mp, tile_starts, tile_counts, params, width, height, tile_w,
         tile_h, grid_w, num_tiles, final_T, n_contrib, g_color, g_final_T,
-        pair_grads);
+        pair_grads, g_depth, g_normal);
   }
   return (int)cudaGetLastError();
 }

@@ -158,17 +158,17 @@ class BlendTiles(torch.autograd.Function):
     Outputs color, depth, normal, final_T, n_contrib and the per-pair
     contribution stream (2, MA) (an empty (2, 0) tensor when ``cfg``'s
     stats flag is off); gradients flow to ``fields`` from the cotangents
-    of color and final_T (depth and normal carry none with rich info off,
-    as in the JAX kernel; n_contrib and the stream are not
-    differentiable)."""
+    of color and final_T, and with ``cfg``'s rich flag of depth and normal
+    (which carry none with rich info off, as in the JAX kernel; n_contrib
+    and the stream are not differentiable)."""
 
     @staticmethod
     def forward(ctx, fields, tile_starts, tile_counts, params, cfg):
-        width, height, tile_h, tile_w, variant, stats = cfg
+        width, height, tile_h, tile_w, variant, stats, rich = cfg
         outs = blend_forward(
             fields, tile_starts, tile_counts, params, image_width=width,
             image_height=height, tile_h=tile_h, tile_w=tile_w, variant=variant,
-            stats=stats)
+            stats=stats, rich=rich)
         color, depth, normal, final_T, n_contrib = outs[:5]
         pair_contrib = outs[5] if stats else fields.new_zeros((2, 0))
         ctx.save_for_backward(fields, tile_starts, tile_counts, params,
@@ -180,16 +180,25 @@ class BlendTiles(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_color, g_depth, g_normal, g_final_T, g_nc, g_pc):
         fields, tile_starts, tile_counts, params, final_T, n_contrib = ctx.saved_tensors
-        width, height, tile_h, tile_w, variant, _ = ctx.cfg
-        if g_color is None:
-            g_color = torch.zeros((3, height, width), dtype=fields.dtype,
-                                  device=fields.device)
-        if g_final_T is None:
-            g_final_T = torch.zeros_like(final_T)
+        width, height, tile_h, tile_w, variant, _, rich = ctx.cfg
+
+        def cotangent(g, shape):
+            if g is None:
+                return torch.zeros(shape, dtype=fields.dtype, device=fields.device)
+            return g.contiguous()
+
+        g_color = cotangent(g_color, (3, height, width))
+        g_final_T = cotangent(g_final_T, (height, width))
+        if rich:
+            g_depth = cotangent(g_depth, (height, width))
+            g_normal = cotangent(g_normal, (3, height, width))
+        else:
+            g_depth = g_normal = None
         pair_grads = blend_backward(
             fields, tile_starts, tile_counts, params, final_T, n_contrib,
-            g_color.contiguous(), g_final_T.contiguous(), image_width=width,
-            image_height=height, tile_h=tile_h, tile_w=tile_w, variant=variant)
+            g_color, g_final_T, g_depth, g_normal, image_width=width,
+            image_height=height, tile_h=tile_h, tile_w=tile_w, rich=rich,
+            variant=variant)
         return pair_grads, None, None, None, None
 
 
@@ -230,11 +239,14 @@ def rasterize(vertex: torch.Tensor, opacity: torch.Tensor,
     plain versions for CPU tensors); ``impl="oracle"`` the dense oracle.
 
     The kernel path serves ``rasterizer_type`` "2D" (photo training) and
-    "3D" (mesh training) with ``rich_info`` off. ``need_stats=True`` (the
-    ADC statistic window) runs B1 with its per-pair contribution stream
-    and reduces it per triangle (owner sort + kernel B5) into contrib_sum /
+    "3D" (mesh training), with ``rich_info`` off or on (depth and normal
+    composited and differentiable; off, depth is final_T * bg_depth and
+    normal zeros, without gradient). ``need_stats=True`` (the ADC
+    statistic window) runs B1 with its per-pair contribution stream and
+    reduces it per triangle (owner sort + kernel B5) into contrib_sum /
     contrib_max, without gradient; with ``need_stats=False`` they are
-    zeros and B5 does not run.
+    zeros and B5 does not run. Rich info and statistics together are not
+    ported on the kernel path.
     """
     variant = settings.rasterizer_type
     if variant not in ("2D", "3D"):
@@ -242,9 +254,6 @@ def rasterize(vertex: torch.Tensor, opacity: torch.Tensor,
             f"rasterize: rasterizer_type {variant!r} is not ported ('2D', '3D')")
     if impl not in ("cuda", "oracle"):
         raise ValueError(f"unknown impl {impl!r}")
-    if impl == "cuda" and settings.rich_info:
-        raise NotImplementedError("rasterize: rich_info (depth/normal) kernels "
-                                  "are not ported yet; use rich_info=False")
     dev, dt = vertex.device, vertex.dtype
     P = vertex.shape[0]
     if background is None:
@@ -293,14 +302,14 @@ def rasterize(vertex: torch.Tensor, opacity: torch.Tensor,
         fmat = triangle_field_matrix_3d(prep, opac1, camera.tan_fovx,
                                         camera.tan_fovy, settings.image_width,
                                         settings.image_height)
-        # normal reconstruction scales at the rendered size (rich path)
+        # normal reconstruction scales at the rendered size (rich info)
         sx = (settings.image_width / (2.0 * camera.tan_fovx)).reshape(1)
         sy = (settings.image_height / (2.0 * camera.tan_fovy)).reshape(1)
-    fields = pack_pair_fields(fmat, binning, LIVE_GRAD_ROWS[(variant, False)])
+    fields = pack_pair_fields(fmat, binning, LIVE_GRAD_ROWS[(variant, settings.rich_info)])
     params = torch.cat([gamma.reshape(1), background, bg_depth.reshape(1),
                         sx.to(dt), sy.to(dt), zero]).detach()
     cfg = (settings.image_width, settings.image_height, settings.tile_h,
-           settings.tile_w, variant, need_stats)
+           settings.tile_w, variant, need_stats, settings.rich_info)
     color, depth, normal, final_T, n_contrib, pair_contrib = BlendTiles.apply(
         fields, binning.tile_starts, binning.tile_counts, params, cfg)
     if need_stats:

@@ -1,4 +1,4 @@
-"""Trainers of the port (VanillaTS photo path)."""
+"""Trainers of the port (VanillaTS: the photo and mesh recipes)."""
 
 TRAINER_TYPES = ("VanillaTS",)
 

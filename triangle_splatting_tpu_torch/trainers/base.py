@@ -20,8 +20,15 @@ def build_dataset(config: Config, logger: Logger, device):
     if dtype == "NerfSynthetic":
         from ..datasets.nerf_synthetic import NerfSyntheticDatasetFactory
         return NerfSyntheticDatasetFactory(config, logger, device)
-    raise NotImplementedError(f"dataset type {dtype!r} is not ported yet "
-                              "(the port serves NerfSynthetic)")
+    if dtype in ("Colmap", "MipNerf360", "TanksAndBlending", "TanksAndTemples"):
+        from ..datasets.colmap import ColmapDatasetFactory
+        return ColmapDatasetFactory(config, logger, device)
+    if dtype == "MatrixCity":
+        from ..datasets.matrix_city import MatrixCityDatasetFactory
+        return MatrixCityDatasetFactory(config, logger, device)
+    if dtype == "Qijing":
+        raise NotImplementedError("dataset type 'Qijing' is not ported yet")
+    raise ValueError(f"Unknown dataset type: {dtype}")
 
 
 class BaseTrainer:

@@ -1,11 +1,12 @@
-"""Losses and metrics for photo training (port of the parts of
-``triangle_splatting_tpu/trainers/losses.py`` this slice uses).
+"""Losses and metrics of the photo and mesh recipes (port of the parts of
+``triangle_splatting_tpu/trainers/losses.py`` they use: L1, SSIM, PSNR and
+the depth-normal consistency loss of the geometry term).
 
-SSIM uses ``conv2d`` with the 11x11 Gaussian window (the JAX package's
-separable shift-multiply form was a TPU workaround). All images are
-(C, H, W) float32. Convolutions run in full float32: the trainer disables
-TF32 for cuDNN and matmuls, since SSIM's variance terms
-(E[x^2] - mu^2) cancel and TF32's ~3 decimal digits are not enough.
+SSIM and the Scharr gradients use ``conv2d`` (the JAX package's separable
+shift-multiply form was a TPU workaround). All images are (C, H, W)
+float32. Convolutions run in full float32: the trainer disables TF32 for
+cuDNN and matmuls, since SSIM's variance terms (E[x^2] - mu^2) cancel and
+TF32's ~3 decimal digits are not enough.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..models.model_utils import resize_linear
 
 
 def _gaussian_kernel(kernel_size: int, sigma: float) -> np.ndarray:
@@ -65,3 +68,60 @@ def psnr(img1, img2, mask=None):
     else:
         mse = (((img1 - img2) ** 2) * mask).sum() / (mask.sum() + 1e-10) + 1e-10
     return 20.0 * torch.log10(1.0 / torch.sqrt(mse))
+
+
+SCHARR_X = np.array([[-3, 0, 3], [-10, 0, 10], [-3, 0, 3]], np.float32) / 32
+SCHARR_Y = np.array([[-3, -10, -3], [0, 0, 0], [3, 10, 3]], np.float32) / 32
+
+
+def scharr(img: torch.Tensor, ret_norm: bool = False) -> torch.Tensor:
+    """Scharr gradients; img (C, H, W) -> (2C, H, W) or their norm (1, H, W)."""
+    grad = torch.cat([depthwise_conv2d(img, SCHARR_X), depthwise_conv2d(img, SCHARR_Y)], 0)
+    if ret_norm:
+        return torch.linalg.vector_norm(grad, dim=0, keepdim=True)
+    return grad
+
+
+def depth_to_normal(depth: torch.Tensor, tan_fovx, tan_fovy,
+                    scale_factor: float | None = None, grad_quantile: float = 0.9):
+    """A depth map (H, W) -> view-space normals (3, H, W) from its Scharr
+    gradients (at ``scale_factor`` of the size, resized back) and a mask
+    (H, W), without gradient, of the pixels whose depth gradient lies
+    below its ``grad_quantile`` (the depth discontinuities are left out)."""
+    H0, W0 = depth.shape
+    d = depth[None]
+    if scale_factor is not None and scale_factor != 1:
+        d = resize_linear(d, int(H0 * scale_factor), int(W0 * scale_factor))
+    dgrad = scharr(d)                      # (2, h, w)
+    Dx = dgrad[0] / d[0]
+    Dy = dgrad[1] / d[0]
+    H, W = d.shape[-2:]
+    x = torch.arange(W, dtype=d.dtype, device=d.device)[None, :]
+    y = torch.arange(H, dtype=d.dtype, device=d.device)[:, None]
+    nx = W * Dx / (2 * tan_fovx)
+    ny = H * Dy / (2 * tan_fovy)
+    nz = -(1 + (x - W / 2 + 0.5) * Dx + (y - H / 2 + 0.5) * Dy)
+    normal = torch.stack([nx, ny, nz], 0)
+    if (H, W) != (H0, W0):
+        normal = resize_linear(normal, H0, W0)
+    normal = normal / torch.linalg.vector_norm(normal, dim=0, keepdim=True)
+
+    with torch.no_grad():
+        grad_norm = torch.linalg.vector_norm(dgrad, dim=0, keepdim=True)
+        if (H, W) != (H0, W0):
+            grad_norm = resize_linear(grad_norm, H0, W0)
+        thresh = torch.quantile(grad_norm, grad_quantile)
+        mask = (grad_norm < thresh).to(depth.dtype)[0]
+    return normal, mask
+
+
+def depth_normal_loss(depth: torch.Tensor, normal: torch.Tensor, tan_fovx,
+                      tan_fovy, scale_factor: float | None = None) -> torch.Tensor:
+    """1 - cos(rendered normal, normal from depth), masked at the depth
+    discontinuities. Where the rendered normal is exactly 0 (no
+    contributor) its gradient stays finite (PyTorch's norm subgradient at
+    0); the JAX function's is NaN there (the derivative of
+    ``jnp.linalg.norm`` at 0)."""
+    d_normal, mask = depth_to_normal(depth, tan_fovx, tan_fovy, scale_factor)
+    n = normal / torch.linalg.vector_norm(normal, dim=0, keepdim=True).clamp_min(1e-8)
+    return ((1.0 - (n * d_normal).sum(dim=0)) * mask).mean()

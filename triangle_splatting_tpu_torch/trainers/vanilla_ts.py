@@ -4,19 +4,23 @@
 One iteration: render one training camera through the kernel pipeline
 (the 2D or the 3D rasterizer, optionally at ``render_up_scale`` times the
 camera's size), L1 + w_ssim * (1 - SSIM) (+ the scaling / opacity
-regularizers), autograd backward, Adam (eps 1e-15) with per-group
-learning-rate schedules; SH bands come on along ``sh_schedule`` and gamma
-along ``gamma_schedule`` (the mesh recipe's solidify anneal). With a
+regularizers, and with a ``geometry_loss`` block the depth-normal
+consistency term, for which every render carries depth and normal),
+autograd backward, Adam (eps 1e-15) with per-group learning-rate
+schedules; SH bands come on along ``sh_schedule`` and gamma along
+``gamma_schedule`` (the mesh recipes' solidify anneal). With a
 ``statistic`` block every step renders with the contribution statistics
 and, inside the block's window, accumulates them with the screen-space
-centroid gradient; ``scale_pruning`` and ``contribution_pruning`` fire on
-their cadences (the mesh recipe's ADC).
+centroid gradient. Opacity pruning and clipping, scale pruning and
+contribution pruning fire on their cadences (the mesh recipes' ADC). The
+initial point cloud is split at the scene's bounding box and each part
+used directly, randomly subsampled or grid-sampled.
 
 Config blocks this slice does not serve raise ``NotImplementedError`` at
-construction: the other ADC blocks (densification, opacity pruning /
-clipping, scale clipping, opacity reset), the geometry / DoG / smoothness
-/ vertex losses, color affine, data parallelism, and PLY / checkpoint /
-GLB saving at an iteration the run reaches.
+construction: the other ADC blocks (densification, scale clipping,
+opacity reset), the DoG / smoothness / vertex losses, color affine, data
+parallelism, and PLY / checkpoint / GLB saving at an iteration the run
+reaches.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import numpy as np
 import torch
 
 from ..models import triangle as M
-from ..models.model_utils import get_color_tensor
+from ..models.model_utils import get_color_tensor, grid_sampling, grid_size_search
 from ..ops.projection import RasterSettings
 from ..utils.camera import Camera
 from ..utils.config import Config
@@ -39,8 +43,7 @@ from .adc_utils import (adapt_pair_budget, alive_inter_point_dist,
 from .base import BaseTrainer
 
 # ADC blocks of the JAX trainer this port does not run yet
-_ADC_BLOCKS = ("densification", "opacity_pruning", "opacity_clipping",
-               "scale_clipping", "opacity_reset")
+_ADC_BLOCKS = ("densification", "scale_clipping", "opacity_reset")
 
 
 def _f32(x) -> float:
@@ -76,6 +79,14 @@ class VanillaTSTrainer(BaseTrainer):
         self.params: M.TriangleParams | None = None
         self.state: M.TriangleState | None = None
         self.opt: M.AdamState | None = None
+        # Depth and normal (rich info) are rendered only for the
+        # depth-normal consistency term, as the JAX trainer decides it:
+        # static per run, in training and evaluation alike.
+        geo = self.config.trainer.geometry_loss
+        self._w_geometry = (geo.w_geometry or 0.0) if geo is not None else 0.0
+        self._rich = self._w_geometry > 0
+        self._geo_scale_factor = (geo.scale_factor if geo is not None
+                                  and geo.scale_factor is not None else 0.5)
         self._setup_schedulers()
         self._rng = np.random.default_rng(self.seed)
         self._sh_degree_host = 0
@@ -85,7 +96,11 @@ class VanillaTSTrainer(BaseTrainer):
         # per-step losses of the last train() as device scalars (read them
         # after training: no host sync inside the loop)
         self.loss_history: list[torch.Tensor] = []
-        # (iteration, "scale" | "contribution", rows pruned) per firing
+        # the geometry term of each step of the last train(), as device
+        # scalars (0 without a geometry_loss block)
+        self.geo_history: list[torch.Tensor] = []
+        # (iteration, "opacity" | "clipping" | "scale" | "contribution",
+        # rows pruned or clipped) per firing
         self.prune_history: list[tuple[int, str, int]] = []
 
     # ------------------------------------------------------------------
@@ -105,18 +120,22 @@ class VanillaTSTrainer(BaseTrainer):
         if (mc.rasterizer_type or "2D") not in ("2D", "3D"):
             refuse(f"model.rasterizer_type {mc.rasterizer_type!r}")
         sampling = mc.sampling or Config()
-        if (sampling.sample_method or "direct") not in ("direct", "random"):
+        if (sampling.sample_method or "direct") not in ("direct", "random", "grid"):
             refuse(f"model.sampling.sample_method {sampling.sample_method!r}")
         mu = mc.model_update
         for name in _ADC_BLOCKS:
             if mu is not None and getattr(mu, name) is not None:
                 refuse(f"model.model_update.{name}")
+        geo = t.geometry_loss
+        if (mu is not None and mu.statistic is not None and geo is not None
+                and (geo.w_geometry or 0) > 0):
+            # the kernels' rich and statistics forms are not instantiated together
+            refuse("model.model_update.statistic together with trainer.geometry_loss "
+                   "(rich info with the contribution statistics)")
         if (t.w_dog or 0) > 0:
             refuse("trainer.w_dog")
         if (t.w_smoothness or 0) > 0:
             refuse("trainer.w_smoothness")
-        if t.geometry_loss is not None and (t.geometry_loss.w_geometry or 0) > 0:
-            refuse("trainer.geometry_loss")
         if t.vertex_reg is not None and (t.vertex_reg.w_vertex_reg or 0) > 0:
             refuse("trainer.vertex_reg")
         if int(t.data_parallel or 0) > 1:
@@ -150,6 +169,12 @@ class VanillaTSTrainer(BaseTrainer):
         # every step renders with the statistics while a statistic block
         # exists (the JAX trainer's need_stats gating)
         self._track_stats = self._mu is not None and self._mu.statistic is not None
+        for name in ("opacity_pruning", "opacity_clipping"):
+            b = getattr(self._mu, name) if self._mu is not None else None
+            if b is not None:
+                setattr(self, f"{name}_scheduler", exponential_scheduler(
+                    v_init=b.opacity_threshold_init, v_final=b.opacity_threshold_final,
+                    max_steps=b.end_iter - b.start_iter))
         g = self._mu.gamma_schedule if self._mu is not None else None
         if g is not None:
             mk = exponential_step_scheduler if g.step_scheduler else exponential_scheduler
@@ -170,12 +195,15 @@ class VanillaTSTrainer(BaseTrainer):
             max_sh_degree=self.model_cfg.max_sh_degree,
             back_culling=self.model_cfg.back_culling,
             rasterizer_type=self.model_cfg.rasterizer_type,
-            rich_info=False,
+            rich_info=self._rich,
             pairs_per_triangle=self._ppt)
 
     def _loss_weights(self, iteration: int) -> dict:
         t = self.config.trainer
         w_ssim = t.w_ssim or 0.0
+        geo = t.geometry_loss
+        w_geo = self._w_geometry if (geo is not None
+                                     and iteration > (geo.start_iter or 0)) else 0.0
         oreg = t.w_opacity_reg
         w_quad = w_lin = 0.0
         if oreg is not None:
@@ -184,7 +212,7 @@ class VanillaTSTrainer(BaseTrainer):
             elif iteration > (oreg.quad_start_iter or 0):
                 w_quad = oreg.quad_reg or 0.0
         return {k: _f32(v) for k, v in dict(
-            l1=1.0 - w_ssim, ssim=w_ssim, scaling=t.w_scaling_reg or 0.0,
+            l1=1.0 - w_ssim, ssim=w_ssim, geometry=w_geo, scaling=t.w_scaling_reg or 0.0,
             opacity_quad=w_quad, opacity_linear=w_lin).items()}
 
     # ------------------------------------------------------------------
@@ -206,6 +234,12 @@ class VanillaTSTrainer(BaseTrainer):
         w = weights
         loss = w["l1"] * L.l1(img, gt)
         loss = loss + w["ssim"] * L.ssim_loss(img, gt)
+        if self._w_geometry > 0:
+            geo = L.depth_normal_loss(pkg["depth"], pkg["normal"], camera.tan_fovx,
+                                      camera.tan_fovy, self._geo_scale_factor)
+            loss = loss + w["geometry"] * geo
+        else:
+            geo = torch.zeros((), dtype=img.dtype, device=img.device)
 
         alive_f = state.alive.to(img.dtype)
         n_alive = torch.clamp_min(alive_f.sum(), 1.0)
@@ -214,7 +248,8 @@ class VanillaTSTrainer(BaseTrainer):
         quad = ((0.25 - (op - 0.5) ** 2) * alive_f).sum() / n_alive
         lin = ((1.0 - op) * alive_f).sum() / n_alive
         loss = loss + (w["opacity_quad"] * quad + w["opacity_linear"] * lin)
-        aux = dict(overflow=pkg["overflow"], num_pairs=pkg["num_pairs"])
+        aux = dict(overflow=pkg["overflow"], num_pairs=pkg["num_pairs"],
+                   geo_loss=geo.detach())
         if self._track_stats:
             aux.update(radii=pkg["radii"], contrib_sum=pkg["contrib_sum"],
                        contrib_max=pkg["contrib_max"],
@@ -284,32 +319,75 @@ class VanillaTSTrainer(BaseTrainer):
         return 0
 
     def _sample_points(self, pcd):
+        """The point cloud split at the scene's bounding box (if it has
+        one) into inside and outside points, each part used directly,
+        randomly subsampled to ``n_sample_<part>`` or grid-sampled at
+        ``grid_size_<part>`` (searched to ~``n_sample_<part>`` voxels when
+        unset) with unit normals; the JAX trainer's sampling."""
         sampling = self.config.model.sampling or Config()
         pts = np.asarray(pcd.points, np.float32)
         cols = np.asarray(pcd.colors, np.float32)
         nrm = np.asarray(pcd.normals, np.float32)
         if len(pts) == 0:
             raise ValueError("Empty point cloud and no random_init support yet")
-        n_sample = sampling.n_sample_inside
-        if (sampling.sample_method or "direct") == "random" and n_sample \
-                and 0 < n_sample < len(pts):
-            idx = self._rng.permutation(len(pts))[:n_sample]
-            pts, cols, nrm = pts[idx], cols[idx], nrm[idx]
-        self.logger.info(f"Sampled {len(pts)} inside points "
-                         f"({sampling.sample_method or 'direct'})")
-        return pts, cols, nrm
+        if self.scene_bbox is None:
+            groups = [(pts, cols, nrm, "inside")]
+        else:
+            bbox = np.asarray(self.scene_bbox, np.float32).reshape(-1)
+            if bbox.size == 4:
+                inside = np.all((pts[:, :2] >= bbox[:2]) & (pts[:, :2] <= bbox[2:]), -1)
+            else:
+                inside = np.all((pts >= bbox[:3]) & (pts <= bbox[3:]), -1)
+            groups = [(pts[inside], cols[inside], nrm[inside], "inside"),
+                      (pts[~inside], cols[~inside], nrm[~inside], "outside")]
+        method = sampling.sample_method or "direct"
+        out_p, out_c, out_n = [], [], []
+        for p, c, n, name in groups:
+            n_sample = getattr(sampling, f"n_sample_{name}", None)
+            grid_size = getattr(sampling, f"grid_size_{name}", None)
+            if method == "random" and n_sample and 0 < n_sample < len(p):
+                idx = self._rng.permutation(len(p))[:n_sample]
+                p, c, n = p[idx], c[idx], n[idx]
+            elif method == "grid" and len(p):
+                gs = grid_size or grid_size_search(p, n_sample)
+                p, c, n = grid_sampling(p, c, n, gs)
+                n = n / np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-12)
+            self.logger.info(f"Sampled {len(p)} {name} points ({method})")
+            out_p.append(p)
+            out_c.append(c)
+            out_n.append(n)
+        return np.concatenate(out_p), np.concatenate(out_c), np.concatenate(out_n)
 
     def _model_update(self, iteration: int):
-        """Scale and contribution pruning on their cadences, then the gamma
-        and SH schedules (the JAX trainer's order; the other ADC blocks are
-        refused at construction)."""
+        """Opacity pruning, opacity clipping, scale pruning and contribution
+        pruning on their cadences, then the gamma and SH schedules (the JAX
+        trainer's order; the other ADC blocks are refused at
+        construction). Opacity pruning and clipping fire through
+        ``hold_iter`` (default ``end_iter``), their thresholds held at the
+        final value past ``end_iter``."""
         mu = self._mu
         if mu is None:
             return
 
-        def active(args):
-            return (args is not None and args.start_iter < iteration <= args.end_iter
-                    and iteration % args.interval_iter == 0)
+        def active(args, hold=False):
+            if args is None:
+                return False
+            last = (args.hold_iter if hold else None) or args.end_iter
+            return args.start_iter < iteration <= last and iteration % args.interval_iter == 0
+
+        op = mu.opacity_pruning
+        if active(op, hold=True):
+            thr = self.opacity_pruning_scheduler(iteration - op.start_iter)
+            self.params, self.opt, self.state, n = M.opacity_pruning(
+                self.params, self.opt, self.state, _f32(thr))
+            self._log_prune(iteration, "opacity", int(n), f", threshold {thr:.5f}")
+
+        oc = mu.opacity_clipping
+        if active(oc, hold=True):
+            thr = self.opacity_clipping_scheduler(iteration - oc.start_iter)
+            self.params, self.opt, self.state, n = M.opacity_clipping(
+                self.params, self.opt, self.state, _f32(thr))
+            self._log_prune(iteration, "clipping", int(n), f", threshold {thr:.5f}")
 
         sp = mu.scale_pruning
         if active(sp):
@@ -356,9 +434,10 @@ class VanillaTSTrainer(BaseTrainer):
                 self.state.active_sh_degree = torch.tensor(
                     deg, dtype=torch.int32, device=self.device)
 
-    def _log_prune(self, iteration: int, kind: str, n: int) -> None:
+    def _log_prune(self, iteration: int, kind: str, n: int, extra: str = "") -> None:
         self.prune_history.append((iteration, kind, n))
-        self.logger.info(f"[ITER {iteration}, {kind} pruning] pruned {n}")
+        what = "opacity clipping] clipped" if kind == "clipping" else f"{kind} pruning] pruned"
+        self.logger.info(f"[ITER {iteration}, {what} {n}{extra}")
 
     def train(self):
         try:
@@ -374,6 +453,7 @@ class VanillaTSTrainer(BaseTrainer):
             self._evaluate(first_iter)
         self.logger.info("Training started")
         self.loss_history = []
+        self.geo_history = []
         t_start = time.perf_counter()
         for iteration in range(first_iter + 1, (cfgt.iterations or 30000) + 1):
             camera = self.dataset.nextTrainData()
@@ -389,6 +469,7 @@ class VanillaTSTrainer(BaseTrainer):
                 self._loss_weights(iteration), self._lrs(iteration), background,
                 iteration)
             self.loss_history.append(loss)
+            self.geo_history.append(aux["geo_loss"])
 
             if cfgt.eval_interval_iter and iteration % cfgt.eval_interval_iter == 0:
                 self._evaluate(iteration)
@@ -398,8 +479,13 @@ class VanillaTSTrainer(BaseTrainer):
                 loss_val = float(loss)
                 count = self.triangle_count()
                 num_pairs, overflow = int(aux["num_pairs"]), bool(aux["overflow"])
+                geo_txt = ""
+                if self._w_geometry > 0:
+                    geo_val = float(aux["geo_loss"])
+                    geo_txt = f", Geometry: {geo_val:.5f}"
+                    self.logger.add_scalar("Geometry Loss", geo_val, iteration)
                 self.logger.info(
-                    f"[ITER {iteration}] Loss: {loss_val:.5f}, Triangles: {count}, "
+                    f"[ITER {iteration}] Loss: {loss_val:.5f}{geo_txt}, Triangles: {count}, "
                     f"Gamma: {float(self.state.gamma):.3f}, SH: {self._sh_degree_host}, "
                     f"pairs: {num_pairs}")
                 self.logger.add_scalar("Loss", loss_val, iteration)
