@@ -54,14 +54,31 @@ Phases (any failure exits non-zero before the final line):
              rich, B3 and B4 held against their plain versions on the last
              step's own inputs, opacity clipping and pruning of a tenth or
              more of the trained rows on the card against a CPU copy, and
-             10 profiled steps.
+             10 profiled steps;
+9. kernels_gs — the Gaussian renderer's kernels at bench-gs-800-100k (100k
+             random Gaussians at 800x800, the budget sized by a probe frame):
+             B1-GS in all four forms (stats x rich info) and B2-GS in both
+             against their plain versions at gamma 1 and 2 (n_contrib and
+             final_T exact), B3, B4 (10 / 11 rows) and B5 on their pairs,
+             each form timed at gamma 1; and a stack of Gaussians whose kill
+             entry lies past the first staged batch of every form;
+10. gs     — train the gs-800-100k cell (the JAX smoke's VanillaGS recipe
+             without densification, SH degree 3, with contribution pruning;
+             cuts in GS_CUTS) on the photo phase's soup for 50 steps through
+             build_trainer: B1-GS's stats form, B2-GS, B3, B4 and B5 once per
+             step and no triangle form, the prunings logged and the alive
+             count falling by them; then B1-GS stats, B2-GS, B3, B4 and B5
+             held against their plain versions on the last step's own inputs,
+             and 10 profiled steps.
 The kernels phases also hold B1/B2 with rich info (depth and normal) against
 their plain versions, in "2D" at the bench shapes and in "3D" at gamma 1 and
 50, their color, final_T and n_contrib bit-identical to the forms without
 it, and B4 on their 16 / 14 live gradient rows; the reference phase runs
-both pipelines with rich info against the oracles. The photo and mesh
-phases also check that neither launched B5 or a stats form of B1, and
-none of the photo, mesh and mesh_adc phases launched a rich form.
+both pipelines with rich info against the oracles, and the Gaussian pipeline
+(and its depth through the GaussianRenderer facade) against its oracle. The
+photo and mesh phases also check that neither launched B5 or a stats form of
+B1, none of the photo, mesh and mesh_adc phases launched a rich form, and
+none of the triangle phases a GS form.
 
 The last two lines are the per-kernel JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -116,6 +133,26 @@ BWD_OPS_PER_EVAL_3D = {True: 92, False: 104}
 # three D rows (6), the K row (2) and its pixel sum (1): +22.
 RICH_FWD_OPS = {"2D": 14, "3D": 9}
 RICH_BWD_OPS = {"2D": 31, "3D": 22}
+# Variant "GS" (csrc/blend_gs.cu), keyed by gamma == 1. Forward: the alpha
+# terms (dx, dy: 2; q: 7 products and adds; the q >= 0 test, the clamp, the
+# power product, its clamp, one exp, the opacity product, the 0.99 clamp,
+# the 1/255 test and the select: 9; 20 in all) and the blend update (1 - alpha,
+# test_T and its test, contrib, three color products and adds: 10): 30;
+# gamma != 1 computes the power as -0.5 exp(clip(gamma log q)): +5.
+# Backward: the alpha terms (20), 1/(1 - alpha) and the T update (3),
+# contrib (1), gdot (5), dL/dalpha and the suffix A (5), the live select (2),
+# dL/dq and its dx / dy products (4), the doubled conic (3), the nine
+# nonzero rows (14) and their pixel sums (9): 66; gamma != 1 adds +5 in the
+# alpha terms and the q^(gamma - 1) chain (+7). Rich info adds the depth
+# field's product and add forward (+2) and to gdot, its row and its sum
+# backward (+4). Counted per evaluated (pair, pixel), taken as the sum of
+# n_contrib: the entries every pixel must evaluate up to its last
+# composited one (the kill entry and trailing skips not counted: a lower
+# bound of the forward's work, exact for the backward).
+FWD_OPS_PER_EVAL_GS = {True: 30, False: 35}
+BWD_OPS_PER_EVAL_GS = {True: 66, False: 78}
+RICH_FWD_OPS["GS"] = 2
+RICH_BWD_OPS["GS"] = 4
 # B1's stats form adds a sum and a max of each evaluated contribution over
 # the tile's pixels; B5 an add and a max per sorted pair.
 STATS_OPS_PER_EVAL = 2
@@ -132,6 +169,8 @@ SPIN_CYCLES = 2_000_000
 TOL = dict(b1_abs=1e-5, b2_rel=1e-4, b4_rel=1e-5, stats_sum_rel=1e-5,
            stats_max_rel=1e-6, b5_rel=1e-5, oracle_stats_abs=5e-4, rich_rel=1e-5,
            oracle_rich_rel=1e-3)
+GS_FORMS = (("gs", False, False), ("gs_stats", True, False), ("gs_rich", False, True),
+            ("gs_rich_stats", True, True))
 _BLEND = "triangle_splatting_tpu/ops/pallas/blend.py"
 _STREAMS = "triangle_splatting_tpu/ops/pallas/streams.py"
 REPLACES = {
@@ -148,9 +187,12 @@ REPLACES = {
     "blend_backward_rich": f"{_BLEND}:956",
     "blend_forward_3d_rich": f"{_BLEND}:514",
     "blend_backward_3d_rich": f"{_BLEND}:956",
+    **{f"blend_forward_{f}": f"{_BLEND}:514" for f, _, _ in GS_FORMS},
+    "blend_backward_gs": f"{_BLEND}:956",
+    "blend_backward_gs_rich": f"{_BLEND}:956",
 }
 _CSRC = "triangle_splatting_tpu_torch/ops/cuda/csrc"
-SOURCES = {name: f"{_CSRC}/{'streams' if _STREAMS in r else 'blend'}.cu"
+SOURCES = {name: f"{_CSRC}/{'streams' if _STREAMS in r else 'blend_gs' if '_gs' in name else 'blend'}.cu"
            for name, r in REPLACES.items()}
 # the training phase whose run each kernel's launches are read from: the
 # path that runs it (the 2D stats form is on none of them: no shipped
@@ -158,7 +200,12 @@ SOURCES = {name: f"{_CSRC}/{'streams' if _STREAMS in r else 'blend'}.cu"
 PATH_OF = dict.fromkeys(REPLACES, "train")
 PATH_OF.update(blend_forward_3d="mesh", blend_backward_3d="mesh",
                blend_forward_3d_stats="mesh_adc", segment_reduce_stats="mesh_adc",
-               blend_forward_3d_rich="city", blend_backward_3d_rich="city")
+               blend_forward_3d_rich="city", blend_backward_3d_rich="city",
+               # the VanillaGS trainer renders with statistics and without
+               # rich info: the other GS forms run in its evaluation (outside
+               # the counted steps) and in the GaussianRenderer facade
+               **{f"blend_forward_{f}": "gs" for f, _, _ in GS_FORMS},
+               blend_backward_gs="gs", blend_backward_gs_rich="gs")
 RICH_FORMS = ("blend_forward_rich", "blend_backward_rich", "blend_forward_3d_rich",
               "blend_backward_3d_rich")
 # the MatrixCity recipe, cut to the 50-step city phase
@@ -177,6 +224,55 @@ CITY_CUTS = dict(
     log_interval="50 -> 10 (the pair budget is re-sized at log steps)",
     initial_eval="before and after the counted run, outside it",
     views="8 train / 2 test synthetic aerial views (MatrixCity: 6,000+)")
+# gs-800-100k: the JAX package's smoke VanillaGS recipe
+# (triangle_splatting_tpu/trainers/smoke.py make_smoke_config, model="gs",
+# densify=True, iters=50), written out as data, with the cuts of GS_CUTS
+GS_ITERS = TRAIN_ITERS
+GS_CONTRIB_WINDOW = (5, 40)
+GS_CONTRIB_INTERVAL = 20
+GS_TARGET = 93_000
+GS_CUTS = dict(
+    iterations="50 (the smoke's own count; no published VanillaGS recipe ships)",
+    sh="max_sh_degree 1 -> 3 (GSModelConfig's default), one_up_iters [12] -> [10, 20, 30]",
+    densification="removed (not ported: ROADMAP Queue A item 5)",
+    contribution_pruning="added: config/NerfSynthetic_VanillaTS_mesh.yaml's block, window "
+                         "(1,000, 40,000] every 1,000 -> (5, 40] every 20, target 93,000",
+    saves="save_iterations / checkpoint_iterations [50] -> none",
+    eval="outside the counted run (test PSNR before and after)",
+    data="the photo phase's soup: 8 train / 2 test views at 800x800, a 100k-point cloud")
+
+
+def gs_config(root: Path) -> dict:
+    """The gs-800-100k recipe (smoke.py make_smoke_config(model="gs") at 50
+    iterations, with the cuts of GS_CUTS)."""
+    lr = lambda a, b: dict(v_init=a, v_final=b, max_steps=GS_ITERS)  # noqa: E731
+    start, end = GS_CONTRIB_WINDOW
+    return dict(
+        dataset=dict(type="NerfSynthetic", local_dir=str(root), background="white",
+                     use_alpha_mask=False, num_workers=2, pcd_path="point_cloud.ply",
+                     hold_test_set=True),
+        model=dict(
+            max_sh_degree=3, rasterizer_type="2D", pairs_per_triangle=16,
+            sampling=dict(sample_method="direct", init_opacity=0.3),
+            optimizer=dict(xyz=lr(0.002, 0.0002), scaling=lr(0.005, 0.005),
+                           rotation=lr(0.001, 0.001), opacity=lr(0.05, 0.02),
+                           f_dc=lr(0.02, 0.005), f_rest=lr(0.001, 0.001)),
+            model_update=dict(
+                sh_schedule=dict(one_up_iters=[10, 20, 30]),
+                statistic=dict(start_iter=0, end_iter=GS_ITERS),
+                opacity_pruning=dict(start_iter=GS_ITERS // 4, end_iter=GS_ITERS,
+                                     hold_iter=GS_ITERS, interval_iter=max(50, GS_ITERS // 8),
+                                     opacity_threshold_init=0.005,
+                                     opacity_threshold_final=0.005),
+                contribution_pruning=dict(
+                    start_iter=start, end_iter=end, interval_iter=GS_CONTRIB_INTERVAL,
+                    min_view_count=1, target_point_num=GS_TARGET, downsample_iteration=[],
+                    downsample_point_num=[], prune_ratio=0.15, max_prune_ratio=0.2,
+                    contrib_max_ratio=0.1, sparsity_retain_ratio=0.25))),
+        trainer=dict(type="VanillaGS", output_dir=str(WORK / "out_gs"), iterations=GS_ITERS,
+                     initial_eval=False, log_interval_iter=10, eval_interval_iter=0,
+                     histogram_interval_iter=0, train_background="white",
+                     eval_background="white", w_ssim=0.2, use_tensorboard=False, seed=0))
 
 
 class SmokeFailure(Exception):
@@ -247,6 +343,13 @@ def check_no_rich_launches(launches: dict, phase: str) -> None:
     for name in RICH_FORMS:
         check(launches[name] == 0, f"{phase}: kernel {name} launched {launches[name]} times "
               "on a path without rich info")
+
+
+def check_no_gs_launches(launches: dict, phase: str) -> None:
+    """A triangle path launches no GS form of B1/B2."""
+    for name, n in launches.items():
+        if "_gs" in name:
+            check(n == 0, f"{phase}: kernel {name} launched {n} times on a triangle path")
 
 
 def check_no_stats_launches(launches: dict, phase: str) -> None:
@@ -808,11 +911,226 @@ def phase_kernels_3d(dev) -> dict:
     return rec
 
 
+def check_blend_gs(fwd, geo, target, what: str, cot_seed: int = 0) -> dict:
+    """B1-GS in its four forms and B2-GS in both against their plain
+    versions on the packed pairs ``fwd`` = (fields, tile_starts,
+    tile_counts, params). Forward: n_contrib and final_T exact (the done
+    flag and the transmittance are bit-identical to the plain version's),
+    color abs 1e-5, depth rel 1e-5 of its max, the stream's sums rel 1e-5
+    of the row's max and its maxes exact; the four forms' color, final_T
+    and n_contrib bit-identical to each other. Backward (cotangent of the
+    bench loss |render - target| and a random depth cotangent): the live
+    rows (10 / 11) rel 1e-4 of each row's max, row 5 and the others zero.
+    Returns the errors, the argument tuples for timing, the evaluated
+    (pair, pixel) count and the bytes each form must move."""
+    import torch
+    from triangle_splatting_tpu_torch.ops.cuda import blend as KB
+
+    H, W = geo["image_height"], geo["image_width"]
+    dev = fwd[0].device
+    ref = KB.blend_forward_plain(*fwd, stats=True, rich=True, **geo)
+    outs, errs = {}, {}
+    for form, stats, rich in GS_FORMS:
+        out = KB.blend_forward(*fwd, stats=stats, rich=rich, **geo)
+        torch.cuda.synchronize()
+        e_nc = int((out[4] != ref[4]).sum())
+        e_T = float((out[3] - ref[3]).abs().max())
+        e_c = float((out[0] - ref[0]).abs().max())
+        check(e_nc == 0 and e_T == 0.0, f"blend_forward {form} {what}: n_contrib differs in "
+              f"{e_nc} pixels, final_T by {e_T:.3e} (expected exact)")
+        check(e_c <= TOL["b1_abs"], f"blend_forward {form} {what}: color err {e_c:.3e}")
+        if rich:
+            e_d = float((out[1] - ref[1]).abs().max()) / max(float(ref[1].abs().max()), 1e-30)
+            check(e_d <= TOL["rich_rel"], f"blend_forward {form} {what}: depth rel err {e_d:.3e}")
+        else:
+            e_d = 0.0
+            check(bool(torch.equal(out[1], out[3] * fwd[3][4])),
+                  f"blend_forward {form} {what}: depth is not final_T * bg_depth")
+        check(not bool(out[2].any()), f"blend_forward {form} {what}: nonzero normal")
+        e = dict(color=e_c, final_T=e_T, n_contrib=e_nc, depth_rel=e_d)
+        if stats:
+            pc = out[5]
+            e_s = float((pc[0] - ref[5][0]).abs().max()) / max(float(ref[5][0].abs().max()), 1e-30)
+            e_m = float((pc[1] - ref[5][1]).abs().max())
+            check(e_s <= TOL["stats_sum_rel"] and e_m == 0.0, f"blend_forward {form} {what}: "
+                  f"stream sum rel err {e_s:.3e}, max err {e_m:.3e} (expected exact)")
+            e.update(stream_sum_rel=e_s, stream_max=e_m)
+        outs[form], errs[form] = out, e
+    base = outs["gs"]
+    for form, out in outs.items():
+        same = [bool(torch.equal(out[k], base[k])) for k in (0, 3, 4)]
+        check(all(same), f"blend_forward {form} {what}: color, final_T, n_contrib differ from "
+              f"the plain form's {same}")
+    gen = torch.Generator().manual_seed(cot_seed)
+    g_color = (torch.sign(base[0] - target) / (3 * H * W)).contiguous()
+    g_depth = (torch.randn((H, W), generator=gen) / (H * W)).to(dev)
+    zero = torch.zeros((H, W), device=dev)
+    bws = {}
+    for rich in (False, True):
+        live = KB.LIVE_GRAD_ROWS[("GS", rich)]
+        bw = fwd + (base[3], base[4], g_color, zero, g_depth if rich else None)
+        out2 = KB.blend_backward(*bw, rich=rich, **geo)
+        ref2 = KB.blend_backward_plain(*bw, rich=rich, **geo)
+        torch.cuda.synchronize()
+        diff2 = (out2 - ref2).abs()
+        rel2 = float((diff2.amax(dim=1) / ref2.abs().amax(dim=1).clamp_min(1e-30))[:live].max())
+        form = "gs_rich" if rich else "gs"
+        check(bool(torch.isfinite(out2).all()), f"blend_backward {form} {what}: non-finite")
+        check(not bool(out2[5].any()) and not bool(out2[live:].any()),
+              f"blend_backward {form} {what}: row 5 or rows {live}.. not zero")
+        check(rel2 <= TOL["b2_rel"], f"blend_backward {form} {what}: rel err {rel2:.3e}")
+        check(min(float(out2[r].abs().max()) for r in range(live) if r != 5) > 0,
+              f"blend_backward {form} {what}: a live row is zero")
+        bws[form] = dict(bw=bw, out=out2, err=float(diff2.max()), rel=rel2)
+    num_pairs, T = int(fwd[2].to(torch.int64).sum()), fwd[2].shape[0]
+    pairs_in = lambda rows: 4 * (rows * num_pairs + 2 * T + 1 + 8)  # noqa: E731
+    ma = fwd[0].shape[1]
+    return dict(errs=errs, outs=outs, bws=bws, evals=float(base[4].to(torch.float64).sum()),
+                b1_bytes={f: pairs_in(11 if r else 10) + 4 * 9 * H * W + (8 * ma if s else 0)
+                          for f, s, r in GS_FORMS},
+                b2_bytes={f: pairs_in(11 if f == "gs_rich" else 10) + 4 * (6 + (f == "gs_rich"))
+                          * H * W + 4 * 16 * ma for f in bws})
+
+
+def phase_kernels_gs(dev) -> dict:
+    """bench-gs-800-100k: B1-GS (four forms) and B2-GS (two forms) against
+    their plain versions on 100k random Gaussians at 800x800 (the GS twin of
+    bench-800-100k: ``make_gs_scene`` over the same frustum, scales 0.01-0.05
+    as the bench triangles' sizes, the budget sized by a probe frame), at
+    gamma 1 and at gamma 2; B3 on the frame, B4 on B2's 10 / 11 live rows,
+    B5 on the stream after the owner sort. Each form is timed at gamma 1,
+    the gamma VanillaGS trains at. Then a stack of 400 Gaussians whose kill
+    entry (index 300) lies past the first staged batch of every form (256
+    forward, 128 with stats, 32 backward), held exactly on n_contrib and
+    final_T."""
+    import dataclasses
+
+    import torch
+    from triangle_splatting_tpu_torch.ops.binning import sort_pairs
+    from triangle_splatting_tpu_torch.ops.cuda import blend as KB
+    from triangle_splatting_tpu_torch.ops.cuda import streams as KS
+    from triangle_splatting_tpu_torch.ops.gaussian import (gaussian_field_matrix,
+                                                           preprocess_gaussian)
+    from triangle_splatting_tpu_torch.ops.projection import RasterSettings
+    from triangle_splatting_tpu_torch.ops.rasterize import _round_up, rasterize_gaussian
+    from triangle_splatting_tpu_torch.trainers.adc_utils import adapt_pair_budget
+    from triangle_splatting_tpu_torch.utils.testing import (make_camera, make_gs_scene,
+                                                            make_gs_stack_scene)
+
+    def scene_tensors(sc):
+        return [torch.as_tensor(sc[k]).to(dev) for k in ("xyz", "scale", "rot", "opacity", "rgb")]
+
+    s = make_gs_scene(N_TRI, seed=0, scale_range=(0.01, 0.05))
+    xyz, scale, rot, opacity, rgb = scene_tensors(s)
+    cam = make_camera(RES, RES, device=dev)
+    st = RasterSettings(image_width=RES, image_height=RES, rich_info=False,
+                        rasterizer_type="GS", pairs_per_triangle=6)
+    with torch.no_grad():
+        probe = rasterize_gaussian(xyz, scale, rot, opacity, None, cam, st, gamma=1.0,
+                                   background=torch.ones(3, device=dev), bg_depth=10.0,
+                                   colors=rgb, need_stats=False)
+    check(not bool(probe["overflow"]), "GS probe pair budget overflow")
+    ppt = adapt_pair_budget(6.0, int(probe["num_pairs"]), N_TRI, False, shrink_if_below=1.0)
+    st = dataclasses.replace(st, pairs_per_triangle=ppt)
+    geo = dict(image_width=RES, image_height=RES, tile_h=st.tile_h, tile_w=st.tile_w,
+               variant="GS")
+    target = torch.rand((3, RES, RES), generator=torch.Generator().manual_seed(2)).to(dev)
+    rec = {}
+    for gamma in (1.0, 2.0):
+        what = f"GS, gamma {gamma}"
+        with torch.no_grad():
+            prep = preprocess_gaussian(xyz, scale, rot, rgb, cam.world_view, cam.full_proj,
+                                       cam.tan_fovx, cam.tan_fovy, st, opacity=opacity,
+                                       gamma=torch.tensor(gamma, device=dev))
+            sp = sort_pairs(prep, st, _round_up(int(ppt * N_TRI), KB.ALIGN))
+            check(not bool(sp.overflow), f"GS pair budget overflow at gamma {gamma}")
+            pair_tri, args3, err3 = check_relayout(sp, what)
+            fields = pack_fields(gaussian_field_matrix(prep, opacity), pair_tri)
+            params = torch.tensor([gamma, 1.0, 1.0, 1.0, 10.0, 0.0, 0.0, 0.0], device=dev)
+            fwd = (fields, sp.astarts, sp.tile_counts, params)
+            c = check_blend_gs(fwd, geo, target, what)
+            c4 = {f: check_segment_reduce(c["bws"][f]["out"][:KB.LIVE_GRAD_ROWS[("GS", r)]],
+                                          pair_tri, sp, f"{what} {f}")
+                  for f, r in (("gs", False), ("gs_rich", True))}
+            c5 = check_segment_stats(c["outs"]["gs_stats"][5], pair_tri, sp, what)
+        g1 = gamma == 1.0
+        times = {}
+        for form, stats, rich in GS_FORMS:
+            ops = (FWD_OPS_PER_EVAL_GS[g1] + (STATS_OPS_PER_EVAL if stats else 0)
+                   + (RICH_FWD_OPS["GS"] if rich else 0)) * c["evals"]
+            times[f"blend_forward_{form}"] = dict(
+                ms=cuda_ms(lambda: KB.blend_forward(*fwd, stats=stats, rich=rich, **geo), 20),
+                bound=bound_ms(c["b1_bytes"][form], ops), err=max(
+                    v for k, v in c["errs"][form].items() if k not in ("n_contrib",)),
+                plain=lambda stats=stats, rich=rich: KB.blend_forward_plain(
+                    *fwd, stats=stats, rich=rich, **geo))
+        for form, b in c["bws"].items():
+            rich = form == "gs_rich"
+            ops = (BWD_OPS_PER_EVAL_GS[g1] + (RICH_BWD_OPS["GS"] if rich else 0)) * c["evals"]
+            times[f"blend_backward_{form}"] = dict(
+                ms=cuda_ms(lambda: KB.blend_backward(*b["bw"], rich=rich, **geo), 20),
+                bound=bound_ms(c["b2_bytes"][form], ops), err=b["err"],
+                plain=lambda b=b, rich=rich: KB.blend_backward_plain(*b["bw"], rich=rich, **geo))
+        say("kernels_gs", gamma=gamma, tiles=int(sp.tile_counts.shape[0]),
+            num_pairs=int(sp.num_pairs), pairs_per_triangle=ppt, pair_pixel_evals=c["evals"],
+            max_n_contrib=int(c["outs"]["gs"][4].max()), b1_errs=c["errs"],
+            b2_rel_err={f: b["rel"] for f, b in c["bws"].items()}, b3_mismatch=err3,
+            b4_rel_err={f: x["rel"] for f, x in c4.items()}, b5_sum_rel_err=c5["rel"],
+            b5_max_abs_err=c5["err"],
+            ms={k: round(v["ms"], 4) for k, v in times.items()},
+            bound_ms={k: round(v["bound"][0], 5) for k, v in times.items()},
+            b3_ms=cuda_ms(lambda: KS.relayout_pairs(*args3), 50),
+            b4_ms=cuda_ms(lambda: KS.segment_reduce_pairs(*c4["gs"]["args"]), 50),
+            b5_ms=cuda_ms(lambda: KS.segment_reduce_stats(*c5["args"]), 50))
+        if g1:
+            for name, t in times.items():
+                rec[name] = dict(max_abs_err=t["err"], ms=t["ms"],
+                                 plain_ms=cuda_ms(t["plain"], 3, 1), library_ms=None,
+                                 bound=t["bound"],
+                                 tol=("n_contrib, final_T and stream maxes exact; color abs "
+                                      f"{TOL['b1_abs']}, depth and stream sums rel "
+                                      f"{TOL['rich_rel']}" if "forward" in name else
+                                      f"rel {TOL['b2_rel']} of each row's max"))
+        del c, c4, c5, times, fwd, fields
+    for name, r in rec.items():
+        say("kernels_gs", kernel=name, gamma=1.0, max_abs_err=r["max_abs_err"], tol=r["tol"],
+            ms=round(r["ms"], 4), plain_ms=round(r["plain_ms"], 3),
+            bound_ms=round(r["bound"][0], 5), bound_by=r["bound"][1])
+
+    # the kill entry past the first staged batch of every form
+    n, kill_at = 400, 300
+    xyz, scale, rot, opacity, rgb = scene_tensors(make_gs_stack_scene(n, kill_at, 0.02))
+    st_k = RasterSettings(image_width=RES, image_height=RES, rich_info=False,
+                          rasterizer_type="GS", pairs_per_triangle=400)
+    with torch.no_grad():
+        prep = preprocess_gaussian(xyz, scale, rot, rgb, cam.world_view, cam.full_proj,
+                                   cam.tan_fovx, cam.tan_fovy, st_k, opacity=opacity,
+                                   gamma=torch.ones((), device=dev))
+        sp = sort_pairs(prep, st_k, _round_up(400 * n, KB.ALIGN))
+        check(not bool(sp.overflow), "GS stack pair budget overflow")
+        pair_tri, _, _ = check_relayout(sp, "GS stack")
+        fwd = (pack_fields(gaussian_field_matrix(prep, opacity), pair_tri), sp.astarts,
+               sp.tile_counts, torch.tensor([1.0, 1.0, 1.0, 1.0, 10.0, 0, 0, 0], device=dev))
+        c = check_blend_gs(fwd, geo, target, "GS stack, kill past the batch")
+    nc = c["outs"]["gs"][4]
+    center = int(nc[RES // 2, RES // 2])
+    check(256 < center < n, f"GS stack: n_contrib {center} at the center, not past the "
+          "first 256-entry batch and before the list's end")
+    say("kernels_gs", case="kill past the batch", gaussians=n, kill_at=kill_at,
+        center_n_contrib=center, max_n_contrib=int(nc.max()),
+        pixels_past_256=int((nc > 256).sum()), b1_errs=c["errs"],
+        b2_rel_err={f: b["rel"] for f, b in c["bws"].items()},
+        tol="n_contrib and final_T exact in every form")
+    return rec
+
+
 def phase_reference(dev) -> None:
     """The 2D and the 3D kernel pipelines vs their dense oracles on a small
     scene (64x64), with the contribution statistics (B1's stream, owner
     sort, B5), and again with rich info (depth and normal); the 3D one at
-    gamma 1 and 50."""
+    gamma 1 and 50. Then the Gaussian pipeline against its oracle at gamma
+    1 and 2 with the statistics, and with rich info and statistics together
+    through the GaussianRenderer facade (its depth)."""
     import dataclasses
 
     import torch
@@ -869,6 +1187,58 @@ def phase_reference(dev) -> None:
             rich_depth_rel_err=rel_dn["depth"], rich_normal_rel_err=rel_dn["normal"],
             tol=(f"render 6e-4 abs, statistics {TOL['oracle_stats_abs']} abs, depth and "
                  f"normal rel {TOL['oracle_rich_rel']} of the max"))
+    phase_reference_gs(dev, cam)
+
+
+def phase_reference_gs(dev, cam) -> None:
+    import torch
+    from triangle_splatting_tpu_torch.ops.projection import RasterSettings
+    from triangle_splatting_tpu_torch.ops.rasterize import rasterize_gaussian
+    from triangle_splatting_tpu_torch.renderer import GaussianRenderer
+    from triangle_splatting_tpu_torch.utils.testing import make_gs_scene
+
+    g = make_gs_scene(120, seed=0)
+    xyz, scale, rot, opacity, rgb = (torch.as_tensor(g[k]).to(dev)
+                                     for k in ("xyz", "scale", "rot", "opacity", "rgb"))
+    ones = torch.ones(3, device=dev)
+    for gamma in (1.0, 2.0):
+        st = RasterSettings(image_width=64, image_height=64, rich_info=False,
+                            rasterizer_type="GS")
+        with torch.no_grad():
+            outs = {impl: rasterize_gaussian(xyz, scale, rot, opacity, None, cam, st,
+                                             gamma=gamma, background=ones, bg_depth=10.0,
+                                             colors=rgb, impl=impl, need_stats=True)
+                    for impl in ("cuda", "oracle")}
+        o, c = outs["oracle"], outs["cuda"]
+        d = {k: float((c[k] - o[k]).abs().max()) for k in ("render", "final_T")}
+        nc = int((c["n_contrib"] != o["n_contrib"]).sum())
+        ds = {k: float((c[k] - o[k]).abs().max()) for k in ("contrib_sum", "contrib_max")}
+        check(max(d.values()) <= 6e-4 and nc == 0, f"GS pipeline vs oracle, gamma {gamma}: "
+              f"render / final_T err {d}, n_contrib differs in {nc} pixels")
+        check(max(ds.values()) <= TOL["oracle_stats_abs"] and float(c["contrib_sum"].max()) > 0,
+              f"GS pipeline vs oracle, gamma {gamma}: statistics err {ds}")
+        say("reference", variant="GS", gamma=gamma, render_max_abs_err=d["render"],
+            final_T_max_abs_err=d["final_T"], n_contrib_mismatch=nc,
+            contrib_sum_max_abs_err=ds["contrib_sum"], contrib_max_max_abs_err=ds["contrib_max"],
+            tol=f"render 6e-4 abs, n_contrib exact, statistics {TOL['oracle_stats_abs']} abs")
+    # the facade: rich info with the statistics (its default need_stats)
+    with torch.no_grad():
+        fo = {impl: GaussianRenderer(cam, bg_color=(1.0, 1.0, 1.0), rich_info=True,
+                                     impl=impl).render(xyz, None, rgb, opacity, scale, rot)
+              for impl in ("cuda", "oracle")}
+    o, c = fo["oracle"], fo["cuda"]
+    dr = float((c["render"] - o["render"]).abs().max())
+    nc = int((c["n_contrib"] != o["n_contrib"]).sum())
+    rel_d = float((c["depth"] - o["depth"]).abs().max()) / float(o["depth"].abs().max())
+    ds = {k: float((c[k] - o[k]).abs().max()) for k in ("contrib_sum", "contrib_max")}
+    check(dr <= 6e-4 and nc == 0 and rel_d <= TOL["oracle_rich_rel"]
+          and max(ds.values()) <= TOL["oracle_stats_abs"],
+          f"GaussianRenderer(rich_info=True) vs oracle: render {dr:.3e}, n_contrib differs in "
+          f"{nc} pixels, depth rel {rel_d:.3e}, statistics {ds}")
+    say("reference", variant="GS", facade="GaussianRenderer(rich_info=True)",
+        render_max_abs_err=dr, n_contrib_mismatch=nc, depth_rel_err=rel_d,
+        contrib_sum_max_abs_err=ds["contrib_sum"], contrib_max_max_abs_err=ds["contrib_max"],
+        tol=f"render 6e-4 abs, depth rel {TOL['oracle_rich_rel']} of the max")
 
 
 def phase_rasterize(b) -> float:
@@ -962,6 +1332,7 @@ def phase_train(dev, root: Path) -> dict:
           "train: the photo path launched a 3D blend kernel")
     check_no_stats_launches(launches, "train")
     check_no_rich_launches(launches, "train")
+    check_no_gs_launches(launches, "train")
     check(int(trainer.state.active_sh_degree) == 3, "train: SH degree did not reach 3")
     say("train", ms_per_step=round(secs / TRAIN_ITERS * 1e3, 3), steps=TRAIN_ITERS,
         peak_mem_gib=round(peak / 2**30, 3),
@@ -1084,6 +1455,7 @@ def phase_mesh_train(dev, root: Path) -> dict:
           "mesh: the 3D path launched a 2D blend kernel")
     check_no_stats_launches(launches, "mesh")
     check_no_rich_launches(launches, "mesh")
+    check_no_gs_launches(launches, "mesh")
     say("mesh", ms_per_step=round(secs / TRAIN_ITERS * 1e3, 3), steps=TRAIN_ITERS,
         render_size=MESH_RES, peak_mem_gib=round(peak / 2**30, 3),
         triangles=int(trainer.state.alive.sum()), ste_triangles=trainer.triangle_count(),
@@ -1166,6 +1538,7 @@ def phase_mesh_adc(dev, root: Path) -> dict:
     for name in ("blend_forward", "blend_forward_3d", "blend_forward_stats", "blend_backward"):
         check(launches[name] == 0, f"mesh_adc: kernel {name} launched {launches[name]} times")
     check_no_rich_launches(launches, "mesh_adc")
+    check_no_gs_launches(launches, "mesh_adc")
     hist = trainer.prune_history
     contrib = [(it, k) for it, kind, k in hist if kind == "contribution"]
     scale = [(it, k) for it, kind, k in hist if kind == "scale"]
@@ -1448,6 +1821,186 @@ def phase_city(dev, root: Path) -> tuple[dict, dict]:
     return launches, rec
 
 
+def phase_gs(dev, root: Path) -> dict:
+    """The gs-800-100k cell: ``gs_config`` (the JAX smoke's VanillaGS recipe
+    with the cuts of GS_CUTS) on the photo phase's soup through
+    build_trainer for 50 steps. Gates: losses finite and falling; B1-GS's
+    stats form, B2-GS, B3, B4 and B5 once per step and no other blend form;
+    contribution pruning at 20 and 40 removing > 0, opacity pruning at 50,
+    the alive count falling by exactly the logged counts; SH degree 3. Then
+    B1-GS stats, B2-GS, B3, B4 (10 rows) and B5 held against their plain
+    versions on the last step's own inputs (captured detached by spies
+    that act at that step only), and 10 profiled steps. Returns the
+    launches."""
+    import numpy as np
+    import torch
+    from triangle_splatting_tpu_torch.ops import binning as BN
+    from triangle_splatting_tpu_torch.ops import rasterize as RZ
+    from triangle_splatting_tpu_torch.ops.cuda import blend as KB
+    from triangle_splatting_tpu_torch.ops.cuda import reset_launches
+    from triangle_splatting_tpu_torch.ops.cuda import streams as KS
+    from triangle_splatting_tpu_torch.trainers import build_trainer
+    from triangle_splatting_tpu_torch.utils.config import dict_to_config
+
+    n = GS_ITERS
+    say("gs", cell="gs-800-100k", cuts=GS_CUTS)
+    trainer = build_trainer(dict_to_config(gs_config(root)), log_file=False)
+    trainer._init_model()
+    alive0 = int(trainer.state.alive.sum())
+    psnr0 = trainer._evaluate(0)
+
+    step = {"next": 1}
+    last = {}
+    real = dict(fwd=RZ.blend_forward, bwd=RZ.blend_backward, b3=BN.relayout_pairs,
+                b4=RZ.segment_reduce_pairs, b5=RZ.segment_reduce_stats)
+
+    def detached(x):
+        return x.detach() if torch.is_tensor(x) else x
+
+    def spy(name):
+        def wrapped(*a, **kw):
+            if step["next"] == n:
+                last[name] = (tuple(detached(x) for x in a),
+                              {k: detached(v) for k, v in kw.items()})
+            return real[name](*a, **kw)
+        return wrapped
+
+    update0 = trainer._model_update
+
+    def update_spy(it):
+        step["next"] = it + 1
+        return update0(it)
+    RZ.blend_forward, RZ.blend_backward = spy("fwd"), spy("bwd")
+    BN.relayout_pairs, RZ.segment_reduce_pairs = spy("b3"), spy("b4")
+    RZ.segment_reduce_stats = spy("b5")
+    trainer._model_update = update_spy
+    try:
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        RZ.blend_forward, RZ.blend_backward = real["fwd"], real["bwd"]
+        BN.relayout_pairs, RZ.segment_reduce_pairs = real["b3"], real["b4"]
+        RZ.segment_reduce_stats = real["b5"]
+        del trainer._model_update
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    losses = torch.stack(trainer.loss_history).cpu().numpy()
+    check(len(losses) == n, f"gs: expected {n} losses, got {len(losses)}")
+    check(bool(np.isfinite(losses).all()), "gs: non-finite loss")
+    first, last10 = float(losses[:10].mean()), float(losses[-10:].mean())
+    check(last10 < first, f"gs: loss did not fall (first10 {first:.5f}, last10 {last10:.5f})")
+    for name in ("blend_forward_gs_stats", "blend_backward_gs", "relayout_pairs",
+                 "segment_reduce_pairs", "segment_reduce_stats"):
+        check(launches[name] == n, f"gs: kernel {name} launched {launches[name]} times in {n} steps")
+    for name, cnt in launches.items():
+        if name.startswith("blend_") and name not in ("blend_forward_gs_stats", "blend_backward_gs"):
+            check(cnt == 0, f"gs: kernel {name} launched {cnt} times")
+    hist = trainer.prune_history
+    kinds = {}
+    for it, kind, cnt in hist:
+        kinds.setdefault(kind, []).append((it, cnt))
+    start, end = GS_CONTRIB_WINDOW
+    due = [it for it in range(start + 1, end + 1) if it % GS_CONTRIB_INTERVAL == 0]
+    check([it for it, _ in kinds.get("contribution", [])] == due and
+          all(k > 0 for _, k in kinds.get("contribution", [])),
+          f"gs: contribution pruning fired {kinds.get('contribution')}, due at {due} with > 0")
+    check([it for it, _ in kinds.get("opacity", [])] == [n],
+          f"gs: opacity pruning fired {kinds.get('opacity')}, due at {n}")
+    alive1 = int(trainer.state.alive.sum())
+    check(alive0 - alive1 == sum(k for _, _, k in hist),
+          f"gs: alive {alive0} -> {alive1}, logged prunes {hist}")
+    check(int(trainer.state.active_sh_degree) == 3, "gs: SH degree did not reach 3")
+    check(bool(torch.isfinite(trainer.state.gradient_accum).all()), "gs: non-finite statistics")
+    psnr1 = trainer._evaluate(n)
+    say("gs", ms_per_step=round(secs / n * 1e3, 3), steps=n, resolution=RES,
+        peak_mem_gib=round(peak / 2**30, 3), gaussians_init=alive0, gaussians_end=alive1,
+        firings=kinds, loss_first10=first, loss_last10=last10, psnr_test_before=psnr0,
+        psnr_test_after=psnr1, launches=launches, pairs_per_triangle=trainer._ppt)
+
+    # B1-GS stats, B2-GS, B3, B4 and B5 on the last step's own inputs
+    (fa, fkw), (ba, bkw) = last["fwd"], last["bwd"]
+    geo = {k: fkw[k] for k in ("image_width", "image_height", "tile_h", "tile_w", "variant")}
+    check(fkw["stats"] and not fkw["rich"] and geo["variant"] == "GS",
+          f"gs: the last step's B1 ran in form {fkw}")
+    fwd = fa[:4]
+    H, W = geo["image_height"], geo["image_width"]
+    rec = {}
+    with torch.no_grad():
+        out = KB.blend_forward(*fwd, stats=True, **geo)
+        ref = KB.blend_forward_plain(*fwd, stats=True, **geo)
+        torch.cuda.synchronize()
+        e_nc = int((out[4] != ref[4]).sum())
+        e_T = float((out[3] - ref[3]).abs().max())
+        e_c = float((out[0] - ref[0]).abs().max())
+        e_s = float((out[5][0] - ref[5][0]).abs().max()) / max(float(ref[5][0].abs().max()), 1e-30)
+        e_m = float((out[5][1] - ref[5][1]).abs().max())
+        check(e_nc == 0 and e_T == 0.0 and e_c <= TOL["b1_abs"] and e_s <= TOL["stats_sum_rel"]
+              and e_m == 0.0, f"gs last step: B1-GS stats vs plain: n_contrib {e_nc}, final_T "
+              f"{e_T:.3e}, color {e_c:.3e}, stream sum rel {e_s:.3e}, max {e_m:.3e}")
+        bw = fa[:4] + ba[4:8]
+        out2 = KB.blend_backward(*bw, **geo)
+        ref2 = KB.blend_backward_plain(*bw, **geo)
+        torch.cuda.synchronize()
+        live = KB.LIVE_GRAD_ROWS[("GS", False)]
+        diff2 = (out2 - ref2).abs()
+        rel2 = float((diff2.amax(dim=1) / ref2.abs().amax(dim=1).clamp_min(1e-30))[:live].max())
+        check(rel2 <= TOL["b2_rel"] and not bool(out2[live:].any()),
+              f"gs last step: B2-GS vs plain rel err {rel2:.3e}")
+        a3 = last["b3"][0] + tuple(last["b3"][1].values())
+        a4 = last["b4"][0] + tuple(last["b4"][1].values())
+        a5 = last["b5"][0] + tuple(last["b5"][1].values())
+        _, err3 = hold_relayout(a3, "gs")
+        c4 = hold_segment_reduce(a4, "gs")
+        s5, m5 = KS.segment_reduce_stats(*a5)
+        rs5, rm5 = KS.segment_reduce_stats_plain(*a5)
+        torch.cuda.synchronize()
+        e5 = float((s5 - rs5).abs().max()) / max(float(rs5.abs().max()), 1e-30)
+        em5 = float((m5 - rm5).abs().max())
+        check(e5 <= TOL["b5_rel"] and em5 == 0.0, f"gs last step: B5 sum rel {e5:.3e}, max {em5:.3e}")
+        evals = float(out[4].to(torch.float64).sum())
+        num_pairs, T, ma = int(fwd[2].to(torch.int64).sum()), fwd[2].shape[0], fwd[0].shape[1]
+        pairs_in = 4 * (10 * num_pairs + 2 * T + 1 + 8)
+        rows4, P, np4 = int(a4[0].shape[0]), int(a4[1].shape[0]), int(a4[3])
+        np5 = int(a5[4])
+        b1 = bound_ms(pairs_in + 4 * 9 * H * W + 8 * ma,
+                      (FWD_OPS_PER_EVAL_GS[True] + STATS_OPS_PER_EVAL) * evals)
+        b2 = bound_ms(pairs_in + 4 * 6 * H * W + 4 * 16 * ma, BWD_OPS_PER_EVAL_GS[True] * evals)
+        b3 = bound_ms(4 * (int(a3[3].sum()) + 3 * (int(a3[3].shape[0]) + 1) + int(a3[4])))
+        b4 = bound_ms(4 * (rows4 * np4 + 2 * P + 1) + 4 * 16 * P, rows4 * np4)
+        b5 = bound_ms(4 * (2 * np5 + 2 * P + 1) + 4 * 2 * P, B5_OPS_PER_PAIR * np5)
+        rows = {
+            "blend_forward_gs_stats": (e_c, lambda: KB.blend_forward(*fwd, stats=True, **geo),
+                                       lambda: KB.blend_forward_plain(*fwd, stats=True, **geo), b1),
+            "blend_backward_gs": (float(diff2.max()), lambda: KB.blend_backward(*bw, **geo),
+                                  lambda: KB.blend_backward_plain(*bw, **geo), b2),
+            "relayout_pairs": (err3, lambda: KS.relayout_pairs(*a3),
+                               lambda: KS.relayout_pairs_plain(*a3), b3),
+            "segment_reduce_pairs": (c4["err"], lambda: KS.segment_reduce_pairs(*a4),
+                                     lambda: KS.segment_reduce_pairs_plain(*a4), b4),
+            "segment_reduce_stats": (max(float((s5 - rs5).abs().max()), em5),
+                                     lambda: KS.segment_reduce_stats(*a5),
+                                     lambda: KS.segment_reduce_stats_plain(*a5), b5),
+        }
+        for name, (err, kfn, pfn, b) in rows.items():
+            rec[name] = dict(max_abs_err=err, ms=cuda_ms(kfn, 20 if "blend" in name else 50),
+                             plain_ms=cuda_ms(pfn, 2, 1), bound=b)
+            say("gs_kernels", kernel=name, max_abs_err=err, ms=round(rec[name]["ms"], 4),
+                plain_ms=round(rec[name]["plain_ms"], 3), bound_ms=round(b[0], 5), bound_by=b[1])
+        say("gs_kernels", tiles=T, num_pairs=num_pairs, ma=ma, pair_pixel_evals=evals,
+            b1_n_contrib_mismatch=e_nc, b1_final_T_err=e_T, b1_stream_sum_rel_err=e_s,
+            b1_stream_max_err=e_m, b2_rel_err=rel2, b3_mismatch=err3, b4_rows=rows4,
+            b4_rel_err=c4["rel"], b5_sum_rel_err=e5, b5_max_err=em5, gaussians=P)
+        del last, out, ref, out2, ref2, bw, fwd, a3, a4, a5
+    profile_steps(trainer, "gs_profile")
+    return launches
+
+
 def check_opacity_adc(params, opt, state) -> None:
     """Opacity clipping and opacity pruning of the trained model on the card
     against the same calls on a CPU copy. The run's own firings change no
@@ -1521,10 +2074,14 @@ def main() -> int:
         bench = make_bench(dev)
         rec = phase_kernels(bench)
         rec.update(phase_kernels_3d(dev))
+        rec.update(phase_kernels_gs(dev))
         phase_reference(dev)
         phase_rasterize(bench)
         shutil.rmtree(WORK, ignore_errors=True)
-        runs = dict(train=phase_train(dev, build_dataset(dev, "soup")))
+        soup = build_dataset(dev, "soup")
+        runs = dict(train=phase_train(dev, soup))
+        runs["gs"] = phase_gs(dev, soup)
+        shutil.rmtree(soup, ignore_errors=True)
         surface = build_dataset(dev, "surface")
         runs["mesh"] = phase_mesh_train(dev, surface)
         runs["mesh_adc"] = phase_mesh_adc(dev, surface)

@@ -194,7 +194,7 @@ def test_launch_counts_by_kernel_and_variant():
         assert counts[("segment_reduce_stats", None)] == 4
         reset_launches()
         forms = {"blend_forward": [*TB.VARIANTS, *(f"{v}_stats" for v in TB.VARIANTS),
-                                   *(f"{v}_rich" for v in TB.VARIANTS)],
+                                   *(f"{v}_rich" for v in TB.VARIANTS), "GS_rich_stats"],
                  "blend_backward": [*TB.VARIANTS, *(f"{v}_rich" for v in TB.VARIANTS)]}
         assert set(launch_counts()) == {(k, v) for k, vs in forms.items() for v in vs} | {
             ("relayout_pairs", None), ("segment_reduce_pairs", None),

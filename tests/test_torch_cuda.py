@@ -400,4 +400,129 @@ def test_wrappers_reject_bad_inputs(dev):
                          image_height=64, tile_h=32, tile_w=32, rich=True, stats=True)
     with pytest.raises(NotImplementedError):
         KB.blend_forward(f.float(), ts, tc, torch.zeros(8, device=dev), image_width=64,
-                         image_height=64, tile_h=32, tile_w=32, variant="GS")
+                         image_height=64, tile_h=32, tile_w=32, variant="4D")
+
+
+# ---------------------------------------------------------------------------
+# variant "GS" (csrc/blend_gs.cu)
+# ---------------------------------------------------------------------------
+
+GS_CASES = [
+    # (scene, P, W, H, seed, gamma); "stack": seed is the kill index
+    ("scene", 300, 64, 64, 0, 1.0),
+    ("scene", 400, 80, 48, 2, 2.5),       # partial tiles, gamma != 1
+    ("scene", 400, 70, 90, 3, 1.0),
+    ("stack", 400, 64, 64, 300, 1.0),     # kill entry past every staged batch
+]
+GS_FORMS = [(False, False), (True, False), (False, True), (True, True)]   # (stats, rich)
+
+
+def gs_inputs(case, dev):
+    """Sorted pairs and packed GS fields of a random scene (or a stack whose
+    kill entry lies past the kernels' batches), on ``dev``."""
+    from triangle_splatting_tpu_torch.ops.gaussian import (gaussian_field_matrix,
+                                                           preprocess_gaussian)
+    from triangle_splatting_tpu_torch.utils.testing import make_gs_scene, make_gs_stack_scene
+    kind, P, W, H, seed, gamma = case
+    s = make_gs_stack_scene(P, seed, 0.02) if kind == "stack" else make_gs_scene(P, seed=seed)
+    xyz, scale, rot, op, rgb = (torch.as_tensor(s[k]).to(dev)
+                                for k in ("xyz", "scale", "rot", "opacity", "rgb"))
+    st = RasterSettings(image_width=W, image_height=H, rich_info=False, rasterizer_type="GS")
+    cam = make_camera(W, H, device=dev)
+    with torch.no_grad():
+        prep = preprocess_gaussian(xyz, scale, rot, rgb, cam.world_view, cam.full_proj,
+                                   cam.tan_fovx, cam.tan_fovy, st, opacity=op,
+                                   gamma=torch.tensor(gamma, device=dev))
+        sp = sort_pairs(prep, st, 128 * 200)
+        assert not bool(sp.overflow)
+        pair_tri = KS.relayout_pairs_plain(sp.sorted_tri, sp.raw_starts, sp.astarts,
+                                           sp.tile_counts, sp.ma)
+        fmat = gaussian_field_matrix(prep, op)
+        fields = torch.where((pair_tri >= 0)[:, None], fmat[pair_tri.clamp_min(0).long()],
+                             torch.zeros((), device=dev)).t().contiguous()
+    params = torch.tensor([gamma, 1.0, 0.9, 0.8, 10.0, 0, 0, 0], device=dev)
+    return sp, fields, params
+
+
+@pytest.mark.parametrize("case", GS_CASES)
+def test_blend_gs_forward_kernel_matches_plain(dev, case):
+    """Each B1-GS form against the plain version on the card: n_contrib and
+    final_T exact, color abs 1e-5, depth rel 1e-5, the stream's sums rel
+    1e-5 and its maxes exact, one launch counted per form."""
+    kind, P, W, H, seed, gamma = case
+    sp, fields, params = gs_inputs(case, dev)
+    geo = dict(image_width=W, image_height=H, tile_h=32, tile_w=32, variant="GS")
+    args = (fields, sp.astarts, sp.tile_counts, params)
+    ref = KB.blend_forward_plain(*args, stats=True, rich=True, **geo)
+    for stats, rich in GS_FORMS:
+        form = "GS" + ("_rich" if rich else "") + ("_stats" if stats else "")
+        n = KB.blend_forward.launches[form]
+        got = KB.blend_forward(*args, stats=stats, rich=rich, **geo)
+        torch.cuda.synchronize()
+        assert KB.blend_forward.launches[form] == n + 1
+        assert torch.equal(got[4], ref[4]) and torch.equal(got[3], ref[3]), form
+        assert float((got[0] - ref[0]).abs().max()) <= 1e-5, form
+        if rich:
+            assert float((got[1] - ref[1]).abs().max()) <= 1e-5 * float(ref[1].abs().max())
+        if stats:
+            assert float((got[5][0] - ref[5][0]).abs().max()) <= 1e-5 * float(ref[5][0].max())
+            assert torch.equal(got[5][1], ref[5][1]), form
+    if kind == "stack":
+        assert int(ref[4][H // 2, W // 2]) == seed       # killed at the stack's entry 300
+
+
+@pytest.mark.parametrize("rich", [False, True])
+@pytest.mark.parametrize("case", GS_CASES)
+def test_blend_gs_backward_kernel_matches_plain(dev, case, rich):
+    """B2-GS against the plain version on the card: live rows rel 1e-4 of
+    each row's max, row 5 and the rows past the live ones zero."""
+    kind, P, W, H, seed, gamma = case
+    sp, fields, params = gs_inputs(case, dev)
+    geo = dict(image_width=W, image_height=H, tile_h=32, tile_w=32, variant="GS")
+    args = (fields, sp.astarts, sp.tile_counts, params)
+    out = KB.blend_forward(*args, **geo)
+    gen = torch.Generator().manual_seed(seed)
+    g_color = (torch.randn((3, H, W), generator=gen) / (3 * H * W)).to(dev)
+    g_T = (torch.randn((H, W), generator=gen) / (H * W)).to(dev)
+    g_depth = (torch.randn((H, W), generator=gen) / (H * W)).to(dev) if rich else None
+    bw = args + (out[3], out[4], g_color, g_T, g_depth)
+    form = "GS_rich" if rich else "GS"
+    n = KB.blend_backward.launches[form]
+    got = KB.blend_backward(*bw, rich=rich, **geo)
+    ref = KB.blend_backward_plain(*bw, rich=rich, **geo)
+    torch.cuda.synchronize()
+    assert KB.blend_backward.launches[form] == n + 1
+    live = KB.LIVE_GRAD_ROWS[("GS", rich)]
+    rel = ((got - ref).abs().amax(dim=1) / ref.abs().amax(dim=1).clamp_min(1e-30))[:live]
+    assert float(rel.max()) <= 1e-4 and torch.isfinite(got).all()
+    assert not got[5].any() and not got[live:].any()
+
+
+def test_rasterize_gaussian_card_matches_cpu(dev):
+    """``rasterize_gaussian`` with statistics on the card against the CPU
+    (plain versions): render and final_T within 1e-5, n_contrib within two
+    pixels (exp/log differ by an ulp between the two devices), statistics
+    5e-4; gradients of every input rel 1e-4 of their max."""
+    from triangle_splatting_tpu_torch.ops.rasterize import rasterize_gaussian
+    from triangle_splatting_tpu_torch.utils.testing import make_gs_scene
+    s = make_gs_scene(300, seed=4)
+    target = torch.rand((3, 64, 64), generator=torch.Generator().manual_seed(0))
+    res = {}
+    for d in (torch.device("cpu"), dev):
+        leaves = [torch.tensor(s[k], device=d, requires_grad=True)
+                  for k in ("xyz", "scale", "rot", "opacity", "rgb")]
+        st = RasterSettings(image_width=64, image_height=64, rich_info=False,
+                            rasterizer_type="GS", max_sh_degree=0)
+        out = rasterize_gaussian(*leaves[:4], None, make_camera(64, 64, device=d), st,
+                                 background=torch.ones(3, device=d), bg_depth=10.0,
+                                 colors=leaves[4])
+        loss = (out["render"] - target.to(d)).abs().mean() + 0.3 * out["final_T"].mean()
+        res[str(d)] = (out, torch.autograd.grad(loss, leaves))
+    (oc, gc), (og, gg) = res["cpu"], res["cuda"]
+    for k in ("render", "final_T"):
+        assert float((og[k].detach().cpu() - oc[k].detach()).abs().max()) <= 1e-5, k
+    assert int((og["n_contrib"].cpu() != oc["n_contrib"]).sum()) <= 2
+    for k in ("contrib_sum", "contrib_max"):
+        assert float((og[k].cpu() - oc[k]).abs().max()) <= 5e-4, k
+    for a, b in zip(gg, gc):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max())

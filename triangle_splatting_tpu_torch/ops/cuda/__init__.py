@@ -2,8 +2,9 @@
 ``ctypes`` wrappers and the plain PyTorch version beside each kernel.
 
 Each wrapper counts the launches of its kernel in ``<wrapper>.launches``:
-a dict by form for the blend kernels (``"2D"``, ``"3D"``, and for the
-forward also ``"2D_stats"``, ``"3D_stats"``), an int for the stream
+a dict by form for the blend kernels (the variant ``"2D"``, ``"3D"`` or
+``"GS"``, then ``"_rich"`` with rich info and, for the forward,
+``"_stats"`` with the contribution stream), an int for the stream
 kernels. ``reset_launches`` and ``launch_counts`` read and reset them all
 in one form."""
 

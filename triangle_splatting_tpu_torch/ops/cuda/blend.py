@@ -1,17 +1,19 @@
 """Kernels B1 (``blend_forward``) and B2 (``blend_backward``): the tile
-alpha blend of the triangle rasterizers.
+alpha blend of the triangle rasterizers and of the Gaussian renderer.
 
 Ports of ``triangle_splatting_tpu/ops/pallas/blend.py`` for the variants
-the photo and mesh training paths run: ``"2D"`` and ``"3D"``, each with
-rich info (the depth and normal outputs and their cotangents) off or on;
-the forward also with the per-pair contribution stream (``stats``) of the
-ADC statistic window, with rich info off. "GS" and rich with stats raise
-``NotImplementedError``. The CUDA kernels are in ``csrc/blend.cu``. Each
-wrapper takes the kernel for CUDA tensors and the plain PyTorch version
-beside it for CPU tensors; there is no fallback from one to the other.
-``<wrapper>.launches`` counts the kernel launches per form: the variant,
-``"<variant>_stats"`` for the forward with stats on and
-``"<variant>_rich"`` with rich info on.
+the training paths run: ``"2D"`` and ``"3D"`` (triangles), each with rich
+info (the depth and normal outputs and their cotangents) off or on, the
+forward also with the per-pair contribution stream (``stats``) of the ADC
+statistic window, with rich info off; and ``"GS"`` (Gaussians), whose
+forward runs in all four combinations of stats and rich info. Rich with
+stats raises ``NotImplementedError`` for the triangle variants. The CUDA
+kernels are in ``csrc/blend.cu`` ("2D", "3D") and ``csrc/blend_gs.cu``
+("GS"). Each wrapper takes the kernel for CUDA tensors and the plain
+PyTorch version beside it for CPU tensors; there is no fallback from one
+to the other. ``<wrapper>.launches`` counts the kernel launches per form:
+the variant, then ``"_rich"`` with rich info and ``"_stats"`` with the
+stream (``"3D_stats"``, ``"2D_rich"``, ``"GS_rich_stats"``).
 
 Layout contract (shared with ``ops/binning.py``): ``pairs`` is the
 field-major (16, MP) float32 buffer, tile t owns slots
@@ -25,7 +27,13 @@ d0 + d1*a1 + d2*a2); "3D" D = f0 + f1*px + f2*py, a1 = (f3 + f4*px +
 f5*py) / D, a2 = (f6 + f7*px + f8*py) / D, opacity 9, rgb 10..12, and for
 rich info K 13 (ray depth K / D; the raw normal is
 (sx*N1, sy*N2, N0 - cW*N1 - cH*N2) of N = sum contrib * (f0, f1, f2),
-cW = (1 - W) / 2, cH = (1 - H) / 2).
+cW = (1 - W) / 2, cH = (1 - H) / 2); "GS" the center X 0, Y 1, the conic
+a 2, b 3, c 4, opacity 6, rgb 7..9 and the view depth 10, with
+q = a*dx^2 + 2b*dx*dy + c*dy^2 at dx = X - px, dy = Y - py.
+
+"GS" follows the Gaussian rasterizer's semantics: the entry that would
+push T below T_EPS is not composited and ends the pixel, and n_contrib is
+the 1-based index of the last composited entry, not a count.
 """
 
 from __future__ import annotations
@@ -52,23 +60,24 @@ LIVE_GRAD_ROWS = {
 }
 
 
-VARIANTS = ("2D", "3D")
+VARIANTS = ("2D", "3D", "GS")
 # per variant: (index of the opacity field, of the first rgb field)
-_OPAC_RGB = {"2D": (6, 7), "3D": (9, 10)}
+_OPAC_RGB = {"2D": (6, 7), "3D": (9, 10), "GS": (6, 7)}
 
 
 def _require_ported_variant(variant: str, rich: bool, stats: bool = False) -> None:
     if variant not in VARIANTS:
         raise NotImplementedError(
             f"blend kernels: only variants {VARIANTS} are ported (got variant={variant!r})")
-    if rich and stats:
+    if rich and stats and variant != "GS":
         raise NotImplementedError(
             f"blend_forward: rich=True with stats=True is not ported (variant {variant!r})")
 
 
 def _form(variant: str, stats: bool = False, rich: bool = False) -> str:
-    """Launch-count key of a form: "3D", "3D_stats" or "3D_rich"."""
-    return f"{variant}_stats" if stats else f"{variant}_rich" if rich else variant
+    """Launch-count key of a form: "3D", "3D_stats", "3D_rich" or
+    "GS_rich_stats"."""
+    return variant + ("_rich" if rich else "") + ("_stats" if stats else "")
 
 
 def _normal_3d(N: torch.Tensor, params: torch.Tensor, width: int, height: int):
@@ -140,6 +149,28 @@ def alpha_terms_plain(f: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
     return a1, a2, a3, eccs, expp, alpha_un, alpha, ok, invD
 
 
+def alpha_terms_gs_plain(f: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                         gamma: torch.Tensor, in_range: torch.Tensor):
+    """blend.py ``_alpha_terms_gs`` on (n,) field rows against (npix,) pixel
+    coordinates -> (n, npix) terms (qs, dx, dy, expp, alpha_un, alpha, ok)
+    in the kernels' evaluation order."""
+    col = lambda k: f[k][:, None]  # noqa: E731
+    dx = col(0) - px
+    dy = col(1) - py
+    q = col(2) * dx * dx + 2.0 * col(3) * dx * dy + col(4) * dy * dy
+    ok = (q >= 0.0) & in_range
+    qs = torch.clamp_min(q, 1e-30)
+    power = torch.where(
+        gamma == 1.0, -0.5 * qs,
+        -0.5 * torch.exp(torch.clamp(gamma * torch.log(qs), -87.0, 44.0)))
+    expp = torch.exp(torch.clamp_max(power, 0.0))
+    alpha_un = col(6) * expp
+    alpha = torch.clamp_max(alpha_un, ALPHA_MAX)
+    ok = ok & (alpha >= ALPHA_MIN)
+    alpha = torch.where(ok, alpha, torch.zeros_like(alpha))
+    return qs, dx, dy, expp, alpha_un, alpha, ok
+
+
 def _tile_pixels(t: int, grid_w: int, tile_h: int, tile_w: int, dtype, dev):
     ty, tx = divmod(t, grid_w)
     lane = torch.arange(tile_h * tile_w, device=dev)
@@ -182,7 +213,9 @@ def blend_forward_plain(pairs, tile_starts, tile_counts, params, *,
     the sum and the max over the tile's pixels of the ``contrib`` matrix,
     zeros in every slot that holds no pair. With ``rich`` the depth and
     normal rows are products of their fields with the ``contrib`` matrix,
-    as the color. Works in the dtype of ``pairs``."""
+    as the color ("GS": the depth of field 10, the normal zero). "GS"
+    stops each pixel before its kill entry and gives the index of its last
+    composited entry as n_contrib. Works in the dtype of ``pairs``."""
     grid_w, grid_h = _grid(image_width, image_height, tile_h, tile_w)
     dev, dt = pairs.device, pairs.dtype
     n_tiles, npix = grid_w * grid_h, tile_h * tile_w
@@ -207,17 +240,29 @@ def blend_forward_plain(pairs, tile_starts, tile_counts, params, *,
             continue
         f = pairs[:, starts[t]:starts[t] + n]
         in_range = torch.ones((n, 1), dtype=torch.bool, device=dev)
-        a1, a2, _, _, _, _, alpha, _, invD = alpha_terms_plain(f, px, py, gamma,
-                                                               in_range, variant)
+        if variant == "GS":
+            *_, alpha, ok = alpha_terms_gs_plain(f, px, py, gamma, in_range)
+        else:
+            a1, a2, _, _, _, _, alpha, _, invD = alpha_terms_plain(f, px, py, gamma,
+                                                                   in_range, variant)
         scan = torch.cumprod(torch.cat([T0[None], 1.0 - alpha], dim=0), dim=0)
         T_excl, T_incl = scan[:-1], scan[1:]
-        alive = T_excl > T_EPS
+        if variant == "GS":
+            # the kill entry (T_incl < T_EPS) is not composited, and the
+            # product past it stays below T_EPS: alive is the composited
+            # prefix (and the skipped entries inside it)
+            alive = T_incl >= T_EPS
+        else:
+            alive = T_excl > T_EPS
         contrib = torch.where(alive, alpha * T_excl, torch.zeros_like(alpha))
         if stats:
             pair_contrib[0, starts[t]:starts[t] + n] = contrib.sum(dim=1)
             pair_contrib[1, starts[t]:starts[t] + n] = contrib.amax(dim=1)
         color.append(f[rgb0:rgb0 + 3] @ contrib)
-        if rich and variant == "3D":
+        if rich and variant == "GS":
+            depth_acc.append(f[10] @ contrib)
+            normal.append(torch.zeros((3, npix), dtype=dt, device=dev))
+        elif rich and variant == "3D":
             depth_acc.append(f[13] @ (contrib * invD))
             normal.append(_normal_3d(f[0:3] @ contrib, params, image_width, image_height))
         elif rich:
@@ -226,7 +271,12 @@ def blend_forward_plain(pairs, tile_starts, tile_counts, params, *,
             normal.append(f[11:14] @ contrib)
         T_min = torch.where(alive, T_incl, torch.full_like(T_incl, 2.0)).amin(dim=0)
         final_t.append(torch.minimum(T0, T_min))
-        ncon.append(alive.sum(dim=0).to(torch.int32))
+        if variant == "GS":
+            # 1-based index of the last composited entry
+            idx1 = torch.arange(1, n + 1, dtype=torch.int32, device=dev)[:, None]
+            ncon.append(torch.where(alive & ok, idx1, torch.zeros_like(idx1)).amax(dim=0))
+        else:
+            ncon.append(alive.sum(dim=0).to(torch.int32))
     color = torch.stack(color, dim=1)                      # (3, T, npix)
     final_t = torch.stack(final_t)                         # (T, npix)
     ncon = torch.stack(ncon)
@@ -254,9 +304,10 @@ def blend_forward(pairs: torch.Tensor, tile_starts: torch.Tensor,
     bg_depth; final_T * bg_depth with rich off), normal (3, H, W) (the
     raw accumulated normal; zeros with rich off), final_T (H, W) and
     n_contrib (H, W) int32: the count of entries each pixel iterated while
-    its exclusive transmittance stayed above T_EPS. With ``stats`` a sixth
-    output, pair_contrib (2, MP): per pair slot the sum (row 0) and the max
-    (row 1) over the tile's pixels of alpha * T_excl while T_excl > T_EPS,
+    its exclusive transmittance stayed above T_EPS ("GS": the 1-based index
+    of its last composited entry). With ``stats`` a sixth output,
+    pair_contrib (2, MP): per pair slot the sum (row 0) and the max (row 1)
+    over the tile's pixels of alpha * T_excl of the composited entries,
     zeros in slots that hold no pair or that the tile never reached. The
     first five outputs do not depend on ``stats``, and color, final_T and
     n_contrib not on ``rich``.
@@ -281,22 +332,26 @@ def blend_forward(pairs: torch.Tensor, tile_starts: torch.Tensor,
     # every slot is written by the kernel (zeros where no pair contributes)
     pair_contrib = (torch.empty((2, pairs.shape[1]), dtype=torch.float32, device=dev)
                     if stats else None)
-    lib = library("blend")
+    head = (pairs.data_ptr(), pairs.shape[1], tile_starts.data_ptr(),
+            tile_counts.data_ptr(), params.data_ptr(), W, H, tile_w, tile_h,
+            grid_w, grid_w * grid_h)
+    tail = (color.data_ptr(), depth.data_ptr(), normal.data_ptr(),
+            final_t.data_ptr(), n_contrib.data_ptr(),
+            pair_contrib.data_ptr() if stats else None, _stream())
     blend_forward.launches[_form(variant, stats, rich)] += 1
-    check_launch(lib.ts_blend_forward(
-        pairs.data_ptr(), pairs.shape[1], tile_starts.data_ptr(),
-        tile_counts.data_ptr(), params.data_ptr(), W, H, tile_w, tile_h,
-        grid_w, grid_w * grid_h, int(variant == "3D"), int(stats), int(rich),
-        color.data_ptr(), depth.data_ptr(), normal.data_ptr(),
-        final_t.data_ptr(), n_contrib.data_ptr(),
-        pair_contrib.data_ptr() if stats else None, _stream()), "blend_forward")
+    if variant == "GS":
+        code = library("blend_gs").ts_blend_forward_gs(*head, int(stats), int(rich), *tail)
+    else:
+        code = library("blend").ts_blend_forward(*head, int(variant == "3D"), int(stats),
+                                                 int(rich), *tail)
+    check_launch(code, "blend_forward")
     out = (color, depth, normal, final_t, n_contrib)
     return out + (pair_contrib,) if stats else out
 
 
 blend_forward.launches = dict.fromkeys(
-    (_form(v, s, r) for s, r in ((False, False), (True, False), (False, True))
-     for v in VARIANTS), 0)
+    [_form(v, s, r) for s, r in ((False, False), (True, False), (False, True))
+     for v in VARIANTS] + [_form("GS", True, True)], 0)
 
 
 # ---------------------------------------------------------------------------
@@ -320,7 +375,9 @@ def blend_backward_plain(pairs, tile_starts, tile_counts, params, final_T,
     coefficient rows. With ``rich`` the depth and normal cotangents
     ``g_depth`` (H, W) and ``g_normal`` (3, H, W) enter gdot, the
     background term and their own rows ("3D": the normal's through the D
-    rows)."""
+    rows). "GS" takes the depth cotangent only; its rows are X, Y, a, b,
+    c, 0, opacity, rgb and with rich info the depth, through q = a*dx^2 +
+    2b*dx*dy + c*dy^2 over each pixel's entries before its n_contrib."""
     grid_w, grid_h = _grid(image_width, image_height, tile_h, tile_w)
     dev, dt = pairs.device, pairs.dtype
     n_tiles = grid_w * grid_h
@@ -330,7 +387,8 @@ def blend_backward_plain(pairs, tile_starts, tile_counts, params, final_T,
     tl = lambda x: _tile(x, grid_h, grid_w, tile_h, tile_w)  # noqa: E731
     fT, nc, gcol, gft = tl(final_T), tl(n_contrib), tl(g_color), tl(g_final_T)
     if rich:
-        gdep, gnrm = tl(g_depth), tl(g_normal)
+        gdep = tl(g_depth)
+        gnrm = None if variant == "GS" else tl(g_normal)
         if variant == "3D":
             # the normal cotangent against the raw D-row sums N0, N1, N2
             cW, cH = (1.0 - image_width) / 2.0, (1.0 - image_height) / 2.0
@@ -349,8 +407,12 @@ def blend_backward_plain(pairs, tile_starts, tile_counts, params, final_T,
         f = pairs[:, starts[t]:starts[t] + n]
         gr, gg, gb = gcol[0, t], gcol[1, t], gcol[2, t]
         processed = torch.arange(n, device=dev)[:, None] < nc_eff[t][None, :]
-        a1, a2, a3, eccs, expp, alpha_un, alpha, ok, invD = alpha_terms_plain(
-            f, px, py, gamma, processed, variant)
+        if variant == "GS":
+            qs, dx, dy, expp, alpha_un, alpha, ok = alpha_terms_gs_plain(
+                f, px, py, gamma, processed)
+        else:
+            a1, a2, a3, eccs, expp, alpha_un, alpha, ok, invD = alpha_terms_plain(
+                f, px, py, gamma, processed, variant)
         inv1m = 1.0 / (1.0 - alpha)
         scan_t = torch.cumprod(torch.cat([fT[t][None], inv1m.flip(0)]), dim=0)
         T = scan_t[1:].flip(0)                               # exclusive T
@@ -359,8 +421,11 @@ def blend_backward_plain(pairs, tile_starts, tile_counts, params, final_T,
                 + f[rgb0 + 2][:, None] * gb)
         bg_dot = bg[0] * gr + bg[1] * gg + bg[2] * gb + gft[t]
         if rich:
-            gd, gn = gdep[t], gnrm[:, t]
-            if variant == "3D":
+            gd = gdep[t]
+            gn = None if gnrm is None else gnrm[:, t]
+            if variant == "GS":
+                gdot = gdot + f[10][:, None] * gd
+            elif variant == "3D":
                 tr = f[13][:, None] * invD                   # ray depth K / D
                 gdot = (gdot + tr * gd + f[0][:, None] * gn[0]
                         + f[1][:, None] * gn[1] + f[2][:, None] * gn[2])
@@ -376,6 +441,11 @@ def blend_backward_plain(pairs, tile_starts, tile_counts, params, final_T,
         live = torch.where(ok & (alpha_un < ALPHA_MAX), dL_da,
                            torch.zeros_like(dL_da))
         d_opac = live * expp
+        if variant == "GS":
+            rows = _gs_rows(f, qs, dx, dy, alpha_un, live, d_opac, contrib, gamma,
+                            gr, gg, gb, gd if rich else None)
+            out[:live_rows, starts[t]:starts[t] + n] = torch.stack([r.sum(dim=1) for r in rows])
+            continue
         ecc_pow = torch.where(
             gamma == 1.0, eccs,
             torch.exp(torch.clamp((2.0 * gamma - 1.0) * torch.log(eccs),
@@ -413,6 +483,27 @@ def blend_backward_plain(pairs, tile_starts, tile_counts, params, final_T,
     return out
 
 
+def _gs_rows(f, qs, dx, dy, alpha_un, live, d_opac, contrib, gamma, gr, gg, gb, gd):
+    """Per-(pair, pixel) gradient rows of "GS" (Pallas blend.py :801-833):
+    GX, GY, GA, GB, GC2 through dL/dq, a zero row, opacity, rgb, and with
+    the depth cotangent ``gd`` the depth row."""
+    col = lambda k: f[k][:, None]  # noqa: E731
+    dpow_dq = torch.where(
+        gamma == 1.0, torch.full_like(qs, -0.5),
+        -0.5 * gamma * torch.exp(torch.clamp((gamma - 1.0) * torch.log(qs), -87.0, 44.0)))
+    dL_dq = live * alpha_un * dpow_dq
+    gdx = dL_dq * dx
+    gdy = dL_dq * dy
+    rows = [2.0 * col(2) * gdx + 2.0 * col(3) * gdy,       # X
+            2.0 * col(3) * gdx + 2.0 * col(4) * gdy,       # Y
+            gdx * dx, 2.0 * gdx * dy, gdy * dy,            # a, b, c
+            torch.zeros_like(gdx), d_opac,
+            contrib * gr, contrib * gg, contrib * gb]
+    if gd is not None:
+        rows.append(contrib * gd)
+    return rows
+
+
 def blend_backward(pairs: torch.Tensor, tile_starts: torch.Tensor,
                    tile_counts: torch.Tensor, params: torch.Tensor,
                    final_T: torch.Tensor, n_contrib: torch.Tensor,
@@ -425,10 +516,11 @@ def blend_backward(pairs: torch.Tensor, tile_starts: torch.Tensor,
     """Backward tile blend: per-pair gradients (16, MP) of the packed
     fields, given the forward's final_T / n_contrib and the cotangents of
     color (3, H, W) and final_T (H, W), and with ``rich`` of depth (H, W)
-    and normal (3, H, W) (None: zeros). With rich info off the depth and
-    normal outputs carry no gradient. Rows from ``LIVE_GRAD_ROWS`` on
-    (10 for "2D", 13 for "3D"; 16 and 14 with rich), padding slots and
-    slots past the deepest contributor are zero."""
+    and normal (3, H, W) (None: zeros; "GS" reads no normal cotangent).
+    With rich info off the depth and normal outputs carry no gradient.
+    Rows from ``LIVE_GRAD_ROWS`` on (10 for "2D" and "GS", 13 for "3D";
+    16, 11 and 14 with rich), "GS"'s row 5, padding slots and slots past
+    the deepest contributor are zero."""
     _require_ported_variant(variant, rich)
     grid_w, grid_h = _grid(image_width, image_height, tile_h, tile_w)
     dev = _check_inputs(pairs, tile_starts, tile_counts, params, grid_w * grid_h)
@@ -461,16 +553,22 @@ def blend_backward(pairs: torch.Tensor, tile_starts: torch.Tensor,
     if pairs.dtype != torch.float32 or params.dtype != torch.float32:
         raise TypeError("blend_backward: the CUDA kernel takes float32 inputs")
     out = torch.empty_like(pairs)
-    lib = library("blend")
+    head = (pairs.data_ptr(), pairs.shape[1], tile_starts.data_ptr(),
+            tile_counts.data_ptr(), params.data_ptr(), W, H, tile_w, tile_h,
+            grid_w, grid_w * grid_h)
     blend_backward.launches[_form(variant, rich=rich)] += 1
-    check_launch(lib.ts_blend_backward(
-        pairs.data_ptr(), pairs.shape[1], tile_starts.data_ptr(),
-        tile_counts.data_ptr(), params.data_ptr(), W, H, tile_w, tile_h,
-        grid_w, grid_w * grid_h, int(variant == "3D"), int(rich),
-        final_T.data_ptr(), n_contrib.data_ptr(), g_color.data_ptr(),
-        g_final_T.data_ptr(), g_depth.data_ptr() if rich else None,
-        g_normal.data_ptr() if rich else None, out.data_ptr(), _stream()),
-        "blend_backward")
+    if variant == "GS":
+        code = library("blend_gs").ts_blend_backward_gs(
+            *head, int(rich), final_T.data_ptr(), n_contrib.data_ptr(),
+            g_color.data_ptr(), g_final_T.data_ptr(),
+            g_depth.data_ptr() if rich else None, out.data_ptr(), _stream())
+    else:
+        code = library("blend").ts_blend_backward(
+            *head, int(variant == "3D"), int(rich), final_T.data_ptr(),
+            n_contrib.data_ptr(), g_color.data_ptr(), g_final_T.data_ptr(),
+            g_depth.data_ptr() if rich else None,
+            g_normal.data_ptr() if rich else None, out.data_ptr(), _stream())
+    check_launch(code, "blend_backward")
     return out
 
 

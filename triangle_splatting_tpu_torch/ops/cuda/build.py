@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("streams", "blend")
+SOURCES = ("streams", "blend", "blend_gs")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
@@ -43,6 +43,12 @@ SIGNATURES = {
                              _I, _I, _P, _P, _P, _P, _P, _P, _P),
         "ts_blend_backward": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _P, _P, _P, _P, _P, _P, _P, _P),
+    },
+    "blend_gs": {
+        "ts_blend_forward_gs": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _P, _P, _P, _P, _P, _P, _P),
+        "ts_blend_backward_gs": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _P, _P, _P, _P, _P, _P, _P),
     },
 }
 

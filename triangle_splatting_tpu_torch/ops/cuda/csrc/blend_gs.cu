@@ -1,0 +1,491 @@
+// Tile alpha-blend kernels of the Gaussian renderer ("GS"), for Hopper (sm_90a).
+//
+// B1-GS  blend_forward_gs   replaces triangle_splatting_tpu/ops/pallas/blend.py
+//                           blend_forward (:514, kernel _fwd_kernel :290),
+//                           variant "GS"
+// B2-GS  blend_backward_gs  replaces triangle_splatting_tpu/ops/pallas/blend.py
+//                           blend_backward (:956, kernel _bwd_kernel :606),
+//                           variant "GS"
+//
+// Fields per pair (ops/gaussian.py gaussian_field_matrix): 0 X, 1 Y (the
+// screen center), 2 a, 3 b, 4 c (the conic), 5 zero, 6 opacity, 7..9 rgb,
+// 10 view depth. Per pixel (px, py) at integer coordinates, with
+// dx = X - px and dy = Y - py (Pallas _alpha_terms_gs :222-245):
+//   q = a dx^2 + 2 b dx dy + c dy^2, skipped if q < 0;
+//   power = -0.5 q at gamma 1, else -0.5 exp(clip(gamma log max(q, 1e-30),
+//           -87, 44));
+//   alpha = min(0.99, opacity exp(min(power, 0))), skipped below 1/255.
+// The Gaussian semantics differ from the triangle kernels of blend.cu in
+// three ways (Pallas :368-399, :421-428, :454-465):
+//   - the entry whose test_T = T (1 - alpha) would fall below T_EPS is not
+//     composited and ends the pixel: a done flag per pixel, carried across
+//     the staged batches, so that a later small alpha cannot resurrect the
+//     pixel. T never drops below T_EPS, so the block leaves early once every
+//     pixel is done or outside the image (__syncthreads_count), not on T;
+//   - n_contrib is the 1-based index in the tile's list of the last
+//     composited entry (skipped entries before it count, the kill entry and
+//     trailing skips do not): it is not a count;
+//   - the backward walks back from n_contrib over the entries e < n_contrib.
+//
+// Forms. The forward has two template switches: kStats, the per-pair (2, MP)
+// contribution stream of the ADC statistic window (row 0 the sum, row 1 the
+// max over the tile's pixels of contrib = alpha * T of every composited
+// entry), and kRich, the depth accumulator (field 10 against contrib, plus
+// T * bg_depth; the normal rows are zero, Pallas :403-406, :500-506). All
+// four pairs are instantiated: the Gaussian renderer's facade renders with
+// rich info and statistics together. The backward has kRich: the depth
+// cotangent enters gdot, the background term and its own row 10.
+//
+// What bounds them on the H100. Per evaluated (pair, pixel) the forward does
+// ~25 float32 operations with one exp (gamma 1; a log and a second exp
+// otherwise), the backward ~55 with one division; the fields come from
+// shared memory as broadcasts. Inputs and outputs are tens of MB (tens of
+// us at 3.35 TB/s), the evaluations a frame needs are 1e8-1e9 operations:
+// both are bound by operations, in practice by one sequential loop per
+// pixel.
+//
+// Design (as blend.cu):
+//  - one block per 32x32 tile, one thread per pixel, the tile's pairs
+//    staged into static shared memory in batches: 256 a batch in the plain
+//    and rich forward (11 fields: 11,264 B), 128 with stats (fields plus the
+//    per-warp sum and max partials, 128 x 33 x 2 floats: 39,424 B with rich
+//    info), 32 in the backward (9 or 10 reduced rows of per-warp partials,
+//    32 x 10 x 33 floats, and the fields: 43,652 B with rich info);
+//  - the per-(pair, pixel) arithmetic is written with explicitly rounded
+//    intrinsics in the order of the plain PyTorch version (no multiply-add
+//    contraction, no --use_fast_math), so alpha, the done flag, final_T and
+//    n_contrib match it bit for bit and only the order of sums differs;
+//  - every per-pair sum over the tile's pixels (the stream and the gradient
+//    rows) is a fixed warp-shuffle tree followed by a fixed-order pass over
+//    the warps in shared memory: no float atomics, each output slot belongs
+//    to one tile, so results do not change from run to run. GX / GY, the
+//    gradient of mean2d_offset and hence the densification statistic, are
+//    reduced like every other row;
+//  - the stats form steps a warp while any of its pixels is not done
+//    (__any_sync), a done pixel contributing 0 and skipping every state
+//    update, so its blend outputs are those of the form without stats bit
+//    for bit. Every slot of the (2, MP) stream is written: slots past the
+//    early exit, alignment padding and the buffer's tail get zeros.
+//
+// C interface: each entry point launches on the given stream and returns
+// cudaGetLastError() so the Python wrapper can raise on a refused launch.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float kTEps = (float)1e-4;               // blend.py T_EPS
+constexpr float kAlphaMin = (float)(1.0 / 255.0);  // blend.py ALPHA_MIN
+constexpr float kAlphaMax = (float)0.99;           // blend.py ALPHA_MAX
+constexpr int kNumFields = 16;
+constexpr int kFwdBatch = 256;                     // pairs staged per batch
+constexpr int kStatsBatch = 128;                   // ... in the stats form
+constexpr int kBwdBatch = 32;                      // ... in the backward
+constexpr int kMaxWarps = 32;
+constexpr int kOpac = 6, kRgb = 7, kDepth = 10;    // field indices
+
+struct GSTerms {
+  float qs, dx, dy, expp, alpha_un, alpha;
+  bool ok;
+};
+
+// blend.py _alpha_terms_gs in the plain version's order, no contraction.
+__device__ __forceinline__ GSTerms gs_terms(const float X, const float Y, const float a,
+                                            const float b, const float c, const float opac,
+                                            float px, float py, float gamma) {
+  GSTerms r;
+  r.dx = __fsub_rn(X, px);
+  r.dy = __fsub_rn(Y, py);
+  const float t1 = __fmul_rn(__fmul_rn(a, r.dx), r.dx);
+  const float t2 = __fmul_rn(__fmul_rn(__fmul_rn(2.0f, b), r.dx), r.dy);
+  const float t3 = __fmul_rn(__fmul_rn(c, r.dy), r.dy);
+  const float q = __fadd_rn(__fadd_rn(t1, t2), t3);
+  bool ok = q >= 0.0f;
+  r.qs = fmaxf(q, 1e-30f);
+  float power;
+  if (gamma == 1.0f) {
+    power = __fmul_rn(-0.5f, r.qs);
+  } else {
+    const float lg = __fmul_rn(gamma, logf(r.qs));
+    power = __fmul_rn(-0.5f, expf(fminf(fmaxf(lg, -87.0f), 44.0f)));
+  }
+  r.expp = expf(fminf(power, 0.0f));
+  r.alpha_un = __fmul_rn(opac, r.expp);
+  const float alpha = fminf(kAlphaMax, r.alpha_un);
+  ok = ok && (alpha >= kAlphaMin);
+  r.alpha = ok ? alpha : 0.0f;
+  r.ok = ok;
+  return r;
+}
+
+template <int N, int B>
+__device__ __forceinline__ GSTerms gs_terms_at(const float (&sf)[N][B], int j, float px,
+                                               float py, float gamma) {
+  return gs_terms(sf[0][j], sf[1][j], sf[2][j], sf[3][j], sf[4][j], sf[kOpac][j], px, py,
+                  gamma);
+}
+
+// One entry j of batch b0 of a pixel's front-to-back composite (Pallas
+// :368-399), shared by the forward's two loops so that they stay
+// bit-identical: the kill entry is not composited and sets done; a
+// composited entry updates T, the colour (and depth) and n_contrib, its
+// 1-based index in the tile's list. Returns the entry's contrib, 0 where it
+// is skipped or kills.
+template <bool kRich, int N, int B>
+__device__ __forceinline__ float composite_entry(const float (&sf)[N][B], int b0, int j,
+                                                 float px, float py, float gamma, float& T,
+                                                 bool& done, float& c0, float& c1, float& c2,
+                                                 float& dacc, int& nc) {
+  float contrib = 0.0f;
+  const GSTerms a = gs_terms_at(sf, j, px, py, gamma);
+  if (a.ok) {
+    const float test_T = __fmul_rn(T, __fsub_rn(1.0f, a.alpha));
+    if (test_T < kTEps) {
+      done = true;                           // the kill entry: not composited
+    } else {
+      contrib = __fmul_rn(a.alpha, T);
+      c0 = __fadd_rn(c0, __fmul_rn(sf[kRgb][j], contrib));
+      c1 = __fadd_rn(c1, __fmul_rn(sf[kRgb + 1][j], contrib));
+      c2 = __fadd_rn(c2, __fmul_rn(sf[kRgb + 2][j], contrib));
+      if constexpr (kRich) dacc = __fadd_rn(dacc, __fmul_rn(sf[kDepth][j], contrib));
+      T = test_T;
+      nc = b0 + j + 1;
+    }
+  }
+  return contrib;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, off));
+  return v;
+}
+
+template <bool kStats, bool kRich>
+__global__ void __launch_bounds__(1024) blend_forward_gs_kernel(
+    const float* __restrict__ pairs, int mp,
+    const int* __restrict__ tile_starts, const int* __restrict__ tile_counts,
+    const float* __restrict__ params, int width, int height, int tile_w,
+    int tile_h, int grid_w, float* __restrict__ color,
+    float* __restrict__ depth, float* __restrict__ normal,
+    float* __restrict__ final_T, int* __restrict__ n_contrib,
+    float* __restrict__ pair_contrib) {
+  constexpr int kFields = kRich ? 11 : 10;
+  constexpr int kBatch = kStats ? kStatsBatch : kFwdBatch;
+  __shared__ float sf[kFields][kBatch];
+  const int tile = blockIdx.x;
+  const int tx = tile % grid_w, ty = tile / grid_w;
+  const int lane = threadIdx.x;
+  const int x = tx * tile_w + lane % tile_w;
+  const int y = ty * tile_h + lane / tile_w;
+  const bool inside = x < width && y < height;
+  const float px = (float)x, py = (float)y;
+  const float gamma = params[0];
+  const int start = tile_starts[tile];
+  const int count = tile_counts[tile];
+
+  float T = inside ? 1.0f : 0.0f;
+  bool done = !inside;     // a pixel outside the image never composites
+  float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, dacc = 0.0f;
+  int nc = 0;
+  int reached = 0;         // stats form: slots of the tile whose stream is written
+  for (int b0 = 0; b0 < count; b0 += kBatch) {
+    // Uniform across the block: doubles as the barrier that keeps the
+    // previous batch's readers ahead of this batch's writers.
+    if (__syncthreads_count(!done) == 0) break;
+    const int nb = min(kBatch, count - b0);
+    for (int i = threadIdx.x; i < kFields * kBatch; i += blockDim.x) {
+      const int f = i / kBatch, j = i % kBatch;
+      if (j < nb) sf[f][j] = pairs[(size_t)f * mp + start + b0 + j];
+    }
+    __syncthreads();
+    if constexpr (kStats) {
+      // per batch entry, per warp (+1 pad against bank conflicts)
+      __shared__ float psum[kStatsBatch][kMaxWarps + 1];
+      __shared__ float pmax[kStatsBatch][kMaxWarps + 1];
+      const int warp = lane >> 5, wl = lane & 31;
+      int j = 0;
+      for (; j < nb; ++j) {
+        // the warp steps while any of its pixels is not done, so that all
+        // 32 lanes reach the shuffle trees at the same entry
+        if (!__any_sync(0xffffffffu, !done)) break;
+        const float contrib =
+            done ? 0.0f
+                 : composite_entry<kRich>(sf, b0, j, px, py, gamma, T, done, c0, c1,
+                                          c2, dacc, nc);
+        const float s = warp_sum(contrib);
+        const float m = warp_max(contrib);
+        if (wl == 0) {
+          psum[j][warp] = s;
+          pmax[j][warp] = m;
+        }
+      }
+      // entries past the warp's last live pixel contribute nothing
+      for (int k = j + wl; k < nb; k += 32) {
+        psum[k][warp] = 0.0f;
+        pmax[k][warp] = 0.0f;
+      }
+      __syncthreads();
+      const int nwarps = blockDim.x >> 5;
+      for (int i = lane; i < nb; i += blockDim.x) {
+        float s = 0.0f, m = 0.0f;
+        for (int w = 0; w < nwarps; ++w) {
+          s += psum[i][w];
+          m = fmaxf(m, pmax[i][w]);
+        }
+        pair_contrib[start + b0 + i] = s;
+        pair_contrib[(size_t)mp + start + b0 + i] = m;
+      }
+      reached = b0 + nb;
+    } else {
+      for (int j = 0; j < nb && !done; ++j)
+        composite_entry<kRich>(sf, b0, j, px, py, gamma, T, done, c0, c1, c2, dacc, nc);
+    }
+  }
+  if constexpr (kStats) {
+    // The tile's slots past the early exit and its alignment padding get
+    // zeros, and every block zeroes a strided share of the buffer's tail
+    // past the last tile's aligned end (slots of no tile).
+    const int end = tile_starts[tile + 1];
+    for (int i = start + reached + lane; i < end; i += blockDim.x) {
+      pair_contrib[i] = 0.0f;
+      pair_contrib[(size_t)mp + i] = 0.0f;
+    }
+    const int tail0 = tile_starts[gridDim.x];
+    for (int i = tail0 + blockIdx.x * blockDim.x + lane; i < mp;
+         i += gridDim.x * blockDim.x) {
+      pair_contrib[i] = 0.0f;
+      pair_contrib[(size_t)mp + i] = 0.0f;
+    }
+  }
+  if (!inside) return;
+  const size_t hw = (size_t)height * width;
+  const size_t o = (size_t)y * width + x;
+  color[o] = __fadd_rn(c0, __fmul_rn(T, params[1]));
+  color[hw + o] = __fadd_rn(c1, __fmul_rn(T, params[2]));
+  color[2 * hw + o] = __fadd_rn(c2, __fmul_rn(T, params[3]));
+  if constexpr (kRich) {
+    depth[o] = __fadd_rn(dacc, __fmul_rn(T, params[4]));
+  } else {
+    depth[o] = __fmul_rn(T, params[4]);
+  }
+  normal[o] = 0.0f;
+  normal[hw + o] = 0.0f;
+  normal[2 * hw + o] = 0.0f;
+  final_T[o] = T;
+  n_contrib[o] = nc;
+}
+
+// Output row of reduced row k: the live rows but the structural zero row 5
+// (GX GY GA GB GC2 | 0 | GOP r g b [GDEP]).
+__device__ __forceinline__ int out_row(int k) { return k < 5 ? k : k + 1; }
+
+template <bool kRich>
+__global__ void __launch_bounds__(1024) blend_backward_gs_kernel(
+    const float* __restrict__ pairs, int mp,
+    const int* __restrict__ tile_starts, const int* __restrict__ tile_counts,
+    const float* __restrict__ params, int width, int height, int tile_w,
+    int tile_h, int grid_w, int num_tiles, const float* __restrict__ final_T,
+    const int* __restrict__ n_contrib, const float* __restrict__ g_color,
+    const float* __restrict__ g_final_T, const float* __restrict__ g_depth,
+    float* __restrict__ pair_grads) {
+  constexpr int kFields = kRich ? 11 : 10;
+  constexpr int kLive = kRich ? 11 : 10;   // LIVE_GRAD_ROWS[("GS", kRich)]
+  constexpr int kRed = kLive - 1;          // reduced rows (row 5 is zero)
+  constexpr int kBatch = kBwdBatch;
+  __shared__ float sf[kFields][kBatch];
+  // per batch entry, per reduced row, per warp (+1 pad against bank
+  // conflicts in the cross-warp sum)
+  __shared__ float part[kBatch][kRed][kMaxWarps + 1];
+  __shared__ int s_jmax;
+
+  const int tile = blockIdx.x;
+  const int tx = tile % grid_w, ty = tile / grid_w;
+  const int lane = threadIdx.x;
+  const int warp = lane >> 5, wl = lane & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int x = tx * tile_w + lane % tile_w;
+  const int y = ty * tile_h + lane / tile_w;
+  const bool inside = x < width && y < height;
+  const float px = (float)x, py = (float)y;
+  const float gamma = params[0];
+  const int start = tile_starts[tile];
+  const int end = tile_starts[tile + 1];
+  const int count = tile_counts[tile];
+
+  const size_t hw = (size_t)height * width;
+  const size_t o = (size_t)y * width + x;
+  const float fT = inside ? final_T[o] : 0.0f;
+  const int nc_eff = inside ? min(n_contrib[o], count) : 0;
+  const float gr = inside ? g_color[o] : 0.0f;
+  const float gg = inside ? g_color[hw + o] : 0.0f;
+  const float gb = inside ? g_color[2 * hw + o] : 0.0f;
+  const float gft = inside ? g_final_T[o] : 0.0f;
+  float gd = 0.0f;
+  if constexpr (kRich) gd = inside ? g_depth[o] : 0.0f;
+
+  // Slots of the whole buffer past the last tile's aligned end belong to
+  // no tile: every block zeroes a strided share of them.
+  const int tail0 = tile_starts[num_tiles];
+  for (int i = tail0 + blockIdx.x * blockDim.x + lane; i < mp;
+       i += gridDim.x * blockDim.x) {
+#pragma unroll
+    for (int r = 0; r < kNumFields; ++r) pair_grads[(size_t)r * mp + i] = 0.0f;
+  }
+
+  if (lane == 0) s_jmax = 0;
+  __syncthreads();
+  int m = nc_eff;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = max(m, __shfl_down_sync(0xffffffffu, m, off));
+  if (wl == 0) atomicMax(&s_jmax, m);
+  __syncthreads();
+  const int jmax = s_jmax;
+
+  // Entries past the deepest last contributor and the alignment padding
+  // get zero gradients; row 5 and the rows past the live ones are
+  // structural zeros.
+  for (int i = jmax + lane; i < end - start; i += blockDim.x) {
+#pragma unroll
+    for (int r = 0; r < kNumFields; ++r) pair_grads[(size_t)r * mp + start + i] = 0.0f;
+  }
+  for (int i = lane; i < jmax; i += blockDim.x) {
+    pair_grads[(size_t)5 * mp + start + i] = 0.0f;
+#pragma unroll
+    for (int r = kLive; r < kNumFields; ++r) pair_grads[(size_t)r * mp + start + i] = 0.0f;
+  }
+
+  // Background term (everything behind the last composited entry) plus the
+  // direct final_T cotangent: A = T_final * (bg . g + g_T [+ bg_depth g_d]).
+  float bg_dot = __fadd_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(params[1], gr), __fmul_rn(params[2], gg)),
+                __fmul_rn(params[3], gb)),
+      gft);
+  if constexpr (kRich) bg_dot = __fadd_rn(bg_dot, __fmul_rn(params[4], gd));
+  float A = __fmul_rn(fT, bg_dot);
+  float T = fT;
+  const float dpow_g = __fmul_rn(-0.5f, gamma);   // gamma != 1: -0.5 gamma q^(gamma-1)
+
+  for (int b_end = jmax; b_end > 0; b_end -= kBatch) {
+    const int b0 = max(0, b_end - kBatch);
+    const int nb = b_end - b0;
+    __syncthreads();   // the previous batch's cross-warp sums are done
+    for (int i = lane; i < kFields * kBatch; i += blockDim.x) {
+      const int f = i / kBatch, j = i % kBatch;
+      if (j < nb) sf[f][j] = pairs[(size_t)f * mp + start + b0 + j];
+    }
+    __syncthreads();
+    for (int j = nb - 1; j >= 0; --j) {
+      float g[kRed];
+#pragma unroll
+      for (int k = 0; k < kRed; ++k) g[k] = 0.0f;
+      bool nonzero = false;
+      if (b0 + j < nc_eff) {
+        const GSTerms a = gs_terms_at(sf, j, px, py, gamma);
+        const float inv1m = __fdiv_rn(1.0f, __fsub_rn(1.0f, a.alpha));
+        T = __fmul_rn(T, inv1m);                      // exclusive T of entry j
+        const float contrib = __fmul_rn(a.alpha, T);
+        float gdot = __fadd_rn(
+            __fadd_rn(__fmul_rn(sf[kRgb][j], gr), __fmul_rn(sf[kRgb + 1][j], gg)),
+            __fmul_rn(sf[kRgb + 2][j], gb));
+        if constexpr (kRich) gdot = __fadd_rn(gdot, __fmul_rn(sf[kDepth][j], gd));
+        const float dL_da = __fsub_rn(__fmul_rn(T, gdot), __fmul_rn(A, inv1m));
+        A = __fadd_rn(A, __fmul_rn(contrib, gdot));   // suffix of later entries
+        const float live = (a.ok && a.alpha_un < kAlphaMax) ? dL_da : 0.0f;
+        // d(power)/dq = -0.5 at gamma 1, else -0.5 gamma q^(gamma - 1)
+        float dpow = -0.5f;
+        if (gamma != 1.0f) {
+          const float lg = __fmul_rn(__fsub_rn(gamma, 1.0f), logf(a.qs));
+          dpow = __fmul_rn(dpow_g, expf(fminf(fmaxf(lg, -87.0f), 44.0f)));
+        }
+        const float dL_dq = __fmul_rn(__fmul_rn(live, a.alpha_un), dpow);
+        const float gdx = __fmul_rn(dL_dq, a.dx);
+        const float gdy = __fmul_rn(dL_dq, a.dy);
+        // dq/dX = 2a dx + 2b dy, dq/dY = 2b dx + 2c dy, dq/da = dx^2,
+        // dq/db = 2 dx dy, dq/dc = dy^2
+        const float a2 = __fmul_rn(2.0f, sf[2][j]);
+        const float b2 = __fmul_rn(2.0f, sf[3][j]);
+        const float c2 = __fmul_rn(2.0f, sf[4][j]);
+        g[0] = __fadd_rn(__fmul_rn(a2, gdx), __fmul_rn(b2, gdy));
+        g[1] = __fadd_rn(__fmul_rn(b2, gdx), __fmul_rn(c2, gdy));
+        g[2] = __fmul_rn(gdx, a.dx);
+        g[3] = __fmul_rn(__fmul_rn(2.0f, gdx), a.dy);
+        g[4] = __fmul_rn(gdy, a.dy);
+        g[5] = __fmul_rn(live, a.expp);               // opacity (row 6)
+        g[6] = __fmul_rn(contrib, gr);                // rgb (rows 7..9)
+        g[7] = __fmul_rn(contrib, gg);
+        g[8] = __fmul_rn(contrib, gb);
+        if constexpr (kRich) g[9] = __fmul_rn(contrib, gd);   // depth (row 10)
+        nonzero = a.alpha != 0.0f;
+      }
+      if (__any_sync(0xffffffffu, nonzero)) {
+#pragma unroll
+        for (int k = 0; k < kRed; ++k) {
+          const float v = warp_sum(g[k]);
+          if (wl == 0) part[j][k][warp] = v;
+        }
+      } else if (wl < kRed) {
+        part[j][wl][warp] = 0.0f;
+      }
+    }
+    __syncthreads();
+    for (int i = lane; i < kRed * nb; i += blockDim.x) {
+      const int k = i / nb, j = i % nb;
+      float s = 0.0f;
+      for (int w = 0; w < nwarps; ++w) s += part[j][k][w];
+      pair_grads[(size_t)out_row(k) * mp + start + b0 + j] = s;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int ts_blend_forward_gs(const float* pairs, int mp,
+                                   const int* tile_starts, const int* tile_counts,
+                                   const float* params, int width, int height,
+                                   int tile_w, int tile_h, int grid_w,
+                                   int num_tiles, int stats, int rich,
+                                   float* color, float* depth, float* normal,
+                                   float* final_T, int* n_contrib,
+                                   float* pair_contrib, cudaStream_t stream) {
+  const int threads = tile_w * tile_h;
+  if (threads <= 0 || threads > 1024 || threads % 32 != 0) return (int)cudaErrorInvalidValue;
+  if (stats && pair_contrib == nullptr) return (int)cudaErrorInvalidValue;
+  if (num_tiles > 0) {
+    const auto kernel =
+        stats ? (rich ? &blend_forward_gs_kernel<true, true> : &blend_forward_gs_kernel<true, false>)
+              : (rich ? &blend_forward_gs_kernel<false, true> : &blend_forward_gs_kernel<false, false>);
+    kernel<<<num_tiles, threads, 0, stream>>>(
+        pairs, mp, tile_starts, tile_counts, params, width, height, tile_w,
+        tile_h, grid_w, color, depth, normal, final_T, n_contrib, pair_contrib);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ts_blend_backward_gs(const float* pairs, int mp,
+                                    const int* tile_starts, const int* tile_counts,
+                                    const float* params, int width, int height,
+                                    int tile_w, int tile_h, int grid_w,
+                                    int num_tiles, int rich,
+                                    const float* final_T, const int* n_contrib,
+                                    const float* g_color, const float* g_final_T,
+                                    const float* g_depth, float* pair_grads,
+                                    cudaStream_t stream) {
+  const int threads = tile_w * tile_h;
+  if (threads <= 0 || threads > 1024 || threads % 32 != 0) return (int)cudaErrorInvalidValue;
+  if (rich && g_depth == nullptr) return (int)cudaErrorInvalidValue;
+  if (num_tiles > 0) {
+    const auto kernel = rich ? &blend_backward_gs_kernel<true> : &blend_backward_gs_kernel<false>;
+    kernel<<<num_tiles, threads, 0, stream>>>(
+        pairs, mp, tile_starts, tile_counts, params, width, height, tile_w,
+        tile_h, grid_w, num_tiles, final_T, n_contrib, g_color, g_final_T,
+        g_depth, pair_grads);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,7 +1,8 @@
-"""Differentiable triangle-splat rasterization — the public op.
+"""Differentiable triangle- and Gaussian-splat rasterization — the public ops.
 
-Port of ``triangle_splatting_tpu/ops/rasterize.py`` (variants "2D" and
-"3D"):
+Port of ``triangle_splatting_tpu/ops/rasterize.py``: ``rasterize``
+(triangles, variants "2D" and "3D") and ``rasterize_gaussian`` (variant
+"GS", the EWA preprocess of ``gaussian.py`` in stage 2):
 
   1. SH -> per-triangle color               PyTorch, autograd   (sh.py)
   2. screen-space preprocess (2D or 3D)     PyTorch, autograd   (projection.py)
@@ -30,6 +31,7 @@ from . import sh as sh_mod
 from .binning import Binning, bin_triangles
 from .cuda.blend import ALIGN, LIVE_GRAD_ROWS, blend_backward, blend_forward
 from .cuda.streams import segment_reduce_pairs, segment_reduce_stats
+from .gaussian import blend_oracle_gs, gaussian_field_matrix, preprocess_gaussian
 from .oracle import blend_oracle, blend_oracle_3d
 from .projection import (Preprocessed, Preprocessed3D, RasterSettings,
                          preprocess_2d, preprocess_3d)
@@ -220,6 +222,46 @@ def _contrib_stats(pair_contrib: torch.Tensor, binning: Binning, P: int):
                                 nvalid=binning.num_pairs)
 
 
+def _oracle_result(out, prep) -> dict:
+    """The ``rasterize`` dict of a dense oracle's outputs."""
+    dev = out.color.device
+    return dict(render=out.color, depth=out.depth, normal=out.normal,
+                radii=prep.radii, visible_mask=prep.radii > 0,
+                contrib_sum=out.contrib_sum, contrib_max=out.contrib_max,
+                final_T=out.final_T, n_contrib=out.n_contrib,
+                overflow=torch.zeros((), dtype=torch.bool, device=dev),
+                num_pairs=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def _tile_pipeline(prep, fmat: torch.Tensor, params: torch.Tensor,
+                   settings: RasterSettings, variant: str, need_stats: bool,
+                   max_pairs: Optional[int]) -> dict:
+    """Stages 3-6 on a preprocess and its per-primitive field matrix
+    (P, 16): binning (B3), the pack (B4 in its backward), the blend (B1/B2
+    in ``variant``) and with ``need_stats`` the per-primitive statistics
+    (owner sort + B5). Returns the ``rasterize`` dict."""
+    P = fmat.shape[0]
+    dev, dt = fmat.device, fmat.dtype
+    if max_pairs is None:
+        max_pairs = _round_up(int(settings.pairs_per_triangle * P), ALIGN)
+    binning = bin_triangles(prep.detach(), settings, max_pairs, align=ALIGN)
+    fields = pack_pair_fields(fmat, binning, LIVE_GRAD_ROWS[(variant, settings.rich_info)])
+    cfg = (settings.image_width, settings.image_height, settings.tile_h,
+           settings.tile_w, variant, need_stats, settings.rich_info)
+    color, depth, normal, final_T, n_contrib, pair_contrib = BlendTiles.apply(
+        fields, binning.tile_starts, binning.tile_counts, params, cfg)
+    if need_stats:
+        contrib_sum, contrib_max = _contrib_stats(pair_contrib, binning, P)
+    else:
+        contrib_sum = torch.zeros((P,), dtype=dt, device=dev)
+        contrib_max = torch.zeros((P,), dtype=dt, device=dev)
+    return dict(render=color, depth=depth, normal=normal,
+                radii=prep.radii, visible_mask=prep.radii > 0,
+                contrib_sum=contrib_sum, contrib_max=contrib_max,
+                final_T=final_T, n_contrib=n_contrib,
+                overflow=binning.overflow, num_pairs=binning.num_pairs)
+
+
 def rasterize(vertex: torch.Tensor, opacity: torch.Tensor,
               shs: Optional[torch.Tensor], camera: Camera,
               settings: RasterSettings, *, gamma=1.0,
@@ -283,17 +325,8 @@ def rasterize(vertex: torch.Tensor, opacity: torch.Tensor,
         else:
             out = blend_oracle_3d(prep, opac1, gamma, background, bg_depth,
                                   camera.tan_fovx, camera.tan_fovy, settings)
-        return dict(render=out.color, depth=out.depth, normal=out.normal,
-                    radii=prep.radii, visible_mask=prep.radii > 0,
-                    contrib_sum=out.contrib_sum, contrib_max=out.contrib_max,
-                    final_T=out.final_T, n_contrib=out.n_contrib,
-                    overflow=torch.zeros((), dtype=torch.bool, device=dev),
-                    num_pairs=torch.zeros((), dtype=torch.int32, device=dev))
+        return _oracle_result(out, prep)
 
-    if max_pairs is None:
-        max_pairs = _round_up(int(settings.pairs_per_triangle * P), ALIGN)
-
-    binning = bin_triangles(prep.detach(), settings, max_pairs, align=ALIGN)
     zero = torch.zeros(1, dtype=dt, device=dev)
     if variant == "2D":
         fmat = triangle_field_matrix(prep, opac1)
@@ -305,20 +338,61 @@ def rasterize(vertex: torch.Tensor, opacity: torch.Tensor,
         # normal reconstruction scales at the rendered size (rich info)
         sx = (settings.image_width / (2.0 * camera.tan_fovx)).reshape(1)
         sy = (settings.image_height / (2.0 * camera.tan_fovy)).reshape(1)
-    fields = pack_pair_fields(fmat, binning, LIVE_GRAD_ROWS[(variant, settings.rich_info)])
     params = torch.cat([gamma.reshape(1), background, bg_depth.reshape(1),
                         sx.to(dt), sy.to(dt), zero]).detach()
-    cfg = (settings.image_width, settings.image_height, settings.tile_h,
-           settings.tile_w, variant, need_stats, settings.rich_info)
-    color, depth, normal, final_T, n_contrib, pair_contrib = BlendTiles.apply(
-        fields, binning.tile_starts, binning.tile_counts, params, cfg)
-    if need_stats:
-        contrib_sum, contrib_max = _contrib_stats(pair_contrib, binning, P)
+    return _tile_pipeline(prep, fmat, params, settings, variant, need_stats, max_pairs)
+
+
+def rasterize_gaussian(xyz: torch.Tensor, scale: torch.Tensor,
+                       rotation: torch.Tensor, opacity: torch.Tensor,
+                       shs: Optional[torch.Tensor], camera: Camera,
+                       settings: RasterSettings, *, gamma=1.0,
+                       background=None, bg_depth=5000.0, active_sh_degree=0,
+                       colors: Optional[torch.Tensor] = None,
+                       alive_mask: Optional[torch.Tensor] = None,
+                       mean2d_offset: Optional[torch.Tensor] = None,
+                       scale_modifier=1.0, impl: str = "cuda",
+                       max_pairs: Optional[int] = None,
+                       need_stats: bool = True) -> dict:
+    """Render 3D Gaussians through a camera; differentiable w.r.t. xyz /
+    scale / rotation / opacity / shs (or colors) / mean2d_offset (the
+    densification-statistics hook: a zeros (P, 2) input whose gradient is
+    the screen-space center gradient).
+
+    Returns the dict of ``rasterize``. ``impl="cuda"`` runs the tile
+    pipeline (binning with B3, the pack with B4 in its backward, B1/B2 in
+    variant "GS"; with ``need_stats``, the default, B1's contribution
+    stream, the owner sort and B5); ``impl="oracle"`` the dense oracle.
+    ``settings.rich_info`` composites the depth (the normal is zero), and
+    rich info and statistics run together.
+    """
+    if impl not in ("cuda", "oracle"):
+        raise ValueError(f"unknown impl {impl!r}")
+    dev, dt = xyz.device, xyz.dtype
+    if background is None:
+        background = torch.zeros(3, dtype=dt, device=dev)
+    background = torch.as_tensor(background, dtype=dt, device=dev)
+    gamma = torch.as_tensor(gamma, dtype=dt, device=dev)
+    bg_depth = torch.as_tensor(bg_depth, dtype=dt, device=dev)
+
+    if colors is not None:
+        rgb = colors
     else:
-        contrib_sum = torch.zeros((P,), dtype=dt, device=dev)
-        contrib_max = torch.zeros((P,), dtype=dt, device=dev)
-    return dict(render=color, depth=depth, normal=normal,
-                radii=prep.radii, visible_mask=prep.radii > 0,
-                contrib_sum=contrib_sum, contrib_max=contrib_max,
-                final_T=final_T, n_contrib=n_contrib,
-                overflow=binning.overflow, num_pairs=binning.num_pairs)
+        rgb = sh_mod.eval_sh(shs, xyz, camera.camera_center, active_sh_degree,
+                             settings.max_sh_degree)
+
+    opac1 = opacity[..., 0] if opacity.dim() == 2 else opacity
+    prep = preprocess_gaussian(xyz, scale, rotation, rgb, camera.world_view,
+                               camera.full_proj, camera.tan_fovx, camera.tan_fovy,
+                               settings, alive_mask=alive_mask, opacity=opac1,
+                               gamma=gamma, scale_modifier=scale_modifier,
+                               mean2d_offset=mean2d_offset)
+
+    if impl == "oracle":
+        return _oracle_result(
+            blend_oracle_gs(prep, opac1, gamma, background, bg_depth, settings), prep)
+
+    params = torch.cat([gamma.reshape(1), background, bg_depth.reshape(1),
+                        torch.zeros(3, dtype=dt, device=dev)]).detach()
+    return _tile_pipeline(prep, gaussian_field_matrix(prep, opac1), params, settings, "GS",
+                          need_stats, max_pairs)

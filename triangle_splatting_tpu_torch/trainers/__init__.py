@@ -1,6 +1,7 @@
-"""Trainers of the port (VanillaTS: the photo and mesh recipes)."""
+"""Trainers of the port (VanillaTS: the photo and mesh recipes; VanillaGS:
+the Gaussian baseline)."""
 
-TRAINER_TYPES = ("VanillaTS",)
+TRAINER_TYPES = ("VanillaTS", "VanillaGS")
 
 
 def build_trainer(config, **kwargs):
@@ -14,6 +15,9 @@ def build_trainer(config, **kwargs):
     if ttype == "VanillaTS":
         from .vanilla_ts import VanillaTSTrainer
         return VanillaTSTrainer(config, **kwargs)
-    if ttype in ("VanillaGS", "ScaffoldGS"):
+    if ttype == "VanillaGS":
+        from .vanilla_gs import VanillaGSTrainer
+        return VanillaGSTrainer(config, **kwargs)
+    if ttype == "ScaffoldGS":
         raise NotImplementedError(f"trainer type {ttype} is not ported yet")
     raise ValueError(f"Unknown trainer type: {ttype}")

@@ -13,6 +13,7 @@ import torch
 from ..device import resolve_device
 from ..utils.config import Config, loadConfig
 from ..utils.logger import Logger
+from .adc_utils import adapt_pair_budget
 
 
 def build_dataset(config: Config, logger: Logger, device):
@@ -62,3 +63,37 @@ class BaseTrainer:
             self.logger.warning("detect_anomaly: torch.autograd anomaly mode on (slow)")
 
         self.dataset = build_dataset(config.dataset, self.logger, self.device)
+        # pair budget per primitive, re-sized to measured need at log steps
+        self._ppt = config.model.pairs_per_triangle or 6
+        self._ppt_sized = False
+        # (iteration, "opacity" | "clipping" | "scale" | "contribution",
+        # rows pruned or clipped) per firing
+        self.prune_history: list[tuple[int, str, int]] = []
+
+    @staticmethod
+    def _fires(block, iteration: int, hold: bool = False) -> bool:
+        """Whether an ADC block fires at ``iteration``: inside (start_iter,
+        end_iter] (through ``hold_iter`` when ``hold`` and it is set) on
+        its interval."""
+        if block is None:
+            return False
+        last = (block.hold_iter if hold else None) or block.end_iter
+        return block.start_iter < iteration <= last and iteration % block.interval_iter == 0
+
+    def _log_prune(self, iteration: int, kind: str, n: int, extra: str = "") -> None:
+        self.prune_history.append((iteration, kind, n))
+        what = "opacity clipping] clipped" if kind == "clipping" else f"{kind} pruning] pruned"
+        self.logger.info(f"[ITER {iteration}, {what} {n}{extra}")
+
+    def _resize_pair_budget(self, num_pairs: int, capacity: int, overflow: bool) -> None:
+        """Size the pair budget to a log step's measured need: the first
+        sizing shrinks all the way to margin * need, later ones keep the
+        anti-thrash hysteresis (as the JAX trainers do)."""
+        first_sizing = not self._ppt_sized
+        if not overflow:
+            self._ppt_sized = True
+        new_ppt = adapt_pair_budget(self._ppt, num_pairs, capacity, overflow,
+                                    shrink_if_below=1.0 if first_sizing else 0.5)
+        if new_ppt != self._ppt:
+            self._ppt = new_ppt
+            self.logger.warning(f"pair budget re-sized: pairs_per_triangle -> {self._ppt}")

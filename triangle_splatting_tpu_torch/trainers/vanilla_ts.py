@@ -38,8 +38,7 @@ from ..utils.camera import Camera
 from ..utils.config import Config
 from ..utils.scheduler import exponential_scheduler, exponential_step_scheduler
 from . import losses as L
-from .adc_utils import (adapt_pair_budget, alive_inter_point_dist,
-                        resolve_contribution_pruning)
+from .adc_utils import alive_inter_point_dist, resolve_contribution_pruning
 from .base import BaseTrainer
 
 # ADC blocks of the JAX trainer this port does not run yet
@@ -90,18 +89,12 @@ class VanillaTSTrainer(BaseTrainer):
         self._setup_schedulers()
         self._rng = np.random.default_rng(self.seed)
         self._sh_degree_host = 0
-        # pair budget per triangle, re-sized to measured need at log steps
-        self._ppt = self.config.model.pairs_per_triangle or 6
-        self._ppt_sized = False
         # per-step losses of the last train() as device scalars (read them
         # after training: no host sync inside the loop)
         self.loss_history: list[torch.Tensor] = []
         # the geometry term of each step of the last train(), as device
         # scalars (0 without a geometry_loss block)
         self.geo_history: list[torch.Tensor] = []
-        # (iteration, "opacity" | "clipping" | "scale" | "contribution",
-        # rows pruned or clipped) per firing
-        self.prune_history: list[tuple[int, str, int]] = []
 
     # ------------------------------------------------------------------
     # setup
@@ -368,12 +361,7 @@ class VanillaTSTrainer(BaseTrainer):
         mu = self._mu
         if mu is None:
             return
-
-        def active(args, hold=False):
-            if args is None:
-                return False
-            last = (args.hold_iter if hold else None) or args.end_iter
-            return args.start_iter < iteration <= last and iteration % args.interval_iter == 0
+        active = lambda block, hold=False: self._fires(block, iteration, hold)  # noqa: E731
 
         op = mu.opacity_pruning
         if active(op, hold=True):
@@ -434,11 +422,6 @@ class VanillaTSTrainer(BaseTrainer):
                 self.state.active_sh_degree = torch.tensor(
                     deg, dtype=torch.int32, device=self.device)
 
-    def _log_prune(self, iteration: int, kind: str, n: int, extra: str = "") -> None:
-        self.prune_history.append((iteration, kind, n))
-        what = "opacity clipping] clipped" if kind == "clipping" else f"{kind} pruning] pruned"
-        self.logger.info(f"[ITER {iteration}, {what} {n}{extra}")
-
     def train(self):
         try:
             self._train()
@@ -492,18 +475,7 @@ class VanillaTSTrainer(BaseTrainer):
                 self.logger.add_scalar("Triangle Count", count, iteration)
                 self.logger.add_scalar("Training Time (min)",
                                        (time.perf_counter() - t_start) / 60, iteration)
-                # size the pair budget to measured need: the first sizing
-                # shrinks all the way to margin * need, later ones keep the
-                # anti-thrash hysteresis (as the JAX trainer does)
-                first_sizing = not self._ppt_sized
-                if not overflow:
-                    self._ppt_sized = True
-                new_ppt = adapt_pair_budget(
-                    self._ppt, num_pairs, cap_step, overflow,
-                    shrink_if_below=1.0 if first_sizing else 0.5)
-                if new_ppt != self._ppt:
-                    self._ppt = new_ppt
-                    self.logger.warning(f"pair budget re-sized: pairs_per_triangle -> {self._ppt}")
+                self._resize_pair_budget(num_pairs, cap_step, overflow)
 
             if cfgt.histogram_interval_iter and iteration % cfgt.histogram_interval_iter == 0:
                 alive = self.state.alive

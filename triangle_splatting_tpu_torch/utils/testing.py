@@ -62,6 +62,42 @@ def make_random_scene(n: int, seed: int = 0, z_range=(3.0, 6.0),
                 sh_dc=((rgb - 0.5) / 0.28209479177387814)[:, None, :].astype(np.float32))
 
 
+def make_gs_scene(n: int = 120, seed: int = 0, z_range=(3.0, 6.0),
+                  xy_extent: float = 1.5, scale_range=(0.03, 0.15),
+                  opacity_range=(0.3, 0.95)):
+    """Random Gaussians in front of the identity camera (the scene of the JAX
+    package's ``tests/test_gaussian.py``, sized by arguments; the defaults
+    give its scene). Returns dict of numpy arrays: xyz (N, 3), scale (N, 3),
+    rot (N, 4) unit wxyz quaternions, opacity (N,), rgb (N, 3)."""
+    rng = np.random.default_rng(seed)
+    xyz = np.stack([rng.uniform(-xy_extent, xy_extent, n),
+                    rng.uniform(-xy_extent, xy_extent, n),
+                    rng.uniform(*z_range, n)], -1).astype(np.float32)
+    scale = rng.uniform(*scale_range, (n, 3)).astype(np.float32)
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    opac = rng.uniform(*opacity_range, n).astype(np.float32)
+    rgb = rng.uniform(0.05, 0.95, (n, 3)).astype(np.float32)
+    return dict(xyz=xyz, scale=scale, rot=q, opacity=opac, rgb=rgb)
+
+
+def make_gs_stack_scene(n: int, kill_at: int, opacity: float = 0.03, seed: int = 7):
+    """A stack of ``n`` Gaussians over the image center of the identity
+    camera, each of opacity ``opacity`` except the one at depth rank
+    ``kill_at`` (0.97): T decays slowly until that entry would push it
+    below 1e-4 at the center pixels, which makes it their kill entry (the
+    JAX package's ``TestGSEarlyTermination`` scene at n=360, kill_at=250,
+    opacity 0.03). Same dict as :func:`make_gs_scene`."""
+    rng = np.random.default_rng(seed)
+    xyz = np.stack([rng.uniform(-0.05, 0.05, n), rng.uniform(-0.05, 0.05, n),
+                    np.linspace(3.0, 6.0, n)], -1).astype(np.float32)
+    opac = np.full(n, opacity, np.float32)
+    opac[kill_at] = 0.97
+    return dict(xyz=xyz, scale=np.full((n, 3), 0.4, np.float32),
+                rot=np.tile(np.array([1, 0, 0, 0], np.float32), (n, 1)), opacity=opac,
+                rgb=rng.uniform(0.05, 0.95, (n, 3)).astype(np.float32))
+
+
 def make_surface_scene(n_tri: int, seed: int = 0, opacity: float = 0.95):
     """A closed opaque SURFACE as ground truth: a bumpy UV-sphere
     triangulation, the realistic target of mesh training (the random soup
