@@ -69,8 +69,24 @@ Phases (any failure exits non-zero before the final line):
              step and no triangle form, the prunings logged and the alive
              count falling by them; then B1-GS stats, B2-GS, B3, B4 and B5
              held against their plain versions on the last step's own inputs,
-             and 10 profiled steps.
-The kernels phases also hold B1/B2 with rich info (depth and normal) against
+             and 10 profiled steps;
+11. renderer — the triangle renderer facade at bench-800-100k:
+             TriangleRenderer(rich_info=True) renders once in "2D" (gamma 1)
+             and once in "3D" (gamma 50), counted: B1's rich + stats form once
+             in each variant and no other blend form; its outputs
+             bit-identical to rasterize's plain, rich and stats forms; then
+             the facade against the dense oracle on the reference phase's
+             scene;
+12. probes — the probe tools P1-P3 (triangle_splatting_tpu_torch/tools) at
+             the JAX tools' shapes through their entry points, counted, each
+             probe kernel against its plain version at K = 64 on those
+             shapes, the opcodes of each probe kernel's SASS, and the rates.
+The mesh phase's run saves the PLY (steps 10 and 50) and the GLB (step 50)
+as the recipe does at its ends; the files are read back, and the GLB is
+rendered through MeshRenderer on the card (its mask over the trained
+surface's footprint) and at 200x200 on the card and the CPU.
+The kernels phases also hold B1 with rich info and the stream together
+(bit-identical to the plain, rich and stats forms), and B1/B2 with rich info (depth and normal) against
 their plain versions, in "2D" at the bench shapes and in "3D" at gamma 1 and
 50, their color, final_T and n_contrib bit-identical to the forms without
 it, and B4 on their 16 / 14 live gradient rows; the reference phase runs
@@ -173,6 +189,7 @@ GS_FORMS = (("gs", False, False), ("gs_stats", True, False), ("gs_rich", False, 
             ("gs_rich_stats", True, True))
 _BLEND = "triangle_splatting_tpu/ops/pallas/blend.py"
 _STREAMS = "triangle_splatting_tpu/ops/pallas/streams.py"
+_PROBES = ("vpu_probe", "exp_probe", "scan_probe")
 REPLACES = {
     "blend_forward": f"{_BLEND}:514",
     "blend_backward": f"{_BLEND}:956",
@@ -190,9 +207,14 @@ REPLACES = {
     **{f"blend_forward_{f}": f"{_BLEND}:514" for f, _, _ in GS_FORMS},
     "blend_backward_gs": f"{_BLEND}:956",
     "blend_backward_gs_rich": f"{_BLEND}:956",
+    "blend_forward_rich_stats": f"{_BLEND}:514",
+    "blend_forward_3d_rich_stats": f"{_BLEND}:514",
+    "vpu_probe": "tools/vpu_probe.py:50",
+    "exp_probe": "tools/exp_probe.py:68",
+    "scan_probe": "tools/scan_probe.py:112",
 }
 _CSRC = "triangle_splatting_tpu_torch/ops/cuda/csrc"
-SOURCES = {name: f"{_CSRC}/{'streams' if _STREAMS in r else 'blend_gs' if '_gs' in name else 'blend'}.cu"
+SOURCES = {name: f"{_CSRC}/{'probes' if name in _PROBES else 'streams' if _STREAMS in r else 'blend_gs' if '_gs' in name else 'blend'}.cu"
            for name, r in REPLACES.items()}
 # the training phase whose run each kernel's launches are read from: the
 # path that runs it (the 2D stats form is on none of them: no shipped
@@ -205,9 +227,16 @@ PATH_OF.update(blend_forward_3d="mesh", blend_backward_3d="mesh",
                # rich info: the other GS forms run in its evaluation (outside
                # the counted steps) and in the GaussianRenderer facade
                **{f"blend_forward_{f}": "gs" for f, _, _ in GS_FORMS},
-               blend_backward_gs="gs", blend_backward_gs_rich="gs")
+               blend_backward_gs="gs", blend_backward_gs_rich="gs",
+               # the triangle renderer facade with rich info
+               blend_forward_rich_stats="renderer", blend_forward_3d_rich_stats="renderer",
+               **dict.fromkeys(_PROBES, "probes"))
 RICH_FORMS = ("blend_forward_rich", "blend_backward_rich", "blend_forward_3d_rich",
-              "blend_backward_3d_rich")
+              "blend_backward_3d_rich", "blend_forward_rich_stats",
+              "blend_forward_3d_rich_stats")
+# the probes: K of the parity checks, and the variant each JSON row times
+PROBE_PARITY_K = 64
+PROBE_ROW = dict(vpu_probe="fma float32", exp_probe="exp (expf)", scan_probe="hs")
 # the MatrixCity recipe, cut to the 50-step city phase
 CITY_W, CITY_H = 1600, 900
 CITY_POINTS = 4_000_000
@@ -355,7 +384,8 @@ def check_no_gs_launches(launches: dict, phase: str) -> None:
 def check_no_stats_launches(launches: dict, phase: str) -> None:
     """A path without a statistic block launches neither B5 nor a stats
     form of B1."""
-    for name in ("segment_reduce_stats", "blend_forward_stats", "blend_forward_3d_stats"):
+    for name in ("segment_reduce_stats", "blend_forward_stats", "blend_forward_3d_stats",
+                 "blend_forward_rich_stats", "blend_forward_3d_rich_stats"):
         check(launches[name] == 0, f"{phase}: kernel {name} launched {launches[name]} times "
               "on a path without statistics")
 
@@ -637,7 +667,7 @@ def check_blend_rich(fwd, geo, off, bw_cot, what: str) -> dict:
     num_pairs = int(fwd[2].to(torch.int64).sum())
     T = fwd[2].shape[0]
     pairs_in = 4 * (live * num_pairs + 2 * T + 1 + 8)
-    return dict(fwd=fwd, bw=bw, out2=out2,
+    return dict(fwd=fwd, bw=bw, on=on, out2=out2,
                 b1_err=max(e_ct, max(rel_dn) * float(ref[1].abs().max())),
                 rel_depth=rel_dn[0], rel_normal=rel_dn[1], b2_err=float(diff2.max()), b2_rel=rel2,
                 depth_row_max=row_max, evals=float(on[4].to(torch.float64).sum()),
@@ -647,6 +677,51 @@ def check_blend_rich(fwd, geo, off, bw_cot, what: str) -> dict:
                         "(depth, normal); n_contrib exact; color, final_T, n_contrib "
                         "bit-identical to rich off"),
                 b2_tol=f"rel {TOL['b2_rel']} of each row's max")
+
+
+def check_blend_rich_stats(fwd, geo, off, rich_on, stream, what: str) -> dict:
+    """B1 with rich info and the contribution stream together (the triangle
+    renderer facade's form) on the packed pairs ``fwd``: color, final_T and
+    n_contrib bit-identical to ``off`` (the plain form's), depth and normal
+    to ``rich_on`` (the rich form's), the stream to ``stream`` (the stats
+    form's); against the plain version n_contrib exact, color / final_T abs
+    1e-5, depth and normal rel 1e-5 of their max, the stream's sums rel 1e-5
+    and maxes rel 1e-6 of each row's max. Returns the error, the evaluated
+    (pair, pixel) count, the bytes the kernel must move and the tolerance."""
+    import torch
+    from triangle_splatting_tpu_torch.ops.cuda import blend as KB
+
+    H, W, variant = geo["image_height"], geo["image_width"], geo["variant"]
+    both = KB.blend_forward(*fwd, rich=True, stats=True, **geo)
+    ref = KB.blend_forward_plain(*fwd, rich=True, stats=True, **geo)
+    torch.cuda.synchronize()
+    same = ([bool(torch.equal(both[k], off[k])) for k in (0, 3, 4)]
+            + [bool(torch.equal(both[k], rich_on[k])) for k in (1, 2)]
+            + [bool(torch.equal(both[5], stream))])
+    check(all(same), f"blend_forward rich + stats {what}: not bit-identical to the plain "
+          f"(color, final_T, n_contrib), rich (depth, normal) and stats (stream) forms: {same}")
+    e_ct = max(float((both[k] - ref[k]).abs().max()) for k in (0, 3))
+    e_nc = int((both[4] != ref[4]).sum())
+    rel_dn = [float((both[k] - ref[k]).abs().max()) / max(float(ref[k].abs().max()), 1e-30)
+              for k in (1, 2)]
+    rel_pc = [float((both[5][r] - ref[5][r]).abs().max())
+              / max(float(ref[5][r].abs().max()), 1e-30) for r in (0, 1)]
+    check(e_ct <= TOL["b1_abs"] and e_nc == 0 and max(rel_dn) <= TOL["rich_rel"]
+          and rel_pc[0] <= TOL["stats_sum_rel"] and rel_pc[1] <= TOL["stats_max_rel"],
+          f"blend_forward rich + stats {what}: color/final_T err {e_ct:.3e}, n_contrib differs "
+          f"in {e_nc} pixels, depth / normal rel {rel_dn}, stream rel {rel_pc}")
+    live = KB.LIVE_GRAD_ROWS[(variant, True)]
+    num_pairs, T, ma = int(fwd[2].to(torch.int64).sum()), fwd[2].shape[0], fwd[0].shape[1]
+    return dict(err=max(e_ct, max(rel_dn) * float(ref[1].abs().max()),
+                        float((both[5] - ref[5]).abs().max())),
+                rel_depth=rel_dn[0], rel_normal=rel_dn[1], rel_stream_sum=rel_pc[0],
+                rel_stream_max=rel_pc[1], evals=float(both[4].to(torch.float64).sum()),
+                bytes=4 * (live * num_pairs + 2 * T + 1 + 8) + 4 * 9 * H * W + 4 * 2 * ma,
+                tol=(f"bit-identical to the plain (color, final_T, n_contrib), rich (depth, "
+                     f"normal) and stats (stream) forms; vs plain: abs {TOL['b1_abs']} "
+                     f"(color, final_T), rel {TOL['rich_rel']} (depth, normal), stream rel "
+                     f"{TOL['stats_sum_rel']} (sum) / {TOL['stats_max_rel']} (max); n_contrib "
+                     "exact"))
 
 
 def rich_cotangents(c, H: int, W: int, dev, seed: int = 0):
@@ -750,6 +825,17 @@ def phase_kernels(b) -> dict:
             library_ms=None,
             bound=bound_ms(r["b2_bytes"], (BWD_OPS_PER_EVAL + RICH_BWD_OPS["2D"]) * r["evals"]),
             tol=r["b2_tol"])
+        # ---- B1 with rich info and the stream together, "2D"
+        rs = check_blend_rich_stats(c["fwd"], geo, c["out1"], r["on"], c["pair_contrib"], "2D")
+        rec["blend_forward_rich_stats"] = dict(
+            max_abs_err=rs["err"],
+            ms=cuda_ms(lambda: KB.blend_forward(*c["fwd"], rich=True, stats=True, **geo), 20),
+            plain_ms=cuda_ms(lambda: KB.blend_forward_plain(*c["fwd"], rich=True, stats=True,
+                                                            **geo), 3, 1),
+            library_ms=None,
+            bound=bound_ms(rs["bytes"], (FWD_OPS_PER_EVAL + RICH_FWD_OPS["2D"]
+                                         + STATS_OPS_PER_EVAL) * rs["evals"]),
+            tol=rs["tol"])
         live_r = KB.LIVE_GRAD_ROWS[("2D", True)]
         c4r = check_segment_reduce(r["out2"][:live_r], pair_tri, sp, "2D rich")
         say("kernels", kernel="blend_rich", variant="2D", b1_rel_err_depth=r["rel_depth"],
@@ -851,6 +937,15 @@ def phase_kernels_3d(dev) -> dict:
                                  what)
             live_r = KB.LIVE_GRAD_ROWS[("3D", True)]
             c4r = check_segment_reduce(r["out2"][:live_r], pair_tri, sp, what + " rich")
+            rs = check_blend_rich_stats(c["fwd"], geo, c["out1"], r["on"], c["pair_contrib"],
+                                        what)
+        ms1rs = cuda_ms(lambda: KB.blend_forward(*c["fwd"], rich=True, stats=True, **geo), 20)
+        bound1rs = bound_ms(rs["bytes"], (FWD_OPS_PER_EVAL_3D[gamma == 1.0] + RICH_FWD_OPS["3D"]
+                                          + STATS_OPS_PER_EVAL) * rs["evals"])
+        say("kernels_3d", kernel="blend_forward_rich_stats", gamma=gamma,
+            rel_err_depth=rs["rel_depth"], rel_err_normal=rs["rel_normal"],
+            rel_err_stream_sum=rs["rel_stream_sum"], rel_err_stream_max=rs["rel_stream_max"],
+            ms=ms1rs, bound_ms=bound1rs[0])
         ms1r = cuda_ms(lambda: KB.blend_forward(*r["fwd"], rich=True, **geo), 20)
         ms2r = cuda_ms(lambda: KB.blend_backward(*r["bw"], rich=True, **geo), 20)
         rich_ops = (FWD_OPS_PER_EVAL_3D[gamma == 1.0] + RICH_FWD_OPS["3D"],
@@ -899,6 +994,11 @@ def phase_kernels_3d(dev) -> dict:
                 plain_ms=cuda_ms(lambda: KB.blend_forward_plain(*c["fwd"], stats=True, **geo),
                                  3, 1),
                 library_ms=None, bound=bound1s, tol=c["stats_tol"])
+            rec["blend_forward_3d_rich_stats"] = dict(
+                max_abs_err=rs["err"], ms=ms1rs,
+                plain_ms=cuda_ms(lambda: KB.blend_forward_plain(*c["fwd"], rich=True, stats=True,
+                                                                **geo), 3, 1),
+                library_ms=None, bound=bound1rs, tol=rs["tol"])
             rec["segment_reduce_stats"] = dict(
                 max_abs_err=c5["err"], ms=ms5,
                 plain_ms=cuda_ms(lambda: KS.segment_reduce_stats_plain(*c5["args"]), 20),
@@ -1241,6 +1341,277 @@ def phase_reference_gs(dev, cam) -> None:
         tol=f"render 6e-4 abs, depth rel {TOL['oracle_rich_rel']} of the max")
 
 
+def phase_renderer(b) -> dict:
+    """The triangle renderer facade with rich info at bench-800-100k:
+    TriangleRenderer(rich_info=True) renders the bench scene once in "2D"
+    (gamma 1) and once in "3D" (gamma 50), without gradients, counted: B1's
+    2D_rich_stats and 3D_rich_stats forms once each and no other blend form,
+    B3 and B5 once per render. Its render, final_T and n_contrib are
+    bit-identical to rasterize without rich info and statistics (the plain
+    form), depth and normal to rasterize with rich info alone, and
+    contrib_sum / contrib_max to rasterize with the statistics alone. Then
+    the facade against the dense oracle on the reference phase's scene
+    (64x64, 150 triangles; at the bench size the oracle's one Python step
+    per triangle would take 100k steps): render 6e-4 abs, n_contrib exact,
+    statistics 5e-4 abs, depth and normal rel 1e-3 of their max. Returns
+    the counted run's launches."""
+    import dataclasses
+
+    import torch
+    from triangle_splatting_tpu_torch.ops.cuda import reset_launches
+    from triangle_splatting_tpu_torch.ops.cuda.blend import ALIGN
+    from triangle_splatting_tpu_torch.ops.rasterize import _round_up, rasterize
+    from triangle_splatting_tpu_torch.renderer import TriangleRenderer
+    from triangle_splatting_tpu_torch.utils.testing import make_camera, make_random_scene
+
+    dev = b["vertex"].device
+    # the bench budget with a margin for the 3D variant's coverage
+    max_pairs = _round_up(int(1.5 * b["ppt"] * N_TRI), ALIGN)
+    cases = (("2D", 1.0), ("3D", 50.0))
+    renderers = {v: TriangleRenderer(b["camera"], bg_color=(1.0, 1.0, 1.0), bg_depth=10.0,
+                                     gamma=g, rich_info=True, rasterizer_type=v,
+                                     max_pairs=max_pairs) for v, g in cases}
+    args = (b["vertex"], None, b["rgb"], b["opacity"])
+    with torch.no_grad():
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = {v: renderers[v].render(*args) for v, _ in cases}
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        for name, n in launches.items():
+            want = {"blend_forward_rich_stats": 1, "blend_forward_3d_rich_stats": 1,
+                    "relayout_pairs": 2, "segment_reduce_stats": 2}.get(name, 0)
+            check(n == want, f"renderer: kernel {name} launched {n} times, expected {want}")
+        st0 = b["settings"]
+        for v, g in cases:
+            o = outs[v]
+            check(not bool(o["overflow"]), f"renderer {v}: pair budget overflow")
+            check(tuple(o["render"].shape) == (3, RES, RES) and all(
+                bool(torch.isfinite(o[k]).all()) for k in ("render", "depth", "normal",
+                                                           "contrib_sum", "contrib_max")),
+                  f"renderer {v}: outputs not finite or of the wrong shape")
+            check(float(o["contrib_sum"].max()) > 0 and float(o["normal"].abs().max()) > 0,
+                  f"renderer {v}: zero statistics or normal")
+            forms = {}
+            for rich, stats in ((False, False), (True, False), (False, True)):
+                st = dataclasses.replace(st0, rasterizer_type=v, rich_info=rich)
+                forms[(rich, stats)] = rasterize(
+                    b["vertex"], b["opacity"], None, b["camera"], st, gamma=g,
+                    background=torch.ones(3, device=dev), bg_depth=10.0, colors=b["rgb"],
+                    max_pairs=max_pairs, need_stats=stats)
+            pairs = [(k, forms[(False, False)]) for k in ("render", "final_T", "n_contrib")]
+            pairs += [(k, forms[(True, False)]) for k in ("depth", "normal")]
+            pairs += [(k, forms[(False, True)]) for k in ("contrib_sum", "contrib_max")]
+            differ = [k for k, f in pairs if not torch.equal(o[k], f[k])]
+            check(not differ, f"renderer {v}: {differ} differ from the forms without both")
+            say("renderer", variant=v, gamma=g, num_pairs=int(o["num_pairs"]),
+                render_ms=round(cuda_ms(lambda: renderers[v].render(*args), 5,
+                                        hide_host=False), 3),
+                bit_identical=[k for k, _ in pairs])
+        say("renderer", counted_seconds=round(secs, 3), launches=launches)
+
+        # against the dense oracle on the reference phase's scene
+        s = make_random_scene(150, seed=0)
+        cam = make_camera(64, 64, device=dev)
+        small = [torch.as_tensor(s[k]).to(dev) for k in ("vertex", "rgb", "opacity")]
+        for v, g in cases:
+            fo = {impl: TriangleRenderer(cam, bg_color=(1.0, 1.0, 1.0), bg_depth=10.0, gamma=g,
+                                         rich_info=True, rasterizer_type=v, impl=impl).render(
+                      small[0], None, small[1], small[2]) for impl in ("cuda", "oracle")}
+            c, o = fo["cuda"], fo["oracle"]
+            d = float((c["render"] - o["render"]).abs().max())
+            nc = int((c["n_contrib"] != o["n_contrib"]).sum())
+            rel = {k: float((c[k] - o[k]).abs().max()) / float(o[k].abs().max())
+                   for k in ("depth", "normal")}
+            ds = {k: float((c[k] - o[k]).abs().max()) for k in ("contrib_sum", "contrib_max")}
+            check(d <= 6e-4 and nc == 0 and max(rel.values()) <= TOL["oracle_rich_rel"]
+                  and max(ds.values()) <= TOL["oracle_stats_abs"],
+                  f"TriangleRenderer({v}, rich_info=True) vs oracle: render {d:.3e}, n_contrib "
+                  f"differs in {nc} pixels, depth / normal rel {rel}, statistics {ds}")
+            say("renderer", facade=f"TriangleRenderer({v}, rich_info=True) vs oracle, 64x64",
+                gamma=g, render_max_abs_err=d, n_contrib_mismatch=nc,
+                depth_rel_err=rel["depth"], normal_rel_err=rel["normal"],
+                contrib_sum_max_abs_err=ds["contrib_sum"],
+                contrib_max_max_abs_err=ds["contrib_max"],
+                tol=(f"render 6e-4 abs, n_contrib exact, statistics {TOL['oracle_stats_abs']} "
+                     f"abs, depth and normal rel {TOL['oracle_rich_rel']} of the max"))
+    return launches
+
+
+def probe_sass() -> dict:
+    """Opcode counts of each probe kernel's SASS (csrc/probes.cu through
+    compare_sass.compile_sass: build.py's flags, cuobjdump), by kernel."""
+    import collections
+    import tempfile
+
+    from triangle_splatting_tpu_torch.ops.cuda.build import CSRC
+    from triangle_splatting_tpu_torch.ops.cuda.compare_sass import compile_sass
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sass, _ = compile_sass(CSRC / "probes.cu", Path(tmp) / "probes.cubin")
+    return {name: collections.Counter(next(t for t in insn.split() if not t.startswith("@"))
+                                      for insn in insns)
+            for name, insns in sass.items()}
+
+
+def phase_probes(dev) -> tuple[dict, dict]:
+    """P1-P3 through their tools' entry points at the JAX tools' shapes
+    (vpu_probe R x C = 512 x 1024, K = 65536, four ops in float32 and
+    bfloat16; exp_probe 512 x 1024, K = 16384, four ops, after its fast_exp
+    check; scan_probe S x C = 256 x 1024, K = 2048, seven variants, after
+    its check against float64 cumprod), counted; then each probe kernel
+    against its plain version at K = 64 on the same shapes (the budgets of
+    tests/test_torch_cuda.py), the opcodes of each probe kernel's SASS (the
+    loop holds the operation measured), and the JSON rows: P1 timed at fma
+    float32, P2 at exp (expf), P3 at hs, each against its plain version at
+    the full K, P3 also against K torch.cumprod + clamp_ calls replayed
+    from one CUDA graph. Returns (the counted run's launches, the rows)."""
+    import torch
+    from triangle_splatting_tpu_torch.ops.cuda import probes as KP
+    from triangle_splatting_tpu_torch.ops.cuda import reset_launches
+    from triangle_splatting_tpu_torch.tools import exp_probe, scan_probe, vpu_probe
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vpu = vpu_probe.main([])
+    exp = exp_probe.main([])
+    scan = scan_probe.main([])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    # each run: one warm-up and three timed launches
+    want = dict(vpu_probe=4 * len(KP.VPU_OPS) * 2, exp_probe=4 * len(KP.EXP_OPS),
+                scan_probe=len(KP.SCAN_VARIANTS) * 5)
+    for name, n in launches.items():
+        check(n == want.get(name, 0), f"probes: kernel {name} launched {n} times, "
+              f"expected {want.get(name, 0)}")
+    errs = scan["check"]
+    for name, err in errs.items():
+        check(err <= (2e-5 if name == "mxu_log" else 2e-6),
+              f"scan_probe check: {name} rel err {err:.3e} against float64 cumprod")
+    say("probes", counted_seconds=round(secs, 3), launches=launches, card=card_line(),
+        vpu={f"{r['op']} {r['dtype']}": dict(ms=round(r["ms"], 4),
+                                             tera_elem_ops_per_s=round(r["elem_ops_per_s"] / 1e12, 3))
+             for r in vpu},
+        exp={r["op"]: dict(ms=round(r["ms"], 4), ps_per_elem=round(r["ps_per_elem"], 4))
+             for r in exp},
+        scan={r["variant"]: dict(ms=round(r["ms"], 4), ns_per_scan=round(r["ns_per_scan"], 2),
+                                 ps_per_elem=round(r["ps_per_elem"], 4)) for r in scan["runs"]},
+        scan_check_rel_err=errs)
+
+    # parity at K = 64 on the tools' shapes (not counted)
+    gen = torch.Generator().manual_seed(0)
+    x1 = (torch.rand((vpu_probe.R, vpu_probe.C), generator=gen) * 3 - 1.5).to(dev)
+    x2 = (torch.rand((exp_probe.R, exp_probe.C), generator=gen) + 0.5).to(dev)
+    x3 = (torch.rand((scan_probe.S, scan_probe.C), generator=gen) * 0.1 + 0.9).to(dev)
+    k = PROBE_PARITY_K
+    par = {}
+    for op in KP.VPU_OPS:
+        for dt in (torch.float32, torch.bfloat16):
+            got, ref = KP.vpu_probe(x1, op, dt, k), KP.vpu_probe_plain(x1, op, dt, k)
+            rel = float((got - ref).abs().max()) / float(ref.abs().max())
+            exact = op in ("mul", "min3") or (dt == torch.bfloat16 and op == "fma")
+            tol = 0.0 if exact else 1e-5 if op == "fma" else 2 ** -8 if dt == torch.bfloat16 else 1e-6
+            check(rel <= tol, f"vpu_probe {op} {dt}: rel err {rel:.3e} > {tol}")
+            par[f"vpu {op} {str(dt)[6:]}"] = rel
+    for op in KP.EXP_OPS:
+        got, ref = KP.exp_probe(x2, op, k), KP.exp_probe_plain(x2, op, k)
+        rel = float(((got - ref).abs() / ref).max())
+        check(rel <= (0.0 if op == "mul8" else 1e-6), f"exp_probe {op}: rel err {rel:.3e}")
+        par[f"exp {op}"] = rel
+    for v in KP.SCAN_VARIANTS:
+        got, ref = KP.scan_probe(x3, v, k), KP.scan_probe_plain(x3, v, k)
+        rel = float(((got - ref).abs() / ref).max())
+        check(rel <= (4e-5 if v == "mxu_log" else 5e-6), f"scan_probe {v}: rel err {rel:.3e}")
+        par[f"scan {v}"] = rel
+    torch.cuda.synchronize()
+    say("probes", parity_k=k, rel_err=par,
+        tol="mul, min3 (and bf16 fma) exact; f32 fma rel 1e-5; exp rel 1e-6 (bf16 2^-8); "
+            "mul8 exact; expf, fast_exp, __expf rel 1e-6; scans rel 5e-6 (mxu_log 4e-5)")
+
+    # the SASS of every probe kernel holds the operation it measures (an
+    # opcode holding one of the tokens; bf16 min3 compiles to one
+    # three-input VHMNMX.BF16_V2)
+    expect = {"vpu_probe_f32_kernel<0>": ("FMUL",), "vpu_probe_f32_kernel<1>": ("FFMA",),
+              "vpu_probe_f32_kernel<2>": ("MNMX",), "vpu_probe_f32_kernel<3>": ("MUFU.EX2",),
+              "vpu_probe_bf16_kernel<0>": ("HMUL2.BF16", "HFMA2.BF16"),
+              "vpu_probe_bf16_kernel<1>": ("HFMA2.BF16",),
+              "vpu_probe_bf16_kernel<2>": ("MNMX",),
+              "vpu_probe_bf16_kernel<3>": ("MUFU.EX2",),
+              "exp_probe_kernel<0>": ("FMUL",), "exp_probe_kernel<1>": ("MUFU.EX2",),
+              "exp_probe_kernel<2>": ("FFMA",), "exp_probe_kernel<3>": ("MUFU.EX2",)}
+    sass = probe_sass()
+    for key, tokens in expect.items():
+        check(key in sass, f"probe SASS: kernel {key} not found ({sorted(sass)})")
+        counts = sass[key]
+        n_op = sum(v for o, v in counts.items() if any(t in o for t in tokens))
+        check(n_op > 0, f"probe SASS: {key} holds none of {tokens}: {dict(counts)}")
+    say("probes", sass={n: dict(c.most_common(12)) for n, c in sass.items()})
+
+    # the JSON rows, each at one variant
+    rows = {}
+    R, C, K = vpu_probe.R, vpu_probe.C, vpu_probe.K
+    ones = torch.ones((R, C), device=dev)
+    rows["vpu_probe"] = dict(
+        max_abs_err=float((KP.vpu_probe(x1, "fma", torch.float32, k)
+                           - KP.vpu_probe_plain(x1, "fma", torch.float32, k)).abs().max()),
+        ms=cuda_ms(lambda: KP.vpu_probe(ones, "fma", torch.float32, K), 5),
+        plain_ms=cuda_ms(lambda: KP.vpu_probe_plain(ones, "fma", torch.float32, K), 1, 0,
+                         hide_host=False),
+        library_ms=None,
+        # a mul and an add per element-pass, as the float32 peak counts an FMA
+        bound=bound_ms(8 * R * C, 2 * R * C * K))
+    R, C, K = exp_probe.R, exp_probe.C, exp_probe.K
+    ones = torch.ones((R, C), device=dev)
+    rows["exp_probe"] = dict(
+        max_abs_err=float((KP.exp_probe(x2, "exp", k) - KP.exp_probe_plain(x2, "exp", k))
+                          .abs().max()),
+        ms=cuda_ms(lambda: KP.exp_probe(ones, "exp", K), 5),
+        plain_ms=cuda_ms(lambda: KP.exp_probe_plain(ones, "exp", K), 1, 0, hide_host=False),
+        library_ms=None,
+        # |v|, the product and the exp, each one operation
+        bound=bound_ms(8 * R * C, 3 * R * C * K))
+    S, C, K = scan_probe.S, scan_probe.C, scan_probe.K
+    full = torch.full((S, C), 0.9999, device=dev)
+
+    def cumprod_reps(v, reps):
+        for _ in range(reps):
+            v = torch.cumprod(v, dim=0).clamp_(0.9, 1.0)
+        return v
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cumprod_reps(full, 3)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        lib_out = cumprod_reps(full, K)
+    graph.replay()
+    kern_out = KP.scan_probe(full, "hs", K)
+    torch.cuda.synchronize()
+    lib_rel = float(((lib_out - kern_out).abs() / lib_out).max())
+    check(lib_rel <= 5e-6, f"scan_probe: torch.cumprod yardstick differs by rel {lib_rel:.3e}")
+    rows["scan_probe"] = dict(
+        max_abs_err=float((KP.scan_probe(x3, "hs", k) - KP.scan_probe_plain(x3, "hs", k))
+                          .abs().max()),
+        ms=cuda_ms(lambda: KP.scan_probe(full, "hs", K), 5),
+        plain_ms=cuda_ms(lambda: KP.scan_probe_plain(full, "hs", K), 1, 0, hide_host=False),
+        library_ms=cuda_ms(graph.replay, 5),
+        # a prefix product needs S - 1 products per column; the clip two
+        # operations per element
+        bound=bound_ms(8 * S * C, ((S - 1) * C + 2 * S * C) * K))
+    del graph
+    for name, r in rows.items():
+        say("probes", kernel=name, variant=PROBE_ROW[name], max_abs_err=r["max_abs_err"],
+            ms=round(r["ms"], 4), plain_ms=round(r["plain_ms"], 3),
+            library_ms=None if r["library_ms"] is None else round(r["library_ms"], 4),
+            bound_ms=round(r["bound"][0], 5), bound_by=r["bound"][1])
+    return launches, rows
+
+
 def phase_rasterize(b) -> float:
     import torch
     from triangle_splatting_tpu_torch.ops.rasterize import rasterize
@@ -1399,7 +1770,10 @@ def phase_mesh_train(dev, root: Path) -> dict:
     gamma anneal moved to steps 10-40, so gamma 1, the anneal and gamma 50
     all run. The scene is the opaque surface the recipe is meant for: on
     the photo phase's soup of semi-transparent triangles solidifying costs
-    more than 50 steps of training win back, and the loss rises."""
+    more than 50 steps of training win back, and the loss rises. The
+    recipe's saves move with its schedule: the PLY at the anneal's start
+    (10) and at the end (50), the GLB at the end, timed apart from the
+    steps; its checkpoint (not ported) is cut. Then ``check_export``."""
     import numpy as np
     import torch
     from triangle_splatting_tpu_torch.ops.cuda import reset_launches
@@ -1419,8 +1793,10 @@ def phase_mesh_train(dev, root: Path) -> dict:
     t.initial_eval = False
     t.use_tensorboard = False
     t.seed = 0
-    saves = (t.save_iterations or []) + (t.checkpoint_iterations or []) + (t.save_glb_iterations or [])
-    check(all(it > TRAIN_ITERS for it in saves), "mesh: a save iteration lies inside the run")
+    # [SOLIDIFY_START_ITER, TOTAL_ITER] -> [10, 50]; [TOTAL_ITER] -> [50]
+    t.save_iterations = [mu.gamma_schedule.start_iter, TRAIN_ITERS]
+    t.save_glb_iterations = [TRAIN_ITERS]
+    t.checkpoint_iterations = []
 
     trainer = build_trainer(cfg, log_file=False)
     trainer._init_model()
@@ -1428,6 +1804,16 @@ def phase_mesh_train(dev, root: Path) -> dict:
                    for i in range(trainer.dataset.getTrainDatasetSize())]
     white = torch.ones(3, device=dev)
     psnr0 = float(np.mean(trainer.psnr_views(train_views, white)))
+    save_secs = {}
+
+    def timed(kind, save):
+        def wrapped(path, *a, **kw):
+            t1 = time.perf_counter()
+            save(path, *a, **kw)
+            save_secs[f"{kind} {Path(path).name}"] = time.perf_counter() - t1
+        return wrapped
+    trainer.savePLY = timed("ply", trainer.savePLY)
+    trainer.saveGLB = timed("glb", trainer.saveGLB)
 
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -1435,9 +1821,12 @@ def phase_mesh_train(dev, root: Path) -> dict:
     t0 = time.perf_counter()
     trainer.train()
     torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    secs = time.perf_counter() - t0 - sum(save_secs.values())
+    del trainer.savePLY, trainer.saveGLB
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
+    check(sorted(save_secs) == ["glb 50.glb", "ply 10.ply", "ply 50.ply"],
+          f"mesh: the saves ran {sorted(save_secs)}")
 
     losses = torch.stack(trainer.loss_history).cpu().numpy()
     psnr1 = float(np.mean(trainer.psnr_views(train_views, white)))
@@ -1461,9 +1850,91 @@ def phase_mesh_train(dev, root: Path) -> dict:
         triangles=int(trainer.state.alive.sum()), ste_triangles=trainer.triangle_count(),
         gamma_final=gamma, loss_first10=first, loss_last10=last,
         psnr_train_before=psnr0, psnr_train_after=psnr1, launches=launches,
-        pairs_per_triangle=trainer._ppt)
+        pairs_per_triangle=trainer._ppt,
+        save_seconds={k: round(v, 3) for k, v in sorted(save_secs.items())})
+    check_export(trainer, dev)
     profile_steps(trainer, "mesh_profile")
     return launches
+
+
+def check_export(trainer, dev) -> None:
+    """The mesh run's last PLY and GLB against the trained model, read back
+    through RawTriangle: the PLY's arrays equal ``toRawTriangle()``'s, the
+    GLB's vertices too (its colors are the SH DC band clipped to [0, 1]).
+    The GLB rendered through MeshRenderer on the card at the first test
+    view (800x800): one B1-3D rich launch and no other blend form, and
+    mask > 0.5 over >= 90% of the trained model's footprint (the pixels
+    the model covers with alpha > 0.5, rendered at the view's size); then
+    at 200x200 of the same view on the card and on the CPU: render, mask
+    and depth within 1e-3 of their scale outside a 1e-3 share of pixels
+    (edge flips at gamma 50), at most 1e-2."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from triangle_splatting_tpu_torch.models import triangle as M
+    from triangle_splatting_tpu_torch.models.raw_triangle import RawTriangle
+    from triangle_splatting_tpu_torch.ops.cuda import reset_launches
+    from triangle_splatting_tpu_torch.ops.cuda.blend import ALIGN
+    from triangle_splatting_tpu_torch.ops.rasterize import _round_up
+    from triangle_splatting_tpu_torch.renderer import MeshRenderer
+
+    out = Path(trainer.output_dir)
+    ply, glb = out / "point_cloud" / f"{TRAIN_ITERS}.ply", out / "glb" / f"{TRAIN_ITERS}.glb"
+    raw = trainer.toRawTriangle()
+    back = RawTriangle(ply_path=ply)
+    same = [bool(np.array_equal(getattr(back, k), getattr(raw, k)))
+            for k in ("vertex", "opacity", "shs")]
+    check(all(same), f"export: the PLY read back differs from toRawTriangle() {same}")
+    mesh = RawTriangle(glb_path=glb)
+    check(len(mesh) == len(raw) > 0 and np.array_equal(mesh.vertex, raw.vertex),
+          f"export: the GLB read back has {len(mesh)} faces, the model {len(raw)}")
+    cam = next(iter(trainer.dataset.getTestDataset()))
+    bg = (1.0, 1.0, 1.0)
+    # budget: the faces (front and back) at twice the trainer's pairs per triangle
+    max_pairs = _round_up(int(2 * trainer._ppt * 2 * len(mesh)), ALIGN)
+    with torch.no_grad():
+        reset_launches()
+        r = MeshRenderer(cam, bg_color=bg, max_pairs=max_pairs)
+        card = r.render(mesh_path=str(glb))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        blends = {k: n for k, n in launches.items() if k.startswith("blend_") and n}
+        check(blends == {"blend_forward_3d_rich": 1},
+              f"export: MeshRenderer launched {blends}, expected one blend_forward_3d_rich")
+        render_ms = cuda_ms(lambda: r.render(mesh_path=str(glb)), 3, hide_host=False)
+        cfg = dataclasses.replace(trainer.model_cfg, render_up_scale=None)
+        pkg = M.forward(trainer.params, trainer.state, cam, torch.ones(3, device=dev), cfg,
+                        trainer._settings_for(cam), is_training=False)
+        foot = (1.0 - pkg["final_T"]) > 0.5
+        covered = card["mask"][0] > 0.5
+        share = float((covered & foot).sum()) / max(int(foot.sum()), 1)
+        iou = float((covered & foot).sum()) / max(int((covered | foot).sum()), 1)
+        check(int(foot.sum()) > 0.05 * foot.numel() and share >= 0.9,
+              f"export: the GLB's mask covers {share:.3f} of the model's footprint "
+              f"({int(foot.sum())} pixels)")
+
+        def small(c, d):
+            return dataclasses.replace(
+                c, world_view=c.world_view.to(d), full_proj=c.full_proj.to(d),
+                camera_center=c.camera_center.to(d), tan_fovx=c.tan_fovx.to(d),
+                tan_fovy=c.tan_fovy.to(d), gt_image=None, alpha_mask=None,
+                image_width=200, image_height=200)
+        lo = {name: MeshRenderer(small(cam, d), bg_color=bg, max_pairs=max_pairs).render(
+            mesh_path=str(glb)) for name, d in (("cpu", torch.device("cpu")), ("card", dev))}
+        err = {}
+        for k in ("render", "mask", "depth"):
+            a, b = lo["card"][k].cpu(), lo["cpu"][k]
+            d = (a - b).abs() / max(1.0, float(b.abs().max()))
+            err[k] = (float(d.max()), float((d > 1e-3).float().mean()))
+            check(err[k][1] <= 1e-3 and err[k][0] <= 1e-2,
+                  f"export: MeshRenderer card vs CPU {k}: max {err[k][0]:.3e}, "
+                  f"share > 1e-3 {err[k][1]:.2e}")
+    say("export", ply=str(ply.relative_to(WORK)), glb=str(glb.relative_to(WORK)),
+        faces=len(mesh), glb_bytes=glb.stat().st_size, ply_bytes=ply.stat().st_size,
+        mesh_render_ms=round(render_ms, 3), footprint_pixels=int(foot.sum()),
+        footprint_covered_share=share, mask_iou=iou,
+        card_vs_cpu_200={k: dict(max=v[0], share_above_1e_3=v[1]) for k, v in err.items()})
 
 
 def phase_mesh_adc(dev, root: Path) -> dict:
@@ -2077,9 +2548,12 @@ def main() -> int:
         rec.update(phase_kernels_gs(dev))
         phase_reference(dev)
         phase_rasterize(bench)
+        runs = dict(renderer=phase_renderer(bench))
+        runs["probes"], probe_rec = phase_probes(dev)
+        rec.update(probe_rec)
         shutil.rmtree(WORK, ignore_errors=True)
         soup = build_dataset(dev, "soup")
-        runs = dict(train=phase_train(dev, soup))
+        runs["train"] = phase_train(dev, soup)
         runs["gs"] = phase_gs(dev, soup)
         shutil.rmtree(soup, ignore_errors=True)
         surface = build_dataset(dev, "surface")

@@ -174,10 +174,12 @@ def test_kernel_name_reads_mangled_entries(mangled, name):
 
 def test_launch_counts_by_kernel_and_variant():
     from triangle_splatting_tpu_torch.ops.cuda import launch_counts, reset_launches
+    from triangle_splatting_tpu_torch.ops.cuda import probes as TP
     from triangle_splatting_tpu_torch.ops.cuda import streams as TS
     saved = {fn: fn.launches for fn in (TB.blend_forward, TB.blend_backward,
                                         TS.relayout_pairs, TS.segment_reduce_pairs,
-                                        TS.segment_reduce_stats)}
+                                        TS.segment_reduce_stats, TP.vpu_probe,
+                                        TP.exp_probe, TP.scan_probe)}
     try:
         TB.blend_backward.launches = dict(TB.blend_backward.launches, **{"2D": 2, "3D": 5,
                                                                           "3D_rich": 6})
@@ -185,6 +187,7 @@ def test_launch_counts_by_kernel_and_variant():
                                                                         "2D_rich": 1})
         TS.segment_reduce_pairs.launches = 7
         TS.segment_reduce_stats.launches = 4
+        TP.scan_probe.launches = 9
         counts = launch_counts()
         assert counts[("blend_backward", "3D")] == 5 and counts[("blend_backward", "2D")] == 2
         assert counts[("blend_forward", "3D_stats")] == 3
@@ -192,13 +195,16 @@ def test_launch_counts_by_kernel_and_variant():
         assert counts[("blend_backward", "3D_rich")] == 6
         assert counts[("segment_reduce_pairs", None)] == 7
         assert counts[("segment_reduce_stats", None)] == 4
+        assert counts[("scan_probe", None)] == 9
         reset_launches()
         forms = {"blend_forward": [*TB.VARIANTS, *(f"{v}_stats" for v in TB.VARIANTS),
-                                   *(f"{v}_rich" for v in TB.VARIANTS), "GS_rich_stats"],
+                                   *(f"{v}_rich" for v in TB.VARIANTS),
+                                   *(f"{v}_rich_stats" for v in TB.VARIANTS)],
                  "blend_backward": [*TB.VARIANTS, *(f"{v}_rich" for v in TB.VARIANTS)]}
         assert set(launch_counts()) == {(k, v) for k, vs in forms.items() for v in vs} | {
             ("relayout_pairs", None), ("segment_reduce_pairs", None),
-            ("segment_reduce_stats", None)}
+            ("segment_reduce_stats", None), ("vpu_probe", None), ("exp_probe", None),
+            ("scan_probe", None)}
         assert not any(launch_counts().values())
     finally:
         for fn, n in saved.items():

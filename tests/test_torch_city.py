@@ -4,7 +4,9 @@ MatrixCity's layout: the grid-sampled initialization (~300 triangles) is
 the same bits, and the two trainers step in lockstep through 30 steps of
 the recipe (3D rasterizer with rich info, the depth-normal consistency
 term from step 3, both opacity regularizers) while opacity pruning,
-opacity clipping and scale pruning fire on a compressed cadence."""
+opacity clipping and scale pruning fire on a compressed cadence; and the
+recipe with a statistic window added, whose renders carry rich info and
+the contribution statistics together."""
 
 import dataclasses
 from pathlib import Path
@@ -13,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_adc import leaves, midpoint_of_gap
+from test_torch_adc import STATE_FIELDS, leaves, midpoint_of_gap, stat_tol
 from triangle_splatting_tpu.models import triangle as JM
 from triangle_splatting_tpu_torch.convert import triangle_from_numpy
 from triangle_splatting_tpu_torch.models import triangle as TM
@@ -186,3 +188,52 @@ def test_city_lockstep_matches_jax(city, tmp_path):
     assert [n for i, kd, n in hist if kd == "clipping"] == clipped
     pruned = sum(n for _, kd, n in hist if kd in ("opacity", "scale"))
     assert int(tt.state.alive.sum()) == n0 - pruned
+
+
+def test_city_with_statistic_window_matches_jax(city, tmp_path):
+    """The recipe with a ``statistic`` block added: every render carries
+    rich info (the geometry term) and the contribution statistics together,
+    B1's rich + stats form (the port refused the pair before it had that
+    form). Seven steps in lockstep with the JAX trainer, before the first
+    pruning: losses and geometry terms within rel 1e-4 a step, and the
+    accumulated statistics within test_torch_adc's per-field tolerances."""
+    from triangle_splatting_tpu.trainers.vanilla_ts import VanillaTSTrainer as JT
+    from triangle_splatting_tpu.utils.config import dict_to_config as j_dict_to_config
+    steps = OPACITY_AT[0] - 1
+
+    def config(out):
+        cfg = city_config(city, out)
+        cfg["model"]["model_update"]["statistic"] = dict(start_iter=0, end_iter=steps)
+        return cfg
+    jt = JT(j_dict_to_config(config(tmp_path / "j")), impl="pallas", interpret=True,
+            log_file=False)
+    jt._init_model()
+    tt = build_trainer(dict_to_config(config(tmp_path / "t")), device="cpu", log_file=False)
+    assert tt._track_stats and tt._rich
+    tt.params, tt.state, tt.opt = triangle_from_numpy(
+        leaves(jt.params), leaves(jt.state), dict(m=leaves(jt.opt.m), v=leaves(jt.opt.v), step=0),
+        device="cpu")
+    jviews, tviews = jt.dataset.getTrainDataset(), tt.dataset.getTrainDataset()
+    rng = np.random.default_rng(3)
+    for it in range(1, steps + 1):
+        k = (it - 1) % len(tviews)
+        bg = rng.uniform(size=3).astype(np.float32)
+        sched = jt._pack.pack(jt._loss_weights(it), jt._lrs(it), bg, it)
+        jt.params, jt.opt, jt.state, jl, jaux = jt._train_step(
+            jt._settings_for(jviews[k]), jt.params, jt.opt, jt.state,
+            jviews[k].strip_static(), sched, None)
+        tt.params, tt.opt, tt.state, tl, taux = tt._train_step(
+            tt._settings_for(tviews[k]), tt.params, tt.opt, tt.state, tviews[k],
+            tt._loss_weights(it), tt._lrs(it), torch.as_tensor(bg), it)
+        assert abs(float(tl) - float(jl)) <= 1e-4 * float(jl), (it, float(tl), float(jl))
+        jg, tg = float(jaux["geo_loss"]), float(taux["geo_loss"])
+        assert abs(tg - jg) <= 1e-4 * max(jg, 1e-30), (it, tg, jg)
+        jt._model_update(it)
+        tt._model_update(it)
+    assert tg > 0                                   # the geometry term was on
+    assert float(tt.state.contrib_denom.max()) == steps
+    for name in STATE_FIELDS:
+        got, want = getattr(tt.state, name).numpy(), np.asarray(getattr(jt.state, name))
+        assert (np.abs(got - want) <= stat_tol(name, want)).all(), \
+            (name, np.abs(got - want).max())
+    assert float(tt.state.contrib_sum.max()) > 0.5

@@ -397,9 +397,6 @@ def test_wrappers_reject_bad_inputs(dev):
                          image_width=64, image_height=64, tile_h=32, tile_w=32)
     with pytest.raises(NotImplementedError):
         KB.blend_forward(f.float(), ts, tc, torch.zeros(8, device=dev), image_width=64,
-                         image_height=64, tile_h=32, tile_w=32, rich=True, stats=True)
-    with pytest.raises(NotImplementedError):
-        KB.blend_forward(f.float(), ts, tc, torch.zeros(8, device=dev), image_width=64,
                          image_height=64, tile_h=32, tile_w=32, variant="4D")
 
 
@@ -526,3 +523,217 @@ def test_rasterize_gaussian_card_matches_cpu(dev):
         assert float((og[k].cpu() - oc[k]).abs().max()) <= 5e-4, k
     for a, b in zip(gg, gc):
         assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# B1 with rich info and the contribution stream together
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("variant,case", [
+    *(pytest.param("2D", c, id=f"case{i}") for i, c in enumerate(CASES)),
+    *(pytest.param("3D", c, id=f"3d-case{i}") for i, c in enumerate(CASES_3D))])
+def test_blend_forward_rich_stats_matches_plain(dev, variant, case):
+    """B1's rich + stats form (the triangle renderer facade's): color,
+    final_T and n_contrib bit-identical to the plain form's, depth and
+    normal to the rich form's, the stream to the stats form's; against the
+    plain version depth and normal within rel 1e-5 of their max, the
+    stream's maxes exact and its sums within 1e-5 of the row's max.
+    Launches count under "<variant>_rich_stats"."""
+    P, W, H, seed, gamma, orange = case
+    sp, _, fields, params = pipeline_inputs(case, dev, variant)
+    if variant == "3D":
+        cam = make_camera(W, H, device=dev)
+        params[5], params[6] = W / (2.0 * cam.tan_fovx), H / (2.0 * cam.tan_fovy)
+    geo = dict(image_width=W, image_height=H, tile_h=32, tile_w=32, variant=variant)
+    args = (fields, sp.astarts, sp.tile_counts, params)
+    n_fwd = dict(KB.blend_forward.launches)
+    both = KB.blend_forward(*args, rich=True, stats=True, **geo)
+    torch.cuda.synchronize()
+    form = f"{variant}_rich_stats"
+    assert KB.blend_forward.launches == {**n_fwd, form: n_fwd[form] + 1}
+    plain = KB.blend_forward(*args, **geo)
+    rich = KB.blend_forward(*args, rich=True, **geo)
+    stats = KB.blend_forward(*args, stats=True, **geo)
+    ref = KB.blend_forward_plain(*args, rich=True, stats=True, **geo)
+    torch.cuda.synchronize()
+    for k in (0, 3, 4):
+        assert torch.equal(both[k], plain[k]), k
+    for k in (1, 2):
+        assert torch.equal(both[k], rich[k]), k
+    assert torch.equal(both[5], stats[5])
+    assert torch.equal(both[4], ref[4])
+    for k in (1, 2):
+        scale = float(ref[k].abs().max())
+        assert float((both[k] - ref[k]).abs().max()) <= 1e-5 * scale, k
+    pc, want = both[5], ref[5]
+    assert torch.equal(pc[1], want[1])
+    assert float((pc[0] - want[0]).abs().max()) <= 1e-5 * float(want[0].abs().max())
+    assert float(want[0].max()) > 0 and float(both[2].abs().max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the renderer facades
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("variant", ["2D", "3D"])
+def test_triangle_renderer_card_matches_cpu(dev, variant):
+    """TriangleRenderer(rich_info=True) on the card runs B1's rich + stats
+    form and B2's rich form once each, and agrees with the CPU (plain
+    versions): exp/log an ulp apart on the two devices may keep an entry
+    whose alpha lies an ulp from 1/255 on one device and drop it on the
+    other, so n_contrib may differ in two pixels and render, depth and
+    normal by more than 1e-3 of their scale in two pixels, there by at most
+    T/255 (4e-3); the statistics as test_rasterize_stats_cuda_matches_cpu
+    holds them (5e-4 but for a few triangles, 2/255 for those); gradients
+    within the budgets of test_rasterize_rich_cuda_matches_cpu."""
+    from triangle_splatting_tpu_torch.ops.cuda import launch_counts, reset_launches
+    from triangle_splatting_tpu_torch.renderer import TriangleRenderer
+    s = make_random_scene(300, seed=8)
+    gen = torch.Generator().manual_seed(2)
+    target = torch.rand((3, 64, 96), generator=gen)
+    w_d = torch.randn((64, 96), generator=gen) / (64 * 96)
+    gamma = 1.0 if variant == "2D" else 50.0
+    res = {}
+    for d in (torch.device("cpu"), dev):
+        leaves = [torch.tensor(s[k], device=d, requires_grad=True)
+                  for k in ("vertex", "opacity", "rgb")]
+        r = TriangleRenderer(make_camera(96, 64, device=d), bg_color=(1.0, 1.0, 1.0),
+                             bg_depth=10.0, gamma=gamma, rich_info=True,
+                             rasterizer_type=variant)
+        reset_launches()
+        out = r.render(leaves[0], None, leaves[2], leaves[1])
+        loss = ((out["render"] - target.to(d)) ** 2).mean() + (out["depth"] * w_d.to(d)).sum()
+        grads = torch.autograd.grad(loss, leaves)
+        res[d.type] = (out, grads, {k: n for k, n in launch_counts().items() if n})
+    (oc, gc, lc), (og, gg, lg) = res["cpu"], res["cuda"]
+    assert not lc
+    assert {k: n for k, n in lg.items() if k[0].startswith("blend")} == {
+        ("blend_forward", f"{variant}_rich_stats"): 1, ("blend_backward", f"{variant}_rich"): 1}
+    assert lg[("segment_reduce_stats", None)] == 1
+    assert int((og["n_contrib"].cpu() != oc["n_contrib"]).sum()) <= 2
+    for k in ("render", "depth", "normal"):
+        a, b = og[k].detach().cpu(), oc[k].detach()
+        d = ((a - b).abs() / max(1.0, float(b.abs().max()))).reshape(-1, 64, 96).amax(dim=0)
+        assert int((d > 1e-3).sum()) <= 2 and float(d.max()) <= 4e-3, (k, float(d.max()))
+    for k in ("contrib_sum", "contrib_max"):
+        d = (og[k].cpu() - oc[k]).abs()
+        assert float(d.max()) <= 2 / 255 and int((d > 5e-4).sum()) <= 8, k
+    for a, b, tol in zip(gg, gc, (2e-2, 1e-3, 1e-3)):
+        assert float((a.cpu() - b).norm() / b.norm()) <= tol
+
+
+def test_mesh_renderer_card_matches_cpu(dev, tmp_path):
+    """MeshRenderer on a GLB: on the card one B1-3D rich launch and no
+    stream, B5 or backward; render, mask and depth as on the CPU within
+    1e-3 of their scale outside a 1e-3 share of pixels (edge flips at
+    gamma 50)."""
+    from triangle_splatting_tpu_torch.models.raw_triangle import RawTriangle
+    from triangle_splatting_tpu_torch.ops.cuda import launch_counts, reset_launches
+    from triangle_splatting_tpu_torch.renderer import MeshRenderer
+    s = make_random_scene(300, seed=9, opacity_range=(0.9, 0.95))
+    path = tmp_path / "mesh.glb"
+    RawTriangle(s["vertex"], np.full((300, 1), 4.0, np.float32),
+                ((s["rgb"] - 0.5) / 0.28209479177387814).astype(np.float32)).saveGLB(path)
+    outs = {}
+    for d in (torch.device("cpu"), dev):
+        reset_launches()
+        outs[d.type] = MeshRenderer(make_camera(96, 64, device=d)).render(mesh_path=str(path))
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in launch_counts().items() if n}
+    assert launches == {("blend_forward", "3D_rich"): 1, ("relayout_pairs", None): 1}
+    assert float((outs["cuda"]["mask"] > 0.5).float().mean()) > 0.05
+    for k in ("render", "mask", "depth"):
+        a, b = outs["cuda"][k].cpu(), outs["cpu"][k]
+        d = (a - b).abs() / max(1.0, float(b.abs().max()))
+        assert float((d > 1e-3).float().mean()) <= 1e-3 and float(d.max()) <= 1e-2, k
+
+
+# ---------------------------------------------------------------------------
+# the probes P1-P3
+# ---------------------------------------------------------------------------
+
+PROBE_K = 64
+
+
+def probe_block(dev, rows, cols, lo, hi, seed=0):
+    x = np.random.default_rng(seed).uniform(lo, hi, size=(rows, cols)).astype(np.float32)
+    return torch.as_tensor(x).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("op", ["mul", "fma", "min3", "exp"])
+def test_vpu_probe_kernel_matches_plain(dev, op, dtype):
+    """P1 at K = 64: mul and min3 exact (the same rounded operations); f32
+    fma within rel 1e-5 of the max (one FFMA rounding against the plain
+    version's two, an ulp a pass over 64 passes); exp within rel 1e-6 (an
+    ulp of expf against torch.exp, not grown: the chain's derivative is
+    1e-6). In bfloat16 the multiplier is exactly 1 and every value of the
+    exp chain rounds to 1: all exact but exp (an ulp, 2^-8)."""
+    from triangle_splatting_tpu_torch.ops.cuda import probes as KP
+    x = probe_block(dev, 64, 256, -1.5, 1.5)
+    n = KP.vpu_probe.launches
+    got = KP.vpu_probe(x, op, dtype, PROBE_K)
+    want = KP.vpu_probe_plain(x, op, dtype, PROBE_K)
+    torch.cuda.synchronize()
+    assert KP.vpu_probe.launches == n + 1
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    if op in ("mul", "min3") or (dtype == torch.bfloat16 and op == "fma"):
+        assert torch.equal(got, want)
+    elif op == "fma":
+        assert err <= 1e-5, err
+    else:
+        assert err <= (2 ** -8 if dtype == torch.bfloat16 else 1e-6), err
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("op", ["mul8", "exp", "fastexp", "exp_intrinsic"])
+def test_exp_probe_kernel_matches_plain(dev, op):
+    """P2 at K = 64: mul8 exact; expf, __expf and fast_exp (FFMA Horner
+    steps against the plain version's products and sums) within rel 1e-6:
+    a few ulps, not grown along the chain."""
+    from triangle_splatting_tpu_torch.ops.cuda import probes as KP
+    x = probe_block(dev, 64, 256, 0.5, 1.5, seed=1)
+    n = KP.exp_probe.launches
+    got = KP.exp_probe(x, op, PROBE_K)
+    want = KP.exp_probe_plain(x, op, PROBE_K)
+    torch.cuda.synchronize()
+    assert KP.exp_probe.launches == n + 1
+    if op == "mul8":
+        assert torch.equal(got, want)
+    else:
+        assert float(((got - want).abs() / want).max()) <= 1e-6
+
+
+def test_fast_exp_device_matches_plain_range(dev):
+    """fast_exp on [-44, 0] on the card (K = 1 through the kernel would
+    apply |v| * 1e-6 first, so this holds the plain function on CUDA
+    tensors): within 1e-5 of exp, as on the CPU."""
+    from triangle_splatting_tpu_torch.ops.cuda import probes as KP
+    t = torch.linspace(0.0, 44.0, 8192, device=dev)
+    ref = torch.exp(-t.double())
+    assert float(((KP.fast_exp(-t).double() - ref).abs() / ref).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("variant", ["hs", "hs_roll", "two_level4", "two_level8",
+                                     "two_level16", "two_level32", "mxu_log"])
+def test_scan_probe_kernel_matches_cumprod_and_plain(dev, variant):
+    """P3: one unclipped scan of linspace(0.9, 1) (the tool's check) within
+    rel 2e-6 of float64 cumprod (mxu_log 2e-5), as the plain versions on
+    the CPU; K = 64 clipped reps against the plain version within rel 5e-6
+    (mxu_log 4e-5): two float32 orders, each within the first budget."""
+    from triangle_splatting_tpu_torch.ops.cuda import probes as KP
+    x = torch.linspace(0.9, 1.0, 256 * 256, device=dev).reshape(256, 256)
+    ref = torch.cumprod(x.double(), dim=0)
+    n = KP.scan_probe.launches
+    one = KP.scan_probe(x, variant, k=1, clip=False)
+    torch.cuda.synchronize()
+    assert KP.scan_probe.launches == n + 1
+    err = float(((one.double() - ref).abs() / ref).max())
+    assert err <= (2e-5 if variant == "mxu_log" else 2e-6), err
+    xr = probe_block(dev, 256, 256, 0.9, 1.0, seed=3)
+    got = KP.scan_probe(xr, variant, PROBE_K)
+    want = KP.scan_probe_plain(xr, variant, PROBE_K)
+    torch.cuda.synchronize()
+    err = float(((got - want).abs() / want).max())
+    assert err <= (4e-5 if variant == "mxu_log" else 5e-6), err
+    assert float(got.min()) >= float(np.float32(0.9)) and float(got.max()) <= 1.0

@@ -109,12 +109,9 @@ def test_unported_variants_raise():
     cam = t_camera(W, H, device="cpu")
     v, o = torch.as_tensor(inp["vertex"]), torch.as_tensor(inp["opacity"])
     c = torch.full((P, 3), 0.5)
-    # rich info (tests/test_torch_rich.py) and the statistics
-    # (tests/test_torch_stats.py) are ported, but not both at once
-    for variant in ("2D", "3D"):
-        with pytest.raises(NotImplementedError):
-            t_rasterize(v, o, None, cam, TRS(W, H, rich_info=True, rasterizer_type=variant),
-                        colors=c, need_stats=True)
+    # rich info, the statistics and both at once are ported
+    # (tests/test_torch_rich.py, tests/test_torch_stats.py); "GS" goes
+    # through rasterize_gaussian
     with pytest.raises(NotImplementedError):
         t_rasterize(v, o, None, cam, TRS(W, H, rich_info=False,
                                          rasterizer_type="GS"), colors=c)

@@ -4,7 +4,8 @@ JAX Pallas kernels in interpret mode and against float64 autograd of the
 plain forward, in variants "2D" and "3D" at gamma 1 and 50; the rich
 forms' color, final_T and n_contrib bit-identical to the forms without
 rich info; ``rasterize(rich_info=True)`` against the JAX ``rasterize`` and
-both dense oracles, forward and gradients."""
+both dense oracles, forward and gradients; B1 with rich info and the
+contribution stream together against Pallas."""
 
 import functools
 
@@ -204,6 +205,45 @@ def test_rich_leaves_color_final_T_n_contrib_bit_identical(case):
     for k in (0, 3, 4):
         assert torch.equal(on[k], off[k]), k
     assert not torch.equal(on[1], off[1]) and not off[2].any() and on[2].any()
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_forward_rich_stats_plain_matches_jax(case):
+    """Rich info with the contribution stream (one B1 launch, the form the
+    triangle renderer facade runs with rich_info) against the Pallas kernel
+    in interpret mode, which computes both at once: the outputs of the rich
+    form and the stream of the stats form, bit for bit, each within its
+    form's budget of Pallas."""
+    variant, P, W, H, seed, gamma, _ = case
+    inp = packed_inputs(*case)
+    geo = dict(image_width=W, image_height=H, variant=variant, **GEO)
+    want = [np.asarray(x) for x in JB.blend_forward(
+        *(jnp.asarray(a) for a in inp), rich=True, stats=True, interpret=True, **geo)]
+    args = torch_args(inp)
+    before = dict(TB.blend_forward.launches)
+    got = TB.blend_forward(*args, rich=True, stats=True, **geo)
+    assert TB.blend_forward.launches == before      # CPU: plain version
+    rich = TB.blend_forward(*args, rich=True, **geo)
+    stats = TB.blend_forward(*args, stats=True, **geo)
+    for k in range(5):
+        assert torch.equal(got[k], rich[k]), k
+    assert torch.equal(got[5], stats[5])
+    got = [x.numpy() for x in got]
+    np.testing.assert_array_equal(got[4], want[4])
+    # color / final_T, depth / normal: test_forward_rich_plain_matches_jax's
+    # budgets; the stream: the stats form's (tests/test_torch_stats.py,
+    # 5e-4 abs, widened by gamma / 5)
+    tol = 2e-5 * max(1.0, gamma / 5.0)
+    for k in (0, 1, 2, 3):
+        scale = 1.0 if k in (0, 3) else float(np.abs(want[k]).max())
+        d = np.abs(got[k] - want[k]).reshape(-1, H, W).max(axis=0) / scale
+        assert (d > tol).mean() <= 1e-3 and d.max() <= 1e-3, (k, d.max())
+    pairs, ts, tc, _ = inp
+    cols = real_slots(ts, tc)
+    empty = np.ones(pairs.shape[1], bool)
+    empty[cols] = False
+    assert not got[5][:, empty].any() and got[5][0, cols].max() > 0
+    assert np.abs(got[5][:, cols] - want[5][:, cols]).max() <= 5e-4 * max(1.0, gamma / 5.0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """The statistics slice of the port vs the JAX package: B1's per-pair
 contribution stream (the plain version the CPU runs) against the Pallas
 kernel in interpret mode, B5 ``segment_reduce_stats`` against its Pallas
-twin, and ``rasterize(need_stats=True)`` in variants "2D" and "3D" against
-the JAX Pallas pipeline and both dense oracles."""
+twin, and ``rasterize(need_stats=True)`` in variants "2D" and "3D", with
+rich info off and on, against the JAX Pallas pipeline and both dense
+oracles."""
 
 import functools
 
@@ -223,6 +224,59 @@ def test_rasterize_stats_match_jax_pallas_and_oracles(variant, seed, gamma):
         for k in ("contrib_sum", "contrib_max"):
             d = np.abs(got[k] - ref[k]).max()
             assert d <= tol, (name, k, d)
+
+
+def rich_stats(s, variant, impl, gamma, jax):
+    """render, depth, normal, n_contrib and the statistics of one render
+    with rich info and statistics together."""
+    keys = ("render", "depth", "normal", "n_contrib", "contrib_sum", "contrib_max")
+    if jax:
+        st = JRS(image_width=RW, image_height=RH, rich_info=True, rasterizer_type=variant)
+        out = j_rasterize(jnp.asarray(s["vertex"]), jnp.asarray(s["opacity"]), None,
+                          j_camera(RW, RH), st, gamma=gamma, background=jnp.ones(3),
+                          bg_depth=10.0, colors=jnp.asarray(s["rgb"]), impl=impl,
+                          interpret=True, need_stats=True)
+        return {k: np.asarray(out[k]) for k in keys}
+    st = TRS(image_width=RW, image_height=RH, rich_info=True, rasterizer_type=variant)
+    with torch.no_grad():
+        out = t_rasterize(torch.as_tensor(s["vertex"]), torch.as_tensor(s["opacity"]), None,
+                          t_camera(RW, RH, device="cpu"), st, gamma=gamma,
+                          background=torch.ones(3), bg_depth=10.0,
+                          colors=torch.as_tensor(s["rgb"]), impl=impl, need_stats=True)
+    return {k: out[k].numpy() for k in keys}
+
+
+@pytest.mark.parametrize("variant,seed,gamma", [("2D", 2, 1.0), ("3D", 2, 1.0),
+                                                ("3D", 4, 50.0)])
+def test_rasterize_rich_stats_match_jax_pallas_and_oracles(variant, seed, gamma):
+    """rasterize with rich info and statistics together (B1's rich form
+    with the stream, then owner sort and B5) against the JAX Pallas
+    pipeline and the JAX and port dense oracles, which run the same
+    combination: n_contrib exact, render 1e-3 abs, depth and normal rel
+    1e-3 of their max (test_torch_rich's budgets) and the statistics 5e-4
+    abs, each widened by gamma / 5 past gamma 5 (an ulp of exp/log times
+    2 gamma); and the same statistics as without rich info, bit for bit."""
+    s = scene(seed)
+    got = rich_stats(s, variant, "cuda", gamma, jax=False)
+    widen = max(1.0, gamma / 5.0)
+    tol = STATS_ATOL * widen
+    refs = dict(pallas=rich_stats(s, variant, "pallas", gamma, jax=True),
+                jax_oracle=rich_stats(s, variant, "oracle", gamma, jax=True),
+                port_oracle=rich_stats(s, variant, "oracle", gamma, jax=False))
+    assert got["contrib_sum"].max() > 1.0 and np.abs(got["normal"]).max() > 0.1
+    for name, ref in refs.items():
+        np.testing.assert_array_equal(got["n_contrib"], ref["n_contrib"], err_msg=name)
+        d = np.abs(got["render"] - ref["render"]).max()
+        assert d <= 1e-3 * widen, (name, d)
+        for k in ("depth", "normal"):
+            d = np.abs(got[k] - ref[k]).max() / np.abs(ref[k]).max()
+            assert d <= 1e-3 * widen, (name, k, d)
+        for k in ("contrib_sum", "contrib_max"):
+            d = np.abs(got[k] - ref[k]).max()
+            assert d <= tol, (name, k, d)
+    plain = torch_stats(s, variant, "cuda", gamma)
+    for k in ("contrib_sum", "contrib_max", "render"):
+        np.testing.assert_array_equal(got[k], plain[k], err_msg=k)
 
 
 def test_need_stats_changes_only_the_statistics():

@@ -189,7 +189,7 @@ def test_trainer_e2e_loss_falls(dataset, tmp_path):
 
 @pytest.mark.parametrize("patch", [
     {"model": {"model_update": {"densification": {"start_iter": 0}}}},
-    {"trainer": {"save_iterations": [30]}},
+    {"trainer": {"checkpoint_iterations": [30]}},
     {"model": {"model_update": {"scale_clipping": {"start_iter": 0}}}},
     {"trainer": {"data_parallel": 2}},
     {"model": {"use_color_affine": True}},
@@ -197,8 +197,7 @@ def test_trainer_e2e_loss_falls(dataset, tmp_path):
     {"model": {"model_update": {"opacity_reset": {"start_iter": 0}}}},
     {"trainer": {"w_dog": 0.1}},
     {"trainer": {"vertex_reg": {"w_vertex_reg": 0.1}}},
-    {"model": {"model_update": {"statistic": {"start_iter": 0, "end_iter": 10}}},
-     "trainer": {"geometry_loss": {"w_geometry": 0.05, "start_iter": 0}}},
+    {"trainer": {"start_checkpoint": "model.ckpt"}},
 ])
 def test_unported_config_blocks_raise(dataset, tmp_path, patch):
     base = make_config(dataset, tmp_path / "out").to_dict()

@@ -5,17 +5,20 @@ Each wrapper counts the launches of its kernel in ``<wrapper>.launches``:
 a dict by form for the blend kernels (the variant ``"2D"``, ``"3D"`` or
 ``"GS"``, then ``"_rich"`` with rich info and, for the forward,
 ``"_stats"`` with the contribution stream), an int for the stream
-kernels. ``reset_launches`` and ``launch_counts`` read and reset them all
-in one form."""
+kernels and the probes P1-P3. ``reset_launches`` and ``launch_counts``
+read and reset them all in one form."""
 
 
 def _counters() -> dict:
-    from . import blend, streams
+    from . import blend, probes, streams
     return {"blend_forward": blend.blend_forward,
             "blend_backward": blend.blend_backward,
             "relayout_pairs": streams.relayout_pairs,
             "segment_reduce_pairs": streams.segment_reduce_pairs,
-            "segment_reduce_stats": streams.segment_reduce_stats}
+            "segment_reduce_stats": streams.segment_reduce_stats,
+            "vpu_probe": probes.vpu_probe,
+            "exp_probe": probes.exp_probe,
+            "scan_probe": probes.scan_probe}
 
 
 def reset_launches() -> None:

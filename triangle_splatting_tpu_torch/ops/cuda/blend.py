@@ -2,12 +2,11 @@
 alpha blend of the triangle rasterizers and of the Gaussian renderer.
 
 Ports of ``triangle_splatting_tpu/ops/pallas/blend.py`` for the variants
-the training paths run: ``"2D"`` and ``"3D"`` (triangles), each with rich
+``"2D"`` and ``"3D"`` (triangles) and ``"GS"`` (Gaussians), each with rich
 info (the depth and normal outputs and their cotangents) off or on, the
 forward also with the per-pair contribution stream (``stats``) of the ADC
-statistic window, with rich info off; and ``"GS"`` (Gaussians), whose
-forward runs in all four combinations of stats and rich info. Rich with
-stats raises ``NotImplementedError`` for the triangle variants. The CUDA
+statistic window: four forward forms per variant (rich info with the
+stream is what the renderer facades run with ``rich_info=True``). The CUDA
 kernels are in ``csrc/blend.cu`` ("2D", "3D") and ``csrc/blend_gs.cu``
 ("GS"). Each wrapper takes the kernel for CUDA tensors and the plain
 PyTorch version beside it for CPU tensors; there is no fallback from one
@@ -65,13 +64,10 @@ VARIANTS = ("2D", "3D", "GS")
 _OPAC_RGB = {"2D": (6, 7), "3D": (9, 10), "GS": (6, 7)}
 
 
-def _require_ported_variant(variant: str, rich: bool, stats: bool = False) -> None:
+def _require_ported_variant(variant: str) -> None:
     if variant not in VARIANTS:
         raise NotImplementedError(
             f"blend kernels: only variants {VARIANTS} are ported (got variant={variant!r})")
-    if rich and stats and variant != "GS":
-        raise NotImplementedError(
-            f"blend_forward: rich=True with stats=True is not ported (variant {variant!r})")
 
 
 def _form(variant: str, stats: bool = False, rich: bool = False) -> str:
@@ -312,7 +308,7 @@ def blend_forward(pairs: torch.Tensor, tile_starts: torch.Tensor,
     first five outputs do not depend on ``stats``, and color, final_T and
     n_contrib not on ``rich``.
     """
-    _require_ported_variant(variant, rich, stats)
+    _require_ported_variant(variant)
     grid_w, grid_h = _grid(image_width, image_height, tile_h, tile_w)
     dev = _check_inputs(pairs, tile_starts, tile_counts, params, grid_w * grid_h)
     kw = dict(image_width=image_width, image_height=image_height,
@@ -350,8 +346,8 @@ def blend_forward(pairs: torch.Tensor, tile_starts: torch.Tensor,
 
 
 blend_forward.launches = dict.fromkeys(
-    [_form(v, s, r) for s, r in ((False, False), (True, False), (False, True))
-     for v in VARIANTS] + [_form("GS", True, True)], 0)
+    (_form(v, s, r) for s, r in ((False, False), (True, False), (False, True), (True, True))
+     for v in VARIANTS), 0)
 
 
 # ---------------------------------------------------------------------------
@@ -521,7 +517,7 @@ def blend_backward(pairs: torch.Tensor, tile_starts: torch.Tensor,
     Rows from ``LIVE_GRAD_ROWS`` on (10 for "2D" and "GS", 13 for "3D";
     16, 11 and 14 with rich), "GS"'s row 5, padding slots and slots past
     the deepest contributor are zero."""
-    _require_ported_variant(variant, rich)
+    _require_ported_variant(variant)
     grid_w, grid_h = _grid(image_width, image_height, tile_h, tile_w)
     dev = _check_inputs(pairs, tile_starts, tile_counts, params, grid_w * grid_h)
     H, W = image_height, image_width

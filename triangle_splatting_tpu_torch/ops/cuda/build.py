@@ -24,14 +24,15 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("streams", "blend", "blend_gs")
+SOURCES = ("streams", "blend", "blend_gs", "probes")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> argument types (pointers and the stream as
-# c_void_p so a 64-bit address is never cut to 32 bits).
+# c_void_p so a 64-bit address is never cut to 32 bits, floats as c_float).
 SIGNATURES = {
     "streams": {
         "ts_relayout_pairs": (_P, _P, _P, _P, _I, _P, _I, _P),
@@ -49,6 +50,11 @@ SIGNATURES = {
                                 _I, _P, _P, _P, _P, _P, _P, _P),
         "ts_blend_backward_gs": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _P, _P, _P, _P, _P, _P, _P),
+    },
+    "probes": {
+        "ts_probe_vpu": (_P, _P, _I, _I, _I, _I, _F, _F, _P),
+        "ts_probe_exp": (_P, _P, _I, _I, _I, _F, _F, _P),
+        "ts_probe_scan": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
 }
 

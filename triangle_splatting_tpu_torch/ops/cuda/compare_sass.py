@@ -27,16 +27,28 @@ _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
 
 
 def kernel_name(mangled: str) -> str:
-    """``blend_forward_kernel``, ``blend_forward_kernel<false>`` or
-    ``blend_forward_kernel<true, false>`` from a mangled entry name (bool
-    template arguments only)."""
-    k = re.search(r"\d+([a-z_]*_kernel)(I((?:Lb[01]E)+)E)?", mangled)
-    if k is None:
+    """``blend_forward_kernel``, ``blend_forward_kernel<false>``,
+    ``blend_forward_kernel<true, false>`` or ``scan_two_level_kernel<8>``
+    from a mangled entry name: the length-prefixed source name that ends in
+    ``_kernel``, then its bool or int template arguments."""
+    # every digit run and each of its suffixes may be the length (a hash
+    # before it may end in digits); the last name that parses is the
+    # shortest, the one without the hash's tail
+    found = None
+    for m in re.finditer(r"(?=(\d+))", mangled):
+        end = m.start() + len(m.group(1))
+        name = mangled[end:end + int(m.group(1))]
+        if re.fullmatch(r"[A-Za-z_]\w*_kernel", name):
+            found = end, name
+    if found is None:
         return mangled
-    if k.group(3) is None:
-        return k.group(1)
-    args = ["true" if b == "1" else "false" for b in re.findall(r"Lb([01])E", k.group(3))]
-    return f"{k.group(1)}<{', '.join(args)}>"
+    end, name = found
+    args = re.match(r"I((?:L[bi]\d+E)+)E", mangled[end + len(name):])
+    if args is None:
+        return name
+    vals = [{"b0": "false", "b1": "true"}.get(t + v, v)
+            for t, v in re.findall(r"L([bi])(\d+)E", args.group(1))]
+    return f"{name}<{', '.join(vals)}>"
 
 
 def counterpart(name: str) -> str:

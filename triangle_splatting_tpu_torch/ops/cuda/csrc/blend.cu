@@ -21,8 +21,9 @@
 // over the tile's pixels of contrib = alive ? alpha * T_excl : 0. kRich:
 // the depth and normal accumulators (Pallas :403-420, :504-506); the
 // backward takes their cotangents (:653-677, :768-784, :858-906). With a
-// switch false the kernel is the kernel without it, unchanged; rich and
-// stats together are not instantiated (no shipped recipe runs both).
+// switch false the kernel is the kernel without it, unchanged. Both
+// switches on give the form the triangle renderer facade runs with rich
+// info (depth, normal and the stream from one launch).
 //
 // What bounds them on the H100. Per (pair, pixel) evaluation the forward
 // does ~30 float32 operations including one exp ("3D": ~40 and one
@@ -60,10 +61,16 @@
 //    shared memory. No float atomics, so the sums that rank triangles for
 //    pruning do not change from run to run. Its warps loop while any lane
 //    is live (__any_sync): a finished pixel contributes 0 and skips every
-//    state update, so color, final_T and n_contrib are those of the
-//    stats-off form bit for bit. It stages 128 pairs per batch, so the
-//    per-warp partials (128 x 33 x 2 floats) and the fields fit the 48 KB
-//    of static shared memory. Every slot of the (2, MP) stream is written:
+//    state update, so color, final_T and n_contrib (and with rich info
+//    depth and normal) are those of the stats-off form bit for bit. Both
+//    loops composite an entry through one inlined helper
+//    (composite_entry) that takes and returns the pixel's state by value:
+//    no accumulator's address is taken, so the compiler keeps them in
+//    registers from the start and the forms that existed before the helper
+//    kept their machine code. It stages 128 pairs per batch, so the per-warp
+//    partials (128 x 33 x 2 floats) and the fields fit the 48 KB of static
+//    shared memory (with rich info 16 or 14 field rows: 41,984 B "2D",
+//    40,960 B "3D"). Every slot of the (2, MP) stream is written:
 //    slots a tile never reached (early exit, alignment padding) and the
 //    buffer's tail past the last tile get zeros from the blocks;
 //  - the rich forms add four per-pixel accumulators (depth and the three
@@ -199,6 +206,48 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// A pixel's composite state: the transmittance, the color and (rich form)
+// depth and normal accumulators, and the last entry's contribution.
+struct Composite {
+  float T, c0, c1, c2, dacc, n0, n1, n2, contrib;
+};
+
+// One entry of a pixel's front-to-back composite: the alpha terms and, where
+// the alpha mask keeps the entry, its contribution alpha * T_excl, the color
+// (with rich info the depth and normal) accumulators and T. The state goes
+// in and out by value, so the kernel's accumulators stay registers.
+template <bool k3D, bool kRich, int N, int B>
+__device__ __forceinline__ Composite composite_entry(const float (&sf)[N][B], int j, float px,
+                                                     float py, float gamma, Composite s) {
+  using V = Variant<k3D, kRich>;
+  s.contrib = 0.0f;
+  const AlphaTerms a = alpha_terms<k3D>(sf, j, px, py, gamma);
+  if (a.ok) {
+    s.contrib = __fmul_rn(a.alpha, s.T);
+    s.c0 = __fadd_rn(s.c0, __fmul_rn(sf[V::kRgb][j], s.contrib));
+    s.c1 = __fadd_rn(s.c1, __fmul_rn(sf[V::kRgb + 1][j], s.contrib));
+    s.c2 = __fadd_rn(s.c2, __fmul_rn(sf[V::kRgb + 2][j], s.contrib));
+    if constexpr (kRich && k3D) {
+      // ray depth K / D, and the raw normal sum of the D rows
+      s.dacc = __fadd_rn(s.dacc, __fmul_rn(sf[13][j], __fmul_rn(s.contrib, a.invD)));
+      s.n0 = __fadd_rn(s.n0, __fmul_rn(sf[0][j], s.contrib));
+      s.n1 = __fadd_rn(s.n1, __fmul_rn(sf[1][j], s.contrib));
+      s.n2 = __fadd_rn(s.n2, __fmul_rn(sf[2][j], s.contrib));
+    } else if constexpr (kRich) {
+      // depth d0 + d1 * a1 + d2 * a2, normal rows 11..13
+      s.dacc = __fadd_rn(s.dacc, __fadd_rn(
+          __fadd_rn(__fmul_rn(sf[10][j], s.contrib),
+                    __fmul_rn(sf[14][j], __fmul_rn(s.contrib, a.a1))),
+          __fmul_rn(sf[15][j], __fmul_rn(s.contrib, a.a2))));
+      s.n0 = __fadd_rn(s.n0, __fmul_rn(sf[11][j], s.contrib));
+      s.n1 = __fadd_rn(s.n1, __fmul_rn(sf[12][j], s.contrib));
+      s.n2 = __fadd_rn(s.n2, __fmul_rn(sf[13][j], s.contrib));
+    }
+    s.T = __fmul_rn(s.T, __fsub_rn(1.0f, a.alpha));
+  }
+  return s;
+}
+
 template <bool k3D, bool kStats, bool kRich>
 __global__ void __launch_bounds__(1024) blend_forward_kernel(
     const float* __restrict__ pairs, int mp,
@@ -208,7 +257,6 @@ __global__ void __launch_bounds__(1024) blend_forward_kernel(
     float* __restrict__ depth, float* __restrict__ normal,
     float* __restrict__ final_T, int* __restrict__ n_contrib,
     float* __restrict__ pair_contrib) {
-  static_assert(!(kStats && kRich), "rich and stats together are not instantiated");
   using V = Variant<k3D, kRich>;
   constexpr int kBatch = kStats ? kStatsBatch : kFwdBatch;
   __shared__ float sf[V::kFields][kBatch];
@@ -252,14 +300,11 @@ __global__ void __launch_bounds__(1024) blend_forward_kernel(
         float contrib = 0.0f;
         if (live) {
           ++nc;
-          const AlphaTerms a = alpha_terms<k3D>(sf, j, px, py, gamma);
-          if (a.ok) {
-            contrib = __fmul_rn(a.alpha, T);
-            c0 = __fadd_rn(c0, __fmul_rn(sf[V::kRgb][j], contrib));
-            c1 = __fadd_rn(c1, __fmul_rn(sf[V::kRgb + 1][j], contrib));
-            c2 = __fadd_rn(c2, __fmul_rn(sf[V::kRgb + 2][j], contrib));
-            T = __fmul_rn(T, __fsub_rn(1.0f, a.alpha));
-          }
+          const Composite r = composite_entry<k3D, kRich>(
+              sf, j, px, py, gamma, Composite{T, c0, c1, c2, dacc, n0, n1, n2, 0.0f});
+          T = r.T, c0 = r.c0, c1 = r.c1, c2 = r.c2;
+          dacc = r.dacc, n0 = r.n0, n1 = r.n1, n2 = r.n2;
+          contrib = r.contrib;
         }
         const float s = warp_sum(contrib);
         const float m = warp_max(contrib);
@@ -291,30 +336,10 @@ __global__ void __launch_bounds__(1024) blend_forward_kernel(
         // those skipped by the alpha cutoff (2D/3D last_contributor
         // semantics)
         ++nc;
-        const AlphaTerms a = alpha_terms<k3D>(sf, j, px, py, gamma);
-        if (a.ok) {
-          const float contrib = __fmul_rn(a.alpha, T);
-          c0 = __fadd_rn(c0, __fmul_rn(sf[V::kRgb][j], contrib));
-          c1 = __fadd_rn(c1, __fmul_rn(sf[V::kRgb + 1][j], contrib));
-          c2 = __fadd_rn(c2, __fmul_rn(sf[V::kRgb + 2][j], contrib));
-          if constexpr (kRich && k3D) {
-            // ray depth K / D, and the raw normal sum of the D rows
-            dacc = __fadd_rn(dacc, __fmul_rn(sf[13][j], __fmul_rn(contrib, a.invD)));
-            n0 = __fadd_rn(n0, __fmul_rn(sf[0][j], contrib));
-            n1 = __fadd_rn(n1, __fmul_rn(sf[1][j], contrib));
-            n2 = __fadd_rn(n2, __fmul_rn(sf[2][j], contrib));
-          } else if constexpr (kRich) {
-            // depth d0 + d1 * a1 + d2 * a2, normal rows 11..13
-            dacc = __fadd_rn(dacc, __fadd_rn(
-                __fadd_rn(__fmul_rn(sf[10][j], contrib),
-                          __fmul_rn(sf[14][j], __fmul_rn(contrib, a.a1))),
-                __fmul_rn(sf[15][j], __fmul_rn(contrib, a.a2))));
-            n0 = __fadd_rn(n0, __fmul_rn(sf[11][j], contrib));
-            n1 = __fadd_rn(n1, __fmul_rn(sf[12][j], contrib));
-            n2 = __fadd_rn(n2, __fmul_rn(sf[13][j], contrib));
-          }
-          T = __fmul_rn(T, __fsub_rn(1.0f, a.alpha));
-        }
+        const Composite r = composite_entry<k3D, kRich>(
+            sf, j, px, py, gamma, Composite{T, c0, c1, c2, dacc, n0, n1, n2, 0.0f});
+        T = r.T, c0 = r.c0, c1 = r.c1, c2 = r.c2;
+        dacc = r.dacc, n0 = r.n0, n1 = r.n1, n2 = r.n2;
       }
     }
   }
@@ -587,6 +612,14 @@ __global__ void __launch_bounds__(1024) blend_backward_kernel(
   }
 }
 
+template <bool k3D>
+decltype(&blend_forward_kernel<k3D, false, false>) forward_kernel(int stats, int rich) {
+  return stats ? (rich ? &blend_forward_kernel<k3D, true, true>
+                       : &blend_forward_kernel<k3D, true, false>)
+               : (rich ? &blend_forward_kernel<k3D, false, true>
+                       : &blend_forward_kernel<k3D, false, false>);
+}
+
 }  // namespace
 
 extern "C" int ts_blend_forward(const float* pairs, int mp,
@@ -600,15 +633,9 @@ extern "C" int ts_blend_forward(const float* pairs, int mp,
   const int threads = tile_w * tile_h;
   if (threads <= 0 || threads > 1024 || threads % 32 != 0) return (int)cudaErrorInvalidValue;
   if (stats && pair_contrib == nullptr) return (int)cudaErrorInvalidValue;
-  if (stats && rich) return (int)cudaErrorInvalidValue;
   if (num_tiles > 0) {
-    const auto kernel =
-        three_d ? (stats ? &blend_forward_kernel<true, true, false>
-                         : rich ? &blend_forward_kernel<true, false, true>
-                                : &blend_forward_kernel<true, false, false>)
-                : (stats ? &blend_forward_kernel<false, true, false>
-                         : rich ? &blend_forward_kernel<false, false, true>
-                                : &blend_forward_kernel<false, false, false>);
+    const auto kernel = three_d ? forward_kernel<true>(stats, rich)
+                                : forward_kernel<false>(stats, rich);
     kernel<<<num_tiles, threads, 0, stream>>>(
         pairs, mp, tile_starts, tile_counts, params, width, height, tile_w,
         tile_h, grid_w, color, depth, normal, final_T, n_contrib, pair_contrib);

@@ -287,8 +287,8 @@ def rasterize(vertex: torch.Tensor, opacity: torch.Tensor,
     statistic window) runs B1 with its per-pair contribution stream and
     reduces it per triangle (owner sort + kernel B5) into contrib_sum /
     contrib_max, without gradient; with ``need_stats=False`` they are
-    zeros and B5 does not run. Rich info and statistics together are not
-    ported on the kernel path.
+    zeros and B5 does not run. Rich info and statistics together run B1's
+    rich form with the stream in one launch (the renderer facade's form).
     """
     variant = settings.rasterizer_type
     if variant not in ("2D", "3D"):

@@ -14,13 +14,16 @@ and, inside the block's window, accumulates them with the screen-space
 centroid gradient. Opacity pruning and clipping, scale pruning and
 contribution pruning fire on their cadences (the mesh recipes' ADC). The
 initial point cloud is split at the scene's bounding box and each part
-used directly, randomly subsampled or grid-sampled.
+used directly, randomly subsampled or grid-sampled. The alive triangles
+are saved as a PLY at ``save_iterations`` / ``save_interval_iter`` and as
+a GLB mesh at ``save_glb_iterations`` (``toRawTriangle``: bounding-box
+filtering and the STE threshold, as the JAX trainer exports).
 
 Config blocks this slice does not serve raise ``NotImplementedError`` at
 construction: the other ADC blocks (densification, scale clipping,
 opacity reset), the DoG / smoothness / vertex losses, color affine, data
-parallelism, and PLY / checkpoint / GLB saving at an iteration the run
-reaches.
+parallelism, and checkpoints (saving at an iteration the run reaches,
+``start_checkpoint`` / ``start_pointcloud``).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 
 from ..models import triangle as M
 from ..models.model_utils import get_color_tensor, grid_sampling, grid_size_search
+from ..models.raw_triangle import RawTriangle
 from ..ops.projection import RasterSettings
 from ..utils.camera import Camera
 from ..utils.config import Config
@@ -119,12 +123,6 @@ class VanillaTSTrainer(BaseTrainer):
         for name in _ADC_BLOCKS:
             if mu is not None and getattr(mu, name) is not None:
                 refuse(f"model.model_update.{name}")
-        geo = t.geometry_loss
-        if (mu is not None and mu.statistic is not None and geo is not None
-                and (geo.w_geometry or 0) > 0):
-            # the kernels' rich and statistics forms are not instantiated together
-            refuse("model.model_update.statistic together with trainer.geometry_loss "
-                   "(rich info with the contribution statistics)")
         if (t.w_dog or 0) > 0:
             refuse("trainer.w_dog")
         if (t.w_smoothness or 0) > 0:
@@ -137,12 +135,10 @@ class VanillaTSTrainer(BaseTrainer):
             refuse("trainer.eval_lpips")
         if t.start_checkpoint or t.start_pointcloud:
             refuse("trainer.start_checkpoint / start_pointcloud")
-        for key in ("save_iterations", "checkpoint_iterations", "save_glb_iterations"):
-            if any(0 < int(it) <= iters for it in (getattr(t, key) or [])):
-                refuse(f"trainer.{key} (PLY/checkpoint/GLB saving)")
-        for key in ("save_interval_iter", "ckpt_interval_iter"):
-            if (getattr(t, key) or 0) and getattr(t, key) <= iters:
-                refuse(f"trainer.{key} (PLY/checkpoint saving)")
+        if any(0 < int(it) <= iters for it in (t.checkpoint_iterations or [])):
+            refuse("trainer.checkpoint_iterations (checkpoint saving)")
+        if (t.ckpt_interval_iter or 0) and t.ckpt_interval_iter <= iters:
+            refuse("trainer.ckpt_interval_iter (checkpoint saving)")
 
     def _setup_schedulers(self):
         oc = self.config.model.optimizer
@@ -483,6 +479,12 @@ class VanillaTSTrainer(BaseTrainer):
                     "Opacity", M.get_opacity(self.params)[alive, 0].cpu().numpy(), iteration)
                 self.logger.add_histogram(
                     "Scaling", M.get_scaling(self.params)[alive].cpu().numpy(), iteration)
+
+            if iteration in (cfgt.save_iterations or []) or (
+                    cfgt.save_interval_iter and iteration % cfgt.save_interval_iter == 0):
+                self.savePLY(f"{self.output_dir}/point_cloud/{iteration}.ply")
+            if iteration in (cfgt.save_glb_iterations or []):
+                self.saveGLB(f"{self.output_dir}/glb/{iteration}.glb")
         self.dataset.close()
         self.logger.info("Training finished")
 
@@ -538,3 +540,68 @@ class VanillaTSTrainer(BaseTrainer):
 
     def evaluate(self):
         return self._evaluate(0)
+
+    # ------------------------------------------------------------------
+    # IO
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _alive_arrays(self):
+        alive = self.state.alive
+        vertex = self.params.vertex[alive].cpu().numpy()
+        opacity = self.params.opacity[alive].cpu().numpy()
+        shs = M.get_features(self.params)[alive].cpu().numpy()
+        return vertex, opacity, shs.reshape(len(vertex), -1)
+
+    def toRawTriangle(self, bbox_filtering: bool = True) -> RawTriangle:
+        """The alive triangles as a RawTriangle: with ``bbox_filtering``
+        those whose centroid lies inside the scene's bounding box, and with
+        an STE threshold those whose opacity passes it, saved opaque
+        (logit 10)."""
+        vertex, opacity, shs = self._alive_arrays()
+        if bbox_filtering and self.scene_bbox is not None:
+            bbox = np.asarray(self.scene_bbox, np.float32).reshape(-1)
+            xyz = vertex.mean(1)
+            if bbox.size == 4:
+                keep = np.all((xyz[:, :2] >= bbox[:2]) & (xyz[:, :2] <= bbox[2:]), -1)
+            else:
+                keep = np.all((xyz >= bbox[:3]) & (xyz <= bbox[3:]), -1)
+            vertex, opacity, shs = vertex[keep], opacity[keep], shs[keep]
+        thr = self.model_cfg.ste_threshold
+        if thr is not None:
+            sig = 1 / (1 + np.exp(-opacity[:, 0]))
+            keep = sig > thr
+            vertex, shs = vertex[keep], shs[keep]
+            opacity = np.full((keep.sum(), 1), 10.0, np.float32)
+        return RawTriangle(vertex, opacity, shs)
+
+    def savePLY(self, path, bbox_filtering: bool = True):
+        self.logger.info(f"Saving triangles to {path}")
+        self.toRawTriangle(bbox_filtering).savePLY(path, save_extra=True)
+
+    def saveGLB(self, path, bbox_filtering: bool = True):
+        self.logger.info(f"Saving mesh to {path}")
+        self.toRawTriangle(bbox_filtering).saveGLB(
+            path, save_back=not self.model_cfg.back_culling)
+
+    def loadPLY(self, path):
+        """Replace the model by the triangles of a PLY (fresh Adam moments
+        and statistics, capacity rounded up to 256)."""
+        raw = RawTriangle(ply_path=path)
+        n = len(raw)
+        K = (self.model_cfg.max_sh_degree + 1) ** 2
+        shs = raw.shs.reshape(n, -1, 3)
+        feats = np.zeros((n, K, 3), np.float32)
+        take = min(K, shs.shape[1])
+        feats[:, :take] = shs[:, :take]
+        cap = M._round_up(n, 256)
+
+        def pad(x):
+            x = np.concatenate([x, np.zeros((cap - n,) + x.shape[1:], x.dtype)])
+            return torch.as_tensor(x).to(self.device)
+
+        self.params = M.TriangleParams(vertex=pad(raw.vertex), opacity=pad(raw.opacity),
+                                       f_dc=pad(feats[:, :1]), f_rest=pad(feats[:, 1:]))
+        self.state = M.TriangleState.create(cap, device=self.device)
+        self.state.alive = torch.arange(cap, device=self.device) < n
+        self.opt = M.AdamState.create(self.params)
+        self.logger.info(f"Loaded {n} triangles from {path}")
