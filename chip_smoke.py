@@ -96,6 +96,11 @@ photo and mesh phases also check that neither launched B5 or a stats form of
 B1, none of the photo, mesh and mesh_adc phases launched a rich form, and
 none of the triangle phases a GS form.
 
+The build phase prints B2's registers, spills and shared memory per form.
+With --b2-parent DIR (an earlier blend.cu and blend_gs.cu), every site
+that times B2 also times that version in turns with the current one
+(tools/b2_compare.py; --b2-ablate adds two ablations of it).
+
 The last two lines are the per-kernel JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 port package beside it, the script exits with code 2 and prints no
@@ -349,6 +354,16 @@ def cuda_ms(fn, reps: int, warmup: int = 2, hide_host: bool = True) -> float:
     return statistics.median(times)
 
 
+def b2_ms(bw, geo, rich: bool = False, b2=None, site: str | None = None) -> float:
+    """B2's time on the inputs ``bw`` (median of 20). With --b2-parent
+    (``b2``, a tools/b2_compare.py Comparison) and a ``site``, first the
+    parent's B2 in turns with it."""
+    from triangle_splatting_tpu_torch.ops.cuda import blend as KB
+    if b2 is not None and site is not None:
+        say("b2_parent", site=site, **b2.turns(bw, geo, rich, cuda_ms))
+    return cuda_ms(lambda: KB.blend_backward(*bw, rich=rich, **geo), 20)
+
+
 def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -420,6 +435,14 @@ def phase_build() -> None:
         say("build", source=f"{name}.cu", seconds=round(rep["seconds"], 3),
             ptxas=ptxas_usage(rep["log"]))
     say("build", seconds=round(secs, 3), libraries=sorted(p.name for p in paths.values()))
+    # B2's registers, spills and static shared memory per form (ptxas; none
+    # where the libraries were built before), and the dynamic shared memory
+    # each launch asks for
+    from triangle_splatting_tpu_torch.ops.cuda import blend as KB
+    usage = {k: v for rep in build.build_reports.values()
+             for k, v in ptxas_usage(rep["log"]).items()}
+    say("build", b2_ptxas={f: usage.get(k) for f, k in KB.BACKWARD_KERNELS.items()},
+        b2_dynamic_smem_bytes=KB.backward_smem_bytes())
 
 
 def make_bench(dev):
@@ -734,7 +757,7 @@ def rich_cotangents(c, H: int, W: int, dev, seed: int = 0):
             (torch.randn((3, H, W), generator=gen) / (3 * H * W)).to(dev))
 
 
-def phase_kernels(b) -> dict:
+def phase_kernels(b, b2=None) -> dict:
     """Each kernel against its plain version at the bench shapes."""
     import torch
     from triangle_splatting_tpu_torch.ops.binning import sort_pairs
@@ -796,7 +819,7 @@ def phase_kernels(b) -> dict:
             tol=c["b1_tol"])
         rec["blend_backward"] = dict(
             max_abs_err=c["b2_err"],
-            ms=cuda_ms(lambda: KB.blend_backward(*c["bw"], **geo), 20),
+            ms=b2_ms(c["bw"], geo, b2=b2, site="bench-800-100k"),
             plain_ms=cuda_ms(lambda: KB.blend_backward_plain(*c["bw"], **geo), 3, 1),
             library_ms=None,
             bound=bound_ms(c["b2_bytes"], BWD_OPS_PER_EVAL * c["evals"]),
@@ -820,7 +843,7 @@ def phase_kernels(b) -> dict:
             tol=r["b1_tol"])
         rec["blend_backward_rich"] = dict(
             max_abs_err=r["b2_err"],
-            ms=cuda_ms(lambda: KB.blend_backward(*r["bw"], rich=True, **geo), 20),
+            ms=b2_ms(r["bw"], geo, rich=True, b2=b2, site="bench-800-100k"),
             plain_ms=cuda_ms(lambda: KB.blend_backward_plain(*r["bw"], rich=True, **geo), 3, 1),
             library_ms=None,
             bound=bound_ms(r["b2_bytes"], (BWD_OPS_PER_EVAL + RICH_BWD_OPS["2D"]) * r["evals"]),
@@ -879,7 +902,7 @@ def phase_kernels(b) -> dict:
     return rec
 
 
-def phase_kernels_3d(dev) -> dict:
+def phase_kernels_3d(dev, b2=None) -> dict:
     """B1/B2 in variant "3D" against their plain versions on a 100k-triangle
     random scene at the mesh path's rendered size (1600x1600: 2,500 tiles),
     at gamma 1 and at gamma 50; timed at gamma 50, the solidified regime
@@ -947,7 +970,8 @@ def phase_kernels_3d(dev) -> dict:
             rel_err_stream_sum=rs["rel_stream_sum"], rel_err_stream_max=rs["rel_stream_max"],
             ms=ms1rs, bound_ms=bound1rs[0])
         ms1r = cuda_ms(lambda: KB.blend_forward(*r["fwd"], rich=True, **geo), 20)
-        ms2r = cuda_ms(lambda: KB.blend_backward(*r["bw"], rich=True, **geo), 20)
+        site = None if gamma == 1.0 else "bench3d-1600-100k gamma 50"
+        ms2r = b2_ms(r["bw"], geo, rich=True, b2=b2, site=site)
         rich_ops = (FWD_OPS_PER_EVAL_3D[gamma == 1.0] + RICH_FWD_OPS["3D"],
                     BWD_OPS_PER_EVAL_3D[gamma == 1.0] + RICH_BWD_OPS["3D"])
         say("kernels_3d", kernel="blend_rich", gamma=gamma, b1_rel_err_depth=r["rel_depth"],
@@ -960,7 +984,7 @@ def phase_kernels_3d(dev) -> dict:
             b2_rich_bound_ms=bound_ms(r["b2_bytes"], rich_ops[1] * r["evals"])[0])
         ms1 = cuda_ms(lambda: KB.blend_forward(*c["fwd"], **geo), 20)
         ms1s = cuda_ms(lambda: KB.blend_forward(*c["fwd"], stats=True, **geo), 20)
-        ms2 = cuda_ms(lambda: KB.blend_backward(*c["bw"], **geo), 20)
+        ms2 = b2_ms(c["bw"], geo, b2=b2, site=site)
         ms5 = cuda_ms(lambda: KS.segment_reduce_stats(*c5["args"]), 50)
         g1 = gamma == 1.0
         bound1 = bound_ms(c["b1_bytes"], FWD_OPS_PER_EVAL_3D[g1] * c["evals"])
@@ -1092,7 +1116,7 @@ def check_blend_gs(fwd, geo, target, what: str, cot_seed: int = 0) -> dict:
                           * H * W + 4 * 16 * ma for f in bws})
 
 
-def phase_kernels_gs(dev) -> dict:
+def phase_kernels_gs(dev, b2=None) -> dict:
     """bench-gs-800-100k: B1-GS (four forms) and B2-GS (two forms) against
     their plain versions on 100k random Gaussians at 800x800 (the GS twin of
     bench-800-100k: ``make_gs_scene`` over the same frustum, scales 0.01-0.05
@@ -1101,7 +1125,7 @@ def phase_kernels_gs(dev) -> dict:
     B5 on the stream after the owner sort. Each form is timed at gamma 1,
     the gamma VanillaGS trains at. Then a stack of 400 Gaussians whose kill
     entry (index 300) lies past the first staged batch of every form (256
-    forward, 128 with stats, 32 backward), held exactly on n_contrib and
+    forward, 128 with stats, 96 backward), held exactly on n_contrib and
     final_T."""
     import dataclasses
 
@@ -1168,7 +1192,7 @@ def phase_kernels_gs(dev) -> dict:
             rich = form == "gs_rich"
             ops = (BWD_OPS_PER_EVAL_GS[g1] + (RICH_BWD_OPS["GS"] if rich else 0)) * c["evals"]
             times[f"blend_backward_{form}"] = dict(
-                ms=cuda_ms(lambda: KB.blend_backward(*b["bw"], rich=rich, **geo), 20),
+                ms=b2_ms(b["bw"], geo, rich, b2, "bench-gs-800-100k" if g1 else None),
                 bound=bound_ms(c["b2_bytes"][form], ops), err=b["err"],
                 plain=lambda b=b, rich=rich: KB.blend_backward_plain(*b["bw"], rich=rich, **geo))
         say("kernels_gs", gamma=gamma, tiles=int(sp.tile_counts.shape[0]),
@@ -2058,7 +2082,7 @@ def build_city(dev) -> Path:
     return root
 
 
-def phase_city(dev, root: Path) -> tuple[dict, dict]:
+def phase_city(dev, root: Path, b2=None) -> tuple[dict, dict]:
     """config/MatrixCity_VanillaTS_mesh.yaml as shipped, on the synthetic
     city, with the cuts of CITY_CUTS (the recipe's cadences compressed
     into 50 steps). Gates: losses finite and falling; the geometry term
@@ -2250,7 +2274,7 @@ def phase_city(dev, root: Path) -> tuple[dict, dict]:
                 tol=r["b1_tol"]),
             "blend_backward_3d_rich": dict(
                 max_abs_err=r["b2_err"],
-                ms=cuda_ms(lambda: KB.blend_backward(*r["bw"], rich=True, **geo), 20),
+                ms=b2_ms(r["bw"], geo, rich=True, b2=b2, site="city last step"),
                 plain_ms=cuda_ms(lambda: KB.blend_backward_plain(*r["bw"], rich=True, **geo), 2, 1),
                 library_ms=None,
                 bound=bound_ms(r["b2_bytes"], (BWD_OPS_PER_EVAL_3D[g50] + RICH_BWD_OPS["3D"])
@@ -2523,8 +2547,18 @@ def check_opacity_adc(params, opt, state) -> None:
             card_vs_cpu="exact")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--b2-parent", type=Path, default=None, metavar="DIR",
+                    help="a directory with an earlier blend.cu and blend_gs.cu: time their "
+                         "B2 in turns with the current one (tools/b2_compare.py)")
+    ap.add_argument("--b2-ablate", action="store_true",
+                    help="with --b2-parent: also time two ablations of the parent's B2 "
+                         "(those of commit 347405a)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -2542,10 +2576,15 @@ def main() -> int:
             count=torch.cuda.device_count(), torch=torch.__version__,
             cuda=torch.version.cuda)
         phase_build()
+        b2 = None
+        if args.b2_parent is not None:
+            from triangle_splatting_tpu_torch.tools.b2_compare import Comparison
+            b2 = Comparison(args.b2_parent, args.b2_ablate)
+            say("b2_parent", builds=b2.builds, takes_order=b2.takes_order, sass=b2.sass)
         bench = make_bench(dev)
-        rec = phase_kernels(bench)
-        rec.update(phase_kernels_3d(dev))
-        rec.update(phase_kernels_gs(dev))
+        rec = phase_kernels(bench, b2)
+        rec.update(phase_kernels_3d(dev, b2))
+        rec.update(phase_kernels_gs(dev, b2))
         phase_reference(dev)
         phase_rasterize(bench)
         runs = dict(renderer=phase_renderer(bench))
@@ -2560,7 +2599,7 @@ def main() -> int:
         runs["mesh"] = phase_mesh_train(dev, surface)
         runs["mesh_adc"] = phase_mesh_adc(dev, surface)
         shutil.rmtree(surface, ignore_errors=True)
-        runs["city"], city_rec = phase_city(dev, build_city(dev))
+        runs["city"], city_rec = phase_city(dev, build_city(dev), b2)
         rec.update(city_rec)
     except SmokeFailure as e:
         print(f"FAIL {e}", flush=True)

@@ -737,3 +737,149 @@ def test_scan_probe_kernel_matches_cumprod_and_plain(dev, variant):
     err = float(((got - want).abs() / want).max())
     assert err <= (4e-5 if variant == "mxu_log" else 5e-6), err
     assert float(got.min()) >= float(np.float32(0.9)) and float(got.max()) <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# B2 as redesigned for the H100: warp-uniform skip, 8x4 warp blocks, the
+# transposed warp sum, heaviest tiles first, staged batches of 64-96
+# ---------------------------------------------------------------------------
+
+B2_FORMS = [("2D", False), ("2D", True), ("3D", False), ("3D", True), ("GS", False),
+            ("GS", True)]
+B2_CASES = [
+    # (id, P, W, H, seed, gamma, xy_extent, sizes): empty tiles, tiles whose
+    # deepest contributor lies past two batches and off any batch multiple,
+    # 8x4 blocks of pixels that no pair reaches; partial tiles both ways
+    ("200x136-g1", 600, 200, 136, 0, 1.0, 0.6, None),
+    ("200x136-g50", 600, 200, 136, 0, 50.0, 0.6, None),
+    # 1600x900: 28 full tile rows and a partial one 4 pixels high
+    ("1600x900-g1", 4000, 1600, 900, 1, 1.0, 1.2, (0.02, 0.08)),
+]
+
+
+def b2_inputs(variant, case, dev, tile=(32, 32)):
+    """Packed pairs of a random triangle or Gaussian scene on ``dev``, in
+    tiles of ``tile`` (w, h) pixels (``xy_extent`` small leaves the image's
+    border tiles empty)."""
+    from triangle_splatting_tpu_torch.ops.gaussian import (gaussian_field_matrix,
+                                                           preprocess_gaussian)
+    from triangle_splatting_tpu_torch.utils.testing import make_gs_scene
+    _, P, W, H, seed, gamma, xy, sizes = case
+    st = RasterSettings(image_width=W, image_height=H, tile_w=tile[0], tile_h=tile[1],
+                        rich_info=False, rasterizer_type=variant)
+    cam = make_camera(W, H, device=dev)
+    g = torch.tensor(gamma, device=dev)
+    with torch.no_grad():
+        if variant == "GS":
+            gs_sizes = (0.03, 0.15) if sizes is None else (sizes[0] / 2, sizes[1] / 2)
+            s = make_gs_scene(P, seed=seed, xy_extent=xy, scale_range=gs_sizes)
+            xyz, scale, rot, op, rgb = (torch.as_tensor(s[k]).to(dev)
+                                        for k in ("xyz", "scale", "rot", "opacity", "rgb"))
+            prep = preprocess_gaussian(xyz, scale, rot, rgb, cam.world_view, cam.full_proj,
+                                       cam.tan_fovx, cam.tan_fovy, st, opacity=op, gamma=g)
+        else:
+            s = make_random_scene(P, seed=seed, xy_extent=xy,
+                                  size_range=(0.05, 0.25) if sizes is None else sizes)
+            vertex, op, rgb = (torch.as_tensor(s[k]).to(dev) for k in ("vertex", "opacity", "rgb"))
+            pre = preprocess_2d if variant == "2D" else preprocess_3d
+            prep = pre(vertex, torch.zeros((P, 2), device=dev), rgb, cam.world_view,
+                       cam.full_proj, cam.tan_fovx, cam.tan_fovy, st, opacity=op, gamma=g)
+        sp = sort_pairs(prep, st, 128 * 4000)
+        assert not bool(sp.overflow)
+        pair_tri = KS.relayout_pairs_plain(sp.sorted_tri, sp.raw_starts, sp.astarts,
+                                           sp.tile_counts, sp.ma)
+        if variant == "GS":
+            fmat = gaussian_field_matrix(prep, op)
+        elif variant == "2D":
+            fmat = triangle_field_matrix(prep, op)
+        else:
+            fmat = triangle_field_matrix_3d(prep, op, cam.tan_fovx, cam.tan_fovy, W, H)
+        fields = torch.where((pair_tri >= 0)[:, None], fmat[pair_tri.clamp_min(0).long()],
+                             torch.zeros((), device=dev)).t().contiguous()
+    sx, sy = W / (2.0 * float(cam.tan_fovx)), H / (2.0 * float(cam.tan_fovy))
+    params = torch.tensor([gamma, 1.0, 0.9, 0.8, 10.0, sx, sy, 0.0], device=dev)
+    return sp, fields, params
+
+
+def hold_b2(variant, rich, case, sp, fields, params, geo, dev):
+    """Each B2 form against its plain version: the live rows rel 1e-4 of
+    each row's max, the other rows ("GS": and row 5), padding slots, slots
+    past the deepest contributor and the buffer's tail exactly zero; two
+    launches bit-identical (fixed-order sums, no atomics) and counted.
+    Returns B1's outputs and each tile's deepest contributor."""
+    W, H, seed = geo["image_width"], geo["image_height"], case[4]
+    tile_w, tile_h = geo["tile_w"], geo["tile_h"]
+    args = (fields, sp.astarts, sp.tile_counts, params)
+    out = KB.blend_forward(*args, rich=rich, **geo)
+    grid_w, grid_h = KB._grid(W, H, tile_h, tile_w)
+    counts = sp.tile_counts
+    nc = KB._tile(out[4], grid_h, grid_w, tile_h, tile_w)
+    jmax = torch.minimum(nc, counts[:, None]).amax(dim=1)
+
+    rng = np.random.default_rng(seed)
+    cot = lambda *s: torch.as_tensor(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32) / (H * W)).to(dev)
+    bw = args + (out[3], out[4], cot(3, H, W), cot(H, W))
+    if rich:
+        bw += (cot(H, W), cot(3, H, W))
+    form = variant + ("_rich" if rich else "")
+    n = KB.blend_backward.launches[form]
+    got = KB.blend_backward(*bw, rich=rich, **geo)
+    again = KB.blend_backward(*bw, rich=rich, **geo)
+    want = KB.blend_backward_plain(*bw, rich=rich, **geo)
+    torch.cuda.synchronize()
+    assert KB.blend_backward.launches[form] == n + 2
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all())
+    live = KB.LIVE_GRAD_ROWS[(variant, rich)]
+    scale = want[:live].abs().amax(dim=1).clamp_min(1e-30)
+    assert float(((got[:live] - want[:live]).abs().amax(dim=1) / scale).max()) <= 1e-4
+    assert not bool(got[live:].any())
+    if variant == "GS":
+        assert not bool(got[5].any())
+    ts, tc = sp.astarts.tolist(), counts.tolist()
+    for t in range(len(tc)):
+        assert not bool(got[:, ts[t] + int(jmax[t]):ts[t + 1]].any())
+    assert not bool(got[:, ts[-1]:].any())
+    return out, jmax
+
+
+@pytest.mark.parametrize("case", B2_CASES, ids=[c[0] for c in B2_CASES])
+@pytest.mark.parametrize("variant,rich", B2_FORMS,
+                         ids=[v + ("-rich" if r else "") for v, r in B2_FORMS])
+def test_blend_backward_redesign_matches_plain(dev, variant, rich, case):
+    """Each B2 form against its plain version (``hold_b2``) in 32x32 tiles,
+    whose warps cover 8x4 blocks, at shapes with empty tiles, deepest
+    contributors off every batch size and 8x4 blocks that no pair hits."""
+    _, P, W, H, seed, gamma, xy, sizes = case
+    sp, fields, params = b2_inputs(variant, case, dev)
+    geo = dict(image_width=W, image_height=H, tile_h=32, tile_w=32, variant=variant)
+    out, jmax = hold_b2(variant, rich, case, sp, fields, params, geo, dev)
+    # the shapes the case is for
+    grid_w, grid_h = KB._grid(W, H, 32, 32)
+    counts = sp.tile_counts
+    assert int((counts == 0).sum()) > 0                            # an empty tile
+    assert bool((jmax % 8 != 0).any())                             # off every batch size
+    blocks = KB._tile(out[3], grid_h, grid_w, 32, 32).reshape(-1, 8, 4, 4, 8)
+    no_hit = (blocks == 1.0).all(dim=4).all(dim=2)                 # 8x4 blocks never hit
+    assert bool((no_hit.any(dim=(1, 2)) & (counts > 0)).any())
+    if W == 200:
+        assert int(jmax.max()) > 2 * 96                            # three batches or more
+
+
+B2_ODD_TILES = [(12, 8), (16, 2)]
+
+
+@pytest.mark.parametrize("tile", B2_ODD_TILES, ids=[f"{w}x{h}" for w, h in B2_ODD_TILES])
+@pytest.mark.parametrize("variant,rich", B2_FORMS,
+                         ids=[v + ("-rich" if r else "") for v, r in B2_FORMS])
+def test_blend_backward_redesign_odd_tiles_match_plain(dev, variant, rich, tile):
+    """Each B2 form against its plain version (``hold_b2``) in tiles that
+    do not divide into 8x4 blocks, where the warps cover the tile's rows
+    in order (12x8: a warp spans rows of 12 pixels; 16x2: one warp)."""
+    case = B2_CASES[0]
+    sp, fields, params = b2_inputs(variant, case, dev, tile)
+    geo = dict(image_width=case[2], image_height=case[3], tile_w=tile[0], tile_h=tile[1],
+               variant=variant)
+    _, jmax = hold_b2(variant, rich, case, sp, fields, params, geo, dev)
+    assert int(jmax.max()) > 0

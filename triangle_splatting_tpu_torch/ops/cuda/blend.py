@@ -549,9 +549,10 @@ def blend_backward(pairs: torch.Tensor, tile_starts: torch.Tensor,
     if pairs.dtype != torch.float32 or params.dtype != torch.float32:
         raise TypeError("blend_backward: the CUDA kernel takes float32 inputs")
     out = torch.empty_like(pairs)
+    order = tile_order(tile_counts)
     head = (pairs.data_ptr(), pairs.shape[1], tile_starts.data_ptr(),
-            tile_counts.data_ptr(), params.data_ptr(), W, H, tile_w, tile_h,
-            grid_w, grid_w * grid_h)
+            tile_counts.data_ptr(), order.data_ptr(), params.data_ptr(), W, H, tile_w,
+            tile_h, grid_w, grid_w * grid_h)
     blend_backward.launches[_form(variant, rich=rich)] += 1
     if variant == "GS":
         code = library("blend_gs").ts_blend_backward_gs(
@@ -570,3 +571,35 @@ def blend_backward(pairs: torch.Tensor, tile_starts: torch.Tensor,
 
 blend_backward.launches = dict.fromkeys((_form(v, rich=r) for r in (False, True)
                                          for v in VARIANTS), 0)
+
+
+def tile_order(tile_counts: torch.Tensor) -> torch.Tensor:
+    """The order in which B2's blocks take the tiles (one block per SM at a
+    time): by descending pair count, ties in tile order (int64, as
+    ``argsort`` gives it: the kernel reads it so). The heaviest tiles start
+    first, so the last wave of blocks is not one long tile. It pays where
+    a few tiles carry most of the work (the mesh cells' surface at 2,500
+    tiles, the photo and gs cells at 625, the city at 1,450) and costs the
+    argsort, ~3% of B2, on a uniform scene; the wrapper cannot tell the
+    two apart without a sync, so it always sorts (PERF.md, Findings)."""
+    return torch.argsort(tile_counts, descending=True, stable=True)
+
+
+# B2's kernel in each form, as compare_sass and ptxas name it
+BACKWARD_KERNELS = {"2D": "blend_backward_kernel<false, false>",
+                    "3D": "blend_backward_kernel<true, false>",
+                    "2D_rich": "blend_backward_kernel<false, true>",
+                    "3D_rich": "blend_backward_kernel<true, true>",
+                    "GS": "blend_backward_gs_kernel<false>",
+                    "GS_rich": "blend_backward_gs_kernel<true>"}
+
+
+def backward_smem_bytes() -> dict[str, int]:
+    """Dynamic shared memory of each B2 form's launch, in bytes (builds the
+    kernels: CUDA only)."""
+    lib, lib_gs = library("blend"), library("blend_gs")
+    out = {_form(v, rich=r): lib.ts_blend_backward_smem(int(v == "3D"), int(r))
+           for v in ("2D", "3D") for r in (False, True)}
+    out.update({_form("GS", rich=r): lib_gs.ts_blend_backward_gs_smem(int(r))
+                for r in (False, True)})
+    return out

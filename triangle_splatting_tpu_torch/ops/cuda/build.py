@@ -4,8 +4,9 @@ Each source under ``csrc/`` is compiled by its own ``nvcc`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds) and loaded with ``ctypes``. Builds start at first use, all sources
 in parallel, into ``build/`` beside this file (listed in ``.gitignore``).
-A library is named by a hash of its source and flags, so an edited source
-is rebuilt and a stale library is never loaded.
+A library is named by a hash of its source, the headers of ``csrc/`` it
+includes and the flags, so an edited source or header is rebuilt and a
+stale library is never loaded.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on machines without ``nvcc``.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -42,14 +44,16 @@ SIGNATURES = {
     "blend": {
         "ts_blend_forward": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P, _P, _P, _P, _P, _P, _P),
-        "ts_blend_backward": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _P, _P, _P, _P, _P, _P, _P, _P),
+        "ts_blend_backward": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
+        "ts_blend_backward_smem": (_I, _I),
     },
     "blend_gs": {
         "ts_blend_forward_gs": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _P, _P, _P, _P, _P, _P, _P),
-        "ts_blend_backward_gs": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                 _P, _P, _P, _P, _P, _P, _P),
+        "ts_blend_backward_gs": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _P, _P, _P, _P, _P, _P, _P),
+        "ts_blend_backward_gs_smem": (_I,),
     },
     "probes": {
         "ts_probe_vpu": (_P, _P, _I, _I, _I, _I, _F, _F, _P),
@@ -79,6 +83,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in re.findall(rb'#include "([^"]+)"', src):
+        src += (CSRC / header.decode()).read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

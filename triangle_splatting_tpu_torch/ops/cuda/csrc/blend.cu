@@ -33,8 +33,11 @@
 // and outputs are a few tens of MB, so the device-memory bound is ~10-60 us
 // while the float32 bound of the evaluations a frame needs (67 TFLOP/s
 // without tensor cores) is tens to hundreds of us: both kernels are bound
-// by operations, and in practice by the latency of one sequential loop per
-// pixel.
+// by operations, and in practice by the instructions a warp issues per
+// entry. In the backward as first written (one warp per 32-pixel row of
+// the tile, every entry's chain run, a 5-level shuffle tree per gradient
+// row) the trees took 10-30% of its time and the chain of entries where
+// no pixel of the warp is hit another 13-29% (PERF.md, Findings).
 //
 // Design:
 //  - one block per tile, one thread per pixel (tile_h * tile_w <= 1024
@@ -45,21 +48,38 @@
 //    T_EPS (__syncthreads_count), as the Pallas while_loop does per slab;
 //  - the backward walks each tile back to front from the forward's
 //    n_contrib / final_T, rebuilding T by division as the reference
-//    backward does. Each pair's gradient is summed over the tile's pixels
-//    deterministically: a fixed warp-shuffle tree, then a fixed-order sum
-//    over the warps in shared memory. There are no float atomics, and each
-//    output slot belongs to exactly one tile, so blocks never collide;
+//    backward does. What it evaluates and how it sums (blend_backward.cuh):
+//    a warp covers an 8x4 block of the tile (fewer pairs reach a compact
+//    block than a row). It first evaluates an entry's alpha terms, and
+//    where no pixel of the warp is processed with alpha != 0 it leaves T,
+//    the suffix sum A and the rows as they are: 1 / (1 - 0) is exactly 1
+//    and contrib exactly 0, so that is exact; entries past the warp's
+//    deepest contributor it does not evaluate at all. The alpha terms come
+//    in two halves: the ecc, then the falloff (an exp; at gamma != 1 a log
+//    and two exps). Between them the warp tests each pixel's ecc against
+//    a bound from the entry's opacity (ecc_bound, once per staged entry)
+//    past which alpha < 1/255 for certain, and evaluates the falloff only
+//    if some processed pixel is within it. Where some pixel hits, the
+//    chain runs and the warp sums each gradient row over its 32 pixels by
+//    a transposed reduction (16 shuffles for up to 16 rows, not 5 a row),
+//    then a fixed-order pass over the warps in shared memory.
+//    No float atomics, each output slot belongs to exactly one tile: two
+//    launches give the same bits. Blocks take the tiles heaviest first
+//    (a tile order from the wrapper), so the last wave is not one long
+//    tile. Batches of 64-96 entries sit in dynamic shared memory, and the
+//    next batch's fields are copied in (cp.async) while one is computed;
 //  - the per-(pair, pixel) arithmetic is written with explicitly rounded
 //    intrinsics (__fadd_rn, __fmul_rn, __fdiv_rn, ...) in the order the
 //    plain PyTorch version evaluates it, so no multiply-add contraction
 //    changes a rounding: the alpha mask, the transmittance and hence
-//    n_contrib match the plain version bit for bit, and only the order of
-//    sums differs. The build has no --use_fast_math;
+//    n_contrib match the plain version bit for bit (and B2's alpha mask is
+//    B1's), and only the order of sums differs. The build has no
+//    --use_fast_math;
 //  - the stats form reduces each pair's contributions over the tile's
-//    pixels as B2 reduces its gradients: a fixed warp-shuffle tree for the
-//    sum and one for the max, then a fixed-order pass over the warps in
-//    shared memory. No float atomics, so the sums that rank triangles for
-//    pruning do not change from run to run. Its warps loop while any lane
+//    pixels: a fixed warp-shuffle tree for the sum and one for the max,
+//    then a fixed-order pass over the warps in shared memory. No float
+//    atomics, so the sums that rank triangles for pruning do not change
+//    from run to run. Its warps loop while any lane
 //    is live (__any_sync): a finished pixel contributes 0 and skips every
 //    state update, so color, final_T and n_contrib (and with rich info
 //    depth and normal) are those of the stats-off form bit for bit. Both
@@ -77,15 +97,17 @@
 //    normal rows) to the forward and the depth / normal cotangents to the
 //    backward's gdot, background term and gradient rows. They leave every
 //    other operation as it is, so color, final_T and n_contrib are those
-//    of the forms without rich info bit for bit. The backward's 16 ("2D")
-//    or 14 ("3D") live rows take 57-58 registers and per-warp partials of
-//    22 x 16 x 33 or 24 x 14 x 33 floats, which with the staged fields
-//    keep the batch in static shared memory (47,876 B and 45,700 B).
+//    of the forms without rich info bit for bit. The backward sums 16
+//    ("2D") or 14 ("3D") live rows.
 //
 // C interface: each entry point launches on the given stream and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "blend_backward.cuh"
 
 namespace {
 
@@ -101,22 +123,23 @@ constexpr int kMaxWarps = 32;
 
 // Per variant and rich switch: fields the kernels read, live gradient rows
 // (LIVE_GRAD_ROWS[(variant, rich)]), the opacity and first rgb field, and
-// the backward's batch (its per-warp partial sums and the staged fields
-// must fit the 48 KB of static shared memory: 24 x 13 x 33 floats for
-// "3D"; 22 x 16 x 33 + 16 x 22 floats = 47,872 B for "2D" rich, 24 x 14 x
-// 33 + 14 x 24 = 45,696 B for "3D" rich).
+// the backward's batch: the entries staged at a time, sized so that one
+// pass of the block's 1,024 threads sums a batch's rows over the warps
+// (live rows x batch <= 1024) and the per-warp partials fit the dynamic
+// shared memory (blend_backward.cuh Layout: 134,440 B "2D", 131,092 B
+// "3D", 143,424 B "2D" rich, 141,176 B "3D" rich).
 template <bool k3D, bool kRich> struct Variant;
 template <> struct Variant<false, false> {
-  static constexpr int kFields = 10, kLive = 10, kOpac = 6, kRgb = 7, kBwdBatch = 32;
+  static constexpr int kFields = 10, kLive = 10, kOpac = 6, kRgb = 7, kBwdBatch = 96;
 };
 template <> struct Variant<true, false> {
-  static constexpr int kFields = 13, kLive = 13, kOpac = 9, kRgb = 10, kBwdBatch = 24;
+  static constexpr int kFields = 13, kLive = 13, kOpac = 9, kRgb = 10, kBwdBatch = 72;
 };
 template <> struct Variant<false, true> {
-  static constexpr int kFields = 16, kLive = 16, kOpac = 6, kRgb = 7, kBwdBatch = 22;
+  static constexpr int kFields = 16, kLive = 16, kOpac = 6, kRgb = 7, kBwdBatch = 64;
 };
 template <> struct Variant<true, true> {
-  static constexpr int kFields = 14, kLive = 14, kOpac = 9, kRgb = 10, kBwdBatch = 24;
+  static constexpr int kFields = 14, kLive = 14, kOpac = 9, kRgb = 10, kBwdBatch = 72;
 };
 
 struct AlphaTerms {
@@ -128,12 +151,12 @@ __device__ __forceinline__ float affine(float c0, float cx, float cy, float px, 
   return __fadd_rn(__fadd_rn(c0, __fmul_rn(cx, px)), __fmul_rn(cy, py));
 }
 
-// blend.py _alpha_terms (:177-219) from the barycentrics on: the ecc
-// falloff and the alpha masks, same evaluation order as the plain version,
-// no contraction. ``ok_d`` is the "3D" plane guard (true for "2D").
-__device__ __forceinline__ AlphaTerms alpha_tail(const float a1, const float a2,
-                                                 const float invD, const bool ok_d,
-                                                 const float opac, float gamma) {
+// blend.py _alpha_terms (:177-219) from the barycentrics on, same
+// evaluation order as the plain version, no contraction, in two halves so
+// that B2 can test an entry between them. First the ecc and its range and
+// plane masks (``ok_d`` is the "3D" plane guard, true for "2D") ...
+__device__ __forceinline__ AlphaTerms ecc_terms(const float a1, const float a2,
+                                                const float invD, const bool ok_d) {
   AlphaTerms r;
   r.a1 = a1;
   r.a2 = a2;
@@ -141,8 +164,14 @@ __device__ __forceinline__ AlphaTerms alpha_tail(const float a1, const float a2,
   r.a3 = __fsub_rn(__fsub_rn(1.0f, r.a1), r.a2);
   const float mn = fminf(fminf(r.a1, r.a2), r.a3);
   const float ecc = __fsub_rn(1.0f, __fmul_rn(3.0f, mn));
-  bool ok = (ecc >= 0.0f) && (ecc <= kEccMax) && ok_d;
+  r.ok = (ecc >= 0.0f) && (ecc <= kEccMax) && ok_d;
   r.eccs = fmaxf(ecc, 0.0f);
+  return r;
+}
+
+// ... then the ecc falloff and the alpha mask.
+__device__ __forceinline__ AlphaTerms alpha_falloff(AlphaTerms r, const float opac,
+                                                    float gamma) {
   float powed;
   if (gamma == 1.0f) {
     powed = __fmul_rn(r.eccs, r.eccs);
@@ -153,35 +182,56 @@ __device__ __forceinline__ AlphaTerms alpha_tail(const float a1, const float a2,
   r.expp = expf(__fmul_rn(-0.5f, powed));
   r.alpha_un = __fmul_rn(opac, r.expp);
   const float alpha = fminf(kAlphaMax, r.alpha_un);
-  ok = ok && (alpha >= kAlphaMin);
-  r.alpha = ok ? alpha : 0.0f;
-  r.ok = ok;
+  r.ok = r.ok && (alpha >= kAlphaMin);
+  r.alpha = r.ok ? alpha : 0.0f;
   return r;
 }
 
 // "2D": the barycentrics are affine in the pixel.
+__device__ __forceinline__ AlphaTerms ecc_terms_2d(
+    const float f0, const float f1, const float f2, const float f3, const float f4,
+    const float f5, float px, float py) {
+  return ecc_terms(affine(f0, f1, f2, px, py), affine(f3, f4, f5, px, py), 1.0f, true);
+}
+
 __device__ __forceinline__ AlphaTerms alpha_terms_2d(
     const float f0, const float f1, const float f2, const float f3, const float f4,
     const float f5, const float opac, float px, float py, float gamma) {
-  return alpha_tail(affine(f0, f1, f2, px, py), affine(f3, f4, f5, px, py), 1.0f,
-                    true, opac, gamma);
+  return alpha_falloff(ecc_terms_2d(f0, f1, f2, f3, f4, f5, px, py), opac, gamma);
 }
 
 // "3D": a1 = A1 / D and a2 = A2 / D, with the |D| >= 1e-8 guard and a
 // correctly rounded reciprocal, as the plain version's 1 / where(ok, D, 1).
+__device__ __forceinline__ AlphaTerms ecc_terms_3d(
+    const float f0, const float f1, const float f2, const float f3, const float f4,
+    const float f5, const float f6, const float f7, const float f8, float px, float py) {
+  const float D = affine(f0, f1, f2, px, py);
+  const bool ok_d = fabsf(D) >= kMinAbsD;
+  const float invD = __fdiv_rn(1.0f, ok_d ? D : 1.0f);
+  return ecc_terms(__fmul_rn(affine(f3, f4, f5, px, py), invD),
+                   __fmul_rn(affine(f6, f7, f8, px, py), invD), invD, ok_d);
+}
+
 __device__ __forceinline__ AlphaTerms alpha_terms_3d(
     const float f0, const float f1, const float f2, const float f3, const float f4,
     const float f5, const float f6, const float f7, const float f8, const float opac,
     float px, float py, float gamma) {
-  const float D = affine(f0, f1, f2, px, py);
-  const bool ok_d = fabsf(D) >= kMinAbsD;
-  const float invD = __fdiv_rn(1.0f, ok_d ? D : 1.0f);
-  return alpha_tail(__fmul_rn(affine(f3, f4, f5, px, py), invD),
-                    __fmul_rn(affine(f6, f7, f8, px, py), invD), invD, ok_d, opac,
-                    gamma);
+  return alpha_falloff(ecc_terms_3d(f0, f1, f2, f3, f4, f5, f6, f7, f8, px, py), opac, gamma);
 }
 
-// The alpha terms of entry j of the staged batch.
+// The ecc terms of entry j of the staged batch ...
+template <bool k3D, int N, int B>
+__device__ __forceinline__ AlphaTerms ecc_terms_at(const float (&sf)[N][B], int j, float px,
+                                                   float py) {
+  if constexpr (k3D) {
+    return ecc_terms_3d(sf[0][j], sf[1][j], sf[2][j], sf[3][j], sf[4][j], sf[5][j],
+                        sf[6][j], sf[7][j], sf[8][j], px, py);
+  } else {
+    return ecc_terms_2d(sf[0][j], sf[1][j], sf[2][j], sf[3][j], sf[4][j], sf[5][j], px, py);
+  }
+}
+
+// ... and its alpha terms.
 template <bool k3D, int N, int B>
 __device__ __forceinline__ AlphaTerms alpha_terms(const float (&sf)[N][B], int j,
                                                   float px, float py, float gamma) {
@@ -192,6 +242,21 @@ __device__ __forceinline__ AlphaTerms alpha_terms(const float (&sf)[N][B], int j
     return alpha_terms_2d(sf[0][j], sf[1][j], sf[2][j], sf[3][j], sf[4][j], sf[5][j],
                           sf[6][j], px, py, gamma);
   }
+}
+
+// The largest ecc at which an entry of opacity ``opac`` can still reach
+// alpha >= ALPHA_MIN at ``gamma`` (B2's pre-test): past it, ecc^(2 gamma)
+// >= 2 ln(opac / ALPHA_MIN) + 2e-3, which keeps alpha_un = opac exp(-0.5
+// ecc^(2 gamma)) below ALPHA_MIN through every rounding of alpha_falloff
+// (relative errors < 1e-5 in powed, expf and the product); the bound adds
+// a relative 1e-5 for its own rounding. -1 where alpha never reaches
+// ALPHA_MIN (opac below it); +inf where there is no bound (gamma <= 0, a
+// NaN opacity). In double, once per staged entry.
+__device__ __forceinline__ float ecc_bound(float opac, float gamma) {
+  if (!(gamma > 0.0f) || opac != opac) return __int_as_float(0x7f800000);
+  if (!(opac >= kAlphaMin)) return -1.0f;
+  const double c = 2.0 * log((double)opac / (double)kAlphaMin) + 2e-3;
+  return (float)(pow(c, 0.5 / (double)gamma) * (1.0 + 1e-5));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -393,27 +458,33 @@ template <bool k3D, bool kRich>
 __global__ void __launch_bounds__(1024) blend_backward_kernel(
     const float* __restrict__ pairs, int mp,
     const int* __restrict__ tile_starts, const int* __restrict__ tile_counts,
-    const float* __restrict__ params, int width, int height, int tile_w,
-    int tile_h, int grid_w, int num_tiles, const float* __restrict__ final_T,
-    const int* __restrict__ n_contrib, const float* __restrict__ g_color,
-    const float* __restrict__ g_final_T, float* __restrict__ pair_grads,
-    const float* __restrict__ g_depth, const float* __restrict__ g_normal) {
+    const long long* __restrict__ tile_order, const float* __restrict__ params, int width,
+    int height, int tile_w, int tile_h, int grid_w, int num_tiles,
+    const float* __restrict__ final_T, const int* __restrict__ n_contrib,
+    const float* __restrict__ g_color, const float* __restrict__ g_final_T,
+    float* __restrict__ pair_grads, const float* __restrict__ g_depth,
+    const float* __restrict__ g_normal) {
   using V = Variant<k3D, kRich>;
   constexpr int kBatch = V::kBwdBatch;
   constexpr int kLive = V::kLive;
-  __shared__ float sf[V::kFields][kBatch];
-  // per batch entry, per gradient row, per warp (+1 pad against bank
-  // conflicts in the cross-warp sum)
-  __shared__ float part[kBatch][kLive][kMaxWarps + 1];
+  using L = bwd::Layout<kLive, V::kFields, kBatch>;
+  using Fields = float[V::kFields][kBatch];
+  // part: per live row, per staged entry, per warp; then the two field
+  // buffers (blend_backward.cuh Layout)
+  extern __shared__ float smem[];
+  float* const part = smem;
+  __shared__ float s_bound[kBatch];   // per staged entry: its ecc bound
   __shared__ int s_jmax;
 
-  const int tile = blockIdx.x;
+  const int tile = (int)tile_order[blockIdx.x];          // heaviest tiles first
   const int tx = tile % grid_w, ty = tile / grid_w;
   const int lane = threadIdx.x;
   const int warp = lane >> 5, wl = lane & 31;
   const int nwarps = blockDim.x >> 5;
-  const int x = tx * tile_w + lane % tile_w;
-  const int y = ty * tile_h + lane / tile_w;
+  int lx, ly;
+  bwd::tile_pixel(lane, tile_w, tile_h, lx, ly);
+  const int x = tx * tile_w + lx;
+  const int y = ty * tile_h + ly;
   const bool inside = x < width && y < height;
   const float px = (float)x, py = (float)y;
   const float gamma = params[0];
@@ -461,12 +532,13 @@ __global__ void __launch_bounds__(1024) blend_backward_kernel(
     for (int r = 0; r < kNumFields; ++r) pair_grads[(size_t)r * mp + i] = 0.0f;
   }
 
+  // the deepest contributor of the warp (wmax) and of the tile (jmax)
   if (lane == 0) s_jmax = 0;
   __syncthreads();
-  int m = nc_eff;
+  int wmax = nc_eff;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) m = max(m, __shfl_down_sync(0xffffffffu, m, off));
-  if (wl == 0) atomicMax(&s_jmax, m);
+  for (int off = 16; off > 0; off >>= 1) wmax = max(wmax, __shfl_xor_sync(bwd::kFullMask, wmax, off));
+  if (wl == 0) atomicMax(&s_jmax, wmax);
   __syncthreads();
   const int jmax = s_jmax;
 
@@ -491,22 +563,51 @@ __global__ void __launch_bounds__(1024) blend_backward_kernel(
   float A = __fmul_rn(fT, bg_dot);
   float T = fT;
 
-  for (int b_end = jmax; b_end > 0; b_end -= kBatch) {
+  // Batches from the back; the next batch's fields are copied in while the
+  // current one is computed.
+  if (jmax > 0) {
+    const int nb0 = min(kBatch, jmax);
+    bwd::stage_async<V::kFields, kBatch>(smem + L::kPartFloats, pairs, mp, start + jmax - nb0, nb0);
+  }
+  int buf = 0;
+  for (int b_end = jmax; b_end > 0; b_end -= kBatch, buf ^= 1) {
     const int b0 = max(0, b_end - kBatch);
     const int nb = b_end - b0;
-    __syncthreads();   // the previous batch's cross-warp sums are done
-    for (int i = lane; i < V::kFields * kBatch; i += blockDim.x) {
-      const int f = i / kBatch, j = i % kBatch;
-      if (j < nb) sf[f][j] = pairs[(size_t)f * mp + start + b0 + j];
+    __pipeline_wait_prior(0);
+    __syncthreads();   // this batch's fields are in, the last batch's sums read
+    if (b0 > 0) {
+      const int nb_next = min(kBatch, b0);
+      bwd::stage_async<V::kFields, kBatch>(smem + L::kPartFloats + (buf ^ 1) * L::kBufFloats,
+                                          pairs, mp, start + b0 - nb_next, nb_next);
     }
+    const Fields& sf = *reinterpret_cast<const Fields*>(smem + L::kPartFloats + buf * L::kBufFloats);
+    for (int j = lane; j < nb; j += blockDim.x)
+      s_bound[j] = ecc_bound(sf[V::kOpac][j], gamma);
     __syncthreads();
     for (int j = nb - 1; j >= 0; --j) {
+      float* const pj = part + j * L::kEntry + warp;
+      // No pixel of the warp reaches the entry, or none has alpha != 0 at
+      // it: then 1 / (1 - alpha) is exactly 1, contrib exactly 0 and every
+      // row 0, so T, A and the rows stay as they are. The falloff (its exps)
+      // is evaluated only where some pixel's ecc is within the bound.
+      bool hit = false, proc = false;
+      AlphaTerms a{};
+      if (b0 + j < wmax) {
+        proc = b0 + j < nc_eff;
+        a = ecc_terms_at<k3D>(sf, j, px, py);
+        if (__any_sync(bwd::kFullMask, proc && a.ok && a.eccs <= s_bound[j])) {
+          a = alpha_falloff(a, sf[V::kOpac][j], gamma);
+          hit = __any_sync(bwd::kFullMask, proc && a.ok);
+        }
+      }
+      if (!hit) {
+        if (wl < kLive) pj[wl * L::kRowStride] = 0.0f;
+        continue;
+      }
       float g[kLive];
 #pragma unroll
       for (int k = 0; k < kLive; ++k) g[k] = 0.0f;
-      bool nonzero = false;
-      if (b0 + j < nc_eff) {
-        const AlphaTerms a = alpha_terms<k3D>(sf, j, px, py, gamma);
+      if (proc) {
         const float inv1m = __fdiv_rn(1.0f, __fsub_rn(1.0f, a.alpha));
         T = __fmul_rn(T, inv1m);                      // exclusive T of entry j
         const float contrib = __fmul_rn(a.alpha, T);
@@ -590,23 +691,18 @@ __global__ void __launch_bounds__(1024) blend_backward_kernel(
           g[14] = __fmul_rn(__fmul_rn(contrib, a.a1), gd);                 // d1
           g[15] = __fmul_rn(__fmul_rn(contrib, a.a2), gd);                 // d2
         }
-        nonzero = a.alpha != 0.0f;
       }
-      if (__any_sync(0xffffffffu, nonzero)) {
-#pragma unroll
-        for (int k = 0; k < kLive; ++k) {
-          const float v = warp_sum(g[k]);
-          if (wl == 0) part[j][k][warp] = v;
-        }
-      } else if (wl < kLive) {
-        part[j][wl][warp] = 0.0f;
-      }
+      // lanes 2r and 2r + 1 hold row r's sum over the warp
+      const float v = bwd::warp_sum_rows(g, wl);
+      if ((wl & 1) == 0 && (wl >> 1) < kLive) pj[(wl >> 1) * L::kRowStride] = v;
     }
     __syncthreads();
+    // each (row, entry) of the batch summed over the warps in warp order
     for (int i = lane; i < kLive * nb; i += blockDim.x) {
       const int k = i / nb, j = i % nb;
+      const float* const pk = part + k * L::kRowStride + j * L::kEntry;
       float s = 0.0f;
-      for (int w = 0; w < nwarps; ++w) s += part[j][k][w];
+      for (int w = 0; w < nwarps; ++w) s += pk[w];
       pair_grads[(size_t)k * mp + start + b0 + j] = s;
     }
   }
@@ -643,10 +739,33 @@ extern "C" int ts_blend_forward(const float* pairs, int mp,
   return (int)cudaGetLastError();
 }
 
+// The backward's dynamic shared memory, in bytes (blend_backward.cuh Layout).
+template <bool k3D, bool kRich>
+constexpr size_t backward_smem() {
+  using V = Variant<k3D, kRich>;
+  return bwd::Layout<V::kLive, V::kFields, V::kBwdBatch>::kBytes;
+}
+
+extern "C" int ts_blend_backward_smem(int three_d, int rich) {
+  return (int)(three_d ? (rich ? backward_smem<true, true>() : backward_smem<true, false>())
+                       : (rich ? backward_smem<false, true>() : backward_smem<false, false>()));
+}
+
+template <bool k3D, bool kRich, typename... Args>
+int launch_backward(int num_tiles, int threads, cudaStream_t stream, Args... args) {
+  const auto kernel = &blend_backward_kernel<k3D, kRich>;
+  constexpr size_t bytes = backward_smem<k3D, kRich>();
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<num_tiles, threads, bytes, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int ts_blend_backward(const float* pairs, int mp,
                                  const int* tile_starts, const int* tile_counts,
-                                 const float* params, int width, int height,
-                                 int tile_w, int tile_h, int grid_w,
+                                 const long long* tile_order, const float* params, int width,
+                                 int height, int tile_w, int tile_h, int grid_w,
                                  int num_tiles, int three_d, int rich,
                                  const float* final_T, const int* n_contrib,
                                  const float* g_color, const float* g_final_T,
@@ -655,14 +774,15 @@ extern "C" int ts_blend_backward(const float* pairs, int mp,
   const int threads = tile_w * tile_h;
   if (threads <= 0 || threads > 1024 || threads % 32 != 0) return (int)cudaErrorInvalidValue;
   if (rich && (g_depth == nullptr || g_normal == nullptr)) return (int)cudaErrorInvalidValue;
-  if (num_tiles > 0) {
-    const auto kernel =
-        three_d ? (rich ? &blend_backward_kernel<true, true> : &blend_backward_kernel<true, false>)
-                : (rich ? &blend_backward_kernel<false, true> : &blend_backward_kernel<false, false>);
-    kernel<<<num_tiles, threads, 0, stream>>>(
-        pairs, mp, tile_starts, tile_counts, params, width, height, tile_w,
-        tile_h, grid_w, num_tiles, final_T, n_contrib, g_color, g_final_T,
-        pair_grads, g_depth, g_normal);
-  }
-  return (int)cudaGetLastError();
+  if (num_tiles <= 0) return (int)cudaGetLastError();
+  const auto launch = [&](auto k3D, auto kRich) {
+    return launch_backward<decltype(k3D)::value, decltype(kRich)::value>(
+        num_tiles, threads, stream, pairs, mp, tile_starts, tile_counts, tile_order, params,
+        width, height, tile_w, tile_h, grid_w, num_tiles, final_T, n_contrib, g_color,
+        g_final_T, pair_grads, g_depth, g_normal);
+  };
+  constexpr std::true_type on{};
+  constexpr std::false_type off{};
+  return three_d ? (rich ? launch(on, on) : launch(on, off))
+                 : (rich ? launch(off, on) : launch(off, off));
 }

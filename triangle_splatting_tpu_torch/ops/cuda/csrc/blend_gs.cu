@@ -41,24 +41,31 @@
 // otherwise), the backward ~55 with one division; the fields come from
 // shared memory as broadcasts. Inputs and outputs are tens of MB (tens of
 // us at 3.35 TB/s), the evaluations a frame needs are 1e8-1e9 operations:
-// both are bound by operations, in practice by one sequential loop per
-// pixel.
+// both are bound by operations, in practice by the instructions a warp
+// issues per entry. In the backward as first written the per-row shuffle
+// trees took a fifth of its time (PERF.md, Findings).
 //
 // Design (as blend.cu):
 //  - one block per 32x32 tile, one thread per pixel, the tile's pairs
-//    staged into static shared memory in batches: 256 a batch in the plain
-//    and rich forward (11 fields: 11,264 B), 128 with stats (fields plus the
+//    staged into shared memory in batches: 256 a batch in the plain and
+//    rich forward (11 fields: 11,264 B), 128 with stats (fields plus the
 //    per-warp sum and max partials, 128 x 33 x 2 floats: 39,424 B with rich
-//    info), 32 in the backward (9 or 10 reduced rows of per-warp partials,
-//    32 x 10 x 33 floats, and the fields: 43,652 B with rich info);
+//    info);
 //  - the per-(pair, pixel) arithmetic is written with explicitly rounded
 //    intrinsics in the order of the plain PyTorch version (no multiply-add
 //    contraction, no --use_fast_math), so alpha, the done flag, final_T and
 //    n_contrib match it bit for bit and only the order of sums differs;
-//  - every per-pair sum over the tile's pixels (the stream and the gradient
-//    rows) is a fixed warp-shuffle tree followed by a fixed-order pass over
-//    the warps in shared memory: no float atomics, each output slot belongs
-//    to one tile, so results do not change from run to run. GX / GY, the
+//  - every per-pair sum over the tile's pixels is in a fixed order with no
+//    float atomics, each output slot belongs to one tile, so results do
+//    not change from run to run: the stream's by a warp-shuffle tree, the
+//    backward's gradient rows by blend.cu's B2 design (blend_backward.cuh:
+//    8x4 warp blocks, an entry skipped for a warp where none of its pixels
+//    is processed with alpha != 0, a transposed warp sum of the 9 / 10
+//    reduced rows, heaviest tiles first, 96 entries a batch in dynamic
+//    shared memory with the next batch copied in while one is computed;
+//    not the triangles' pre-test before the falloff: most of a Gaussian's
+//    warp-entries hit, and the test cost more than it saved: PERF.md),
+//    then a fixed-order pass over the warps in shared memory. GX / GY, the
 //    gradient of mean2d_offset and hence the densification statistic, are
 //    reduced like every other row;
 //  - the stats form steps a warp while any of its pixels is not done
@@ -72,6 +79,10 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "blend_backward.cuh"
+
 namespace {
 
 constexpr float kTEps = (float)1e-4;               // blend.py T_EPS
@@ -80,7 +91,6 @@ constexpr float kAlphaMax = (float)0.99;           // blend.py ALPHA_MAX
 constexpr int kNumFields = 16;
 constexpr int kFwdBatch = 256;                     // pairs staged per batch
 constexpr int kStatsBatch = 128;                   // ... in the stats form
-constexpr int kBwdBatch = 32;                      // ... in the backward
 constexpr int kMaxWarps = 32;
 constexpr int kOpac = 6, kRgb = 7, kDepth = 10;    // field indices
 
@@ -286,32 +296,46 @@ __global__ void __launch_bounds__(1024) blend_forward_gs_kernel(
 // (GX GY GA GB GC2 | 0 | GOP r g b [GDEP]).
 __device__ __forceinline__ int out_row(int k) { return k < 5 ? k : k + 1; }
 
+// The backward's batch: 96 entries staged at a time (reduced rows x batch
+// <= 1024, one pass of the block sums a batch over the warps), and its
+// dynamic shared memory (blend_backward.cuh Layout: 121,764 B, 135,208 B
+// with rich info).
+template <bool kRich> struct GSBackward {
+  static constexpr int kFields = kRich ? 11 : 10;
+  static constexpr int kLive = kRich ? 11 : 10;   // LIVE_GRAD_ROWS[("GS", kRich)]
+  static constexpr int kRed = kLive - 1;          // reduced rows (row 5 is zero)
+  static constexpr int kBatch = 96;
+  using L = bwd::Layout<kRed, kFields, kBatch>;
+};
+
 template <bool kRich>
 __global__ void __launch_bounds__(1024) blend_backward_gs_kernel(
     const float* __restrict__ pairs, int mp,
     const int* __restrict__ tile_starts, const int* __restrict__ tile_counts,
-    const float* __restrict__ params, int width, int height, int tile_w,
-    int tile_h, int grid_w, int num_tiles, const float* __restrict__ final_T,
-    const int* __restrict__ n_contrib, const float* __restrict__ g_color,
-    const float* __restrict__ g_final_T, const float* __restrict__ g_depth,
-    float* __restrict__ pair_grads) {
-  constexpr int kFields = kRich ? 11 : 10;
-  constexpr int kLive = kRich ? 11 : 10;   // LIVE_GRAD_ROWS[("GS", kRich)]
-  constexpr int kRed = kLive - 1;          // reduced rows (row 5 is zero)
-  constexpr int kBatch = kBwdBatch;
-  __shared__ float sf[kFields][kBatch];
-  // per batch entry, per reduced row, per warp (+1 pad against bank
-  // conflicts in the cross-warp sum)
-  __shared__ float part[kBatch][kRed][kMaxWarps + 1];
+    const long long* __restrict__ tile_order, const float* __restrict__ params, int width,
+    int height, int tile_w, int tile_h, int grid_w, int num_tiles,
+    const float* __restrict__ final_T, const int* __restrict__ n_contrib,
+    const float* __restrict__ g_color, const float* __restrict__ g_final_T,
+    const float* __restrict__ g_depth, float* __restrict__ pair_grads) {
+  using B = GSBackward<kRich>;
+  using L = typename B::L;
+  constexpr int kFields = B::kFields, kLive = B::kLive, kRed = B::kRed, kBatch = B::kBatch;
+  using Fields = float[kFields][kBatch];
+  // part: per reduced row, per staged entry, per warp; then the two field
+  // buffers (blend_backward.cuh Layout)
+  extern __shared__ float smem[];
+  float* const part = smem;
   __shared__ int s_jmax;
 
-  const int tile = blockIdx.x;
+  const int tile = (int)tile_order[blockIdx.x];          // heaviest tiles first
   const int tx = tile % grid_w, ty = tile / grid_w;
   const int lane = threadIdx.x;
   const int warp = lane >> 5, wl = lane & 31;
   const int nwarps = blockDim.x >> 5;
-  const int x = tx * tile_w + lane % tile_w;
-  const int y = ty * tile_h + lane / tile_w;
+  int lx, ly;
+  bwd::tile_pixel(lane, tile_w, tile_h, lx, ly);
+  const int x = tx * tile_w + lx;
+  const int y = ty * tile_h + ly;
   const bool inside = x < width && y < height;
   const float px = (float)x, py = (float)y;
   const float gamma = params[0];
@@ -339,12 +363,13 @@ __global__ void __launch_bounds__(1024) blend_backward_gs_kernel(
     for (int r = 0; r < kNumFields; ++r) pair_grads[(size_t)r * mp + i] = 0.0f;
   }
 
+  // the deepest last contributor of the warp (wmax) and of the tile (jmax)
   if (lane == 0) s_jmax = 0;
   __syncthreads();
-  int m = nc_eff;
+  int wmax = nc_eff;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) m = max(m, __shfl_down_sync(0xffffffffu, m, off));
-  if (wl == 0) atomicMax(&s_jmax, m);
+  for (int off = 16; off > 0; off >>= 1) wmax = max(wmax, __shfl_xor_sync(bwd::kFullMask, wmax, off));
+  if (wl == 0) atomicMax(&s_jmax, wmax);
   __syncthreads();
   const int jmax = s_jmax;
 
@@ -372,22 +397,44 @@ __global__ void __launch_bounds__(1024) blend_backward_gs_kernel(
   float T = fT;
   const float dpow_g = __fmul_rn(-0.5f, gamma);   // gamma != 1: -0.5 gamma q^(gamma-1)
 
-  for (int b_end = jmax; b_end > 0; b_end -= kBatch) {
+  // Batches from the back; the next batch's fields are copied in while the
+  // current one is computed.
+  if (jmax > 0) {
+    const int nb0 = min(kBatch, jmax);
+    bwd::stage_async<kFields, kBatch>(smem + L::kPartFloats, pairs, mp, start + jmax - nb0, nb0);
+  }
+  int buf = 0;
+  for (int b_end = jmax; b_end > 0; b_end -= kBatch, buf ^= 1) {
     const int b0 = max(0, b_end - kBatch);
     const int nb = b_end - b0;
-    __syncthreads();   // the previous batch's cross-warp sums are done
-    for (int i = lane; i < kFields * kBatch; i += blockDim.x) {
-      const int f = i / kBatch, j = i % kBatch;
-      if (j < nb) sf[f][j] = pairs[(size_t)f * mp + start + b0 + j];
+    __pipeline_wait_prior(0);
+    __syncthreads();   // this batch's fields are in, the last batch's sums read
+    if (b0 > 0) {
+      const int nb_next = min(kBatch, b0);
+      bwd::stage_async<kFields, kBatch>(smem + L::kPartFloats + (buf ^ 1) * L::kBufFloats,
+                                       pairs, mp, start + b0 - nb_next, nb_next);
     }
-    __syncthreads();
+    const Fields& sf = *reinterpret_cast<const Fields*>(smem + L::kPartFloats + buf * L::kBufFloats);
     for (int j = nb - 1; j >= 0; --j) {
+      float* const pj = part + j * L::kEntry + warp;
+      // No pixel of the warp reaches the entry, or none has alpha != 0 at
+      // it: then 1 / (1 - alpha) is exactly 1, contrib exactly 0 and every
+      // row 0, so T, A and the rows stay as they are.
+      bool hit = false, proc = false;
+      GSTerms a{};
+      if (b0 + j < wmax) {
+        proc = b0 + j < nc_eff;
+        a = gs_terms_at(sf, j, px, py, gamma);
+        hit = __any_sync(bwd::kFullMask, proc && a.ok);
+      }
+      if (!hit) {
+        if (wl < kRed) pj[wl * L::kRowStride] = 0.0f;
+        continue;
+      }
       float g[kRed];
 #pragma unroll
       for (int k = 0; k < kRed; ++k) g[k] = 0.0f;
-      bool nonzero = false;
-      if (b0 + j < nc_eff) {
-        const GSTerms a = gs_terms_at(sf, j, px, py, gamma);
+      if (proc) {
         const float inv1m = __fdiv_rn(1.0f, __fsub_rn(1.0f, a.alpha));
         T = __fmul_rn(T, inv1m);                      // exclusive T of entry j
         const float contrib = __fmul_rn(a.alpha, T);
@@ -422,23 +469,18 @@ __global__ void __launch_bounds__(1024) blend_backward_gs_kernel(
         g[7] = __fmul_rn(contrib, gg);
         g[8] = __fmul_rn(contrib, gb);
         if constexpr (kRich) g[9] = __fmul_rn(contrib, gd);   // depth (row 10)
-        nonzero = a.alpha != 0.0f;
       }
-      if (__any_sync(0xffffffffu, nonzero)) {
-#pragma unroll
-        for (int k = 0; k < kRed; ++k) {
-          const float v = warp_sum(g[k]);
-          if (wl == 0) part[j][k][warp] = v;
-        }
-      } else if (wl < kRed) {
-        part[j][wl][warp] = 0.0f;
-      }
+      // lanes 2r and 2r + 1 hold reduced row r's sum over the warp
+      const float v = bwd::warp_sum_rows(g, wl);
+      if ((wl & 1) == 0 && (wl >> 1) < kRed) pj[(wl >> 1) * L::kRowStride] = v;
     }
     __syncthreads();
+    // each (row, entry) of the batch summed over the warps in warp order
     for (int i = lane; i < kRed * nb; i += blockDim.x) {
       const int k = i / nb, j = i % nb;
+      const float* const pk = part + k * L::kRowStride + j * L::kEntry;
       float s = 0.0f;
-      for (int w = 0; w < nwarps; ++w) s += part[j][k][w];
+      for (int w = 0; w < nwarps; ++w) s += pk[w];
       pair_grads[(size_t)out_row(k) * mp + start + b0 + j] = s;
     }
   }
@@ -468,10 +510,25 @@ extern "C" int ts_blend_forward_gs(const float* pairs, int mp,
   return (int)cudaGetLastError();
 }
 
+extern "C" int ts_blend_backward_gs_smem(int rich) {
+  return (int)(rich ? GSBackward<true>::L::kBytes : GSBackward<false>::L::kBytes);
+}
+
+template <bool kRich, typename... Args>
+int launch_backward_gs(int num_tiles, int threads, cudaStream_t stream, Args... args) {
+  const auto kernel = &blend_backward_gs_kernel<kRich>;
+  constexpr size_t bytes = GSBackward<kRich>::L::kBytes;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<num_tiles, threads, bytes, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int ts_blend_backward_gs(const float* pairs, int mp,
                                     const int* tile_starts, const int* tile_counts,
-                                    const float* params, int width, int height,
-                                    int tile_w, int tile_h, int grid_w,
+                                    const long long* tile_order, const float* params, int width,
+                                    int height, int tile_w, int tile_h, int grid_w,
                                     int num_tiles, int rich,
                                     const float* final_T, const int* n_contrib,
                                     const float* g_color, const float* g_final_T,
@@ -480,12 +537,12 @@ extern "C" int ts_blend_backward_gs(const float* pairs, int mp,
   const int threads = tile_w * tile_h;
   if (threads <= 0 || threads > 1024 || threads % 32 != 0) return (int)cudaErrorInvalidValue;
   if (rich && g_depth == nullptr) return (int)cudaErrorInvalidValue;
-  if (num_tiles > 0) {
-    const auto kernel = rich ? &blend_backward_gs_kernel<true> : &blend_backward_gs_kernel<false>;
-    kernel<<<num_tiles, threads, 0, stream>>>(
-        pairs, mp, tile_starts, tile_counts, params, width, height, tile_w,
-        tile_h, grid_w, num_tiles, final_T, n_contrib, g_color, g_final_T,
-        g_depth, pair_grads);
-  }
-  return (int)cudaGetLastError();
+  if (num_tiles <= 0) return (int)cudaGetLastError();
+  const auto launch = [&](auto kRich) {
+    return launch_backward_gs<decltype(kRich)::value>(
+        num_tiles, threads, stream, pairs, mp, tile_starts, tile_counts, tile_order, params,
+        width, height, tile_w, tile_h, grid_w, num_tiles, final_T, n_contrib, g_color,
+        g_final_T, g_depth, pair_grads);
+  };
+  return rich ? launch(std::true_type{}) : launch(std::false_type{});
 }
