@@ -96,10 +96,11 @@ photo and mesh phases also check that neither launched B5 or a stats form of
 B1, none of the photo, mesh and mesh_adc phases launched a rich form, and
 none of the triangle phases a GS form.
 
-The build phase prints B2's registers, spills and shared memory per form.
-With --b2-parent DIR (an earlier blend.cu and blend_gs.cu), every site
-that times B2 also times that version in turns with the current one
-(tools/b2_compare.py; --b2-ablate adds two ablations of it).
+The build phase prints B1's and B2's registers, spills and shared memory
+per form. With --blend-parent DIR (an earlier blend.cu and blend_gs.cu;
+repeatable, the first is the parent), every site that times B1 or B2 also
+times those builds in turns with the current one and holds the parent's
+B1 outputs against the current ones (tools/blend_compare.py).
 
 The last two lines are the per-kernel JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -166,10 +167,9 @@ RICH_BWD_OPS = {"2D": 31, "3D": 22}
 # nonzero rows (14) and their pixel sums (9): 66; gamma != 1 adds +5 in the
 # alpha terms and the q^(gamma - 1) chain (+7). Rich info adds the depth
 # field's product and add forward (+2) and to gdot, its row and its sum
-# backward (+4). Counted per evaluated (pair, pixel), taken as the sum of
-# n_contrib: the entries every pixel must evaluate up to its last
-# composited one (the kill entry and trailing skips not counted: a lower
-# bound of the forward's work, exact for the backward).
+# backward (+4). The backward's are counted per evaluated (pair, pixel),
+# taken as the sum of n_contrib: the entries every pixel must evaluate up
+# to its last composited one; the forward's as B1_CULL_OPS below says.
 FWD_OPS_PER_EVAL_GS = {True: 30, False: 35}
 BWD_OPS_PER_EVAL_GS = {True: 66, False: 78}
 RICH_FWD_OPS["GS"] = 2
@@ -177,6 +177,21 @@ RICH_BWD_OPS["GS"] = 4
 # B1's stats form adds a sum and a max of each evaluated contribution over
 # the tile's pixels; B5 an add and a max per sorted pair.
 STATS_OPS_PER_EVAL = 2
+# B1's operations are counted where this run's data needs them (b1_work),
+# not at every (pair, pixel) up to n_contrib: an entry of alpha 0 at a pixel
+# changes none of its outputs. They are the cull of an entry for each
+# 8x4 warp box while some pixel of the box is live (B1_CULL_OPS, counted
+# from box_may_hit / box_may_hit_gs: "2D" the three barycentrics' maxima
+# over the box and the margin, 52; "3D" the same from the box's four
+# corners, each a divide and three ratios, 184; "GS" the center's distance
+# to the box and the conic's smaller eigenvalue, 44); the first half of the
+# alpha terms at each live pixel of a box the cull keeps (B1_ECC_OPS: the
+# barycentrics, a3, their min, the ecc and its range tests, 17, "3D" with
+# the plane guard and the divide 27; "GS" dx, dy, q and its test, 10); and
+# the rest of FWD_OPS_PER_EVAL* (the falloff and the composite), the rich
+# and the stats operations only where the plain alpha is != 0.
+B1_CULL_OPS = {"2D": 52, "3D": 184, "GS": 44}
+B1_ECC_OPS = {"2D": 17, "3D": 27, "GS": 10}
 B5_OPS_PER_PAIR = 2
 # the mesh recipe with its ADC blocks, cut to the 50-step run (mesh_adc)
 ADC_STAT_WINDOW = (5, 40)
@@ -354,13 +369,33 @@ def cuda_ms(fn, reps: int, warmup: int = 2, hide_host: bool = True) -> float:
     return statistics.median(times)
 
 
-def b2_ms(bw, geo, rich: bool = False, b2=None, site: str | None = None) -> float:
-    """B2's time on the inputs ``bw`` (median of 20). With --b2-parent
-    (``b2``, a tools/b2_compare.py Comparison) and a ``site``, first the
-    parent's B2 in turns with it."""
+def b1_ms(fwd, geo, stats: bool = False, rich: bool = False, cmp=None,
+          site: str | None = None) -> float:
+    """B1's time in the form (stats, rich) on the inputs ``fwd`` (median of
+    20). With --blend-parent (``cmp``, a tools/blend_compare.py Comparison)
+    and a ``site``, first the earlier builds' B1 in turns with it; the
+    parent's five per-pixel outputs must be the current ones bit for bit,
+    its stream's maxes too and its sums within rel 1e-5."""
     from triangle_splatting_tpu_torch.ops.cuda import blend as KB
-    if b2 is not None and site is not None:
-        say("b2_parent", site=site, **b2.turns(bw, geo, rich, cuda_ms))
+    if cmp is not None and site is not None:
+        t = cmp.turns_b1(fwd, geo, stats, rich, cuda_ms)
+        say("blend_parent", site=site, **t)
+        parent = cmp.builds[0]
+        check(all(t["identical"][parent]), f"blend_forward {t['form']} at {site}: the "
+              f"parent's outputs are not the current ones bit for bit {t['identical'][parent]}")
+        if stats:
+            ps = t["stream"][parent]
+            check(ps["max_identical"] and ps["sum_rel"] <= TOL["stats_sum_rel"],
+                  f"blend_forward {t['form']} at {site}: the parent's stream differs {ps}")
+    return cuda_ms(lambda: KB.blend_forward(*fwd, stats=stats, rich=rich, **geo), 20)
+
+
+def b2_ms(bw, geo, rich: bool = False, cmp=None, site: str | None = None) -> float:
+    """B2's time on the inputs ``bw`` (median of 20). With --blend-parent
+    (``cmp``) and a ``site``, first the earlier builds' B2 in turns with it."""
+    from triangle_splatting_tpu_torch.ops.cuda import blend as KB
+    if cmp is not None and site is not None:
+        say("blend_parent", site=site, **cmp.turns_b2(bw, geo, rich, cuda_ms))
     return cuda_ms(lambda: KB.blend_backward(*bw, rich=rich, **geo), 20)
 
 
@@ -368,6 +403,73 @@ def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def b1_work(fwd, geo, n_contrib, what: str) -> dict:
+    """The work B1's function needs on the packed pairs ``fwd`` = (fields,
+    tile_starts, tile_counts, params), given its n_contrib (H, W): per tile,
+    the kernel's warp boxes (``tile_pixel``'s lane map) and each pixel's
+    entries j < n_contrib ("GS": up to its last composited one, a lower
+    bound), counted as ``boxes`` (entry, box) pairs with a live pixel,
+    ``eccs`` live (pair, pixel) in a box the plain cull keeps
+    (``box_cull_plain`` / ``box_cull_gs_plain``) and ``hits`` live (pair,
+    pixel) whose plain alpha is != 0. Fails if the cull drops a hit."""
+    import torch
+    from triangle_splatting_tpu_torch.ops.cuda import blend as KB
+
+    pairs, tile_starts, tile_counts, params = fwd
+    variant, th, tw = geo["variant"], geo["tile_h"], geo["tile_w"]
+    W, H = geo["image_width"], geo["image_height"]
+    grid_w, npix, dev = -(-W // tw), th * tw, pairs.device
+    check(npix % 32 == 0, f"b1_work {what}: {th}x{tw} tiles are not whole warps")
+    lane = torch.arange(npix, device=dev)
+    if tw % 8 == 0 and th % 4 == 0:
+        warp, wl = lane // 32, lane % 32
+        lx, ly = (warp % (tw // 8)) * 8 + wl % 8, (warp // (tw // 8)) * 4 + wl // 8
+    else:
+        lx, ly = lane % tw, lane // tw
+    gamma, g = params[0], float(params[0])
+    inr = torch.ones((1, 1), dtype=torch.bool, device=dev)
+    boxes = eccs = hits = missed = torch.zeros((), dtype=torch.int64, device=dev)
+    for t, (s, n) in enumerate(zip(tile_starts.tolist(), tile_counts.tolist())):
+        if n == 0:
+            continue
+        x, y = (t % grid_w) * tw + lx, (t // grid_w) * th + ly
+        inside = (x < W) & (y < H)
+        nc = torch.where(inside, n_contrib[y.clamp(max=H - 1), x.clamp(max=W - 1)], 0)
+        xs, ys = x.view(-1, 32).to(pairs.dtype), y.view(-1, 32).to(pairs.dtype)
+        box = torch.stack([xs.amin(1), xs.amax(1), ys.amin(1), ys.amax(1)], dim=1)
+        f = pairs[:, s:s + n]
+        px, py = x.to(pairs.dtype), y.to(pairs.dtype)
+        if variant == "GS":
+            ok = KB.alpha_terms_gs_plain(f, px, py, gamma, inr)[-1]
+            cull = KB.box_cull_gs_plain(f, box, KB.q_bound_plain(f[6], g))
+        else:
+            ok = KB.alpha_terms_plain(f, px, py, gamma, inr, variant)[7]
+            bound = KB.ecc_bound_plain(f[9 if variant == "3D" else 6], g)
+            cull = KB.box_cull_plain(f, box, bound, variant)
+        live = (torch.arange(n, device=dev)[:, None] < nc[None, :]).view(n, -1, 32)
+        hit = live & ok.view(n, -1, 32)
+        boxes = boxes + live.any(2).sum()
+        eccs = eccs + (live & cull[:, :, None]).sum()
+        hits = hits + hit.sum()
+        missed = missed + (hit & ~cull[:, :, None]).sum()
+    out = dict(boxes=int(boxes), eccs=int(eccs), hits=int(hits),
+               evals=int(n_contrib.to(torch.int64).sum()))
+    check(int(missed) == 0, f"b1_work {what}: the plain cull drops {int(missed)} hits")
+    say("b1_work", what=what, **out)
+    return out
+
+
+def b1_ops(work: dict, variant: str, gamma1: bool, stats: bool = False,
+           rich: bool = False) -> float:
+    """B1's operations on ``b1_work``'s counts (see B1_CULL_OPS)."""
+    per_eval = {"2D": FWD_OPS_PER_EVAL, "3D": FWD_OPS_PER_EVAL_3D[gamma1],
+                "GS": FWD_OPS_PER_EVAL_GS[gamma1]}[variant]
+    per_hit = (per_eval - B1_ECC_OPS[variant] + (STATS_OPS_PER_EVAL if stats else 0)
+               + (RICH_FWD_OPS[variant] if rich else 0))
+    return (B1_CULL_OPS[variant] * work["boxes"] + B1_ECC_OPS[variant] * work["eccs"]
+            + per_hit * work["hits"])
 
 
 def read_launches() -> dict:
@@ -435,12 +537,14 @@ def phase_build() -> None:
         say("build", source=f"{name}.cu", seconds=round(rep["seconds"], 3),
             ptxas=ptxas_usage(rep["log"]))
     say("build", seconds=round(secs, 3), libraries=sorted(p.name for p in paths.values()))
-    # B2's registers, spills and static shared memory per form (ptxas; none
-    # where the libraries were built before), and the dynamic shared memory
-    # each launch asks for
+    # B1's and B2's registers, spills and static shared memory per form
+    # (ptxas; none where the libraries were built before), and the dynamic
+    # shared memory each launch asks for
     from triangle_splatting_tpu_torch.ops.cuda import blend as KB
     usage = {k: v for rep in build.build_reports.values()
              for k, v in ptxas_usage(rep["log"]).items()}
+    say("build", b1_ptxas={f: usage.get(k) for f, k in KB.FORWARD_KERNELS.items()},
+        b1_dynamic_smem_bytes=KB.forward_smem_bytes())
     say("build", b2_ptxas={f: usage.get(k) for f, k in KB.BACKWARD_KERNELS.items()},
         b2_dynamic_smem_bytes=KB.backward_smem_bytes())
 
@@ -632,7 +736,7 @@ def check_blend(fields, sp, params, geo, target, what: str) -> dict:
                 b1_err=max(e_color, e_T), n_contrib_mismatch=e_nc,
                 b2_err=float(diff2.max()), b2_rel=rel2,
                 evals=float(out1[4].to(torch.float64).sum()),
-                b1_bytes=pairs_in + 4 * 9 * H * W,
+                work=b1_work(fwd, geo, out1[4], what), b1_bytes=pairs_in + 4 * 9 * H * W,
                 b2_bytes=pairs_in + 4 * 6 * H * W + 4 * 16 * sp.ma,
                 pair_contrib=pc, stats_err=max(e_sum, e_max), stats_rel_sum=rel_sum,
                 stats_rel_max=rel_max, stats_bytes=pairs_in + 4 * 9 * H * W + 4 * 2 * sp.ma,
@@ -738,7 +842,7 @@ def check_blend_rich_stats(fwd, geo, off, rich_on, stream, what: str) -> dict:
     return dict(err=max(e_ct, max(rel_dn) * float(ref[1].abs().max()),
                         float((both[5] - ref[5]).abs().max())),
                 rel_depth=rel_dn[0], rel_normal=rel_dn[1], rel_stream_sum=rel_pc[0],
-                rel_stream_max=rel_pc[1], evals=float(both[4].to(torch.float64).sum()),
+                rel_stream_max=rel_pc[1],
                 bytes=4 * (live * num_pairs + 2 * T + 1 + 8) + 4 * 9 * H * W + 4 * 2 * ma,
                 tol=(f"bit-identical to the plain (color, final_T, n_contrib), rich (depth, "
                      f"normal) and stats (stream) forms; vs plain: abs {TOL['b1_abs']} "
@@ -757,7 +861,7 @@ def rich_cotangents(c, H: int, W: int, dev, seed: int = 0):
             (torch.randn((3, H, W), generator=gen) / (3 * H * W)).to(dev))
 
 
-def phase_kernels(b, b2=None) -> dict:
+def phase_kernels(b, cmp=None) -> dict:
     """Each kernel against its plain version at the bench shapes."""
     import torch
     from triangle_splatting_tpu_torch.ops.binning import sort_pairs
@@ -812,38 +916,37 @@ def phase_kernels(b, b2=None) -> dict:
         c = check_blend(fields, sp, params, geo, b["target"], "2D")
         rec["blend_forward"] = dict(
             max_abs_err=c["b1_err"],
-            ms=cuda_ms(lambda: KB.blend_forward(*c["fwd"], **geo), 20),
+            ms=b1_ms(c["fwd"], geo, cmp=cmp, site="bench-800-100k"),
             plain_ms=cuda_ms(lambda: KB.blend_forward_plain(*c["fwd"], **geo), 3, 1),
             library_ms=None,
-            bound=bound_ms(c["b1_bytes"], FWD_OPS_PER_EVAL * c["evals"]),
+            bound=bound_ms(c["b1_bytes"], b1_ops(c["work"], "2D", True)),
             tol=c["b1_tol"])
         rec["blend_backward"] = dict(
             max_abs_err=c["b2_err"],
-            ms=b2_ms(c["bw"], geo, b2=b2, site="bench-800-100k"),
+            ms=b2_ms(c["bw"], geo, cmp=cmp, site="bench-800-100k"),
             plain_ms=cuda_ms(lambda: KB.blend_backward_plain(*c["bw"], **geo), 3, 1),
             library_ms=None,
             bound=bound_ms(c["b2_bytes"], BWD_OPS_PER_EVAL * c["evals"]),
             tol=c["b2_tol"])
         rec["blend_forward_stats"] = dict(
             max_abs_err=c["stats_err"],
-            ms=cuda_ms(lambda: KB.blend_forward(*c["fwd"], stats=True, **geo), 20),
+            ms=b1_ms(c["fwd"], geo, stats=True, cmp=cmp, site="bench-800-100k"),
             plain_ms=cuda_ms(lambda: KB.blend_forward_plain(*c["fwd"], stats=True, **geo), 3, 1),
             library_ms=None,
-            bound=bound_ms(c["stats_bytes"],
-                           (FWD_OPS_PER_EVAL + STATS_OPS_PER_EVAL) * c["evals"]),
+            bound=bound_ms(c["stats_bytes"], b1_ops(c["work"], "2D", True, stats=True)),
             tol=c["stats_tol"])
         # ---- B1 / B2 with rich info, "2D"; B4 on their 16 live rows
         r = check_blend_rich(c["fwd"], geo, c["out1"], rich_cotangents(c, H, W, dev), "2D")
         rec["blend_forward_rich"] = dict(
             max_abs_err=r["b1_err"],
-            ms=cuda_ms(lambda: KB.blend_forward(*r["fwd"], rich=True, **geo), 20),
+            ms=b1_ms(r["fwd"], geo, rich=True, cmp=cmp, site="bench-800-100k"),
             plain_ms=cuda_ms(lambda: KB.blend_forward_plain(*r["fwd"], rich=True, **geo), 3, 1),
             library_ms=None,
-            bound=bound_ms(r["b1_bytes"], (FWD_OPS_PER_EVAL + RICH_FWD_OPS["2D"]) * r["evals"]),
+            bound=bound_ms(r["b1_bytes"], b1_ops(c["work"], "2D", True, rich=True)),
             tol=r["b1_tol"])
         rec["blend_backward_rich"] = dict(
             max_abs_err=r["b2_err"],
-            ms=b2_ms(r["bw"], geo, rich=True, b2=b2, site="bench-800-100k"),
+            ms=b2_ms(r["bw"], geo, rich=True, cmp=cmp, site="bench-800-100k"),
             plain_ms=cuda_ms(lambda: KB.blend_backward_plain(*r["bw"], rich=True, **geo), 3, 1),
             library_ms=None,
             bound=bound_ms(r["b2_bytes"], (BWD_OPS_PER_EVAL + RICH_BWD_OPS["2D"]) * r["evals"]),
@@ -852,12 +955,11 @@ def phase_kernels(b, b2=None) -> dict:
         rs = check_blend_rich_stats(c["fwd"], geo, c["out1"], r["on"], c["pair_contrib"], "2D")
         rec["blend_forward_rich_stats"] = dict(
             max_abs_err=rs["err"],
-            ms=cuda_ms(lambda: KB.blend_forward(*c["fwd"], rich=True, stats=True, **geo), 20),
+            ms=b1_ms(c["fwd"], geo, stats=True, rich=True, cmp=cmp, site="bench-800-100k"),
             plain_ms=cuda_ms(lambda: KB.blend_forward_plain(*c["fwd"], rich=True, stats=True,
                                                             **geo), 3, 1),
             library_ms=None,
-            bound=bound_ms(rs["bytes"], (FWD_OPS_PER_EVAL + RICH_FWD_OPS["2D"]
-                                         + STATS_OPS_PER_EVAL) * rs["evals"]),
+            bound=bound_ms(rs["bytes"], b1_ops(c["work"], "2D", True, stats=True, rich=True)),
             tol=rs["tol"])
         live_r = KB.LIVE_GRAD_ROWS[("2D", True)]
         c4r = check_segment_reduce(r["out2"][:live_r], pair_tri, sp, "2D rich")
@@ -902,7 +1004,7 @@ def phase_kernels(b, b2=None) -> dict:
     return rec
 
 
-def phase_kernels_3d(dev, b2=None) -> dict:
+def phase_kernels_3d(dev, cmp=None) -> dict:
     """B1/B2 in variant "3D" against their plain versions on a 100k-triangle
     random scene at the mesh path's rendered size (1600x1600: 2,500 tiles),
     at gamma 1 and at gamma 50; timed at gamma 50, the solidified regime
@@ -962,34 +1064,32 @@ def phase_kernels_3d(dev, b2=None) -> dict:
             c4r = check_segment_reduce(r["out2"][:live_r], pair_tri, sp, what + " rich")
             rs = check_blend_rich_stats(c["fwd"], geo, c["out1"], r["on"], c["pair_contrib"],
                                         what)
-        ms1rs = cuda_ms(lambda: KB.blend_forward(*c["fwd"], rich=True, stats=True, **geo), 20)
-        bound1rs = bound_ms(rs["bytes"], (FWD_OPS_PER_EVAL_3D[gamma == 1.0] + RICH_FWD_OPS["3D"]
-                                          + STATS_OPS_PER_EVAL) * rs["evals"])
+        site = None if gamma == 1.0 else "bench3d-1600-100k gamma 50"
+        ms1rs = b1_ms(c["fwd"], geo, stats=True, rich=True, cmp=cmp, site=site)
+        g1 = gamma == 1.0
+        bound1rs = bound_ms(rs["bytes"], b1_ops(c["work"], "3D", g1, stats=True, rich=True))
         say("kernels_3d", kernel="blend_forward_rich_stats", gamma=gamma,
             rel_err_depth=rs["rel_depth"], rel_err_normal=rs["rel_normal"],
             rel_err_stream_sum=rs["rel_stream_sum"], rel_err_stream_max=rs["rel_stream_max"],
             ms=ms1rs, bound_ms=bound1rs[0])
-        ms1r = cuda_ms(lambda: KB.blend_forward(*r["fwd"], rich=True, **geo), 20)
-        site = None if gamma == 1.0 else "bench3d-1600-100k gamma 50"
-        ms2r = b2_ms(r["bw"], geo, rich=True, b2=b2, site=site)
-        rich_ops = (FWD_OPS_PER_EVAL_3D[gamma == 1.0] + RICH_FWD_OPS["3D"],
-                    BWD_OPS_PER_EVAL_3D[gamma == 1.0] + RICH_BWD_OPS["3D"])
+        ms1r = b1_ms(r["fwd"], geo, rich=True, cmp=cmp, site=site)
+        ms2r = b2_ms(r["bw"], geo, rich=True, cmp=cmp, site=site)
+        rich_ops = (b1_ops(c["work"], "3D", g1, rich=True),
+                    (BWD_OPS_PER_EVAL_3D[g1] + RICH_BWD_OPS["3D"]) * r["evals"])
         say("kernels_3d", kernel="blend_rich", gamma=gamma, b1_rel_err_depth=r["rel_depth"],
             b1_rel_err_normal=r["rel_normal"], b1_max_abs_err=r["b1_err"],
             b2_rel_err=r["b2_rel"], b2_max_abs_err=r["b2_err"],
             b2_depth_row_max=r["depth_row_max"], b4_rows=live_r, b4_rel_err=c4r["rel"],
             b4_max_abs_err=c4r["err"], b1_rich_ms=ms1r,
-            b1_rich_bound_ms=bound_ms(r["b1_bytes"], rich_ops[0] * r["evals"])[0],
+            b1_rich_bound_ms=bound_ms(r["b1_bytes"], rich_ops[0])[0],
             b2_rich_ms=ms2r,
-            b2_rich_bound_ms=bound_ms(r["b2_bytes"], rich_ops[1] * r["evals"])[0])
-        ms1 = cuda_ms(lambda: KB.blend_forward(*c["fwd"], **geo), 20)
-        ms1s = cuda_ms(lambda: KB.blend_forward(*c["fwd"], stats=True, **geo), 20)
-        ms2 = b2_ms(c["bw"], geo, b2=b2, site=site)
+            b2_rich_bound_ms=bound_ms(r["b2_bytes"], rich_ops[1])[0])
+        ms1 = b1_ms(c["fwd"], geo, cmp=cmp, site=site)
+        ms1s = b1_ms(c["fwd"], geo, stats=True, cmp=cmp, site=site)
+        ms2 = b2_ms(c["bw"], geo, cmp=cmp, site=site)
         ms5 = cuda_ms(lambda: KS.segment_reduce_stats(*c5["args"]), 50)
-        g1 = gamma == 1.0
-        bound1 = bound_ms(c["b1_bytes"], FWD_OPS_PER_EVAL_3D[g1] * c["evals"])
-        bound1s = bound_ms(c["stats_bytes"],
-                           (FWD_OPS_PER_EVAL_3D[g1] + STATS_OPS_PER_EVAL) * c["evals"])
+        bound1 = bound_ms(c["b1_bytes"], b1_ops(c["work"], "3D", g1))
+        bound1s = bound_ms(c["stats_bytes"], b1_ops(c["work"], "3D", g1, stats=True))
         bound2 = bound_ms(c["b2_bytes"], BWD_OPS_PER_EVAL_3D[g1] * c["evals"])
         bound5 = bound_ms(c5["bytes"], c5["ops"])
         say("kernels_3d", gamma=gamma, tiles=int(sp.tile_counts.shape[0]),
@@ -1110,13 +1210,14 @@ def check_blend_gs(fwd, geo, target, what: str, cot_seed: int = 0) -> dict:
     pairs_in = lambda rows: 4 * (rows * num_pairs + 2 * T + 1 + 8)  # noqa: E731
     ma = fwd[0].shape[1]
     return dict(errs=errs, outs=outs, bws=bws, evals=float(base[4].to(torch.float64).sum()),
+                work=b1_work(fwd, geo, base[4], what),
                 b1_bytes={f: pairs_in(11 if r else 10) + 4 * 9 * H * W + (8 * ma if s else 0)
                           for f, s, r in GS_FORMS},
                 b2_bytes={f: pairs_in(11 if f == "gs_rich" else 10) + 4 * (6 + (f == "gs_rich"))
                           * H * W + 4 * 16 * ma for f in bws})
 
 
-def phase_kernels_gs(dev, b2=None) -> dict:
+def phase_kernels_gs(dev, cmp=None) -> dict:
     """bench-gs-800-100k: B1-GS (four forms) and B2-GS (two forms) against
     their plain versions on 100k random Gaussians at 800x800 (the GS twin of
     bench-800-100k: ``make_gs_scene`` over the same frustum, scales 0.01-0.05
@@ -1125,7 +1226,7 @@ def phase_kernels_gs(dev, b2=None) -> dict:
     B5 on the stream after the owner sort. Each form is timed at gamma 1,
     the gamma VanillaGS trains at. Then a stack of 400 Gaussians whose kill
     entry (index 300) lies past the first staged batch of every form (256
-    forward, 128 with stats, 96 backward), held exactly on n_contrib and
+    forward, 96 backward), held exactly on n_contrib and
     final_T."""
     import dataclasses
 
@@ -1180,10 +1281,9 @@ def phase_kernels_gs(dev, b2=None) -> dict:
         g1 = gamma == 1.0
         times = {}
         for form, stats, rich in GS_FORMS:
-            ops = (FWD_OPS_PER_EVAL_GS[g1] + (STATS_OPS_PER_EVAL if stats else 0)
-                   + (RICH_FWD_OPS["GS"] if rich else 0)) * c["evals"]
+            ops = b1_ops(c["work"], "GS", g1, stats=stats, rich=rich)
             times[f"blend_forward_{form}"] = dict(
-                ms=cuda_ms(lambda: KB.blend_forward(*fwd, stats=stats, rich=rich, **geo), 20),
+                ms=b1_ms(fwd, geo, stats, rich, cmp, "bench-gs-800-100k" if g1 else None),
                 bound=bound_ms(c["b1_bytes"][form], ops), err=max(
                     v for k, v in c["errs"][form].items() if k not in ("n_contrib",)),
                 plain=lambda stats=stats, rich=rich: KB.blend_forward_plain(
@@ -1192,7 +1292,7 @@ def phase_kernels_gs(dev, b2=None) -> dict:
             rich = form == "gs_rich"
             ops = (BWD_OPS_PER_EVAL_GS[g1] + (RICH_BWD_OPS["GS"] if rich else 0)) * c["evals"]
             times[f"blend_backward_{form}"] = dict(
-                ms=b2_ms(b["bw"], geo, rich, b2, "bench-gs-800-100k" if g1 else None),
+                ms=b2_ms(b["bw"], geo, rich, cmp, "bench-gs-800-100k" if g1 else None),
                 bound=bound_ms(c["b2_bytes"][form], ops), err=b["err"],
                 plain=lambda b=b, rich=rich: KB.blend_backward_plain(*b["bw"], rich=rich, **geo))
         say("kernels_gs", gamma=gamma, tiles=int(sp.tile_counts.shape[0]),
@@ -2082,7 +2182,7 @@ def build_city(dev) -> Path:
     return root
 
 
-def phase_city(dev, root: Path, b2=None) -> tuple[dict, dict]:
+def phase_city(dev, root: Path, cmp=None) -> tuple[dict, dict]:
     """config/MatrixCity_VanillaTS_mesh.yaml as shipped, on the synthetic
     city, with the cuts of CITY_CUTS (the recipe's cadences compressed
     into 50 steps). Gates: losses finite and falling; the geometry term
@@ -2266,15 +2366,15 @@ def phase_city(dev, root: Path, b2=None) -> tuple[dict, dict]:
         rec = {
             "blend_forward_3d_rich": dict(
                 max_abs_err=r["b1_err"],
-                ms=cuda_ms(lambda: KB.blend_forward(*r["fwd"], rich=True, **geo), 20),
+                ms=b1_ms(r["fwd"], geo, rich=True, cmp=cmp, site="city last step"),
                 plain_ms=cuda_ms(lambda: KB.blend_forward_plain(*r["fwd"], rich=True, **geo), 2, 1),
                 library_ms=None,
-                bound=bound_ms(r["b1_bytes"], (FWD_OPS_PER_EVAL_3D[g50] + RICH_FWD_OPS["3D"])
-                               * r["evals"]),
+                bound=bound_ms(r["b1_bytes"], b1_ops(b1_work(fwd, geo, off[4], "city"), "3D",
+                                                     g50, rich=True)),
                 tol=r["b1_tol"]),
             "blend_backward_3d_rich": dict(
                 max_abs_err=r["b2_err"],
-                ms=b2_ms(r["bw"], geo, rich=True, b2=b2, site="city last step"),
+                ms=b2_ms(r["bw"], geo, rich=True, cmp=cmp, site="city last step"),
                 plain_ms=cuda_ms(lambda: KB.blend_backward_plain(*r["bw"], rich=True, **geo), 2, 1),
                 library_ms=None,
                 bound=bound_ms(r["b2_bytes"], (BWD_OPS_PER_EVAL_3D[g50] + RICH_BWD_OPS["3D"])
@@ -2464,7 +2564,7 @@ def phase_gs(dev, root: Path) -> dict:
         rows4, P, np4 = int(a4[0].shape[0]), int(a4[1].shape[0]), int(a4[3])
         np5 = int(a5[4])
         b1 = bound_ms(pairs_in + 4 * 9 * H * W + 8 * ma,
-                      (FWD_OPS_PER_EVAL_GS[True] + STATS_OPS_PER_EVAL) * evals)
+                      b1_ops(b1_work(fwd, geo, out[4], "gs last step"), "GS", True, stats=True))
         b2 = bound_ms(pairs_in + 4 * 6 * H * W + 4 * 16 * ma, BWD_OPS_PER_EVAL_GS[True] * evals)
         b3 = bound_ms(4 * (int(a3[3].sum()) + 3 * (int(a3[3].shape[0]) + 1) + int(a3[4])))
         b4 = bound_ms(4 * (rows4 * np4 + 2 * P + 1) + 4 * 16 * P, rows4 * np4)
@@ -2552,12 +2652,10 @@ def main(argv=None) -> int:
 
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--b2-parent", type=Path, default=None, metavar="DIR",
+    ap.add_argument("--blend-parent", type=Path, action="append", default=[], metavar="DIR",
                     help="a directory with an earlier blend.cu and blend_gs.cu: time their "
-                         "B2 in turns with the current one (tools/b2_compare.py)")
-    ap.add_argument("--b2-ablate", action="store_true",
-                    help="with --b2-parent: also time two ablations of the parent's B2 "
-                         "(those of commit 347405a)")
+                         "B1 and B2 in turns with the current ones (tools/blend_compare.py); "
+                         "repeatable, the first is the parent")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2576,15 +2674,15 @@ def main(argv=None) -> int:
             count=torch.cuda.device_count(), torch=torch.__version__,
             cuda=torch.version.cuda)
         phase_build()
-        b2 = None
-        if args.b2_parent is not None:
-            from triangle_splatting_tpu_torch.tools.b2_compare import Comparison
-            b2 = Comparison(args.b2_parent, args.b2_ablate)
-            say("b2_parent", builds=b2.builds, takes_order=b2.takes_order, sass=b2.sass)
+        cmp = None
+        if args.blend_parent:
+            from triangle_splatting_tpu_torch.tools.blend_compare import Comparison
+            cmp = Comparison(args.blend_parent)
+            say("blend_parent", builds=cmp.builds, takes_order=cmp.takes_order, sass=cmp.sass)
         bench = make_bench(dev)
-        rec = phase_kernels(bench, b2)
-        rec.update(phase_kernels_3d(dev, b2))
-        rec.update(phase_kernels_gs(dev, b2))
+        rec = phase_kernels(bench, cmp)
+        rec.update(phase_kernels_3d(dev, cmp))
+        rec.update(phase_kernels_gs(dev, cmp))
         phase_reference(dev)
         phase_rasterize(bench)
         runs = dict(renderer=phase_renderer(bench))
@@ -2599,7 +2697,7 @@ def main(argv=None) -> int:
         runs["mesh"] = phase_mesh_train(dev, surface)
         runs["mesh_adc"] = phase_mesh_adc(dev, surface)
         shutil.rmtree(surface, ignore_errors=True)
-        runs["city"], city_rec = phase_city(dev, build_city(dev), b2)
+        runs["city"], city_rec = phase_city(dev, build_city(dev), cmp)
         rec.update(city_rec)
     except SmokeFailure as e:
         print(f"FAIL {e}", flush=True)

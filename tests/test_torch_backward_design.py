@@ -34,24 +34,27 @@ W, H = 72, 40            # 3 x 2 tiles of 32 x 32, the last column and row parti
 GAMMA = {"2D": 1.0, "3D": 50.0, "GS": 1.0}
 
 
-def packed(variant: str, seed: int = 0):
-    """Field-major (16, MA) pairs of a random scene, with its tile starts
-    and counts, params and the blend geometry, on the CPU."""
+def packed(variant: str, seed: int = 0, n: int | None = None, **scene_kw):
+    """Field-major (16, MA) pairs of a random scene (``n`` primitives: 60
+    triangles or 80 Gaussians by default; ``scene_kw`` to the scene's
+    maker), with its tile starts and counts, params and the blend geometry,
+    on the CPU."""
     st = RasterSettings(image_width=W, image_height=H, rich_info=False,
                         rasterizer_type=variant)
     cam = make_camera(W, H, device="cpu")
     gamma = torch.tensor(GAMMA[variant])
     if variant == "GS":
-        s = make_gs_scene(80, seed=seed)
+        s = make_gs_scene(n or 80, seed=seed, **scene_kw)
         xyz, scale, rot, op, rgb = (torch.as_tensor(s[k])
                                     for k in ("xyz", "scale", "rot", "opacity", "rgb"))
         prep = preprocess_gaussian(xyz, scale, rot, rgb, cam.world_view, cam.full_proj,
                                    cam.tan_fovx, cam.tan_fovy, st, opacity=op, gamma=gamma)
     else:
-        s = make_random_scene(60, seed=seed)
+        n = n or 60
+        s = make_random_scene(n, seed=seed, **scene_kw)
         vertex, op, rgb = (torch.as_tensor(s[k]) for k in ("vertex", "opacity", "rgb"))
         pre = preprocess_2d if variant == "2D" else preprocess_3d
-        prep = pre(vertex, torch.zeros((60, 2)), rgb, cam.world_view, cam.full_proj,
+        prep = pre(vertex, torch.zeros((n, 2)), rgb, cam.world_view, cam.full_proj,
                    cam.tan_fovx, cam.tan_fovy, st, opacity=op, gamma=gamma)
     sp = sort_pairs(prep, st, 128 * 24)
     assert not bool(sp.overflow)
@@ -193,30 +196,19 @@ def test_tile_order_small(counts, want):
     assert KB.tile_order(torch.tensor(counts, dtype=torch.int32)).tolist() == want
 
 
-def ecc_bound(opac: float, gamma: float) -> float:
-    """``ecc_bound`` of ``csrc/blend.cu``, in float64: the largest ecc at
-    which an entry of opacity ``opac`` can still reach alpha >= 1/255."""
-    alpha_min = float(np.float32(KB.ALPHA_MIN))
-    if not gamma > 0.0 or opac != opac:
-        return float("inf")
-    if not opac >= alpha_min:
-        return -1.0
-    c = 2.0 * np.log(opac / alpha_min) + 2e-3
-    return float(np.float32(c ** (0.5 / gamma) * (1.0 + 1e-5)))
-
-
 @pytest.mark.parametrize("gamma", [1.0, 2.0, 7.3, 50.0])
 def test_ecc_bound_skips_only_zero_alpha(gamma):
-    """B2-2D/3D evaluate the falloff only where some pixel's ecc is within
-    the entry's bound. Past it the plain alpha terms (the kernels' float32
+    """B1 and B2 ("2D"/"3D") evaluate the falloff only where some pixel's
+    ecc is within the entry's bound (``ecc_bound_plain``, the kernels'
+    ``ecc_bound``). Past it the plain alpha terms (the kernels' float32
     arithmetic) give alpha exactly 0; just inside it they give alpha > 0
     (the bound is tight)."""
     rng = np.random.default_rng(int(gamma * 10))
     opac = np.concatenate([[np.float32(KB.ALPHA_MIN), 0.004, 0.99, 1.0],
                            rng.uniform(0.0039, 1.0, 60)]).astype(np.float32)
     rel = np.concatenate([-np.logspace(-2, -7, 12), [0.0], np.logspace(-7, -2, 12)])
-    for o in opac:
-        e = ecc_bound(float(o), gamma)
+    bounds = KB.ecc_bound_plain(torch.as_tensor(opac), gamma).tolist()
+    for o, e in zip(opac, bounds):
         assert e > 0
         ecc = np.float32(e) * (1.0 + rel)                     # around the bound
         mn = ((1.0 - ecc) / 3.0).astype(np.float32)           # a1 = mn, a2 = a3 = (1 - mn) / 2
@@ -231,28 +223,24 @@ def test_ecc_bound_skips_only_zero_alpha(gamma):
         assert not bool(alpha[past].any()), (o, gamma)
         if o >= 0.01:
             assert bool((alpha[eccs[:, 0] < e * (1 - 1e-2)] > 0).all()), (o, gamma)
-    assert ecc_bound(0.5 / 255, gamma) == -1.0
+    assert KB.ecc_bound_plain(torch.tensor([0.5 / 255]), gamma).tolist() == [-1.0]
 
 
-def test_b2_compare_reads_the_parents_interface():
-    """The B2 comparison tool takes a parent's entry point with the current
-    parameters or without the tile order, and refuses any other."""
+@pytest.mark.parametrize("kernel", ["b1", "b2"])
+def test_blend_compare_reads_the_parents_interface(kernel):
+    """The B1/B2 comparison tool takes a parent's entry point with the
+    current parameters, with or without the tile order after tile_counts,
+    and refuses any other."""
     from triangle_splatting_tpu_torch.ops.cuda.build import CSRC
-    from triangle_splatting_tpu_torch.tools import b2_compare as BC
-    for s in BC.ENTRY:
+    from triangle_splatting_tpu_torch.tools import blend_compare as BC
+    for s in BC.SOURCES:
         text = (CSRC / f"{s}.cu").read_text()
-        assert BC.takes_order(text, s)
+        assert BC.takes_order(text, s, kernel)
         old = text.replace("const long long* tile_order, ", "")
-        assert old != text and not BC.takes_order(old, s)
+        assert old != text and not BC.takes_order(old, s, kernel)
         with pytest.raises(RuntimeError, match="tile_order"):
-            BC.takes_order(old.replace("int mp,", "int mp, int extra,"), s)
-
-
-@pytest.mark.parametrize("name", ["notrees", "skip"])
-def test_b2_compare_ablations_refuse_other_sources(name):
-    """The ablations are edits of one earlier B2: on the current sources
-    their patterns match nowhere, and the tool raises."""
-    from triangle_splatting_tpu_torch.ops.cuda.build import CSRC
-    from triangle_splatting_tpu_torch.tools import b2_compare as BC
-    with pytest.raises(RuntimeError, match="347405a"):
-        BC.ablated((CSRC / "blend.cu").read_text(), name)
+            BC.takes_order(old.replace("int mp,", "int mp, int extra,"), s, kernel)
+        moved = old.replace("const float* params,", "const float* params, "
+                            "const long long* tile_order,")
+        with pytest.raises(RuntimeError, match="tile_order"):
+            BC.takes_order(moved, s, kernel)

@@ -757,10 +757,10 @@ B2_CASES = [
 ]
 
 
-def b2_inputs(variant, case, dev, tile=(32, 32)):
-    """Packed pairs of a random triangle or Gaussian scene on ``dev``, in
-    tiles of ``tile`` (w, h) pixels (``xy_extent`` small leaves the image's
-    border tiles empty)."""
+def b2_inputs(variant, case, dev, tile=(32, 32), scene=None):
+    """Packed pairs of a random triangle or Gaussian scene on ``dev`` (or
+    of ``scene``), in tiles of ``tile`` (w, h) pixels (``xy_extent`` small
+    leaves the image's border tiles empty)."""
     from triangle_splatting_tpu_torch.ops.gaussian import (gaussian_field_matrix,
                                                            preprocess_gaussian)
     from triangle_splatting_tpu_torch.utils.testing import make_gs_scene
@@ -772,14 +772,14 @@ def b2_inputs(variant, case, dev, tile=(32, 32)):
     with torch.no_grad():
         if variant == "GS":
             gs_sizes = (0.03, 0.15) if sizes is None else (sizes[0] / 2, sizes[1] / 2)
-            s = make_gs_scene(P, seed=seed, xy_extent=xy, scale_range=gs_sizes)
+            s = scene or make_gs_scene(P, seed=seed, xy_extent=xy, scale_range=gs_sizes)
             xyz, scale, rot, op, rgb = (torch.as_tensor(s[k]).to(dev)
                                         for k in ("xyz", "scale", "rot", "opacity", "rgb"))
             prep = preprocess_gaussian(xyz, scale, rot, rgb, cam.world_view, cam.full_proj,
                                        cam.tan_fovx, cam.tan_fovy, st, opacity=op, gamma=g)
         else:
-            s = make_random_scene(P, seed=seed, xy_extent=xy,
-                                  size_range=(0.05, 0.25) if sizes is None else sizes)
+            s = scene or make_random_scene(P, seed=seed, xy_extent=xy,
+                                           size_range=(0.05, 0.25) if sizes is None else sizes)
             vertex, op, rgb = (torch.as_tensor(s[k]).to(dev) for k in ("vertex", "opacity", "rgb"))
             pre = preprocess_2d if variant == "2D" else preprocess_3d
             prep = pre(vertex, torch.zeros((P, 2), device=dev), rgb, cam.world_view,
@@ -883,3 +883,163 @@ def test_blend_backward_redesign_odd_tiles_match_plain(dev, variant, rich, tile)
                variant=variant)
     _, jmax = hold_b2(variant, rich, case, sp, fields, params, geo, dev)
     assert int(jmax.max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# B1 as redesigned for the H100: the falloff pre-test, 8x4 warp blocks,
+# pending stream rows summed transposed, heaviest tiles first, overlapped
+# staging of 256-entry batches
+# ---------------------------------------------------------------------------
+
+B1_FORMS = [(v, st, r) for v in ("2D", "3D", "GS") for st in (False, True) for r in (False, True)]
+B1_IDS = [KB._form(v, st, r) for v, st, r in B1_FORMS]
+B1_CASES = B2_CASES + [
+    # (id, P, W, H, seed, gamma, xy_extent, sizes): one tile's stack whose
+    # pixels reach T_EPS (GS: their kill entry) in the first batch of 256,
+    # and one where they reach it only past it
+    ("stack-mid", 120, 64, 64, 3, 1.0, 0.05, (0.8, 1.2)),
+    ("stack-deep", 500, 64, 64, 4, 1.0, 0.05, (0.8, 1.2)),
+]
+
+
+def b1_stack_scene(variant, case):
+    """The scene of a stack case: triangles of opacity 0.2-0.3 (mid) or
+    0.02-0.03 (deep) over the image center, or Gaussians of opacity 0.12
+    (mid) or 0.02 (deep) with one of 0.97 at depth rank 60 or 300, the
+    center pixels' kill entry."""
+    from triangle_splatting_tpu_torch.utils.testing import make_gs_stack_scene
+    name, P, _, _, seed, _, xy, sizes = case
+    deep = name == "stack-deep"
+    if variant == "GS":
+        return make_gs_stack_scene(P, B1_KILL[name], 0.02 if deep else 0.12, seed)
+    return make_random_scene(P, seed=seed, xy_extent=xy, size_range=sizes,
+                             opacity_range=(0.02, 0.03) if deep else (0.2, 0.3))
+
+
+B1_KILL = {"stack-mid": 60, "stack-deep": 300}
+
+
+def hold_b1(variant, stats, rich, sp, fields, params, geo):
+    """A B1 form against its plain version: n_contrib exact, color and
+    final_T abs 1e-5 ("GS": final_T exact), depth and normal rel 1e-5 of
+    their max, the stream's maxes exact and its sums rel 1e-5 of the row's
+    max, zeros in the slots of no pair; its color, final_T and n_contrib
+    (and without rich info depth and normal) bit-identical to the plain
+    form's; two launches bit-identical, the stream included, and counted.
+    Returns its outputs and the plain version's."""
+    args = (fields, sp.astarts, sp.tile_counts, params)
+    form = KB._form(variant, stats, rich)
+    n = dict(KB.blend_forward.launches)
+    got = KB.blend_forward(*args, stats=stats, rich=rich, **geo)
+    again = KB.blend_forward(*args, stats=stats, rich=rich, **geo)
+    plain_form = KB.blend_forward(*args, **geo)
+    ref = KB.blend_forward_plain(*args, stats=stats, rich=rich, **geo)
+    torch.cuda.synchronize()
+    want = {**n, form: n[form] + 2}
+    want[variant] += 1
+    assert KB.blend_forward.launches == want
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    for k in ((0, 3, 4) if rich else range(5)):
+        assert torch.equal(got[k], plain_form[k]), k
+    assert torch.equal(got[4], ref[4])
+    assert float((got[0] - ref[0]).abs().max()) <= 1e-5
+    assert float((got[3] - ref[3]).abs().max()) <= (0.0 if variant == "GS" else 1e-5)
+    if rich:
+        for k in ((1,) if variant == "GS" else (1, 2)):
+            scale = float(ref[k].abs().max())
+            assert float((got[k] - ref[k]).abs().max()) <= 1e-5 * scale, k
+    if stats:
+        pc, pw = got[5], ref[5]
+        assert bool(torch.isfinite(pc).all())
+        assert torch.equal(pc[1], pw[1])
+        assert float((pc[0] - pw[0]).abs().max()) <= 1e-5 * float(pw[0].abs().max())
+        ts, tc = sp.astarts.tolist(), sp.tile_counts.tolist()
+        for t in range(len(tc)):
+            assert not bool(pc[:, ts[t] + tc[t]:ts[t + 1]].any())
+        assert not bool(pc[:, ts[-1]:].any())
+    return got, ref
+
+
+@pytest.mark.parametrize("case", B1_CASES, ids=[c[0] for c in B1_CASES])
+@pytest.mark.parametrize("variant,stats,rich", B1_FORMS, ids=B1_IDS)
+def test_blend_forward_redesign_matches_plain(dev, variant, stats, rich, case):
+    """Each B1 form against its plain version (``hold_b1``) in 32x32 tiles,
+    whose warps cover 8x4 blocks: ragged images (200x136, and 1600x900's
+    partial tile row) with empty tiles at gamma 1 and 50, and stacks whose
+    pixels end in the first batch or only past it."""
+    name, P, W, H, seed, gamma, xy, sizes = case
+    stack = name.startswith("stack")
+    scene = b1_stack_scene(variant, case) if stack else None
+    sp, fields, params = b2_inputs(variant, case, dev, scene=scene)
+    geo = dict(image_width=W, image_height=H, tile_h=32, tile_w=32, variant=variant)
+    got, _ = hold_b1(variant, stats, rich, sp, fields, params, geo)
+    # the shapes the case is for
+    nc, T = got[4], got[3]
+    if not stack:
+        assert int((sp.tile_counts == 0).sum()) > 0                   # an empty tile
+    elif variant == "GS":
+        assert int(nc[H // 2, W // 2]) == B1_KILL[name]                # the kill entry
+    elif name == "stack-mid":
+        assert bool(((T <= 1e-4) & (nc < 256)).any()) and int(nc.max()) < 256
+    else:
+        assert bool(((T <= 1e-4) & (nc > 256)).any())
+
+
+B1_ODD_TILES = [(12, 8), (16, 2)]
+
+
+@pytest.mark.parametrize("tile", B1_ODD_TILES, ids=[f"{w}x{h}" for w, h in B1_ODD_TILES])
+@pytest.mark.parametrize("variant,stats,rich", B1_FORMS, ids=B1_IDS)
+def test_blend_forward_redesign_odd_tiles_match_plain(dev, variant, stats, rich, tile):
+    """Each B1 form against its plain version (``hold_b1``) in tiles that do
+    not divide into 8x4 blocks, whose warps cover the tile's rows in order
+    (12x8: a warp spans rows of 12 pixels; 16x2: one warp)."""
+    case = B2_CASES[0]
+    sp, fields, params = b2_inputs(variant, case, dev, tile)
+    geo = dict(image_width=case[2], image_height=case[3], tile_w=tile[0], tile_h=tile[1],
+               variant=variant)
+    got, _ = hold_b1(variant, stats, rich, sp, fields, params, geo)
+    assert int(got[4].max()) > 0
+
+
+
+@pytest.mark.parametrize("variant", ["2D", "3D"])
+def test_blend_tiles_hands_one_order_on_the_card(dev, variant, monkeypatch):
+    """On the card ``BlendTiles`` computes the tiles' order once a step
+    (``step_order``: ``tile_order``, heaviest first) and hands the same
+    tensor to the B1 and the B2 wrapper; its gradients are those of the
+    wrappers called without an order."""
+    from triangle_splatting_tpu_torch.ops import rasterize as RZ
+    case = CASES[2]
+    W, H = case[1], case[2]
+    sp, _, fields, params = pipeline_inputs(case, dev, variant)
+    orders, seen = [], {}
+    real = dict(order=RZ.step_order, fwd=RZ.blend_forward, bwd=RZ.blend_backward)
+
+    def order_spy(c):
+        orders.append(real["order"](c))
+        return orders[-1]
+
+    def spy(name):
+        def wrapped(*a, **kw):
+            seen[name] = kw["order"]
+            return real[name](*a, **kw)
+        return wrapped
+    monkeypatch.setattr(RZ, "step_order", order_spy)
+    monkeypatch.setattr(RZ, "blend_forward", spy("fwd"))
+    monkeypatch.setattr(RZ, "blend_backward", spy("bwd"))
+    f = fields.clone().requires_grad_(True)
+    cfg = (W, H, 32, 32, variant, False, False)
+    color, _, _, final_T, n_contrib, _ = RZ.BlendTiles.apply(f, sp.astarts, sp.tile_counts,
+                                                            params, cfg)
+    g = torch.rand((3, H, W), generator=torch.Generator().manual_seed(0)).to(dev)
+    (color * g).sum().backward()
+    torch.cuda.synchronize()
+    assert len(orders) == 1 and orders[0] is not None
+    assert seen["fwd"].data_ptr() == seen["bwd"].data_ptr() == orders[0].data_ptr()
+    assert torch.equal(orders[0], torch.argsort(sp.tile_counts, descending=True, stable=True))
+    geo = dict(image_width=W, image_height=H, tile_h=32, tile_w=32, variant=variant)
+    want = KB.blend_backward(fields, sp.astarts, sp.tile_counts, params, final_T.detach(),
+                             n_contrib, g, **geo)
+    assert torch.equal(f.grad, want)

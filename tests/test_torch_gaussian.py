@@ -450,7 +450,7 @@ class TestGSEarlyTermination:
     """The entry that would push T below 1e-4 is not composited and ends the
     pixel; later small-alpha entries must not resurrect it. Kill index 250
     lies past Pallas' 128-pair slab, 280 also past the CUDA kernels'
-    staged batches (256 in the forward, 128 with stats, 96 backward)."""
+    staged batches (256 in the forward, 96 backward)."""
 
     @pytest.mark.parametrize("n,kill_at,opacity", [(360, 250, 0.03), (400, 280, 0.025)])
     def test_kill_parity(self, n, kill_at, opacity):

@@ -145,6 +145,126 @@ def alpha_terms_plain(f: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
     return a1, a2, a3, eccs, expp, alpha_un, alpha, ok, invD
 
 
+def _falloff_bound(opac: torch.Tensor, gamma: float, power: float) -> torch.Tensor:
+    """(2 ln(opac / ALPHA_MIN) + 2e-3) ** power * (1 + 1e-5) in float64,
+    rounded to float32: -1 where the opacity is below ALPHA_MIN, +inf for
+    gamma <= 0 and NaN opacities."""
+    o = opac.to(torch.float64)
+    amin = float(torch.tensor(ALPHA_MIN, dtype=torch.float32))
+    inf = torch.full_like(o, float("inf"))
+    if not float(gamma) > 0.0:
+        return inf.to(torch.float32)
+    c = 2.0 * torch.log(o / amin) + 2e-3
+    bound = c.clamp_min(0.0) ** power * (1.0 + 1e-5)
+    bound = torch.where(o >= amin, bound, torch.full_like(o, -1.0))
+    return torch.where(torch.isnan(o), inf, bound).to(torch.float32)
+
+
+def ecc_bound_plain(opac: torch.Tensor, gamma: float) -> torch.Tensor:
+    """``ecc_bound`` of ``csrc/blend.cu`` on (n,) opacities: the largest
+    ecc at which an entry can still reach alpha >= ALPHA_MIN at ``gamma``
+    (past it ecc^(2 gamma) >= 2 ln(opac / ALPHA_MIN) + 2e-3, a margin over
+    every rounding of the falloff; then a relative 1e-5 for the bound's
+    own), in float64 rounded to float32: -1 where the opacity is below
+    ALPHA_MIN, +inf for gamma <= 0 and NaN opacities."""
+    return _falloff_bound(opac, gamma, 0.5 / float(gamma) if float(gamma) > 0 else 1.0)
+
+
+def q_bound_plain(opac: torch.Tensor, gamma: float) -> torch.Tensor:
+    """``q_bound`` of ``csrc/blend_gs.cu``, "GS"'s twin of
+    ``ecc_bound_plain``: the largest q at which an entry can still reach
+    alpha >= ALPHA_MIN (past it q^gamma >= 2 ln(opac / ALPHA_MIN) + 2e-3)."""
+    return _falloff_bound(opac, gamma, 1.0 / float(gamma) if float(gamma) > 0 else 1.0)
+
+
+def falloff_pretest_plain(eccs: torch.Tensor, opac: torch.Tensor, gamma: float) -> torch.Tensor:
+    """B1's and B2's falloff pre-test on the (n, npix) ``eccs`` of entries
+    of (n,) opacities ("2D" and "3D"): True where the falloff is evaluated,
+    the ecc within the entry's ``ecc_bound_plain``. A warp skips an entry
+    where this is False at each of its live pixels: alpha is 0 at all of
+    them, since an ecc out of range gives alpha 0 too."""
+    return eccs <= ecc_bound_plain(opac, gamma)[:, None]
+
+
+CULL_MARGIN = 2e-5    # csrc/blend.cu kCullMargin
+
+
+def box_cull_plain(f: torch.Tensor, boxes: torch.Tensor, bound: torch.Tensor,
+                   variant: str = "2D") -> torch.Tensor:
+    """B1's per-warp cull ("2D", "3D"; ``box_may_hit`` of ``csrc/blend.cu``,
+    in its float32 operations): for (16, n) field columns, (k, 4) boxes
+    [x0, x1, y0, y1] of pixel coordinates (>= 0) and the (n,) entries'
+    ``ecc_bound_plain``, (n, k) False only where no pixel of the box can
+    have an ecc within the bound. Every pixel's ecc is at least
+    1 - 3 min_i max a_i over the box's corners (the barycentrics are affine
+    in "2D"; in "3D" ratios of affine forms, taken only where D keeps its
+    sign over the box and stays clear of 0 against its terms), less
+    CULL_MARGIN times the magnitude of the terms (in "3D" over min |D|) for
+    the roundings. A NaN anywhere culls nothing."""
+    col = lambda k: f[k][:, None]  # noqa: E731
+    x0, x1, y0, y1 = (boxes[:, i][None, :] for i in range(4))
+
+    def affine(c0, cx, cy, px, py):
+        return (c0 + cx * px) + cy * py
+
+    def magnitude(c0, cx, cy):
+        return (c0.abs() + cx.abs() * x1) + cy.abs() * y1
+
+    if variant == "3D":
+        g = [(col(i) - col(i + 3)) - col(i + 6) for i in range(3)]     # A3 = D - A1 - A2
+        corners = [(x1 if c & 1 else x0, y1 if c & 2 else y0) for c in range(4)]
+        D = torch.stack([affine(col(0), col(1), col(2), px, py) for px, py in corners])
+        inv = 1.0 / D
+        a = torch.stack([torch.stack([affine(col(3), col(4), col(5), px, py),
+                                      affine(col(6), col(7), col(8), px, py),
+                                      affine(*g, px, py)]) for px, py in corners])
+        a = a * inv[:, None]                                           # (4, 3, n, k)
+        hi = a.amax(dim=0)
+        amax = a.abs().amax(dim=(0, 1))
+        dabs = D.abs().amin(dim=0)
+        sd = magnitude(col(0), col(1), col(2))
+        sa = magnitude(col(3), col(4), col(5)) + magnitude(col(6), col(7), col(8))
+        sign_kept = ((D.amin(dim=0) > 0) | (D.amax(dim=0) < 0)) & (dabs > 1e-3 * sd)
+        r = (((sd + sa) * (1.0 + amax)) / dabs + amax) + 1.0
+        m = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
+    else:
+        def box_max(c0, cx, cy):
+            return (c0 + torch.maximum(cx * x0, cx * x1)) + torch.maximum(cy * y0, cy * y1)
+        g0 = (1.0 - col(0)) - col(3)                                  # a3 = 1 - a1 - a2
+        g1, g2 = -(col(1) + col(4)), -(col(2) + col(5))
+        m = torch.minimum(torch.minimum(box_max(col(0), col(1), col(2)),
+                                        box_max(col(3), col(4), col(5))), box_max(g0, g1, g2))
+        r = (1.0 + magnitude(col(0), col(1), col(2))) + magnitude(col(3), col(4), col(5))
+        sign_kept = torch.ones_like(m, dtype=torch.bool)
+    lower = (1.0 - 3.0 * m) - CULL_MARGIN * r
+    return ~(sign_kept & (lower > bound[:, None]))
+
+
+def box_cull_gs_plain(f: torch.Tensor, boxes: torch.Tensor, bound: torch.Tensor) -> torch.Tensor:
+    """B1-GS's per-warp cull (``box_may_hit_gs`` of ``csrc/blend_gs.cu``, in
+    its float32 operations): for (16, n) field columns, (k, 4) boxes
+    [x0, x1, y0, y1] and the (n,) entries' ``q_bound_plain``, (n, k) False
+    only where no pixel of the box can have q within the bound: q >= lambda
+    |d|^2 with lambda the conic's smaller eigenvalue and |d| at least the
+    center's distance to the box, less CULL_MARGIN times |a| + |b| + |c| on
+    lambda and against the farthest corner's |d|^2. A NaN anywhere culls
+    nothing."""
+    col = lambda k: f[k][:, None]  # noqa: E731
+    x0, x1, y0, y1 = (boxes[:, i][None, :] for i in range(4))
+    X, Y, a, b, c = (col(k) for k in range(5))
+    zero = torch.zeros((), dtype=f.dtype)
+    ex = torch.maximum(torch.maximum(x0 - X, X - x1), zero)
+    ey = torch.maximum(torch.maximum(y0 - Y, Y - y1), zero)
+    fx = torch.maximum((X - x0).abs(), (X - x1).abs())
+    fy = torch.maximum((Y - y0).abs(), (Y - y1).abs())
+    near2, far2 = ex * ex + ey * ey, fx * fx + fy * fy
+    h = 0.5 * (a - c)
+    lam = 0.5 * (a + c) - torch.sqrt(h * h + b * b)
+    mag = CULL_MARGIN * ((a.abs() + b.abs()) + c.abs())
+    lower = (lam - mag) * near2 - mag * far2
+    return ~(lower > bound[:, None])
+
+
 def alpha_terms_gs_plain(f: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
                          gamma: torch.Tensor, in_range: torch.Tensor):
     """blend.py ``_alpha_terms_gs`` on (n,) field rows against (npix,) pixel
@@ -293,7 +413,7 @@ def blend_forward(pairs: torch.Tensor, tile_starts: torch.Tensor,
                   tile_counts: torch.Tensor, params: torch.Tensor, *,
                   image_width: int, image_height: int, tile_h: int,
                   tile_w: int, rich: bool = False, variant: str = "2D",
-                  stats: bool = False):
+                  stats: bool = False, order: torch.Tensor | None = None):
     """Forward tile blend.
 
     Returns color (3, H, W), depth (H, W) (accumulated depth + final_T *
@@ -306,11 +426,18 @@ def blend_forward(pairs: torch.Tensor, tile_starts: torch.Tensor,
     over the tile's pixels of alpha * T_excl of the composited entries,
     zeros in slots that hold no pair or that the tile never reached. The
     first five outputs do not depend on ``stats``, and color, final_T and
-    n_contrib not on ``rich``.
+    n_contrib not on ``rich``. ``order`` is the order in which the kernel's
+    blocks take the tiles, a permutation of them (``tile_order``'s, computed
+    here when None); no output depends on it. The card does not check that
+    it is a permutation (that would wait for the card): a tile it leaves out
+    keeps uninitialised outputs. The plain version reads no order, and the
+    CPU path only checks a given one.
     """
     _require_ported_variant(variant)
     grid_w, grid_h = _grid(image_width, image_height, tile_h, tile_w)
     dev = _check_inputs(pairs, tile_starts, tile_counts, params, grid_w * grid_h)
+    if order is not None:
+        _check_order(order, tile_counts)
     kw = dict(image_width=image_width, image_height=image_height,
               tile_h=tile_h, tile_w=tile_w, variant=variant, stats=stats, rich=rich)
     if dev.type == "cpu":
@@ -319,6 +446,8 @@ def blend_forward(pairs: torch.Tensor, tile_starts: torch.Tensor,
         raise ValueError(f"blend_forward: unsupported device {dev}")
     if pairs.dtype != torch.float32 or params.dtype != torch.float32:
         raise TypeError("blend_forward: the CUDA kernel takes float32 pairs/params")
+    if order is None:
+        order = tile_order(tile_counts)
     H, W = image_height, image_width
     color = torch.empty((3, H, W), dtype=torch.float32, device=dev)
     depth = torch.empty((H, W), dtype=torch.float32, device=dev)
@@ -329,8 +458,8 @@ def blend_forward(pairs: torch.Tensor, tile_starts: torch.Tensor,
     pair_contrib = (torch.empty((2, pairs.shape[1]), dtype=torch.float32, device=dev)
                     if stats else None)
     head = (pairs.data_ptr(), pairs.shape[1], tile_starts.data_ptr(),
-            tile_counts.data_ptr(), params.data_ptr(), W, H, tile_w, tile_h,
-            grid_w, grid_w * grid_h)
+            tile_counts.data_ptr(), order.data_ptr(), params.data_ptr(), W, H, tile_w,
+            tile_h, grid_w, grid_w * grid_h)
     tail = (color.data_ptr(), depth.data_ptr(), normal.data_ptr(),
             final_t.data_ptr(), n_contrib.data_ptr(),
             pair_contrib.data_ptr() if stats else None, _stream())
@@ -507,8 +636,8 @@ def blend_backward(pairs: torch.Tensor, tile_starts: torch.Tensor,
                    g_depth: torch.Tensor | None = None,
                    g_normal: torch.Tensor | None = None,
                    *, image_width: int, image_height: int, tile_h: int,
-                   tile_w: int, rich: bool = False,
-                   variant: str = "2D") -> torch.Tensor:
+                   tile_w: int, rich: bool = False, variant: str = "2D",
+                   order: torch.Tensor | None = None) -> torch.Tensor:
     """Backward tile blend: per-pair gradients (16, MP) of the packed
     fields, given the forward's final_T / n_contrib and the cotangents of
     color (3, H, W) and final_T (H, W), and with ``rich`` of depth (H, W)
@@ -516,10 +645,12 @@ def blend_backward(pairs: torch.Tensor, tile_starts: torch.Tensor,
     With rich info off the depth and normal outputs carry no gradient.
     Rows from ``LIVE_GRAD_ROWS`` on (10 for "2D" and "GS", 13 for "3D";
     16, 11 and 14 with rich), "GS"'s row 5, padding slots and slots past
-    the deepest contributor are zero."""
+    the deepest contributor are zero. ``order`` as for ``blend_forward``."""
     _require_ported_variant(variant)
     grid_w, grid_h = _grid(image_width, image_height, tile_h, tile_w)
     dev = _check_inputs(pairs, tile_starts, tile_counts, params, grid_w * grid_h)
+    if order is not None:
+        _check_order(order, tile_counts)
     H, W = image_height, image_width
     if g_final_T is None:
         g_final_T = torch.zeros((H, W), dtype=pairs.dtype, device=dev)
@@ -548,8 +679,9 @@ def blend_backward(pairs: torch.Tensor, tile_starts: torch.Tensor,
         raise ValueError(f"blend_backward: unsupported device {dev}")
     if pairs.dtype != torch.float32 or params.dtype != torch.float32:
         raise TypeError("blend_backward: the CUDA kernel takes float32 inputs")
+    if order is None:
+        order = tile_order(tile_counts)
     out = torch.empty_like(pairs)
-    order = tile_order(tile_counts)
     head = (pairs.data_ptr(), pairs.shape[1], tile_starts.data_ptr(),
             tile_counts.data_ptr(), order.data_ptr(), params.data_ptr(), W, H, tile_w,
             tile_h, grid_w, grid_w * grid_h)
@@ -574,16 +706,37 @@ blend_backward.launches = dict.fromkeys((_form(v, rich=r) for r in (False, True)
 
 
 def tile_order(tile_counts: torch.Tensor) -> torch.Tensor:
-    """The order in which B2's blocks take the tiles (one block per SM at a
-    time): by descending pair count, ties in tile order (int64, as
-    ``argsort`` gives it: the kernel reads it so). The heaviest tiles start
-    first, so the last wave of blocks is not one long tile. It pays where
-    a few tiles carry most of the work (the mesh cells' surface at 2,500
-    tiles, the photo and gs cells at 625, the city at 1,450) and costs the
-    argsort, ~3% of B2, on a uniform scene; the wrapper cannot tell the
-    two apart without a sync, so it always sorts (PERF.md, Findings)."""
+    """The order in which B1's and B2's blocks take the tiles (one block
+    per SM at a time): by descending pair count, ties in tile order (int64,
+    as ``argsort`` gives it: the kernels read it so). The heaviest tiles
+    start first, so the last wave of blocks is not one long tile. It pays
+    where a few tiles carry most of the work (the mesh cells' surface at
+    2,500 tiles, the photo and gs cells at 625, the city at 1,450) and
+    costs the argsort, ~30 us, on a uniform scene; the wrappers cannot tell
+    the two apart without a sync, so they always sort, and ``rasterize``
+    sorts once a step for both (PERF.md, Findings)."""
     return torch.argsort(tile_counts, descending=True, stable=True)
 
+
+def _check_order(order, tile_counts):
+    """Checks a tile order given to a wrapper: int64, one entry per tile, on
+    the tiles' device, and on the CPU, where that costs no wait for the
+    card, a permutation of the tiles."""
+    _check(order, "order", torch.int64, 1, tile_counts.device)
+    if order.shape != tile_counts.shape:
+        raise ValueError(f"order: expected {tuple(tile_counts.shape)}, got {tuple(order.shape)}")
+    if not order.is_cuda and not torch.equal(torch.sort(order).values,
+                                             torch.arange(order.shape[0])):
+        raise ValueError("order: not a permutation of the tiles")
+
+
+# B1's kernel in each form, as compare_sass and ptxas name it
+FORWARD_KERNELS = {
+    **{_form(v, s, r): f"blend_forward_kernel<{str(v == '3D').lower()}, {str(s).lower()}, "
+                       f"{str(r).lower()}>"
+       for v in ("2D", "3D") for s in (False, True) for r in (False, True)},
+    **{_form("GS", s, r): f"blend_forward_gs_kernel<{str(s).lower()}, {str(r).lower()}>"
+       for s in (False, True) for r in (False, True)}}
 
 # B2's kernel in each form, as compare_sass and ptxas name it
 BACKWARD_KERNELS = {"2D": "blend_backward_kernel<false, false>",
@@ -602,4 +755,15 @@ def backward_smem_bytes() -> dict[str, int]:
            for v in ("2D", "3D") for r in (False, True)}
     out.update({_form("GS", rich=r): lib_gs.ts_blend_backward_gs_smem(int(r))
                 for r in (False, True)})
+    return out
+
+
+def forward_smem_bytes() -> dict[str, int]:
+    """Dynamic shared memory of each B1 form's launch, in bytes (builds the
+    kernels: CUDA only)."""
+    lib, lib_gs = library("blend"), library("blend_gs")
+    out = {_form(v, s, r): lib.ts_blend_forward_smem(int(v == "3D"), int(s), int(r))
+           for v in ("2D", "3D") for s in (False, True) for r in (False, True)}
+    out.update({_form("GS", s, r): lib_gs.ts_blend_forward_gs_smem(int(s), int(r))
+                for s in (False, True) for r in (False, True)})
     return out

@@ -42,18 +42,20 @@ SIGNATURES = {
         "ts_segment_reduce_stats": (_P, _P, _I, _P, _P, _P, _I, _P, _P, _P),
     },
     "blend": {
-        "ts_blend_forward": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _P, _P, _P, _P, _P, _P, _P),
+        "ts_blend_forward": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
         "ts_blend_backward": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
         "ts_blend_backward_smem": (_I, _I),
+        "ts_blend_forward_smem": (_I, _I, _I),
     },
     "blend_gs": {
-        "ts_blend_forward_gs": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                _I, _P, _P, _P, _P, _P, _P, _P),
+        "ts_blend_forward_gs": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _P, _P, _P, _P, _P, _P, _P),
         "ts_blend_backward_gs": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _P, _P, _P, _P, _P, _P, _P),
         "ts_blend_backward_gs_smem": (_I,),
+        "ts_blend_forward_gs_smem": (_I, _I),
     },
     "probes": {
         "ts_probe_vpu": (_P, _P, _I, _I, _I, _I, _F, _F, _P),

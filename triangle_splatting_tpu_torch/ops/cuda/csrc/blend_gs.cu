@@ -42,30 +42,38 @@
 // shared memory as broadcasts. Inputs and outputs are tens of MB (tens of
 // us at 3.35 TB/s), the evaluations a frame needs are 1e8-1e9 operations:
 // both are bound by operations, in practice by the instructions a warp
-// issues per entry. In the backward as first written the per-row shuffle
-// trees took a fifth of its time (PERF.md, Findings).
+// issues per entry. As first written the per-row shuffle trees took a
+// fifth of each kernel's time: the backward's, and the forward stats
+// form's two per warp-entry (PERF.md, Findings).
 //
 // Design (as blend.cu):
-//  - one block per 32x32 tile, one thread per pixel, the tile's pairs
-//    staged into shared memory in batches: 256 a batch in the plain and
-//    rich forward (11 fields: 11,264 B), 128 with stats (fields plus the
-//    per-warp sum and max partials, 128 x 33 x 2 floats: 39,424 B with rich
-//    info);
+//  - one block per tile, one thread per pixel, a warp over an 8x4 block of
+//    the tile, the tiles heaviest first (a tile order from the wrapper);
+//    the tile's pairs staged into dynamic shared memory in batches, the
+//    next batch's fields copied in (cp.async) while one is computed: 256
+//    entries a batch forward, 96 backward;
 //  - the per-(pair, pixel) arithmetic is written with explicitly rounded
 //    intrinsics in the order of the plain PyTorch version (no multiply-add
 //    contraction, no --use_fast_math), so alpha, the done flag, final_T and
 //    n_contrib match it bit for bit and only the order of sums differs;
+//  - not the triangles' per-pixel pre-test before the falloff: q costs
+//    about what it would save, forward and backward (PERF.md, Findings).
+//    The forward culls per warp instead: each lane tests one
+//    of the next 32 entries against the box of the warp's pixels
+//    (box_may_hit_gs: q >= the conic's smaller eigenvalue times the
+//    squared distance from the center to the box, against q_bound, with a
+//    margin over every rounding), and the warp takes only the entries
+//    whose bit the ballot sets;
 //  - every per-pair sum over the tile's pixels is in a fixed order with no
 //    float atomics, each output slot belongs to one tile, so results do
-//    not change from run to run: the stream's by a warp-shuffle tree, the
-//    backward's gradient rows by blend.cu's B2 design (blend_backward.cuh:
-//    8x4 warp blocks, an entry skipped for a warp where none of its pixels
-//    is processed with alpha != 0, a transposed warp sum of the 9 / 10
-//    reduced rows, heaviest tiles first, 96 entries a batch in dynamic
-//    shared memory with the next batch copied in while one is computed;
-//    not the triangles' pre-test before the falloff: most of a Gaussian's
-//    warp-entries hit, and the test cost more than it saved: PERF.md),
-//    then a fixed-order pass over the warps in shared memory. GX / GY, the
+//    not change from run to run. The forward's stream: an entry that no
+//    pixel of the warp composites has sum and max exactly 0 there, the
+//    others the warp keeps as pending rows in shared memory and reduces 16
+//    at a time by the transposed warp sum and max (blend_common.cuh). The
+//    backward's gradient rows: blend.cu's B2 design (an entry skipped for a
+//    warp where none of its pixels is processed with alpha != 0, a
+//    transposed warp sum of the 9 / 10 reduced rows). Both then take a
+//    fixed-order pass over the warps in shared memory. GX / GY, the
 //    gradient of mean2d_offset and hence the densification statistic, are
 //    reduced like every other row;
 //  - the stats form steps a warp while any of its pixels is not done
@@ -81,7 +89,7 @@
 
 #include <type_traits>
 
-#include "blend_backward.cuh"
+#include "blend_common.cuh"
 
 namespace {
 
@@ -89,9 +97,6 @@ constexpr float kTEps = (float)1e-4;               // blend.py T_EPS
 constexpr float kAlphaMin = (float)(1.0 / 255.0);  // blend.py ALPHA_MIN
 constexpr float kAlphaMax = (float)0.99;           // blend.py ALPHA_MAX
 constexpr int kNumFields = 16;
-constexpr int kFwdBatch = 256;                     // pairs staged per batch
-constexpr int kStatsBatch = 128;                   // ... in the stats form
-constexpr int kMaxWarps = 32;
 constexpr int kOpac = 6, kRgb = 7, kDepth = 10;    // field indices
 
 struct GSTerms {
@@ -135,6 +140,51 @@ __device__ __forceinline__ GSTerms gs_terms_at(const float (&sf)[N][B], int j, f
                   gamma);
 }
 
+// The largest q at which an entry of opacity ``opac`` can still reach
+// alpha >= ALPHA_MIN at ``gamma``: past it, q^gamma >= 2 ln(opac /
+// ALPHA_MIN) + 2e-3, which keeps alpha_un = opac exp(-0.5 q^gamma) below
+// ALPHA_MIN through every rounding of gs_terms; the bound adds a relative
+// 1e-5 for its own rounding. -1 where alpha never reaches ALPHA_MIN (opac
+// below it); +inf where there is no bound (gamma <= 0, a NaN opacity). In
+// double, once per staged entry; q_bound_plain in ops/cuda/blend.py is its
+// twin.
+__device__ __forceinline__ float q_bound(float opac, float gamma) {
+  if (!(gamma > 0.0f) || opac != opac) return __int_as_float(0x7f800000);
+  if (!(opac >= kAlphaMin)) return -1.0f;
+  const double c = 2.0 * log((double)opac / (double)kAlphaMin) + 2e-3;
+  return (float)(pow(c, 1.0 / (double)gamma) * (1.0 + 1e-5));
+}
+
+constexpr float kCullMargin = 2e-5f;   // relative to the magnitude of the terms
+
+// The forward's cull of entry j for one warp: false only where no pixel of
+// the warp's box [x0, x1] x [y0, y1] can have q within ``bound`` (the
+// entry's q_bound), so that alpha is 0 at each of them. With lambda the
+// conic's smaller eigenvalue, q >= lambda |d|^2 at every pixel, d its offset
+// from the center, and |d| at least the center's distance to the box. The
+// test gives up kCullMargin times the conic's magnitude |a| + |b| + |c|,
+// on lambda and against the farthest corner's |d|^2: several times the
+// rounding of the kernel's q and of this test's own. NaN anywhere: no
+// cull. Its twin is box_cull_gs_plain in ops/cuda/blend.py, in the same
+// float32 operations.
+template <int N, int B>
+__device__ __forceinline__ bool box_may_hit_gs(const float (&sf)[N][B], int j, float x0,
+                                               float x1, float y0, float y1, float bound) {
+  const float X = sf[0][j], Y = sf[1][j], a = sf[2][j], b = sf[3][j], c = sf[4][j];
+  const float ex = fmaxf(fmaxf(__fsub_rn(x0, X), __fsub_rn(X, x1)), 0.0f);
+  const float ey = fmaxf(fmaxf(__fsub_rn(y0, Y), __fsub_rn(Y, y1)), 0.0f);
+  const float fx = fmaxf(fabsf(__fsub_rn(X, x0)), fabsf(__fsub_rn(X, x1)));
+  const float fy = fmaxf(fabsf(__fsub_rn(Y, y0)), fabsf(__fsub_rn(Y, y1)));
+  const float near2 = __fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey));
+  const float far2 = __fadd_rn(__fmul_rn(fx, fx), __fmul_rn(fy, fy));
+  const float h = __fmul_rn(0.5f, __fsub_rn(a, c));
+  const float lam = __fsub_rn(__fmul_rn(0.5f, __fadd_rn(a, c)),
+                              sqrtf(__fadd_rn(__fmul_rn(h, h), __fmul_rn(b, b))));
+  const float mag = __fmul_rn(kCullMargin, __fadd_rn(__fadd_rn(fabsf(a), fabsf(b)), fabsf(c)));
+  const float lower = __fsub_rn(__fmul_rn(__fsub_rn(lam, mag), near2), __fmul_rn(mag, far2));
+  return !(lower > bound);
+}
+
 // One entry j of batch b0 of a pixel's front-to-back composite (Pallas
 // :368-399), shared by the forward's two loops so that they stay
 // bit-identical: the kill entry is not composited and sets done; a
@@ -165,37 +215,44 @@ __device__ __forceinline__ float composite_entry(const float (&sf)[N][B], int b0
   return contrib;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, off));
-  return v;
-}
+// B1-GS's batch: the entries staged at a time, two buffers of them in
+// dynamic shared memory and, with the stream, the per-warp partials and
+// pending rows (tiles::FwdLayout: 21,504 B plain to 156,672 B rich + stats).
+constexpr int kFwdBatch = 256;
 
 template <bool kStats, bool kRich>
-__global__ void __launch_bounds__(1024) blend_forward_gs_kernel(
+__global__ void __launch_bounds__(1024, 1) blend_forward_gs_kernel(
     const float* __restrict__ pairs, int mp,
     const int* __restrict__ tile_starts, const int* __restrict__ tile_counts,
-    const float* __restrict__ params, int width, int height, int tile_w,
-    int tile_h, int grid_w, float* __restrict__ color,
+    const long long* __restrict__ tile_order, const float* __restrict__ params, int width,
+    int height, int tile_w, int tile_h, int grid_w, float* __restrict__ color,
     float* __restrict__ depth, float* __restrict__ normal,
     float* __restrict__ final_T, int* __restrict__ n_contrib,
     float* __restrict__ pair_contrib) {
   constexpr int kFields = kRich ? 11 : 10;
-  constexpr int kBatch = kStats ? kStatsBatch : kFwdBatch;
-  __shared__ float sf[kFields][kBatch];
-  const int tile = blockIdx.x;
+  using L = tiles::FwdLayout<kFields, kFwdBatch, kStats>;
+  using Fields = float[kFields][kFwdBatch];
+  extern __shared__ float smem[];
+  float* const s_bound = smem + L::kBound;
+  float* const psum = smem + L::kSum;       // stats form: per entry, per warp
+  float* const pmax = smem + L::kMax;
+
+  const int tile = (int)tile_order[blockIdx.x];          // heaviest tiles first
   const int tx = tile % grid_w, ty = tile / grid_w;
   const int lane = threadIdx.x;
-  const int x = tx * tile_w + lane % tile_w;
-  const int y = ty * tile_h + lane / tile_w;
+  const int warp = lane >> 5, wl = lane & 31;
+  float* const pend = smem + L::kPending + warp * tiles::kPend * 32;
+  int lx, ly;
+  tiles::tile_pixel(lane, tile_w, tile_h, lx, ly);
+  const int x = tx * tile_w + lx;
+  const int y = ty * tile_h + ly;
   const bool inside = x < width && y < height;
   const float px = (float)x, py = (float)y;
+  // the box of the warp's pixels, for the cull
+  const float bx0 = (float)__reduce_min_sync(tiles::kFullMask, x);
+  const float bx1 = (float)__reduce_max_sync(tiles::kFullMask, x);
+  const float by0 = (float)__reduce_min_sync(tiles::kFullMask, y);
+  const float by1 = (float)__reduce_max_sync(tiles::kFullMask, y);
   const float gamma = params[0];
   const int start = tile_starts[tile];
   const int count = tile_counts[tile];
@@ -205,57 +262,80 @@ __global__ void __launch_bounds__(1024) blend_forward_gs_kernel(
   float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, dacc = 0.0f;
   int nc = 0;
   int reached = 0;         // stats form: slots of the tile whose stream is written
-  for (int b0 = 0; b0 < count; b0 += kBatch) {
-    // Uniform across the block: doubles as the barrier that keeps the
-    // previous batch's readers ahead of this batch's writers.
+  if (count > 0) tiles::stage_async<kFields, kFwdBatch>(smem, pairs, mp, start, min(kFwdBatch, count));
+  int buf = 0;
+  for (int b0 = 0; b0 < count; b0 += kFwdBatch, buf ^= 1) {
+    const int nb = min(kFwdBatch, count - b0);
+    __pipeline_wait_prior(0);
+    // Uniform across the block: doubles as the barrier that makes this
+    // batch's fields visible and keeps the last batch's readers ahead of
+    // this batch's writers. The next batch's fields are copied in while
+    // this one is computed.
     if (__syncthreads_count(!done) == 0) break;
-    const int nb = min(kBatch, count - b0);
-    for (int i = threadIdx.x; i < kFields * kBatch; i += blockDim.x) {
-      const int f = i / kBatch, j = i % kBatch;
-      if (j < nb) sf[f][j] = pairs[(size_t)f * mp + start + b0 + j];
-    }
+    if (b0 + nb < count)
+      tiles::stage_async<kFields, kFwdBatch>(smem + (buf ^ 1) * L::kBufFloats, pairs, mp,
+                                             start + b0 + nb, min(kFwdBatch, count - b0 - nb));
+    const Fields& sf = *reinterpret_cast<const Fields*>(smem + buf * L::kBufFloats);
+    for (int j = lane; j < nb; j += blockDim.x) s_bound[j] = q_bound(sf[kOpac][j], gamma);
     __syncthreads();
-    if constexpr (kStats) {
-      // per batch entry, per warp (+1 pad against bank conflicts)
-      __shared__ float psum[kStatsBatch][kMaxWarps + 1];
-      __shared__ float pmax[kStatsBatch][kMaxWarps + 1];
-      const int warp = lane >> 5, wl = lane & 31;
-      int j = 0;
-      for (; j < nb; ++j) {
-        // the warp steps while any of its pixels is not done, so that all
-        // 32 lanes reach the shuffle trees at the same entry
-        if (!__any_sync(0xffffffffu, !done)) break;
+    // j: the warp has passed the entries before it (all of them, unless
+    // its last pixel ends inside the batch)
+    int j = 0, npend = 0, pidx = 0;
+    bool wlive = __any_sync(tiles::kFullMask, !done);
+    for (int w0 = 0; wlive && w0 < nb; w0 += 32) {
+      // each lane culls one of the next 32 entries for the warp's box; an
+      // entry culled changes nothing and contributes 0
+      const int jl = w0 + wl;
+      const bool maybe = jl < nb && box_may_hit_gs(sf, jl, bx0, bx1, by0, by1, s_bound[jl]);
+      if constexpr (kStats) {
+        if (jl < nb && !maybe) psum[jl * L::kEntry + warp] = pmax[jl * L::kEntry + warp] = 0.0f;
+      }
+      j = min(w0 + 32, nb);
+      for (unsigned m = __ballot_sync(tiles::kFullMask, maybe); m != 0; m &= m - 1) {
+        const int jj = w0 + __ffs(m) - 1;
+        // a done pixel contributes 0 and skips every state update
         const float contrib =
             done ? 0.0f
-                 : composite_entry<kRich>(sf, b0, j, px, py, gamma, T, done, c0, c1,
-                                          c2, dacc, nc);
-        const float s = warp_sum(contrib);
-        const float m = warp_max(contrib);
-        if (wl == 0) {
-          psum[j][warp] = s;
-          pmax[j][warp] = m;
+                 : composite_entry<kRich>(sf, b0, jj, px, py, gamma, T, done, c0, c1, c2,
+                                          dacc, nc);
+        if constexpr (kStats) {
+          if (__any_sync(tiles::kFullMask, contrib != 0.0f)) {
+            // kept as a pending row, summed with up to 15 more at once
+            pend[npend * 32 + wl] = contrib;
+            if (wl == npend) pidx = jj;
+            if (++npend == tiles::kPend) {
+              tiles::flush_pending<L::kEntry>(pend, pidx, npend, wl, warp, psum, pmax);
+              npend = 0;
+            }
+          } else if (wl == 0) {
+            // no pixel of the warp composites the entry: sum and max are 0
+            psum[jj * L::kEntry + warp] = pmax[jj * L::kEntry + warp] = 0.0f;
+          }
+        }
+        if (!__any_sync(tiles::kFullMask, !done)) {
+          j = jj + 1;
+          wlive = false;
+          break;
         }
       }
+    }
+    if constexpr (kStats) {
+      if (npend > 0) tiles::flush_pending<L::kEntry>(pend, pidx, npend, wl, warp, psum, pmax);
       // entries past the warp's last live pixel contribute nothing
-      for (int k = j + wl; k < nb; k += 32) {
-        psum[k][warp] = 0.0f;
-        pmax[k][warp] = 0.0f;
-      }
+      for (int k = j + wl; k < nb; k += 32) psum[k * L::kEntry + warp] = pmax[k * L::kEntry + warp] = 0.0f;
       __syncthreads();
+      // each entry of the batch summed (and maxed) over the warps in warp order
       const int nwarps = blockDim.x >> 5;
       for (int i = lane; i < nb; i += blockDim.x) {
         float s = 0.0f, m = 0.0f;
         for (int w = 0; w < nwarps; ++w) {
-          s += psum[i][w];
-          m = fmaxf(m, pmax[i][w]);
+          s += psum[i * L::kEntry + w];
+          m = fmaxf(m, pmax[i * L::kEntry + w]);
         }
         pair_contrib[start + b0 + i] = s;
         pair_contrib[(size_t)mp + start + b0 + i] = m;
       }
       reached = b0 + nb;
-    } else {
-      for (int j = 0; j < nb && !done; ++j)
-        composite_entry<kRich>(sf, b0, j, px, py, gamma, T, done, c0, c1, c2, dacc, nc);
     }
   }
   if constexpr (kStats) {
@@ -298,14 +378,14 @@ __device__ __forceinline__ int out_row(int k) { return k < 5 ? k : k + 1; }
 
 // The backward's batch: 96 entries staged at a time (reduced rows x batch
 // <= 1024, one pass of the block sums a batch over the warps), and its
-// dynamic shared memory (blend_backward.cuh Layout: 121,764 B, 135,208 B
+// dynamic shared memory (tiles::BwdLayout: 121,764 B, 135,208 B
 // with rich info).
 template <bool kRich> struct GSBackward {
   static constexpr int kFields = kRich ? 11 : 10;
   static constexpr int kLive = kRich ? 11 : 10;   // LIVE_GRAD_ROWS[("GS", kRich)]
   static constexpr int kRed = kLive - 1;          // reduced rows (row 5 is zero)
   static constexpr int kBatch = 96;
-  using L = bwd::Layout<kRed, kFields, kBatch>;
+  using L = tiles::BwdLayout<kRed, kFields, kBatch>;
 };
 
 template <bool kRich>
@@ -322,7 +402,7 @@ __global__ void __launch_bounds__(1024) blend_backward_gs_kernel(
   constexpr int kFields = B::kFields, kLive = B::kLive, kRed = B::kRed, kBatch = B::kBatch;
   using Fields = float[kFields][kBatch];
   // part: per reduced row, per staged entry, per warp; then the two field
-  // buffers (blend_backward.cuh Layout)
+  // buffers (tiles::BwdLayout)
   extern __shared__ float smem[];
   float* const part = smem;
   __shared__ int s_jmax;
@@ -333,7 +413,7 @@ __global__ void __launch_bounds__(1024) blend_backward_gs_kernel(
   const int warp = lane >> 5, wl = lane & 31;
   const int nwarps = blockDim.x >> 5;
   int lx, ly;
-  bwd::tile_pixel(lane, tile_w, tile_h, lx, ly);
+  tiles::tile_pixel(lane, tile_w, tile_h, lx, ly);
   const int x = tx * tile_w + lx;
   const int y = ty * tile_h + ly;
   const bool inside = x < width && y < height;
@@ -368,7 +448,7 @@ __global__ void __launch_bounds__(1024) blend_backward_gs_kernel(
   __syncthreads();
   int wmax = nc_eff;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) wmax = max(wmax, __shfl_xor_sync(bwd::kFullMask, wmax, off));
+  for (int off = 16; off > 0; off >>= 1) wmax = max(wmax, __shfl_xor_sync(tiles::kFullMask, wmax, off));
   if (wl == 0) atomicMax(&s_jmax, wmax);
   __syncthreads();
   const int jmax = s_jmax;
@@ -401,7 +481,7 @@ __global__ void __launch_bounds__(1024) blend_backward_gs_kernel(
   // current one is computed.
   if (jmax > 0) {
     const int nb0 = min(kBatch, jmax);
-    bwd::stage_async<kFields, kBatch>(smem + L::kPartFloats, pairs, mp, start + jmax - nb0, nb0);
+    tiles::stage_async<kFields, kBatch>(smem + L::kPartFloats, pairs, mp, start + jmax - nb0, nb0);
   }
   int buf = 0;
   for (int b_end = jmax; b_end > 0; b_end -= kBatch, buf ^= 1) {
@@ -411,7 +491,7 @@ __global__ void __launch_bounds__(1024) blend_backward_gs_kernel(
     __syncthreads();   // this batch's fields are in, the last batch's sums read
     if (b0 > 0) {
       const int nb_next = min(kBatch, b0);
-      bwd::stage_async<kFields, kBatch>(smem + L::kPartFloats + (buf ^ 1) * L::kBufFloats,
+      tiles::stage_async<kFields, kBatch>(smem + L::kPartFloats + (buf ^ 1) * L::kBufFloats,
                                        pairs, mp, start + b0 - nb_next, nb_next);
     }
     const Fields& sf = *reinterpret_cast<const Fields*>(smem + L::kPartFloats + buf * L::kBufFloats);
@@ -425,7 +505,7 @@ __global__ void __launch_bounds__(1024) blend_backward_gs_kernel(
       if (b0 + j < wmax) {
         proc = b0 + j < nc_eff;
         a = gs_terms_at(sf, j, px, py, gamma);
-        hit = __any_sync(bwd::kFullMask, proc && a.ok);
+        hit = __any_sync(tiles::kFullMask, proc && a.ok);
       }
       if (!hit) {
         if (wl < kRed) pj[wl * L::kRowStride] = 0.0f;
@@ -471,7 +551,7 @@ __global__ void __launch_bounds__(1024) blend_backward_gs_kernel(
         if constexpr (kRich) g[9] = __fmul_rn(contrib, gd);   // depth (row 10)
       }
       // lanes 2r and 2r + 1 hold reduced row r's sum over the warp
-      const float v = bwd::warp_sum_rows(g, wl);
+      const float v = tiles::warp_sum_rows(g, wl);
       if ((wl & 1) == 0 && (wl >> 1) < kRed) pj[(wl >> 1) * L::kRowStride] = v;
     }
     __syncthreads();
@@ -488,10 +568,32 @@ __global__ void __launch_bounds__(1024) blend_backward_gs_kernel(
 
 }  // namespace
 
+template <bool kStats, bool kRich>
+constexpr size_t forward_gs_smem() {
+  return tiles::FwdLayout<kRich ? 11 : 10, kFwdBatch, kStats>::kBytes;
+}
+
+// The forward's dynamic shared memory, in bytes (tiles::FwdLayout).
+extern "C" int ts_blend_forward_gs_smem(int stats, int rich) {
+  return (int)(stats ? (rich ? forward_gs_smem<true, true>() : forward_gs_smem<true, false>())
+                     : (rich ? forward_gs_smem<false, true>() : forward_gs_smem<false, false>()));
+}
+
+template <bool kStats, bool kRich, typename... Args>
+int launch_forward_gs(int num_tiles, int threads, cudaStream_t stream, Args... args) {
+  const auto kernel = &blend_forward_gs_kernel<kStats, kRich>;
+  constexpr size_t bytes = forward_gs_smem<kStats, kRich>();
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<num_tiles, threads, bytes, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int ts_blend_forward_gs(const float* pairs, int mp,
                                    const int* tile_starts, const int* tile_counts,
-                                   const float* params, int width, int height,
-                                   int tile_w, int tile_h, int grid_w,
+                                   const long long* tile_order, const float* params, int width,
+                                   int height, int tile_w, int tile_h, int grid_w,
                                    int num_tiles, int stats, int rich,
                                    float* color, float* depth, float* normal,
                                    float* final_T, int* n_contrib,
@@ -499,15 +601,17 @@ extern "C" int ts_blend_forward_gs(const float* pairs, int mp,
   const int threads = tile_w * tile_h;
   if (threads <= 0 || threads > 1024 || threads % 32 != 0) return (int)cudaErrorInvalidValue;
   if (stats && pair_contrib == nullptr) return (int)cudaErrorInvalidValue;
-  if (num_tiles > 0) {
-    const auto kernel =
-        stats ? (rich ? &blend_forward_gs_kernel<true, true> : &blend_forward_gs_kernel<true, false>)
-              : (rich ? &blend_forward_gs_kernel<false, true> : &blend_forward_gs_kernel<false, false>);
-    kernel<<<num_tiles, threads, 0, stream>>>(
-        pairs, mp, tile_starts, tile_counts, params, width, height, tile_w,
-        tile_h, grid_w, color, depth, normal, final_T, n_contrib, pair_contrib);
-  }
-  return (int)cudaGetLastError();
+  if (num_tiles <= 0) return (int)cudaGetLastError();
+  const auto launch = [&](auto kStats, auto kRich) {
+    return launch_forward_gs<decltype(kStats)::value, decltype(kRich)::value>(
+        num_tiles, threads, stream, pairs, mp, tile_starts, tile_counts, tile_order, params,
+        width, height, tile_w, tile_h, grid_w, color, depth, normal, final_T, n_contrib,
+        pair_contrib);
+  };
+  constexpr std::true_type on{};
+  constexpr std::false_type off{};
+  return stats ? (rich ? launch(on, on) : launch(on, off))
+               : (rich ? launch(off, on) : launch(off, off));
 }
 
 extern "C" int ts_blend_backward_gs_smem(int rich) {

@@ -29,7 +29,7 @@ import torch
 
 from . import sh as sh_mod
 from .binning import Binning, bin_triangles
-from .cuda.blend import ALIGN, LIVE_GRAD_ROWS, blend_backward, blend_forward
+from .cuda.blend import ALIGN, LIVE_GRAD_ROWS, blend_backward, blend_forward, tile_order
 from .cuda.streams import segment_reduce_pairs, segment_reduce_stats
 from .gaussian import blend_oracle_gs, gaussian_field_matrix, preprocess_gaussian
 from .oracle import blend_oracle, blend_oracle_3d
@@ -154,6 +154,12 @@ def pack_pair_fields(field_matrix: torch.Tensor, binning: Binning,
                                 live_rows)
 
 
+def step_order(tile_counts: torch.Tensor) -> Optional[torch.Tensor]:
+    """B1's and B2's tile order for one step: ``tile_order`` on the card;
+    None on the CPU, whose plain versions read no order."""
+    return tile_order(tile_counts) if tile_counts.is_cuda else None
+
+
 class BlendTiles(torch.autograd.Function):
     """Kernels B1 (forward) and B2 (backward) around the packed fields.
 
@@ -162,26 +168,29 @@ class BlendTiles(torch.autograd.Function):
     stats flag is off); gradients flow to ``fields`` from the cotangents
     of color and final_T, and with ``cfg``'s rich flag of depth and normal
     (which carry none with rich info off, as in the JAX kernel; n_contrib
-    and the stream are not differentiable)."""
+    and the stream are not differentiable). The order in which the
+    kernels' blocks take the tiles is computed once a step, here
+    (``step_order``), and handed to both."""
 
     @staticmethod
     def forward(ctx, fields, tile_starts, tile_counts, params, cfg):
         width, height, tile_h, tile_w, variant, stats, rich = cfg
+        order = step_order(tile_counts)
         outs = blend_forward(
             fields, tile_starts, tile_counts, params, image_width=width,
             image_height=height, tile_h=tile_h, tile_w=tile_w, variant=variant,
-            stats=stats, rich=rich)
+            stats=stats, rich=rich, order=order)
         color, depth, normal, final_T, n_contrib = outs[:5]
         pair_contrib = outs[5] if stats else fields.new_zeros((2, 0))
         ctx.save_for_backward(fields, tile_starts, tile_counts, params,
-                              final_T, n_contrib)
+                              final_T, n_contrib, order)
         ctx.cfg = cfg
         ctx.mark_non_differentiable(n_contrib, pair_contrib)
         return color, depth, normal, final_T, n_contrib, pair_contrib
 
     @staticmethod
     def backward(ctx, g_color, g_depth, g_normal, g_final_T, g_nc, g_pc):
-        fields, tile_starts, tile_counts, params, final_T, n_contrib = ctx.saved_tensors
+        fields, tile_starts, tile_counts, params, final_T, n_contrib, order = ctx.saved_tensors
         width, height, tile_h, tile_w, variant, _, rich = ctx.cfg
 
         def cotangent(g, shape):
@@ -200,7 +209,7 @@ class BlendTiles(torch.autograd.Function):
             fields, tile_starts, tile_counts, params, final_T, n_contrib,
             g_color, g_final_T, g_depth, g_normal, image_width=width,
             image_height=height, tile_h=tile_h, tile_w=tile_w, rich=rich,
-            variant=variant)
+            variant=variant, order=order)
         return pair_grads, None, None, None, None
 
 
