@@ -13,12 +13,17 @@ Phases (any failure exits non-zero before the final line):
              rich off, pair budget sized by a probe frame) and time both
              with CUDA events: B1 with stats off and on (the stats form's
              blend outputs bit-identical to the stats-off kernel's, its
-             per-pair stream against the plain one), B2, B3, B4, and B5 on
-             the stream after the owner sort; then B1 (both forms) and B2
-             in variant "3D", B3/B4 on their pairs (2,500 tiles, 13 live
+             per-pair stream against the plain one), B2, B3 (pair_tri and
+             the owner-order map), B4 through the map (and against the old
+             route: owner sort, index_select, B4 on sorted columns, bit for
+             bit), and B5 on the stream gathered through the map (equal to
+             B5 after the owner sort); then B1 (both forms) and B2 in
+             variant "3D", B3/B4 on their pairs (2,500 tiles, 13 live
              gradient rows) and B5, on a 100k random scene at the mesh
              path's rendered size (1600x1600) at gamma 1 and 50, timed at
-             gamma 50;
+             gamma 50; at each site (and the city's last step) a
+             [pair_stage] line times the pieces of the pair stage before
+             and after the map;
 3. reference — the 2D and the 3D kernel pipelines against their dense
              oracles on a small scene, render and contribution statistics;
 4. rasterize — time rasterize forward + backward on the bench workload;
@@ -97,7 +102,10 @@ B1, none of the photo, mesh and mesh_adc phases launched a rich form, and
 none of the triangle phases a GS form.
 
 The build phase prints B1's and B2's registers, spills and shared memory
-per form. With --blend-parent DIR (an earlier blend.cu and blend_gs.cu;
+per form. With --streams-parent DIR (the streams.cu of the route before
+the map: its B3 and B4 entry points must take PRE_MAP_PARAMS, any other is
+refused) the [pair_stage] lines also time that build's B3 and B4 in the
+old route. With --blend-parent DIR (an earlier blend.cu and blend_gs.cu;
 repeatable, the first is the parent), every site that times B1 or B2 also
 times those builds in turns with the current one and holds the parent's
 B1 outputs against the current ones (tools/blend_compare.py).
@@ -590,48 +598,86 @@ def pack_fields(fmat, pair_tri):
 
 
 def check_relayout(sp, what: str):
-    """B3 against its plain version on one frame's sorted pairs: exact.
-    Returns the kernel's pair_tri, the argument tuple and the count of
-    slots that differ (0)."""
-    args = (sp.sorted_tri, sp.raw_starts, sp.astarts, sp.tile_counts, sp.ma)
-    out, err = hold_relayout(args, what)
-    return out, args, err
+    """B3 against its plain version on one frame's sorted pairs (both
+    outputs exact) and its map checked (``hold_relayout``). Returns the
+    kernel's pair_tri and pack_perm, the argument tuple and the count of
+    entries that differ (0)."""
+    args = sp.relayout_args()
+    pair_tri, pack_perm, err = hold_relayout(args, what)
+    return pair_tri, pack_perm, args, err
 
 
 def hold_relayout(args, what: str):
-    """B3 against its plain version on one argument tuple: exact. Returns
-    the kernel's output and the count of slots that differ (0)."""
+    """B3 against its plain version on one argument tuple (tri, sorted_raw,
+    sorted_key, raw_starts, astarts, ma, dbits): pair_tri and pack_perm
+    exact. The map: ``pair_tri[pack_perm[r]]`` is the owner ``tri[r]`` of
+    every binned raw pair r, ``pack_perm`` hits each filled slot exactly
+    once, and the entries of the unbinned pairs name empty slots. Returns
+    the kernel's outputs and the count of entries that differ (0)."""
     import torch
     from triangle_splatting_tpu_torch.ops.cuda import streams as KS
 
-    out = KS.relayout_pairs(*args)
-    ref = KS.relayout_pairs_plain(*args)
+    pair_tri, pack_perm = KS.relayout_pairs(*args)
+    ref_tri, ref_perm = KS.relayout_pairs_plain(*args)
     torch.cuda.synchronize()
-    err = int((out != ref).sum())
-    check(err == 0, f"relayout_pairs {what}: disagrees with its plain version in {err} slots")
-    return out, err
+    err = int((pair_tri != ref_tri).sum()) + int((pack_perm != ref_perm).sum())
+    check(err == 0, f"relayout_pairs {what}: disagrees with its plain version in {err} entries")
+    n = int(args[3][-1])                                  # binned pairs: raw_starts[-1]
+    filled = torch.nonzero(pair_tri >= 0).flatten()
+    head = pack_perm[:n].long()
+    check(bool(torch.equal(pair_tri[head], args[0][:n])),
+          f"relayout_pairs {what}: pair_tri[pack_perm[r]] is not the owner of raw pair r")
+    check(filled.numel() == n and bool(torch.equal(torch.sort(head).values, filled)),
+          f"relayout_pairs {what}: pack_perm does not hit each of the {filled.numel()} "
+          f"filled slots once")
+    check(not bool((pair_tri[pack_perm[n:].long()] >= 0).any()),
+          f"relayout_pairs {what}: an unbinned pair maps to a filled slot")
+    return pair_tri, pack_perm, err
 
 
-def check_segment_reduce(grads, pair_tri, sp, what: str) -> dict:
-    """B4 against its plain version on the pack backward's inputs: the live
-    per-pair gradient rows ``grads`` sorted by owning triangle (empty slots
-    last), one segment per triangle; rel 1e-5 of the max. Returns the
-    errors, the argument tuple and the sorted owner keys."""
+def owner_order(pair_tri, P: int):
+    """The old route's owner order: the indices of a stable sort of the
+    owner key over every aligned slot (empty slots get P, the tail)."""
     import torch
-
-    P = sp.tri_offsets.shape[0] - 1
     key = torch.where(pair_tri >= 0, pair_tri, torch.full_like(pair_tri, P))
-    skey, order = torch.sort(key, stable=True)
-    cols = grads.index_select(1, order).contiguous()
-    starts = torch.minimum(sp.tri_offsets[:-1], sp.num_pairs).contiguous()
-    ends = torch.minimum(sp.tri_offsets[1:], sp.num_pairs).contiguous()
-    return dict(hold_segment_reduce((cols, starts, ends, sp.num_pairs), what), skey=skey)
+    return torch.sort(key, stable=True).indices
+
+
+def segment_bounds(tri_offsets, num_pairs):
+    """Each triangle's positions [starts, ends) clipped to num_pairs."""
+    import torch
+    return (torch.minimum(tri_offsets[:-1], num_pairs).contiguous(),
+            torch.minimum(tri_offsets[1:], num_pairs).contiguous())
+
+
+def check_segment_reduce(grads, pair_tri, pack_perm, starts, ends, num_pairs,
+                         what: str) -> dict:
+    """B4 on the pack backward's inputs, the live per-pair gradient rows
+    ``grads`` (B2's output): its map form (``grads`` read through
+    ``pack_perm``) against its plain version at rel 1e-5 of the max, and
+    against the old route (the owner sort, ``index_select`` and B4's
+    sorted form, itself held against its plain version) bit for bit.
+    Returns the map form's errors, argument tuple and plain result."""
+    import torch
+    from triangle_splatting_tpu_torch.ops.cuda import streams as KS
+
+    order = owner_order(pair_tri, starts.shape[0])
+    old = hold_segment_reduce((grads.index_select(1, order).contiguous(), starts, ends,
+                               num_pairs), what + " (owner-sorted)")
+    out = hold_segment_reduce((grads, starts, ends, num_pairs, pack_perm), what)
+    got_old = KS.segment_reduce_pairs(*old["args"])
+    got_new = KS.segment_reduce_pairs(*out["args"])
+    torch.cuda.synchronize()
+    check(bool(torch.equal(got_new, got_old)),
+          f"segment_reduce_pairs {what}: the map form differs from the old route by "
+          f"{float((got_new - got_old).abs().max()):.3e} (expected bit for bit)")
+    return out
 
 
 def hold_segment_reduce(args, what: str) -> dict:
     """B4 against its plain version on one argument tuple (cols, starts,
-    ends, nvalid): rel 1e-5 of the max. Returns the errors, the argument
-    tuple and the plain result."""
+    ends, nvalid[, perm]): rel 1e-5 of the max. Returns the errors, the
+    argument tuple and the plain result."""
     import torch
     from triangle_splatting_tpu_torch.ops.cuda import streams as KS
 
@@ -644,30 +690,260 @@ def hold_segment_reduce(args, what: str) -> dict:
     return dict(args=args, ref=ref, err=err, rel=rel)
 
 
-def check_segment_stats(pair_contrib, pair_tri, sp, what: str) -> dict:
-    """B5 against its plain version on B1's per-pair stream after the
-    owner sort (the inputs ``ops/rasterize.py:_contrib_stats`` gives it):
-    sums within rel 1e-5 of the largest, maxes exact. Returns the errors,
-    the argument tuple, the segment lengths and the library yardstick
-    (two ``torch.segment_reduce`` calls on the sorted stream)."""
+def b3_bytes(args) -> float:
+    """The bytes B3 must move: per raw pair its raw index read and its map
+    entry written, per binned pair its owner read, every slot written
+    once, the two tile-start arrays read. The sorted keys are not counted:
+    the tile of a sorted pair can come from the raw starts, as in the
+    plain version."""
+    n, num_pairs = args[0].shape[0], int(args[3][-1])
+    return 4 * (2 * n + num_pairs + args[5] + 2 * args[3].shape[0])
+
+
+def b4_bytes(rows: int, num_pairs: int, P: int) -> float:
+    """The bytes B4 must move: the map entries, ``rows`` values of every
+    binned pair, the segment bounds and nvalid read, the (16, P) output
+    written."""
+    return 4 * (num_pairs + rows * num_pairs + 2 * P + 1) + 4 * 16 * P
+
+
+def kernel_grids(fn) -> list:
+    """The device kernels one call of ``fn`` launches, with their launch
+    grid, block and duration (us), from a torch.profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    WORK.mkdir(parents=True, exist_ok=True)
+    path = WORK / "grid_trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return [dict(name=e["name"][:90], grid=e.get("args", {}).get("grid"),
+                 block=e.get("args", {}).get("block"), us=e.get("dur"))
+            for e in events if e.get("cat") == "kernel"]
+
+
+# The C entry points of the route before the map (the ``streams.cu`` of
+# the commit before B3 wrote ``pack_perm``): the only ones --streams-parent
+# takes
+PRE_MAP_PARAMS = {
+    "ts_relayout_pairs": ["sorted_tri", "raw_starts", "astarts", "tile_counts", "num_tiles",
+                          "out", "ma", "stream"],
+    "ts_segment_reduce_pairs": ["cols", "nrows", "m", "starts", "ends", "nvalid", "p", "out",
+                                "stream"],
+}
+
+
+def parent_streams(src_dir: Path):
+    """The B3 and B4 of the route before the map (``DIR/streams.cu``, an
+    earlier ``csrc/streams.cu``: B3 one thread per slot with a binary
+    search, no map; B4 on owner-sorted columns), built with ``nvcc`` and
+    loaded with ``ctypes``. Their parameter lists are read from the source
+    and must be ``PRE_MAP_PARAMS``; any other source is refused. Returns
+    (relayout, segment_reduce): callables with the old wrappers'
+    arguments."""
+    import ctypes
+
+    import torch
+    from triangle_splatting_tpu_torch.ops.cuda import build
+    from triangle_splatting_tpu_torch.tools.blend_compare import c_params
+
+    src = Path(src_dir) / "streams.cu"
+    text = src.read_text()
+    params = {fn: c_params(text, fn) for fn in PRE_MAP_PARAMS}
+    for fn, want in PRE_MAP_PARAMS.items():
+        got = [name for _, name in params[fn]]
+        check(got == want, f"--streams-parent {src}: {fn} takes ({', '.join(got)}), not the "
+              f"route before the map's ({', '.join(want)})")
+    so = build.BUILD_DIR / "parent_streams.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(src)],
+                         capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, f"parent streams.cu: nvcc failed\n{res.stdout}{res.stderr}")
+    lib = ctypes.CDLL(str(so))
+    for fn, typed in params.items():
+        getattr(lib, fn).argtypes = [ctypes.c_void_p if "*" in t or t == "cudaStream_t"
+                                     else ctypes.c_int for t, _ in typed]
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def relayout(sorted_tri, raw_starts, astarts, tile_counts, ma):
+        out = torch.empty((ma,), dtype=torch.int32, device=sorted_tri.device)
+        build.check_launch(lib.ts_relayout_pairs(
+            sorted_tri.data_ptr(), raw_starts.data_ptr(), astarts.data_ptr(),
+            tile_counts.data_ptr(), tile_counts.shape[0], out.data_ptr(), ma, stream()),
+            "parent relayout_pairs")
+        return out
+
+    def segment_reduce(cols, starts, ends, nvalid):
+        out = torch.empty((16, starts.shape[0]), dtype=torch.float32, device=cols.device)
+        build.check_launch(lib.ts_segment_reduce_pairs(
+            cols.data_ptr(), cols.shape[0], cols.shape[1], starts.data_ptr(), ends.data_ptr(),
+            nvalid.data_ptr(), starts.shape[0], out.data_ptr(), stream()),
+            "parent segment_reduce_pairs")
+        return out
+    say("pair_stage", parent=str(src))
+    return relayout, segment_reduce
+
+
+def pair_stage(prep, st, max_pairs: int, grads, pair_contrib, site: str,
+               parent=None, grids: bool = False) -> dict:
+    """Device ms of each piece of the pair stage on one frame (median of 50,
+    behind a spin kernel), the route before the map (``old``) and the
+    map's (``new``). Old: binning's key sort, its owner gather
+    (``tri[order]``) and B3 (the parent's, with ``parent`` from
+    ``parent_streams``); the pack backward's owner sort, ``index_select``
+    of the live gradient rows ``grads`` and B4 on the sorted columns (the
+    parent's, else the current kernel's sorted form); with a stream
+    ``pair_contrib``, the statistics' owner sort, two-row gather and B5.
+    New: the key sort, its permutation cast to int32 and B3 with the map;
+    B4 through the map; the map gather and B5. Each stage is also timed as
+    one call, old and new in turns (old, new, new, old; the mean of each
+    one's two medians of 20). Then binning's owner expansion: the cummax
+    against a parallel searchsorted that gives the same owners, and with
+    ``grids`` the cummax's launch grid (later traces in the same process
+    recorded no kernel on the H100). Prints one [pair_stage] line."""
+    import torch
+    from triangle_splatting_tpu_torch.ops import binning as BN
+    from triangle_splatting_tpu_torch.ops.cuda import streams as KS
+
+    i32 = torch.int32
+    dev = grads.device
+    with torch.no_grad():
+        sp = BN.sort_pairs(prep, st, max_pairs)
+        offsets = sp.tri_offsets[:-1]
+        order = torch.sort(sp.key, stable=True).indices
+        tri_l = sp.tri.long()
+        sorted_tri = tri_l[order].to(i32)
+        a3 = sp.relayout_args()
+        pair_tri, pack_perm = KS.relayout_pairs(*a3)
+        P = sp.tri_offsets.shape[0] - 1
+        n = int(sp.num_pairs)
+        starts, ends = segment_bounds(sp.tri_offsets, sp.num_pairs)
+        okey = torch.where(pair_tri >= 0, pair_tri, torch.full_like(pair_tri, P))
+        oorder = owner_order(pair_tri, P)
+        cols = grads.index_select(1, oorder).contiguous()
+        b3_old = b4_old = None
+        if parent is not None:
+            b3_old = lambda: parent[0](sorted_tri, sp.raw_starts, sp.astarts,  # noqa: E731
+                                       sp.tile_counts, sp.ma)
+            b4_old = lambda c: parent[1](c, starts, ends, sp.num_pairs)  # noqa: E731
+            check(bool(torch.equal(b3_old(), pair_tri)),
+                  f"pair_stage {site}: the parent's B3 differs from the current one")
+            check(bool(torch.equal(b4_old(cols), KS.segment_reduce_pairs(
+                grads, starts, ends, sp.num_pairs, pack_perm))),
+                f"pair_stage {site}: the parent's B4 differs from the map form")
+        else:
+            b4_old = lambda c: KS.segment_reduce_pairs(c, starts, ends, sp.num_pairs)  # noqa: E731
+
+        def tail_old():
+            o = torch.sort(sp.key, stable=True).indices
+            return parent[0](tri_l[o].to(i32), sp.raw_starts, sp.astarts, sp.tile_counts, sp.ma)
+
+        def tail_new():
+            o = torch.sort(sp.key, stable=True).indices
+            return KS.relayout_pairs(sp.tri, o.to(i32), *a3[2:])
+
+        def pack_old():
+            o = torch.sort(okey, stable=True).indices
+            return b4_old(grads.index_select(1, o).contiguous())
+
+        def pack_new():
+            return KS.segment_reduce_pairs(grads, starts, ends, sp.num_pairs, pack_perm)
+
+        old = dict(key_sort=lambda: torch.sort(sp.key, stable=True),
+                   tri_gather=lambda: tri_l[order].to(i32))
+        if b3_old is not None:
+            old["b3"] = b3_old
+        old.update(owner_sort=lambda: torch.sort(okey, stable=True).indices,
+                   index_select=lambda: grads.index_select(1, oorder).contiguous(),
+                   b4=lambda: b4_old(cols))
+        new = dict(raw_cast=lambda: order.to(i32), b3=lambda: KS.relayout_pairs(*a3),
+                   b4=pack_new)
+        stages = dict(pack_bwd=(pack_old, pack_new))
+        if b3_old is not None:
+            stages["binning_tail"] = (tail_old, tail_new)
+        if pair_contrib is not None:
+            pc_old = pair_contrib.index_select(1, oorder)
+            pc_new = pair_contrib.index_select(1, pack_perm)
+
+            def stats_old():
+                c = pair_contrib.index_select(1, torch.sort(okey, stable=True).indices)
+                return KS.segment_reduce_stats(c[0], c[1], starts, ends, sp.num_pairs)
+
+            def stats_new():
+                c = pair_contrib.index_select(1, pack_perm)
+                return KS.segment_reduce_stats(c[0], c[1], starts, ends, sp.num_pairs)
+            old.update(stats_gather=lambda: pair_contrib.index_select(1, oorder),
+                       b5=lambda: KS.segment_reduce_stats(pc_old[0], pc_old[1], starts, ends,
+                                                          sp.num_pairs))
+            new.update(stats_gather=lambda: pair_contrib.index_select(1, pack_perm),
+                       b5=lambda: KS.segment_reduce_stats(pc_new[0], pc_new[1], starts, ends,
+                                                          sp.num_pairs))
+            stages["stats"] = (stats_old, stats_new)
+        ms_old = {k: cuda_ms(fn, 50) for k, fn in old.items()}
+        ms_new = {k: cuda_ms(fn, 50) for k, fn in new.items()}
+        turns = {}
+        for name, (f_old, f_new) in stages.items():
+            t = [cuda_ms(f, 20) for f in (f_old, f_new, f_new, f_old)]
+            turns[name] = dict(old=round((t[0] + t[3]) / 2, 5), new=round((t[1] + t[2]) / 2, 5))
+        # binning's owner expansion: the cummax over the marker scatter, and
+        # a parallel searchsorted over the offsets that gives the same owners
+        counts = prep.tiles_touched.to(i32)
+        put = (counts > 0) & (offsets < max_pairs)
+        markers = torch.zeros((max_pairs,), dtype=i32, device=dev)
+        markers.scatter_reduce_(0, offsets[put].long(),
+                                torch.arange(1, P + 1, dtype=i32, device=dev)[put],
+                                reduce="amax")
+        idx = torch.arange(max_pairs, dtype=i32, device=dev)
+        owners = dict(cummax=lambda: torch.cummax(markers, 0).values - 1,
+                      searchsorted=lambda: torch.searchsorted(offsets, idx, right=True,
+                                                              out_int32=True) - 1)
+        check(torch.equal(owners["cummax"]()[:n], owners["searchsorted"]()[:n]),
+              f"pair_stage {site}: searchsorted owners differ from the cummax's")
+        owner_ms = {k: cuda_ms(fn, 20) for k, fn in owners.items()}
+        cummax_kernels = kernel_grids(owners["cummax"]) if grids else None
+    out = dict(site=site, num_pairs=n, max_pairs=max_pairs, ma=sp.ma,
+               tiles=int(sp.tile_counts.shape[0]), live_rows=int(grads.shape[0]),
+               old={k: round(v, 5) for k, v in ms_old.items()},
+               new={k: round(v, 5) for k, v in ms_new.items()}, turns=turns,
+               owners_ms={k: round(v, 5) for k, v in owner_ms.items()},
+               cummax_kernels=cummax_kernels)
+    say("pair_stage", **out)
+    return out
+
+
+def check_segment_stats(pair_contrib, pair_tri, pack_perm, starts, ends, num_pairs,
+                        what: str) -> dict:
+    """B5 against its plain version on B1's per-pair stream gathered
+    through the map (the inputs ``ops/rasterize.py:_contrib_stats`` gives
+    it): sums within rel 1e-5 of the largest, maxes exact; and its outputs
+    equal, bit for bit, to those on the stream after the old owner sort
+    (the same columns). Returns the errors, the argument tuple, the
+    library yardstick (two ``torch.segment_reduce`` calls on the gathered
+    stream) and the bytes and operations of its bound."""
     import torch
     from triangle_splatting_tpu_torch.ops.cuda import streams as KS
 
-    P = sp.tri_offsets.shape[0] - 1
-    key = torch.where(pair_tri >= 0, pair_tri, torch.full_like(pair_tri, P))
-    cols = pair_contrib.index_select(1, torch.sort(key, stable=True).indices)
-    starts = torch.minimum(sp.tri_offsets[:-1], sp.num_pairs).contiguous()
-    ends = torch.minimum(sp.tri_offsets[1:], sp.num_pairs).contiguous()
-    args = (cols[0], cols[1], starts, ends, sp.num_pairs)
+    P = starts.shape[0]
+    cols = pair_contrib.index_select(1, pack_perm)
+    args = (cols[0], cols[1], starts, ends, num_pairs)
     sums, maxes = KS.segment_reduce_stats(*args)
     ref_s, ref_m = KS.segment_reduce_stats_plain(*args)
+    old = pair_contrib.index_select(1, owner_order(pair_tri, P))
+    old_s, old_m = KS.segment_reduce_stats(old[0], old[1], starts, ends, num_pairs)
     torch.cuda.synchronize()
     err_s = float((sums - ref_s).abs().max())
     rel_s = err_s / max(float(ref_s.abs().max()), 1e-30)
     err_m = float((maxes - ref_m).abs().max())
     check(rel_s <= TOL["b5_rel"], f"segment_reduce_stats {what}: sum rel err {rel_s:.3e}")
     check(err_m == 0.0, f"segment_reduce_stats {what}: max err {err_m:.3e}, expected exact")
-    n = int(sp.num_pairs)
+    check(bool(torch.equal(sums, old_s) and torch.equal(maxes, old_m)),
+          f"segment_reduce_stats {what}: through the map differs from after the owner sort")
+    n = int(num_pairs)
     lengths = ends - starts
     data = (cols[0, :n].contiguous(), cols[1, :n].contiguous())
 
@@ -861,7 +1137,7 @@ def rich_cotangents(c, H: int, W: int, dev, seed: int = 0):
             (torch.randn((3, H, W), generator=gen) / (3 * H * W)).to(dev))
 
 
-def phase_kernels(b, cmp=None) -> dict:
+def phase_kernels(b, cmp=None, parent=None) -> dict:
     """Each kernel against its plain version at the bench shapes."""
     import torch
     from triangle_splatting_tpu_torch.ops.binning import sort_pairs
@@ -888,26 +1164,33 @@ def phase_kernels(b, cmp=None) -> dict:
         check(not bool(sp.overflow), "bench pair budget overflow")
         T = st.num_tiles
 
-        # ---- B3 relayout_pairs
-        pair_tri, args3, _ = check_relayout(sp, "2D")
-        ref3 = KS.relayout_pairs_plain(*args3)
-        abs3 = float((pair_tri - ref3).abs().max())
-        # one indexed scatter computes the same map
+        # ---- B3 relayout_pairs (pair_tri and the map)
+        pair_tri, pack_perm, args3, err3 = check_relayout(sp, "2D")
+        # a scatter_ pair computes both outputs: the binned pairs' owners
+        # into their slots, every slot index into the map
         j = torch.arange(max_pairs, device=dev, dtype=torch.int32)
-        tile_of = (torch.searchsorted(sp.raw_starts, j, right=True, out_int32=True) - 1).clamp(0, T - 1).long()
+        tile_of = (torch.searchsorted(sp.raw_starts, j, right=True, out_int32=True) - 1).clamp(0, T).long()
+        dst = (sp.astarts[tile_of] + j - sp.raw_starts[tile_of]).long()
+        raw = sp.sorted_raw.long()
         keep = j < num_pairs
-        dst = (sp.astarts[tile_of] + j - sp.raw_starts[tile_of])[keep].long()
-        src = sp.sorted_tri[keep]
-        lib_out = torch.full((sp.ma,), -1, dtype=torch.int32, device=dev)
-        lib_out.scatter_(0, dst, src)
-        check(bool((lib_out == ref3).all()), "scatter yardstick disagrees with B3")
-        nbytes3 = 4 * (num_pairs + 3 * (T + 1) + sp.ma)
+        dst_keep, src = dst[keep], sp.tri[raw][keep]
+        dst32 = dst.to(torch.int32)
+        lib_tri = torch.full((sp.ma,), -1, dtype=torch.int32, device=dev)
+        lib_perm = torch.empty((max_pairs,), dtype=torch.int32, device=dev)
+
+        def scatter_pair():
+            lib_tri.scatter_(0, dst_keep, src)
+            lib_perm.scatter_(0, raw, dst32)
+        scatter_pair()
+        check(bool(torch.equal(lib_tri, pair_tri) and torch.equal(lib_perm, pack_perm)),
+              "scatter_ yardstick disagrees with B3")
         rec["relayout_pairs"] = dict(
-            max_abs_err=abs3,
+            max_abs_err=float(err3),
             ms=cuda_ms(lambda: KS.relayout_pairs(*args3), 50),
             plain_ms=cuda_ms(lambda: KS.relayout_pairs_plain(*args3), 20),
-            library_ms=cuda_ms(lambda: lib_out.scatter_(0, dst, src), 50),
-            bound=bound_ms(nbytes3), tol="exact")
+            library_ms=cuda_ms(scatter_pair, 50),
+            bound=bound_ms(b3_bytes(args3)), tol="exact")
+        starts, ends = segment_bounds(sp.tri_offsets, sp.num_pairs)
 
         # ---- B1 blend_forward, B2 blend_backward
         fmat = triangle_field_matrix(prep, b["opacity"])
@@ -962,14 +1245,16 @@ def phase_kernels(b, cmp=None) -> dict:
             bound=bound_ms(rs["bytes"], b1_ops(c["work"], "2D", True, stats=True, rich=True)),
             tol=rs["tol"])
         live_r = KB.LIVE_GRAD_ROWS[("2D", True)]
-        c4r = check_segment_reduce(r["out2"][:live_r], pair_tri, sp, "2D rich")
+        c4r = check_segment_reduce(r["out2"][:live_r], pair_tri, pack_perm, starts, ends,
+                                   sp.num_pairs, "2D rich")
         say("kernels", kernel="blend_rich", variant="2D", b1_rel_err_depth=r["rel_depth"],
             b1_rel_err_normal=r["rel_normal"], b2_rel_err=r["b2_rel"],
             b2_depth_row_max=r["depth_row_max"], b4_rows=live_r, b4_rel_err=c4r["rel"],
             b4_max_abs_err=c4r["err"])
 
         # B5 on the 2D stream (its record is taken at the mesh shapes)
-        c5 = check_segment_stats(c["pair_contrib"], pair_tri, sp, "2D")
+        c5 = check_segment_stats(c["pair_contrib"], pair_tri, pack_perm, starts, ends,
+                                 sp.num_pairs, "2D")
         say("kernels", kernel="segment_reduce_stats", shapes="bench-800-100k",
             max_abs_err=c5["err"], sum_rel_err=c5["rel"],
             ms=cuda_ms(lambda: KS.segment_reduce_stats(*c5["args"]), 50),
@@ -979,22 +1264,28 @@ def phase_kernels(b, cmp=None) -> dict:
         # ---- B4 segment_reduce_pairs (the pack backward's inputs)
         P = fmat.shape[0]
         live = KB.LIVE_GRAD_ROWS[("2D", False)]
-        c4 = check_segment_reduce(out2[:live], pair_tri, sp, "2D")
+        c4 = check_segment_reduce(out2[:live], pair_tri, pack_perm, starts, ends,
+                                  sp.num_pairs, "2D")
         args4, ref4 = c4["args"], c4["ref"]
-        # one index_add_ over the segment ids computes the same sums
-        seg = c4["skey"][:num_pairs].long()
-        lib_cols = args4[0][:, :num_pairs]
-        lib4 = torch.zeros((live, P), device=dev)
-        lib4.index_add_(1, seg, lib_cols)
-        check(float((lib4 - ref4[:live]).abs().max()) <= 1e-5 * float(ref4.abs().max()),
-              "index_add_ yardstick disagrees with B4")
-        nbytes4 = 4 * (live * num_pairs + 2 * P + 1) + 4 * 16 * P
+        # one index_add_ straight from B2's output computes the whole pack
+        # backward: every aligned slot adds into its owner's column (the
+        # empty slots into a spare column P)
+        seg = torch.where(pair_tri >= 0, pair_tri, torch.full_like(pair_tri, P)).long()
+        lib_cols = out2[:live]
+
+        def index_add():
+            return torch.zeros((live, P + 1), device=dev).index_add_(1, seg, lib_cols)
+        check(float((index_add()[:, :P] - ref4[:live]).abs().max())
+              <= 1e-5 * float(ref4.abs().max()), "index_add_ yardstick disagrees with B4")
+        pair_stage(prep, st, max_pairs, out2[:live], c["pair_contrib"], "bench-800-100k",
+                   parent, grids=True)
         rec["segment_reduce_pairs"] = dict(
             max_abs_err=c4["err"], rel_err=c4["rel"],
             ms=cuda_ms(lambda: KS.segment_reduce_pairs(*args4), 50),
             plain_ms=cuda_ms(lambda: KS.segment_reduce_pairs_plain(*args4), 20),
-            library_ms=cuda_ms(lambda: torch.zeros((live, P), device=dev).index_add_(1, seg, lib_cols), 50),
-            bound=bound_ms(nbytes4, live * num_pairs), tol=f"rel {TOL['b4_rel']} of the max")
+            library_ms=cuda_ms(index_add, 50),
+            bound=bound_ms(b4_bytes(live, num_pairs, P), live * num_pairs),
+            tol=f"rel {TOL['b4_rel']} of the max; the old route's sums bit for bit")
 
     for name, r in rec.items():
         say("kernels", kernel=name, max_abs_err=r["max_abs_err"], tol=r["tol"],
@@ -1004,7 +1295,7 @@ def phase_kernels(b, cmp=None) -> dict:
     return rec
 
 
-def phase_kernels_3d(dev, cmp=None) -> dict:
+def phase_kernels_3d(dev, cmp=None, parent=None) -> dict:
     """B1/B2 in variant "3D" against their plain versions on a 100k-triangle
     random scene at the mesh path's rendered size (1600x1600: 2,500 tiles),
     at gamma 1 and at gamma 50; timed at gamma 50, the solidified regime
@@ -1051,20 +1342,27 @@ def phase_kernels_3d(dev, cmp=None) -> dict:
             check(not bool(sp.overflow), f"3D pair budget overflow at gamma {gamma}")
             what = f"3D, gamma {gamma}"
             # B3 and B4 at the mesh path's shapes: 2,500 tiles, 13 live rows
-            pair_tri, args3, err3 = check_relayout(sp, what)
+            pair_tri, pack_perm, args3, err3 = check_relayout(sp, what)
+            bounds = segment_bounds(sp.tri_offsets, sp.num_pairs)
             fmat = triangle_field_matrix_3d(prep, opacity, cam.tan_fovx, cam.tan_fovy, R, R)
             params = torch.tensor([gamma, 1.0, 1.0, 1.0, 10.0, sx, sy, 0.0], device=dev)
             c = check_blend(pack_fields(fmat, pair_tri), sp, params, geo, target, what)
             live = KB.LIVE_GRAD_ROWS[("3D", False)]
-            c4 = check_segment_reduce(c["out2"][:live], pair_tri, sp, what)
-            c5 = check_segment_stats(c["pair_contrib"], pair_tri, sp, what)
+            c4 = check_segment_reduce(c["out2"][:live], pair_tri, pack_perm, *bounds,
+                                      sp.num_pairs, what)
+            c5 = check_segment_stats(c["pair_contrib"], pair_tri, pack_perm, *bounds,
+                                     sp.num_pairs, what)
             r = check_blend_rich(c["fwd"], geo, c["out1"], rich_cotangents(c, R, R, dev),
                                  what)
             live_r = KB.LIVE_GRAD_ROWS[("3D", True)]
-            c4r = check_segment_reduce(r["out2"][:live_r], pair_tri, sp, what + " rich")
+            c4r = check_segment_reduce(r["out2"][:live_r], pair_tri, pack_perm, *bounds,
+                                       sp.num_pairs, what + " rich")
             rs = check_blend_rich_stats(c["fwd"], geo, c["out1"], r["on"], c["pair_contrib"],
                                         what)
         site = None if gamma == 1.0 else "bench3d-1600-100k gamma 50"
+        if site is not None:
+            pair_stage(prep, st, _round_up(int(ppt * N_TRI), KB.ALIGN), c["out2"][:live],
+                       c["pair_contrib"], site, parent)
         ms1rs = b1_ms(c["fwd"], geo, stats=True, rich=True, cmp=cmp, site=site)
         g1 = gamma == 1.0
         bound1rs = bound_ms(rs["bytes"], b1_ops(c["work"], "3D", g1, stats=True, rich=True))
@@ -1217,13 +1515,13 @@ def check_blend_gs(fwd, geo, target, what: str, cot_seed: int = 0) -> dict:
                           * H * W + 4 * 16 * ma for f in bws})
 
 
-def phase_kernels_gs(dev, cmp=None) -> dict:
+def phase_kernels_gs(dev, cmp=None, parent=None) -> dict:
     """bench-gs-800-100k: B1-GS (four forms) and B2-GS (two forms) against
     their plain versions on 100k random Gaussians at 800x800 (the GS twin of
     bench-800-100k: ``make_gs_scene`` over the same frustum, scales 0.01-0.05
     as the bench triangles' sizes, the budget sized by a probe frame), at
     gamma 1 and at gamma 2; B3 on the frame, B4 on B2's 10 / 11 live rows,
-    B5 on the stream after the owner sort. Each form is timed at gamma 1,
+    B5 on the stream gathered through the map. Each form is timed at gamma 1,
     the gamma VanillaGS trains at. Then a stack of 400 Gaussians whose kill
     entry (index 300) lies past the first staged batch of every form (256
     forward, 96 backward), held exactly on n_contrib and
@@ -1269,16 +1567,23 @@ def phase_kernels_gs(dev, cmp=None) -> dict:
                                        gamma=torch.tensor(gamma, device=dev))
             sp = sort_pairs(prep, st, _round_up(int(ppt * N_TRI), KB.ALIGN))
             check(not bool(sp.overflow), f"GS pair budget overflow at gamma {gamma}")
-            pair_tri, args3, err3 = check_relayout(sp, what)
+            pair_tri, pack_perm, args3, err3 = check_relayout(sp, what)
+            bounds = segment_bounds(sp.tri_offsets, sp.num_pairs)
             fields = pack_fields(gaussian_field_matrix(prep, opacity), pair_tri)
             params = torch.tensor([gamma, 1.0, 1.0, 1.0, 10.0, 0.0, 0.0, 0.0], device=dev)
             fwd = (fields, sp.astarts, sp.tile_counts, params)
             c = check_blend_gs(fwd, geo, target, what)
             c4 = {f: check_segment_reduce(c["bws"][f]["out"][:KB.LIVE_GRAD_ROWS[("GS", r)]],
-                                          pair_tri, sp, f"{what} {f}")
+                                          pair_tri, pack_perm, *bounds, sp.num_pairs,
+                                          f"{what} {f}")
                   for f, r in (("gs", False), ("gs_rich", True))}
-            c5 = check_segment_stats(c["outs"]["gs_stats"][5], pair_tri, sp, what)
+            c5 = check_segment_stats(c["outs"]["gs_stats"][5], pair_tri, pack_perm, *bounds,
+                                     sp.num_pairs, what)
         g1 = gamma == 1.0
+        if g1:
+            pair_stage(prep, st, _round_up(int(ppt * N_TRI), KB.ALIGN),
+                       c["bws"]["gs"]["out"][:KB.LIVE_GRAD_ROWS[("GS", False)]],
+                       c["outs"]["gs_stats"][5], "bench-gs-800-100k", parent)
         times = {}
         for form, stats, rich in GS_FORMS:
             ops = b1_ops(c["work"], "GS", g1, stats=stats, rich=rich)
@@ -1332,7 +1637,7 @@ def phase_kernels_gs(dev, cmp=None) -> dict:
                                    gamma=torch.ones((), device=dev))
         sp = sort_pairs(prep, st_k, _round_up(400 * n, KB.ALIGN))
         check(not bool(sp.overflow), "GS stack pair budget overflow")
-        pair_tri, _, _ = check_relayout(sp, "GS stack")
+        pair_tri = check_relayout(sp, "GS stack")[0]
         fwd = (pack_fields(gaussian_field_matrix(prep, opacity), pair_tri), sp.astarts,
                sp.tile_counts, torch.tensor([1.0, 1.0, 1.0, 1.0, 10.0, 0, 0, 0], device=dev))
         c = check_blend_gs(fwd, geo, target, "GS stack, kill past the batch")
@@ -2069,7 +2374,7 @@ def phase_mesh_adc(dev, root: Path) -> dict:
     at steps 10-40, and target_point_num 93,000 (run_experiments.py's
     "ship" preset; the recipe ships null, on which the JAX trainer
     raises). Every other knob is the recipe's. Each step renders with the
-    contribution statistics (B1-3D's stats form, owner sort, B5)."""
+    contribution statistics (B1-3D's stats form, the map gather, B5)."""
     import numpy as np
     import torch
     from triangle_splatting_tpu_torch.ops.cuda import reset_launches
@@ -2182,7 +2487,7 @@ def build_city(dev) -> Path:
     return root
 
 
-def phase_city(dev, root: Path, cmp=None) -> tuple[dict, dict]:
+def phase_city(dev, root: Path, cmp=None, parent=None) -> tuple[dict, dict]:
     """config/MatrixCity_VanillaTS_mesh.yaml as shipped, on the synthetic
     city, with the cuts of CITY_CUTS (the recipe's cadences compressed
     into 50 steps). Gates: losses finite and falling; the geometry term
@@ -2259,13 +2564,15 @@ def phase_city(dev, root: Path, cmp=None) -> tuple[dict, dict]:
     step = {"next": 1}           # the step the next launches belong to
     last, k_rows, firings = {}, {}, []
     real = dict(fwd=RZ.blend_forward, bwd=RZ.blend_backward, b3=BN.relayout_pairs,
-                b4=RZ.segment_reduce_pairs)
+                b4=RZ.segment_reduce_pairs, sort=BN.sort_pairs)
 
     def spy(name):
         def wrapped(*a, **kw):
             out = real[name](*a, **kw)
             if step["next"] == n:
                 last[name] = (a, kw)
+                if name == "bwd":
+                    last["grads"] = out.detach()
             if name == "bwd" and step["next"] in k_steps:
                 k_rows[step["next"]] = out[13].abs().max()
             return out
@@ -2288,6 +2595,7 @@ def phase_city(dev, root: Path, cmp=None) -> tuple[dict, dict]:
                 opacity_changed=int((trainer.params.opacity != opac).any(dim=1).sum())))
     RZ.blend_forward, RZ.blend_backward = spy("fwd"), spy("bwd")
     BN.relayout_pairs, RZ.segment_reduce_pairs = spy("b3"), spy("b4")
+    BN.sort_pairs = spy("sort")
     trainer._model_update = update_spy
     try:
         reset_launches()
@@ -2300,6 +2608,7 @@ def phase_city(dev, root: Path, cmp=None) -> tuple[dict, dict]:
     finally:
         RZ.blend_forward, RZ.blend_backward = real["fwd"], real["bwd"]
         BN.relayout_pairs, RZ.segment_reduce_pairs = real["b3"], real["b4"]
+        BN.sort_pairs = real["sort"]
         del trainer._model_update
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
@@ -2394,22 +2703,26 @@ def phase_city(dev, root: Path, cmp=None) -> tuple[dict, dict]:
         a3 = last["b3"][0] + tuple(last["b3"][1].values())
         a4 = tuple(x.detach() if torch.is_tensor(x) else x
                    for x in last["b4"][0] + tuple(last["b4"][1].values()))
-        _, err3 = hold_relayout(a3, "city")
-        c4 = hold_segment_reduce(a4, "city")
-        T, ma, np3 = int(a3[3].shape[0]), int(a3[4]), int(a3[3].sum())
+        pair_tri, pack_perm, err3 = hold_relayout(a3, "city")
+        c4 = check_segment_reduce(a4[0], pair_tri, pack_perm, *a4[1:4], "city")
+        T, ma, np3 = int(a3[3].shape[0]) - 1, int(a3[5]), int(a3[3][-1])
         rows4, P, np4 = int(a4[0].shape[0]), int(a4[1].shape[0]), int(a4[3])
-        b3 = bound_ms(4 * (np3 + 3 * (T + 1) + ma))
-        b4 = bound_ms(4 * (rows4 * np4 + 2 * P + 1) + 4 * 16 * P, rows4 * np4)
+        b3 = bound_ms(b3_bytes(a3))
+        b4 = bound_ms(b4_bytes(rows4, np4, P), rows4 * np4)
         say("city_kernels", kernel="relayout_pairs", max_abs_err=err3, tol="exact", tiles=T,
             num_pairs=np3, ma=ma, ms=round(cuda_ms(lambda: KS.relayout_pairs(*a3), 50), 4),
             plain_ms=round(cuda_ms(lambda: KS.relayout_pairs_plain(*a3), 10), 3),
             bound_ms=round(b3[0], 5), bound_by=b3[1])
         say("city_kernels", kernel="segment_reduce_pairs", max_abs_err=c4["err"],
-            rel_err=c4["rel"], tol=f"rel {TOL['b4_rel']} of the max", rows=rows4,
+            rel_err=c4["rel"], tol=f"rel {TOL['b4_rel']} of the max; the old route's sums "
+            "bit for bit", rows=rows4,
             triangles=P, num_pairs=np4,
             ms=round(cuda_ms(lambda: KS.segment_reduce_pairs(*a4), 50), 4),
             plain_ms=round(cuda_ms(lambda: KS.segment_reduce_pairs_plain(*a4), 10), 3),
             bound_ms=round(b4[0], 5), bound_by=b4[1])
+        sprep, sst, smax = last["sort"][0][:3]
+        pair_stage(sprep.detach(), sst, smax, last["grads"][:rows4], None, "city last step",
+                   parent)
         del last, r, fwd, off, a3, a4, c4
         check_opacity_adc(trainer.params, trainer.opt, trainer.state)
     profile_steps(trainer, "city_profile", bg=torch.zeros(3, device=dev))
@@ -2550,8 +2863,11 @@ def phase_gs(dev, root: Path) -> dict:
         a3 = last["b3"][0] + tuple(last["b3"][1].values())
         a4 = last["b4"][0] + tuple(last["b4"][1].values())
         a5 = last["b5"][0] + tuple(last["b5"][1].values())
-        _, err3 = hold_relayout(a3, "gs")
-        c4 = hold_segment_reduce(a4, "gs")
+        pair_tri, pack_perm, err3 = hold_relayout(a3, "gs")
+        c4 = check_segment_reduce(a4[0], pair_tri, pack_perm, *a4[1:4], "gs")
+        # B5 through the map against B5 after the old owner sort, on the
+        # last step's stream
+        check_segment_stats(out[5], pair_tri, pack_perm, *a5[2:5], "gs")
         s5, m5 = KS.segment_reduce_stats(*a5)
         rs5, rm5 = KS.segment_reduce_stats_plain(*a5)
         torch.cuda.synchronize()
@@ -2566,8 +2882,8 @@ def phase_gs(dev, root: Path) -> dict:
         b1 = bound_ms(pairs_in + 4 * 9 * H * W + 8 * ma,
                       b1_ops(b1_work(fwd, geo, out[4], "gs last step"), "GS", True, stats=True))
         b2 = bound_ms(pairs_in + 4 * 6 * H * W + 4 * 16 * ma, BWD_OPS_PER_EVAL_GS[True] * evals)
-        b3 = bound_ms(4 * (int(a3[3].sum()) + 3 * (int(a3[3].shape[0]) + 1) + int(a3[4])))
-        b4 = bound_ms(4 * (rows4 * np4 + 2 * P + 1) + 4 * 16 * P, rows4 * np4)
+        b3 = bound_ms(b3_bytes(a3))
+        b4 = bound_ms(b4_bytes(rows4, np4, P), rows4 * np4)
         b5 = bound_ms(4 * (2 * np5 + 2 * P + 1) + 4 * 2 * P, B5_OPS_PER_PAIR * np5)
         rows = {
             "blend_forward_gs_stats": (e_c, lambda: KB.blend_forward(*fwd, stats=True, **geo),
@@ -2656,6 +2972,11 @@ def main(argv=None) -> int:
                     help="a directory with an earlier blend.cu and blend_gs.cu: time their "
                          "B1 and B2 in turns with the current ones (tools/blend_compare.py); "
                          "repeatable, the first is the parent")
+    ap.add_argument("--streams-parent", type=Path, default=None, metavar="DIR",
+                    help="a directory with the streams.cu of the route before the map (B3 "
+                         "without the map, B4 on owner-sorted columns; entry points as in "
+                         "PRE_MAP_PARAMS, any other is refused): the [pair_stage] lines time "
+                         "its B3 and B4 in the old route, in turns with the map's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2679,10 +3000,11 @@ def main(argv=None) -> int:
             from triangle_splatting_tpu_torch.tools.blend_compare import Comparison
             cmp = Comparison(args.blend_parent)
             say("blend_parent", builds=cmp.builds, takes_order=cmp.takes_order, sass=cmp.sass)
+        parent = parent_streams(args.streams_parent) if args.streams_parent else None
         bench = make_bench(dev)
-        rec = phase_kernels(bench, cmp)
-        rec.update(phase_kernels_3d(dev, cmp))
-        rec.update(phase_kernels_gs(dev, cmp))
+        rec = phase_kernels(bench, cmp, parent)
+        rec.update(phase_kernels_3d(dev, cmp, parent))
+        rec.update(phase_kernels_gs(dev, cmp, parent))
         phase_reference(dev)
         phase_rasterize(bench)
         runs = dict(renderer=phase_renderer(bench))
@@ -2697,7 +3019,7 @@ def main(argv=None) -> int:
         runs["mesh"] = phase_mesh_train(dev, surface)
         runs["mesh_adc"] = phase_mesh_adc(dev, surface)
         shutil.rmtree(surface, ignore_errors=True)
-        runs["city"], city_rec = phase_city(dev, build_city(dev), cmp)
+        runs["city"], city_rec = phase_city(dev, build_city(dev), cmp, parent)
         rec.update(city_rec)
     except SmokeFailure as e:
         print(f"FAIL {e}", flush=True)

@@ -58,8 +58,7 @@ def packed(variant: str, seed: int = 0, n: int | None = None, **scene_kw):
                    cam.tan_fovx, cam.tan_fovy, st, opacity=op, gamma=gamma)
     sp = sort_pairs(prep, st, 128 * 24)
     assert not bool(sp.overflow)
-    pair_tri = KS.relayout_pairs_plain(sp.sorted_tri, sp.raw_starts, sp.astarts,
-                                       sp.tile_counts, sp.ma)
+    pair_tri, _ = KS.relayout_pairs_plain(*sp.relayout_args())
     if variant == "GS":
         fmat = gaussian_field_matrix(prep, op)
     elif variant == "2D":

@@ -59,8 +59,7 @@ def pipeline_inputs(case, dev, variant="2D"):
                    opacity=op, gamma=torch.tensor(gamma, device=dev))
         sp = sort_pairs(prep, st, 128 * 40)
         assert not bool(sp.overflow)
-        pair_tri = KS.relayout_pairs_plain(sp.sorted_tri, sp.raw_starts, sp.astarts,
-                                           sp.tile_counts, sp.ma)
+        pair_tri, _ = KS.relayout_pairs_plain(*sp.relayout_args())
         if variant == "2D":
             fmat = triangle_field_matrix(prep, op)
         else:
@@ -75,10 +74,113 @@ def pipeline_inputs(case, dev, variant="2D"):
 def test_relayout_kernel_exact(dev, case):
     sp, pair_tri, _, _ = pipeline_inputs(case, dev)
     n = KS.relayout_pairs.launches
-    got = KS.relayout_pairs(sp.sorted_tri, sp.raw_starts, sp.astarts, sp.tile_counts, sp.ma)
+    got, perm = KS.relayout_pairs(*sp.relayout_args())
     torch.cuda.synchronize()
     assert KS.relayout_pairs.launches == n + 1
     assert torch.equal(got, pair_tri)
+    assert torch.equal(perm, KS.relayout_pairs_plain(*sp.relayout_args())[1])
+
+
+def relayout_case(kind, dev):
+    """B3's arguments for a frame with many empty tiles ("sparse": 40
+    small triangles over 150 tiles), for a frame with no pair at all
+    ("empty": every triangle behind the camera) and for a budget below the
+    demand ("overflow"), with the frame's tri_offsets."""
+    P = 40 if kind == "sparse" else 300
+    s = make_random_scene(P, seed=7, **(dict(size_range=(0.01, 0.03)) if kind == "sparse" else {}))
+    if kind == "empty":
+        s["vertex"][..., 2] = -50.0
+    W, H = (480, 320) if kind == "sparse" else (96, 64)
+    st = RasterSettings(image_width=W, image_height=H, rich_info=False)
+    cam = make_camera(W, H, device=dev)
+    with torch.no_grad():
+        prep = preprocess_2d(torch.as_tensor(s["vertex"]).to(dev), torch.zeros((P, 2), device=dev),
+                             torch.as_tensor(s["rgb"]).to(dev), cam.world_view, cam.full_proj,
+                             cam.tan_fovx, cam.tan_fovy, st,
+                             opacity=torch.as_tensor(s["opacity"]).to(dev),
+                             gamma=torch.ones((), device=dev))
+        sp = sort_pairs(prep, st, 128 if kind == "overflow" else 128 * 40)
+    assert bool(sp.overflow) == (kind == "overflow")
+    if kind == "empty":
+        assert int(sp.num_pairs) == 0
+    if kind == "sparse":
+        assert int((sp.tile_counts == 0).sum()) > 50
+    return sp
+
+
+@pytest.mark.parametrize("kind", ["sparse", "empty", "overflow"])
+def test_relayout_map_kernel_exact(dev, kind):
+    """B3's two outputs against its plain version, exactly, on empty tiles,
+    an all-empty stream and an overflowing budget; the map sends every
+    binned raw pair to a slot of its owner, hits each filled slot once and
+    sends the rest to empty slots."""
+    sp = relayout_case(kind, dev)
+    got, perm = KS.relayout_pairs(*sp.relayout_args())
+    want, want_perm = KS.relayout_pairs_plain(*sp.relayout_args())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(perm, want_perm)
+    n = int(sp.num_pairs)
+    assert torch.equal(got[perm[:n].long()], sp.tri[:n])
+    assert torch.equal(torch.sort(perm[:n]).values.long(), torch.nonzero(got >= 0).flatten())
+    assert not bool((got[perm[n:].long()] >= 0).any())
+
+
+def old_pack_backward(d, pair_tri, starts, ends, num_pairs):
+    """The pack backward before the map: the stable owner sort over every
+    slot, ``index_select`` of the rows, B4 on the sorted columns."""
+    key = torch.where(pair_tri >= 0, pair_tri, torch.full_like(pair_tri, starts.shape[0]))
+    cols = d.index_select(1, torch.sort(key, stable=True).indices).contiguous()
+    return KS.segment_reduce_pairs(cols, starts, ends, num_pairs), cols
+
+
+@pytest.mark.parametrize("variant,rich", [("2D", False), ("2D", True), ("3D", False),
+                                          ("3D", True), ("GS", False), ("GS", True)])
+def test_segment_reduce_map_kernel(dev, variant, rich):
+    """B4 through the map on each variant's live gradient rows (10-16):
+    rel 1e-5 of its plain version, and the old route's sums bit for bit
+    (the same columns in the same order); empty slots hold NaN and are
+    never read; one launch counted."""
+    live = KB.LIVE_GRAD_ROWS[(variant, rich)]
+    if variant == "GS":
+        sp, _, _ = gs_inputs(("scene", 200, 80, 48, 2, 1.0), dev)
+    else:
+        sp = pipeline_inputs(CASES[2], dev, variant)[0]
+    pair_tri, perm = KS.relayout_pairs(*sp.relayout_args())
+    gen = torch.Generator().manual_seed(live)
+    d = torch.randn((16, pair_tri.shape[0]), generator=gen).to(dev)
+    d[:, pair_tri < 0] = float("nan")
+    starts = torch.minimum(sp.tri_offsets[:-1], sp.num_pairs).contiguous()
+    ends = torch.minimum(sp.tri_offsets[1:], sp.num_pairs).contiguous()
+    n = KS.segment_reduce_pairs.launches
+    got = KS.segment_reduce_pairs(d[:live], starts, ends, sp.num_pairs, perm)
+    torch.cuda.synchronize()
+    assert KS.segment_reduce_pairs.launches == n + 1
+    want = KS.segment_reduce_pairs_plain(d[:live], starts, ends, sp.num_pairs, perm)
+    old, _ = old_pack_backward(d[:live], pair_tri, starts, ends, sp.num_pairs)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and not bool(got[live:].any())
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(got, old)
+
+
+@pytest.mark.parametrize("variant", ["2D", "3D"])
+def test_segment_stats_through_map(dev, variant):
+    """B5 on the stream gathered through the map equals B5 after the old
+    owner sort, bit for bit: the same columns up to num_pairs."""
+    sp = pipeline_inputs(CASES[0], dev, variant)[0]
+    pair_tri, perm = KS.relayout_pairs(*sp.relayout_args())
+    gen = torch.Generator().manual_seed(3)
+    pc = torch.rand((2, pair_tri.shape[0]), generator=gen).to(dev)
+    pc[:, pair_tri < 0] = 0.0
+    starts = torch.minimum(sp.tri_offsets[:-1], sp.num_pairs).contiguous()
+    ends = torch.minimum(sp.tri_offsets[1:], sp.num_pairs).contiguous()
+    _, old_cols = old_pack_backward(pc, pair_tri, starts, ends, sp.num_pairs)
+    new_cols = pc.index_select(1, perm)
+    got = KS.segment_reduce_stats(new_cols[0], new_cols[1], starts, ends, sp.num_pairs)
+    old = KS.segment_reduce_stats(old_cols[0], old_cols[1], starts, ends, sp.num_pairs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, old))
+    assert float(got[0].max()) > 0
 
 
 CASES_3D = [
@@ -432,8 +534,7 @@ def gs_inputs(case, dev):
                                    gamma=torch.tensor(gamma, device=dev))
         sp = sort_pairs(prep, st, 128 * 200)
         assert not bool(sp.overflow)
-        pair_tri = KS.relayout_pairs_plain(sp.sorted_tri, sp.raw_starts, sp.astarts,
-                                           sp.tile_counts, sp.ma)
+        pair_tri, _ = KS.relayout_pairs_plain(*sp.relayout_args())
         fmat = gaussian_field_matrix(prep, op)
         fields = torch.where((pair_tri >= 0)[:, None], fmat[pair_tri.clamp_min(0).long()],
                              torch.zeros((), device=dev)).t().contiguous()
@@ -786,8 +887,7 @@ def b2_inputs(variant, case, dev, tile=(32, 32), scene=None):
                        cam.full_proj, cam.tan_fovx, cam.tan_fovy, st, opacity=op, gamma=g)
         sp = sort_pairs(prep, st, 128 * 4000)
         assert not bool(sp.overflow)
-        pair_tri = KS.relayout_pairs_plain(sp.sorted_tri, sp.raw_starts, sp.astarts,
-                                           sp.tile_counts, sp.ma)
+        pair_tri, _ = KS.relayout_pairs_plain(*sp.relayout_args())
         if variant == "GS":
             fmat = gaussian_field_matrix(prep, op)
         elif variant == "2D":

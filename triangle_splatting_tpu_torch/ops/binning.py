@@ -1,8 +1,9 @@
 """Tile binning: triangle -> (tile, depth)-sorted pair lists.
 
-Port of ``triangle_splatting_tpu/ops/binning.py`` (without the pack-perm
-path, which the port does not carry). Every ``Binning`` field matches the
-JAX function integer for integer on the same ``Preprocessed`` inputs:
+Port of ``triangle_splatting_tpu/ops/binning.py``. Every ``Binning`` field
+matches the JAX function integer for integer on the same ``Preprocessed``
+inputs, ``pack_perm`` too (the JAX function's ``compute_pack_perm=True``
+map) on its first ``num_pairs`` entries:
 
 - exclusive sum of tiles_touched; ``total`` is kept in int64, so
   ``overflow = total > max_pairs`` also covers the int32 wrap the JAX
@@ -13,7 +14,10 @@ JAX function integer for integer on the same ``Preprocessed`` inputs:
   from the per-triangle constants K0 and A as
   ``K0 + (within << dbits) + q * A`` with exact integer division for q;
 - a STABLE sort of the key (ties in a depth bucket keep triangle order);
-- ``searchsorted`` tile ranges and the aligned relayout through kernel B3.
+- ``searchsorted`` tile ranges, then kernel B3: the aligned relayout and the
+  owner-order map ``pack_perm`` in one launch (the JAX package recovers the
+  map with a second relayout and an inversion sort; a Hopper thread writes
+  it by scatter).
 
 Binning runs without gradients; its fields are int32 (bool for the flags).
 """
@@ -44,6 +48,11 @@ class Binning:
     tile_counts: torch.Tensor    # (num_tiles,) int32 — real pairs per tile
     num_pairs: torch.Tensor      # () int32 — pairs binned (<= max_pairs)
     overflow: torch.Tensor       # () bool — pair budget exceeded
+    pack_perm: torch.Tensor      # (max_pairs,) int32 — owner-order map: raw
+    #                              pair r (triangle-major, so triangle t's
+    #                              pairs are [tri_offsets[t], tri_offsets[t+1]))
+    #                              lies in slot pack_perm[r]; entries at and
+    #                              past num_pairs name empty slots
 
 
 def aligned_capacity(max_pairs: int, num_tiles: int, align: int) -> int:
@@ -74,16 +83,27 @@ def quantize_depth(depth: torch.Tensor, valid: torch.Tensor, bits: int) -> torch
 
 
 class SortedPairs(NamedTuple):
-    """The tile-sorted raw pair stream, before the aligned relayout (the
-    inputs of kernel B3) plus the per-triangle offsets."""
-    sorted_tri: torch.Tensor     # (max_pairs,) int32 owning triangle per pair
+    """The tile-sorted pair stream, before the aligned relayout (the inputs
+    of kernel B3) plus the per-triangle offsets."""
+    key: torch.Tensor            # (max_pairs,) int32 raw keys, tile << dbits | depth;
+    #                              num_tiles << dbits at and past num_pairs
+    tri: torch.Tensor            # (max_pairs,) int32 owning triangle per RAW pair
+    sorted_raw: torch.Tensor     # (max_pairs,) int32 raw pair at each sorted position
+    sorted_key: torch.Tensor     # (max_pairs,) int32 sorted keys
+    dbits: int                   # key bits below the tile
     raw_starts: torch.Tensor     # (num_tiles + 1,) int32 tile starts (raw)
     astarts: torch.Tensor        # (num_tiles + 1,) int32 tile starts (aligned)
     tile_counts: torch.Tensor    # (num_tiles,) int32
     ma: int                      # aligned buffer capacity
+    align: int                   # alignment of the tile starts
     tri_offsets: torch.Tensor    # (P + 1,) int32
     num_pairs: torch.Tensor      # () int32
     overflow: torch.Tensor       # () bool
+
+    def relayout_args(self) -> tuple:
+        """The arguments of kernel B3 (``relayout_pairs``)."""
+        return (self.tri, self.sorted_raw, self.sorted_key, self.raw_starts,
+                self.astarts, self.ma, self.dbits, self.align)
 
 
 @torch.no_grad()
@@ -119,7 +139,8 @@ def sort_pairs(prep: Preprocessed, settings: RasterSettings,
     tri = torch.cummax(markers, 0).values - 1                 # (max_pairs,)
     pair_idx = torch.arange(max_pairs, dtype=i32, device=dev)
     valid = (pair_idx < num_pairs) & (tri >= 0)
-    tri_safe = torch.clamp(tri, 0, max(P - 1, 0)).long()
+    tri_c = torch.clamp(tri, 0, max(P - 1, 0))
+    tri_safe = tri_c.long()
 
     within = pair_idx - offsets[tri_safe]
     rw = rw_t[tri_safe]
@@ -128,7 +149,6 @@ def sort_pairs(prep: Preprocessed, settings: RasterSettings,
            + q * A_t[tri_safe])
     key = torch.where(valid, key, torch.full_like(key, num_tiles << dbits))
     sorted_key, order = torch.sort(key, stable=True)
-    sorted_tri = tri_safe[order].to(i32)
 
     boundaries = torch.bitwise_left_shift(
         torch.arange(num_tiles + 1, dtype=i32, device=dev), dbits)
@@ -140,10 +160,10 @@ def sort_pairs(prep: Preprocessed, settings: RasterSettings,
     astarts = torch.cat([torch.zeros((1,), dtype=i32, device=dev),
                          torch.cumsum(padded, 0).to(i32)])
     tri_offsets = torch.cat([offsets, total.reshape(1).to(i32)])
-    return SortedPairs(sorted_tri=sorted_tri.contiguous(),
-                       raw_starts=raw_starts.contiguous(), astarts=astarts,
-                       tile_counts=tile_counts.contiguous(), ma=ma,
-                       tri_offsets=tri_offsets, num_pairs=num_pairs,
+    return SortedPairs(key=key, tri=tri_c, sorted_raw=order.to(i32), sorted_key=sorted_key,
+                       dbits=dbits, raw_starts=raw_starts.contiguous(),
+                       astarts=astarts, tile_counts=tile_counts.contiguous(), ma=ma,
+                       align=align, tri_offsets=tri_offsets, num_pairs=num_pairs,
                        overflow=overflow)
 
 
@@ -151,11 +171,11 @@ def sort_pairs(prep: Preprocessed, settings: RasterSettings,
 def bin_triangles(prep: Preprocessed, settings: RasterSettings,
                   max_pairs: int, align: int = ALIGN) -> Binning:
     """Expand triangles into depth-sorted per-tile pair lists, re-laid so
-    every tile's range starts on an ``align`` boundary (kernel B3)."""
+    every tile's range starts on an ``align`` boundary, and the owner-order
+    map of the pairs (kernel B3, one launch)."""
     sp = sort_pairs(prep, settings, max_pairs, align)
-    pair_tri = relayout_pairs(sp.sorted_tri, sp.raw_starts, sp.astarts,
-                              sp.tile_counts, sp.ma)
+    pair_tri, pack_perm = relayout_pairs(*sp.relayout_args())
     return Binning(pair_tri=pair_tri, pair_valid=pair_tri >= 0,
                    tri_offsets=sp.tri_offsets, tile_starts=sp.astarts,
                    tile_counts=sp.tile_counts, num_pairs=sp.num_pairs,
-                   overflow=sp.overflow)
+                   overflow=sp.overflow, pack_perm=pack_perm)

@@ -37,8 +37,8 @@ _F = ctypes.c_float
 # c_void_p so a 64-bit address is never cut to 32 bits, floats as c_float).
 SIGNATURES = {
     "streams": {
-        "ts_relayout_pairs": (_P, _P, _P, _P, _I, _P, _I, _P),
-        "ts_segment_reduce_pairs": (_P, _I, _I, _P, _P, _P, _I, _P, _P),
+        "ts_relayout_pairs": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P),
+        "ts_segment_reduce_pairs": (_P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P),
         "ts_segment_reduce_stats": (_P, _P, _I, _P, _P, _P, _I, _P, _P, _P),
     },
     "blend": {

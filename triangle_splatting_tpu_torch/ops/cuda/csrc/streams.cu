@@ -11,30 +11,44 @@
 //
 // All three are pure data movement with a handful of integer or float
 // operations per element, so on the H100 they are bound by device-memory
-// bytes (3.35 TB/s): B3 moves one int32 in and one out per slot, B4 reads
-// the sorted gradient columns once and writes one column per triangle, B5
-// reads the two sorted contribution columns once and writes two values per
-// triangle.
+// bytes (3.35 TB/s).
 //
 // The Pallas kernels work around the TPU's lack of a vector gather (a
 // windowed DMA plus lane rotates for B3, a one-hot MXU matmul with a
-// three-term bf16 split for B4). Hopper gathers per thread, so the designs
-// here are direct:
-//  - B3: one thread per output slot; a binary search over the aligned tile
-//    starts finds the slot's tile, then the thread copies one source entry
-//    or writes -1. Neighbouring threads read neighbouring source entries,
-//    so loads and stores coalesce.
-//  - B4: one thread per segment (triangle), summing its contiguous columns
-//    in float32 registers. Segments average a few pairs, so neighbouring
-//    threads read neighbouring columns; the (R, P) output store is
-//    coalesced. Columns at or past `nvalid` are cut off the segment before
-//    any load, so NaN in the unused tail cannot leak into a sum.
+// three-term bf16 split for B4), and the JAX package sorts the per-pair
+// gradient columns by owning triangle before B4 for the same reason: two
+// MA-wide sorts a step (the pack backward's and the statistics'). A Hopper
+// thread gathers and scatters, so the stage is designed around one map:
+//  - B3: one thread per SORTED pair s. Its tile is sorted_key[s] >> dbits
+//    (the unbinned tail carries the sentinel tile num_tiles), its aligned
+//    slot astarts[tile] + s - raw_starts[tile]: no search. It writes
+//    pair_tri[slot] = tri[sorted_raw[s]] (the owner gather of binning,
+//    fused) and pack_perm[sorted_raw[s]] = slot, the owner-order map: raw
+//    pairs are triangle-major, so triangle t's pairs are map entries
+//    [tri_offsets[t], tri_offsets[t+1]). Raw pairs past num_pairs map to
+//    the empty slots after the last tile, one each. One warp per tile
+//    writes the tile's pad slots (< align of them) and a grid-stride loop
+//    the slots past the last tile, so every slot is written once, in one
+//    launch. Bytes: 12 read and 4 + 4 written per raw pair, 4 per slot.
+//  - B4: one thread per segment (triangle), summing its rows in float32
+//    registers in segment order; with the map, position pos of the segment
+//    is column pack_perm[pos] of B2's (16, MA) output, read in place, so
+//    nothing is sorted or copied first. (A thread per segment and row was
+//    4% faster at 800^2 and twice as slow at the city's 992k triangles,
+//    where each row re-read the segment bounds.) Within a triangle the raw order is
+//    ascending tile, which is the ascending-slot order the owner sort gave,
+//    so every sum is added in the same order as before, bit for bit. The
+//    gathered reads use 4 B of each 32 B sector; B2's output was just
+//    written and much of it is still in the 50 MB L2. With a null map the
+//    columns are already owner-sorted (the JAX contract). Positions at or
+//    past nvalid are cut off the segment before any load, so NaN in the
+//    unused tail cannot leak into a sum.
 //  - B5: B4's design on two columns: one thread per segment sums the first
 //    column in float32 and maxes the second (contributions are >= 0, so the
 //    identity is 0 and an empty segment gives 0 for both), with the same
 //    nvalid cut and the same launch plumbing. The Pallas kernel's one-hot
 //    MXU products become a plain loop; no atomics, so the order of each sum
-//    is fixed.
+//    is fixed. Its caller gathers the stream's two rows through B3's map.
 //
 // C interface: each entry point launches on the given stream and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
@@ -44,51 +58,71 @@
 namespace {
 
 constexpr int kMaxRows = 16;
+constexpr int kThreads = 256;
+// blocks of the grid-stride loop over the slots past the last tile
+constexpr int kTailBlocks = 4 * 132;
 
-__global__ void relayout_pairs_kernel(const int* __restrict__ sorted_tri,
+// Block roles by blockIdx.x: [0, pair_blocks) one thread per sorted pair,
+// then pad_blocks with one warp per tile, then the tail's blocks.
+__global__ void relayout_pairs_kernel(const int* __restrict__ tri,
+                                      const int* __restrict__ sorted_raw,
+                                      const int* __restrict__ sorted_key,
                                       const int* __restrict__ raw_starts,
                                       const int* __restrict__ astarts,
-                                      const int* __restrict__ tile_counts,
-                                      int num_tiles, int* __restrict__ out,
-                                      int ma) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= ma) return;
-  // Last t in [0, num_tiles] with astarts[t] <= i (astarts[0] == 0). Empty
-  // tiles share their start with the next tile; taking the last such t
-  // picks the tile that owns the slot.
-  int lo = 0, hi = num_tiles;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (astarts[mid] <= i) lo = mid; else hi = mid - 1;
+                                      int num_tiles, int dbits, int n, int ma,
+                                      int pair_blocks, int pad_blocks,
+                                      int* __restrict__ pair_tri,
+                                      int* __restrict__ pack_perm) {
+  const int b = blockIdx.x;
+  if (b < pair_blocks) {
+    const int s = b * kThreads + threadIdx.x;
+    if (s >= n) return;
+    const int tile = min((int)((unsigned)sorted_key[s] >> dbits), num_tiles);
+    const int slot = astarts[tile] + (s - raw_starts[tile]);
+    const int r = sorted_raw[s];
+    pack_perm[r] = slot;
+    if (tile < num_tiles) pair_tri[slot] = tri[r];
+    return;
   }
-  int v = -1;
-  if (lo < num_tiles) {
-    const int j = i - astarts[lo];
-    if (j < tile_counts[lo]) v = sorted_tri[raw_starts[lo] + j];
+  if (b < pair_blocks + pad_blocks) {
+    const int t = ((b - pair_blocks) * kThreads + threadIdx.x) >> 5;
+    if (t >= num_tiles) return;
+    const int end = astarts[t + 1];
+    for (int slot = astarts[t] + (raw_starts[t + 1] - raw_starts[t]) + (threadIdx.x & 31);
+         slot < end; slot += 32)
+      pair_tri[slot] = -1;
+    return;
   }
-  out[i] = v;
+  const int stride = (gridDim.x - pair_blocks - pad_blocks) * kThreads;
+  for (int slot = astarts[num_tiles] + (b - pair_blocks - pad_blocks) * kThreads + threadIdx.x;
+       slot < ma; slot += stride)
+    pair_tri[slot] = -1;
 }
 
+// kMapped: position pos of a segment is column perm[pos] of cols (B2's
+// output read in place); otherwise column pos (owner-sorted columns).
+template <bool kMapped>
 __global__ void segment_reduce_pairs_kernel(const float* __restrict__ cols,
                                             int nrows, int m,
+                                            const int* __restrict__ perm, int nperm,
                                             const int* __restrict__ starts,
                                             const int* __restrict__ ends,
                                             const int* __restrict__ nvalid_ptr,
                                             int p, float* __restrict__ out) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= p) return;
-  // Columns at or past nvalid count as zero: clipping the segment end
+  // Positions at or past nvalid count as zero: clipping the segment end
   // skips them entirely, so their (possibly NaN) values are never read.
-  const int nvalid = min(*nvalid_ptr, m);
-  const int s = starts[t];
+  const int nvalid = min(*nvalid_ptr, kMapped ? nperm : m);
   const int e = min(ends[t], nvalid);
   float acc[kMaxRows];
 #pragma unroll
   for (int r = 0; r < kMaxRows; ++r) acc[r] = 0.0f;
-  for (int pos = s; pos < e; ++pos) {
+  for (int pos = starts[t]; pos < e; ++pos) {
+    const size_t col = kMapped ? (size_t)perm[pos] : (size_t)pos;
 #pragma unroll
     for (int r = 0; r < kMaxRows; ++r) {
-      if (r < nrows) acc[r] += cols[(size_t)r * m + pos];
+      if (r < nrows) acc[r] += cols[(size_t)r * m + col];
     }
   }
 #pragma unroll
@@ -118,29 +152,41 @@ __global__ void segment_reduce_stats_kernel(const float* __restrict__ sum_col,
 
 }  // namespace
 
-extern "C" int ts_relayout_pairs(const int* sorted_tri, const int* raw_starts,
-                                 const int* astarts, const int* tile_counts,
-                                 int num_tiles, int* out, int ma,
+extern "C" int ts_relayout_pairs(const int* tri, const int* sorted_raw,
+                                 const int* sorted_key, const int* raw_starts,
+                                 const int* astarts, int num_tiles, int dbits,
+                                 int n, int* pair_tri, int* pack_perm, int ma,
                                  cudaStream_t stream) {
-  if (ma > 0) {
-    const int threads = 256;
-    const int blocks = (ma + threads - 1) / threads;
-    relayout_pairs_kernel<<<blocks, threads, 0, stream>>>(
-        sorted_tri, raw_starts, astarts, tile_counts, num_tiles, out, ma);
+  if (num_tiles < 0 || dbits < 0 || dbits > 30) return (int)cudaErrorInvalidValue;
+  const int pair_blocks = (n + kThreads - 1) / kThreads;
+  const int pad_blocks = (num_tiles * 32 + kThreads - 1) / kThreads;
+  const int ma_blocks = (ma + kThreads - 1) / kThreads;
+  const int tail_blocks = ma_blocks < kTailBlocks ? ma_blocks : kTailBlocks;
+  const int blocks = pair_blocks + pad_blocks + tail_blocks;
+  if (blocks > 0) {
+    relayout_pairs_kernel<<<blocks, kThreads, 0, stream>>>(
+        tri, sorted_raw, sorted_key, raw_starts, astarts, num_tiles, dbits, n,
+        ma, pair_blocks, pad_blocks, pair_tri, pack_perm);
   }
   return (int)cudaGetLastError();
 }
 
+// perm == nullptr: the owner-sorted form (cols already in segment order).
 extern "C" int ts_segment_reduce_pairs(const float* cols, int nrows, int m,
+                                       const int* perm, int nperm,
                                        const int* starts, const int* ends,
                                        const int* nvalid, int p, float* out,
                                        cudaStream_t stream) {
   if (nrows < 0 || nrows > kMaxRows) return (int)cudaErrorInvalidValue;
   if (p > 0) {
-    const int threads = 256;
-    const int blocks = (p + threads - 1) / threads;
-    segment_reduce_pairs_kernel<<<blocks, threads, 0, stream>>>(
-        cols, nrows, m, starts, ends, nvalid, p, out);
+    const int blocks = (p + kThreads - 1) / kThreads;
+    if (perm != nullptr) {
+      segment_reduce_pairs_kernel<true><<<blocks, kThreads, 0, stream>>>(
+          cols, nrows, m, perm, nperm, starts, ends, nvalid, p, out);
+    } else {
+      segment_reduce_pairs_kernel<false><<<blocks, kThreads, 0, stream>>>(
+          cols, nrows, m, perm, nperm, starts, ends, nvalid, p, out);
+    }
   }
   return (int)cudaGetLastError();
 }

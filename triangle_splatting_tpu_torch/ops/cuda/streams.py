@@ -35,11 +35,12 @@ def _stream() -> int:
 # B3 relayout_pairs
 # ---------------------------------------------------------------------------
 
-def relayout_pairs_plain(sorted_tri: torch.Tensor, raw_starts: torch.Tensor,
-                         astarts: torch.Tensor, tile_counts: torch.Tensor,
-                         ma: int) -> torch.Tensor:
-    """Plain PyTorch B3: one indexed gather over the output slots."""
-    num_tiles = tile_counts.shape[0]
+def _slot_gather_plain(sorted_tri: torch.Tensor, raw_starts: torch.Tensor,
+                       astarts: torch.Tensor, ma: int) -> torch.Tensor:
+    """``pair_tri`` slot by slot: each slot finds its tile by a binary
+    search over the aligned starts and gathers one sorted entry."""
+    num_tiles = raw_starts.shape[0] - 1
+    tile_counts = raw_starts[1:] - raw_starts[:-1]
     slot = torch.arange(ma, dtype=torch.int32, device=sorted_tri.device)
     # last tile t with astarts[t] <= slot (empty tiles share starts)
     t = torch.searchsorted(astarts, slot, right=True, out_int32=True) - 1
@@ -51,35 +52,70 @@ def relayout_pairs_plain(sorted_tri: torch.Tensor, raw_starts: torch.Tensor,
     return torch.where(ok, vals, torch.full_like(vals, -1))
 
 
-def relayout_pairs(sorted_tri: torch.Tensor, raw_starts: torch.Tensor,
-                   astarts: torch.Tensor, tile_counts: torch.Tensor,
-                   ma: int) -> torch.Tensor:
-    """Tile-aligned re-layout of the sorted pair stream.
+def relayout_pairs_plain(tri: torch.Tensor, sorted_raw: torch.Tensor,
+                         sorted_key: torch.Tensor, raw_starts: torch.Tensor,
+                         astarts: torch.Tensor, ma: int, dbits: int, align: int):
+    """Plain PyTorch B3: the owner gather, one indexed gather over the output
+    slots, and one scatter that writes the map. The tile of a sorted pair
+    comes from a binary search over ``raw_starts`` (the kernel reads it
+    from ``sorted_key``, which this version does not read; nor ``align``,
+    which ``astarts`` already carries)."""
+    n = sorted_raw.shape[0]
+    raw = sorted_raw.long()
+    pair_tri = _slot_gather_plain(tri[raw], raw_starts, astarts, ma)
+    s = torch.arange(n, dtype=torch.int32, device=tri.device)
+    tile = (torch.searchsorted(raw_starts, s, right=True, out_int32=True) - 1).clamp_min(0).long()
+    pack_perm = torch.empty((n,), dtype=torch.int32, device=tri.device)
+    pack_perm[raw] = astarts[tile] + s - raw_starts[tile]
+    return pair_tri, pack_perm
 
-    ``out[astarts[t] + j] = sorted_tri[raw_starts[t] + j]`` for
-    ``j < tile_counts[t]``, -1 elsewhere. All int32: sorted_tri (MP,),
-    raw_starts / astarts (T + 1,), tile_counts (T,); returns (ma,).
+
+def relayout_pairs(tri: torch.Tensor, sorted_raw: torch.Tensor,
+                   sorted_key: torch.Tensor, raw_starts: torch.Tensor,
+                   astarts: torch.Tensor, ma: int, dbits: int, align: int):
+    """Tile-aligned re-layout of the sorted pair stream, and its map.
+
+    The key sort took raw pair ``sorted_raw[s]`` to sorted position ``s``;
+    ``sorted_key[s] >> dbits`` is its tile (``num_tiles`` for the unbinned
+    tail at and past ``raw_starts[-1]``). With ``slot(s) = astarts[tile] +
+    s - raw_starts[tile]`` this returns ``pair_tri`` (ma,), holding
+    ``tri[sorted_raw[s]]`` at ``slot(s)`` for every binned pair and -1 in
+    every other slot, and ``pack_perm`` (n,), the owner-order map:
+    ``pack_perm[sorted_raw[s]] = slot(s)``, so raw pair r (triangle-major)
+    lies in slot ``pack_perm[r]``, and raw pairs past the binned ones map to
+    distinct empty slots after the last tile. ``astarts`` pads each tile
+    to a multiple of ``align``, so ``ma`` must be at least ``n + (align -
+    1) * num_tiles`` (``binning.aligned_capacity`` is); a smaller one
+    raises. All int32: tri, sorted_raw, sorted_key (n,); raw_starts /
+    astarts (num_tiles + 1,).
     """
-    dev = sorted_tri.device
-    num_tiles = tile_counts.shape[0]
-    for t, n in ((sorted_tri, "sorted_tri"), (raw_starts, "raw_starts"),
-                 (astarts, "astarts"), (tile_counts, "tile_counts")):
-        _check(t, n, torch.int32, 1, dev)
-    if raw_starts.shape[0] != num_tiles + 1 or astarts.shape[0] != num_tiles + 1:
+    dev = tri.device
+    n = tri.shape[0]
+    for t, name in ((tri, "tri"), (sorted_raw, "sorted_raw"), (sorted_key, "sorted_key"),
+                    (raw_starts, "raw_starts"), (astarts, "astarts")):
+        _check(t, name, torch.int32, 1, dev)
+    if sorted_raw.shape[0] != n or sorted_key.shape[0] != n:
+        raise ValueError("tri, sorted_raw and sorted_key must have the same length")
+    num_tiles = raw_starts.shape[0] - 1
+    if num_tiles < 1 or astarts.shape[0] != num_tiles + 1:
         raise ValueError("raw_starts / astarts must have num_tiles + 1 entries")
+    if ma < n + (align - 1) * num_tiles:
+        raise ValueError(f"ma {ma} leaves no room for every pair: it must be at least "
+                         f"n + (align - 1) * num_tiles = {n + (align - 1) * num_tiles}")
     if dev.type == "cpu":
-        return relayout_pairs_plain(sorted_tri, raw_starts, astarts,
-                                    tile_counts, ma)
+        return relayout_pairs_plain(tri, sorted_raw, sorted_key, raw_starts, astarts,
+                                    ma, dbits, align)
     if dev.type != "cuda":
         raise ValueError(f"relayout_pairs: unsupported device {dev}")
-    out = torch.empty((ma,), dtype=torch.int32, device=dev)
+    pair_tri = torch.empty((ma,), dtype=torch.int32, device=dev)
+    pack_perm = torch.empty((n,), dtype=torch.int32, device=dev)
     lib = library("streams")
     relayout_pairs.launches += 1
     check_launch(lib.ts_relayout_pairs(
-        sorted_tri.data_ptr(), raw_starts.data_ptr(), astarts.data_ptr(),
-        tile_counts.data_ptr(), num_tiles, out.data_ptr(), ma, _stream()),
-        "relayout_pairs")
-    return out
+        tri.data_ptr(), sorted_raw.data_ptr(), sorted_key.data_ptr(),
+        raw_starts.data_ptr(), astarts.data_ptr(), num_tiles, dbits, n,
+        pair_tri.data_ptr(), pack_perm.data_ptr(), ma, _stream()), "relayout_pairs")
+    return pair_tri, pack_perm
 
 
 relayout_pairs.launches = 0
@@ -90,11 +126,13 @@ relayout_pairs.launches = 0
 # ---------------------------------------------------------------------------
 
 def segment_reduce_pairs_plain(cols: torch.Tensor, starts: torch.Tensor,
-                               ends: torch.Tensor,
-                               nvalid: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch B4: an exclusive prefix sum in float64 and two
-    gathers at the segment bounds (columns at or past nvalid zeroed with a
-    select first)."""
+                               ends: torch.Tensor, nvalid: torch.Tensor,
+                               perm: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch B4: with a map, the columns gathered through it first;
+    then an exclusive prefix sum in float64 and two gathers at the segment
+    bounds (columns at or past nvalid zeroed with a select first)."""
+    if perm is not None:
+        cols = cols.index_select(1, perm.long())
     r, m = cols.shape
     pos = torch.arange(m, device=cols.device)
     clean = torch.where(pos[None, :] < nvalid, cols, torch.zeros_like(cols))
@@ -111,16 +149,20 @@ def segment_reduce_pairs_plain(cols: torch.Tensor, starts: torch.Tensor,
 
 def segment_reduce_pairs(cols: torch.Tensor, starts: torch.Tensor,
                          ends: torch.Tensor,
-                         nvalid: torch.Tensor | int | None = None) -> torch.Tensor:
-    """Sum contiguous column segments of an (R, M) stream into (16, P).
+                         nvalid: torch.Tensor | int | None = None,
+                         perm: torch.Tensor | None = None) -> torch.Tensor:
+    """Sum column segments of an (R, M) stream into (16, P).
 
-    The backward of the pair pack: after the per-pair gradient columns are
-    sorted by owning triangle, triangle t owns columns [starts[t], ends[t])
-    and its gradient is their sum. ``starts``/``ends`` are (P,) int32,
-    nondecreasing, starts <= ends; empty segments give zeros. Columns at or
-    past ``nvalid`` (a 0-dim int32 tensor on the same device, or None for
-    M) count as zero even when they hold NaN. ``R <= 16`` leading rows are
-    summed; output rows R..15 are zero.
+    The backward of the pair pack: triangle t owns positions [starts[t],
+    ends[t]) and its gradient is the sum of their columns. With ``perm``
+    (int32 (L,), B3's ``pack_perm``) position j is column ``perm[j]`` of
+    ``cols`` (B2's per-pair gradients in the aligned slot order, read in
+    place); without it position j is column j (columns already sorted by
+    owning triangle, the JAX contract). ``starts``/``ends`` are (P,) int32,
+    nondecreasing, starts <= ends; empty segments give zeros. Positions at
+    or past ``nvalid`` (a 0-dim int32 tensor on the same device, or None
+    for L, M without a map) count as zero even when their columns hold NaN.
+    ``R <= 16`` leading rows are summed; output rows R..15 are zero.
     """
     dev = cols.device
     # float64 only on the CPU (plain version); the kernel takes float32
@@ -129,22 +171,25 @@ def segment_reduce_pairs(cols: torch.Tensor, starts: torch.Tensor,
         raise TypeError(f"cols: expected float32, got {cols.dtype}")
     _check(starts, "starts", torch.int32, 1, dev)
     _check(ends, "ends", torch.int32, 1, dev)
+    if perm is not None:
+        _check(perm, "perm", torch.int32, 1, dev)
     nrows, m = cols.shape
     p = starts.shape[0]
     if nrows > 16 or ends.shape[0] != p:
         raise ValueError("cols must have <= 16 rows; starts/ends the same length")
     if nvalid is None:
-        nvalid = m
+        nvalid = m if perm is None else perm.shape[0]
     nvalid = torch.as_tensor(nvalid, dtype=torch.int32, device=dev).reshape(())
     if dev.type == "cpu":
-        return segment_reduce_pairs_plain(cols, starts, ends, nvalid)
+        return segment_reduce_pairs_plain(cols, starts, ends, nvalid, perm)
     if dev.type != "cuda":
         raise ValueError(f"segment_reduce_pairs: unsupported device {dev}")
     out = torch.empty((16, p), dtype=torch.float32, device=dev)
     lib = library("streams")
     segment_reduce_pairs.launches += 1
     check_launch(lib.ts_segment_reduce_pairs(
-        cols.data_ptr(), nrows, m, starts.data_ptr(), ends.data_ptr(),
+        cols.data_ptr(), nrows, m, None if perm is None else perm.data_ptr(),
+        0 if perm is None else perm.shape[0], starts.data_ptr(), ends.data_ptr(),
         nvalid.data_ptr(), p, out.data_ptr(), _stream()),
         "segment_reduce_pairs")
     return out

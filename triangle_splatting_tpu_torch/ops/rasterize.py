@@ -6,12 +6,12 @@ Port of ``triangle_splatting_tpu/ops/rasterize.py``: ``rasterize``
 
   1. SH -> per-triangle color               PyTorch, autograd   (sh.py)
   2. screen-space preprocess (2D or 3D)     PyTorch, autograd   (projection.py)
-  3. tile binning (sort + ranges)           no grad, kernel B3  (binning.py)
+  3. tile binning (sort + ranges + map)     no grad, kernel B3  (binning.py)
   4. gather + pack per-pair fields          autograd.Function   (backward:
-                                            owner sort + kernel B4)
+                                            kernel B4 through the map)
   5. per-tile blend                         autograd.Function   (kernels B1/B2)
   6. contribution statistics (need_stats)   no grad: B1's per-pair stream,
-                                            owner sort + kernel B5
+                                            gathered through the map, B5
 
 The two ``torch.autograd.Function``s take the place of the JAX package's
 two ``custom_vjp``s; every other gradient comes from autograd.
@@ -117,41 +117,38 @@ class PackPairFields(torch.autograd.Function):
     """ONE gather of the per-triangle field matrix into the aligned pair
     order, (P, 16) -> (16, MA).
 
-    Backward (``rasterize.py:_pack_bwd`` of the JAX package): sort the live
-    gradient rows by owning triangle (empty slots get the sentinel P and
-    sort to the tail), after which triangle t's pairs occupy exactly
-    [tri_offsets[t], tri_offsets[t+1]); then kernel B4 sums each segment.
-    Only the ``live_rows`` leading rows can be nonzero (the blend backward
-    writes structural zeros below them), so only those ride the sort.
+    Backward (``rasterize.py:_pack_bwd`` of the JAX package, its
+    ``pack_perm`` route): kernel B4 reads the pair gradients in place
+    through binning's owner-order map, triangle t's pairs at map entries
+    [tri_offsets[t], tri_offsets[t+1]) clipped to num_pairs, and sums each
+    triangle's; nothing is sorted or copied first. Only the ``live_rows``
+    leading rows can be nonzero (the blend backward writes structural
+    zeros below them), so only those are read.
     """
 
     @staticmethod
-    def forward(ctx, field_matrix, pair_tri, tri_offsets, num_pairs, live_rows):
+    def forward(ctx, field_matrix, pair_tri, pack_perm, tri_offsets, num_pairs, live_rows):
         valid = pair_tri >= 0
         rows = field_matrix[pair_tri.clamp_min(0).long()]         # (MA, 16)
         rows = torch.where(valid[:, None], rows, torch.zeros_like(rows))
-        ctx.save_for_backward(pair_tri, tri_offsets, num_pairs)
+        ctx.save_for_backward(pack_perm, tri_offsets, num_pairs)
         ctx.live_rows = live_rows
         return rows.t().contiguous()                              # (16, MA)
 
     @staticmethod
     def backward(ctx, d):
-        pair_tri, tri_offsets, num_pairs = ctx.saved_tensors
-        p = tri_offsets.shape[0] - 1
-        key = torch.where(pair_tri >= 0, pair_tri, torch.full_like(pair_tri, p))
-        order = torch.sort(key, stable=True).indices
-        cols = d[:ctx.live_rows].index_select(1, order).contiguous()
+        pack_perm, tri_offsets, num_pairs = ctx.saved_tensors
         starts = torch.minimum(tri_offsets[:-1], num_pairs).contiguous()
         ends = torch.minimum(tri_offsets[1:], num_pairs).contiguous()
-        d16 = segment_reduce_pairs(cols, starts, ends, nvalid=num_pairs)
-        return d16.t(), None, None, None, None
+        d16 = segment_reduce_pairs(d[:ctx.live_rows].contiguous(), starts, ends,
+                                   nvalid=num_pairs, perm=pack_perm)
+        return d16.t(), None, None, None, None, None
 
 
 def pack_pair_fields(field_matrix: torch.Tensor, binning: Binning,
                      live_rows: int = 16) -> torch.Tensor:
-    return PackPairFields.apply(field_matrix, binning.pair_tri,
-                                binning.tri_offsets, binning.num_pairs,
-                                live_rows)
+    return PackPairFields.apply(field_matrix, binning.pair_tri, binning.pack_perm,
+                                binning.tri_offsets, binning.num_pairs, live_rows)
 
 
 def step_order(tile_counts: torch.Tensor) -> Optional[torch.Tensor]:
@@ -214,17 +211,13 @@ class BlendTiles(torch.autograd.Function):
 
 
 @torch.no_grad()
-def _contrib_stats(pair_contrib: torch.Tensor, binning: Binning, P: int):
+def _contrib_stats(pair_contrib: torch.Tensor, binning: Binning):
     """Per-triangle (contrib_sum, contrib_max) from B1's per-pair stream
-    (``ops/rasterize.py:_contrib_stats`` of the JAX package): one stable
-    sort of the owner key (empty slots get P and sort to the tail), both
-    rows gathered by its indices, after which triangle t owns columns
-    [tri_offsets[t], tri_offsets[t+1]) clipped to num_pairs; then kernel
-    B5. No gradient: the statistics only feed the ADC decisions."""
-    key = torch.where(binning.pair_valid, binning.pair_tri,
-                      torch.full_like(binning.pair_tri, P))
-    order = torch.sort(key, stable=True).indices
-    cols = pair_contrib.index_select(1, order)
+    (``ops/rasterize.py:_contrib_stats`` of the JAX package): both rows
+    gathered through binning's owner-order map, after which triangle t owns
+    columns [tri_offsets[t], tri_offsets[t+1]) clipped to num_pairs; then
+    kernel B5. No gradient: the statistics only feed the ADC decisions."""
+    cols = pair_contrib.index_select(1, binning.pack_perm)
     starts = torch.minimum(binning.tri_offsets[:-1], binning.num_pairs).contiguous()
     ends = torch.minimum(binning.tri_offsets[1:], binning.num_pairs).contiguous()
     return segment_reduce_stats(cols[0], cols[1], starts, ends,
@@ -248,7 +241,7 @@ def _tile_pipeline(prep, fmat: torch.Tensor, params: torch.Tensor,
     """Stages 3-6 on a preprocess and its per-primitive field matrix
     (P, 16): binning (B3), the pack (B4 in its backward), the blend (B1/B2
     in ``variant``) and with ``need_stats`` the per-primitive statistics
-    (owner sort + B5). Returns the ``rasterize`` dict."""
+    (the map gather + B5). Returns the ``rasterize`` dict."""
     P = fmat.shape[0]
     dev, dt = fmat.device, fmat.dtype
     if max_pairs is None:
@@ -260,7 +253,7 @@ def _tile_pipeline(prep, fmat: torch.Tensor, params: torch.Tensor,
     color, depth, normal, final_T, n_contrib, pair_contrib = BlendTiles.apply(
         fields, binning.tile_starts, binning.tile_counts, params, cfg)
     if need_stats:
-        contrib_sum, contrib_max = _contrib_stats(pair_contrib, binning, P)
+        contrib_sum, contrib_max = _contrib_stats(pair_contrib, binning)
     else:
         contrib_sum = torch.zeros((P,), dtype=dt, device=dev)
         contrib_max = torch.zeros((P,), dtype=dt, device=dev)
@@ -294,7 +287,7 @@ def rasterize(vertex: torch.Tensor, opacity: torch.Tensor,
     composited and differentiable; off, depth is final_T * bg_depth and
     normal zeros, without gradient). ``need_stats=True`` (the ADC
     statistic window) runs B1 with its per-pair contribution stream and
-    reduces it per triangle (owner sort + kernel B5) into contrib_sum /
+    reduces it per triangle (the map gather + kernel B5) into contrib_sum /
     contrib_max, without gradient; with ``need_stats=False`` they are
     zeros and B5 does not run. Rich info and statistics together run B1's
     rich form with the stream in one launch (the renderer facade's form).
@@ -371,7 +364,7 @@ def rasterize_gaussian(xyz: torch.Tensor, scale: torch.Tensor,
     Returns the dict of ``rasterize``. ``impl="cuda"`` runs the tile
     pipeline (binning with B3, the pack with B4 in its backward, B1/B2 in
     variant "GS"; with ``need_stats``, the default, B1's contribution
-    stream, the owner sort and B5); ``impl="oracle"`` the dense oracle.
+    stream, the map gather and B5); ``impl="oracle"`` the dense oracle.
     ``settings.rich_info`` composites the depth (the normal is zero), and
     rich info and statistics run together.
     """

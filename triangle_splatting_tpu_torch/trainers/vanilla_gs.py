@@ -6,7 +6,7 @@ One iteration: render one training camera through the Gaussian pipeline
 autograd backward, Adam (eps 1e-15) with per-group learning-rate
 schedules; SH bands come on along ``sh_schedule``. With a ``statistic``
 block every step renders with the contribution statistics (B1-GS's stats
-form, owner sort, B5) and, inside the block's window, accumulates them
+form, the map gather, B5) and, inside the block's window, accumulates them
 with the screen-space center gradient. Opacity pruning and clipping,
 scale pruning and contribution pruning fire on their cadences.
 
