@@ -16,14 +16,16 @@ Phases (any failure exits non-zero before the final line):
              per-pair stream against the plain one), B2, B3 (pair_tri and
              the owner-order map), B4 through the map (and against the old
              route: owner sort, index_select, B4 on sorted columns, bit for
-             bit), and B5 on the stream gathered through the map (equal to
-             B5 after the owner sort); then B1 (both forms) and B2 in
+             bit), and B5 reading the stream through the map (equal, bit
+             for bit, to B5 after the gather and after the owner sort);
+             then B1 (both forms) and B2 in
              variant "3D", B3/B4 on their pairs (2,500 tiles, 13 live
              gradient rows) and B5, on a 100k random scene at the mesh
              path's rendered size (1600x1600) at gamma 1 and 50, timed at
              gamma 50; at each site (and the city's last step) a
-             [pair_stage] line times the pieces of the pair stage before
-             and after the map;
+             [pair_stage] line times the statistics stage (B5 through the
+             map, one launch) and binning's owners (the binary search,
+             held equal to the cummax route on every slot);
 3. reference — the 2D and the 3D kernel pipelines against their dense
              oracles on a small scene, render and contribution statistics;
 4. rasterize — time rasterize forward + backward on the bench workload;
@@ -85,7 +87,9 @@ Phases (any failure exits non-zero before the final line):
 12. probes — the probe tools P1-P3 (triangle_splatting_tpu_torch/tools) at
              the JAX tools' shapes through their entry points, counted, each
              probe kernel against its plain version at K = 64 on those
-             shapes, the opcodes of each probe kernel's SASS, and the rates.
+             shapes (P3 "hs" bit for bit), the opcodes of each probe
+             kernel's SASS, P2's bound from its loop's SASS and the SM
+             clock under load, and the rates.
 The mesh phase's run saves the PLY (steps 10 and 50) and the GLB (step 50)
 as the recipe does at its ends; the files are read back, and the GLB is
 rendered through MeshRenderer on the card (its mask over the trained
@@ -102,10 +106,10 @@ B1, none of the photo, mesh and mesh_adc phases launched a rich form, and
 none of the triangle phases a GS form.
 
 The build phase prints B1's and B2's registers, spills and shared memory
-per form. With --streams-parent DIR (the streams.cu of the route before
-the map: its B3 and B4 entry points must take PRE_MAP_PARAMS, any other is
-refused) the [pair_stage] lines also time that build's B3 and B4 in the
-old route. With --blend-parent DIR (an earlier blend.cu and blend_gs.cu;
+per form. With --probes-parent DIR (an earlier probes.cu with the current
+ts_probe_scan parameters) the probes phase holds each P3 variant of it
+against the current one bit for bit and times the two in turns. With
+--blend-parent DIR (an earlier blend.cu and blend_gs.cu;
 repeatable, the first is the parent), every site that times B1 or B2 also
 times those builds in turns with the current one and holds the parent's
 B1 outputs against the current ones (tools/blend_compare.py).
@@ -707,6 +711,13 @@ def b4_bytes(rows: int, num_pairs: int, P: int) -> float:
     return 4 * (num_pairs + rows * num_pairs + 2 * P + 1) + 4 * 16 * P
 
 
+def b5_bytes(num_pairs: int, P: int) -> float:
+    """The bytes B5 must move: the map entry and the two stream values of
+    every binned pair, the segment bounds and nvalid read, the two (P,)
+    outputs written."""
+    return 4 * (num_pairs + 2 * num_pairs + 2 * P + 1) + 4 * 2 * P
+
+
 def kernel_grids(fn) -> list:
     """The device kernels one call of ``fn`` launches, with their launch
     grid, block and duration (us), from a torch.profiler trace."""
@@ -725,216 +736,89 @@ def kernel_grids(fn) -> list:
             for e in events if e.get("cat") == "kernel"]
 
 
-# The C entry points of the route before the map (the ``streams.cu`` of
-# the commit before B3 wrote ``pack_perm``): the only ones --streams-parent
-# takes
-PRE_MAP_PARAMS = {
-    "ts_relayout_pairs": ["sorted_tri", "raw_starts", "astarts", "tile_counts", "num_tiles",
-                          "out", "ma", "stream"],
-    "ts_segment_reduce_pairs": ["cols", "nrows", "m", "starts", "ends", "nvalid", "p", "out",
-                                "stream"],
-}
-
-
-def parent_streams(src_dir: Path):
-    """The B3 and B4 of the route before the map (``DIR/streams.cu``, an
-    earlier ``csrc/streams.cu``: B3 one thread per slot with a binary
-    search, no map; B4 on owner-sorted columns), built with ``nvcc`` and
-    loaded with ``ctypes``. Their parameter lists are read from the source
-    and must be ``PRE_MAP_PARAMS``; any other source is refused. Returns
-    (relayout, segment_reduce): callables with the old wrappers'
-    arguments."""
-    import ctypes
-
+def owner_markers(counts, offsets, max_pairs: int):
+    """The JAX package's owner markers: t + 1 scattered with ``amax`` at
+    each triangle's first raw slot; ``torch.cummax`` of them, minus one,
+    gives the owners of every raw slot."""
     import torch
-    from triangle_splatting_tpu_torch.ops.cuda import build
-    from triangle_splatting_tpu_torch.tools.blend_compare import c_params
-
-    src = Path(src_dir) / "streams.cu"
-    text = src.read_text()
-    params = {fn: c_params(text, fn) for fn in PRE_MAP_PARAMS}
-    for fn, want in PRE_MAP_PARAMS.items():
-        got = [name for _, name in params[fn]]
-        check(got == want, f"--streams-parent {src}: {fn} takes ({', '.join(got)}), not the "
-              f"route before the map's ({', '.join(want)})")
-    so = build.BUILD_DIR / "parent_streams.so"
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(src)],
-                         capture_output=True, text=True, timeout=600)
-    check(res.returncode == 0, f"parent streams.cu: nvcc failed\n{res.stdout}{res.stderr}")
-    lib = ctypes.CDLL(str(so))
-    for fn, typed in params.items():
-        getattr(lib, fn).argtypes = [ctypes.c_void_p if "*" in t or t == "cudaStream_t"
-                                     else ctypes.c_int for t, _ in typed]
-
-    def stream():
-        return torch.cuda.current_stream().cuda_stream
-
-    def relayout(sorted_tri, raw_starts, astarts, tile_counts, ma):
-        out = torch.empty((ma,), dtype=torch.int32, device=sorted_tri.device)
-        build.check_launch(lib.ts_relayout_pairs(
-            sorted_tri.data_ptr(), raw_starts.data_ptr(), astarts.data_ptr(),
-            tile_counts.data_ptr(), tile_counts.shape[0], out.data_ptr(), ma, stream()),
-            "parent relayout_pairs")
-        return out
-
-    def segment_reduce(cols, starts, ends, nvalid):
-        out = torch.empty((16, starts.shape[0]), dtype=torch.float32, device=cols.device)
-        build.check_launch(lib.ts_segment_reduce_pairs(
-            cols.data_ptr(), cols.shape[0], cols.shape[1], starts.data_ptr(), ends.data_ptr(),
-            nvalid.data_ptr(), starts.shape[0], out.data_ptr(), stream()),
-            "parent segment_reduce_pairs")
-        return out
-    say("pair_stage", parent=str(src))
-    return relayout, segment_reduce
+    P = counts.shape[0]
+    put = (counts > 0) & (offsets < max_pairs)
+    markers = torch.zeros((max_pairs,), dtype=torch.int32, device=counts.device)
+    markers.scatter_reduce_(0, offsets[put].long(),
+                            torch.arange(1, P + 1, dtype=torch.int32, device=counts.device)[put],
+                            reduce="amax")
+    return markers
 
 
-def pair_stage(prep, st, max_pairs: int, grads, pair_contrib, site: str,
-               parent=None, grids: bool = False) -> dict:
-    """Device ms of each piece of the pair stage on one frame (median of 50,
-    behind a spin kernel), the route before the map (``old``) and the
-    map's (``new``). Old: binning's key sort, its owner gather
-    (``tri[order]``) and B3 (the parent's, with ``parent`` from
-    ``parent_streams``); the pack backward's owner sort, ``index_select``
-    of the live gradient rows ``grads`` and B4 on the sorted columns (the
-    parent's, else the current kernel's sorted form); with a stream
-    ``pair_contrib``, the statistics' owner sort, two-row gather and B5.
-    New: the key sort, its permutation cast to int32 and B3 with the map;
-    B4 through the map; the map gather and B5. Each stage is also timed as
-    one call, old and new in turns (old, new, new, old; the mean of each
-    one's two medians of 20). Then binning's owner expansion: the cummax
-    against a parallel searchsorted that gives the same owners, and with
-    ``grids`` the cummax's launch grid (later traces in the same process
-    recorded no kernel on the H100). Prints one [pair_stage] line."""
+def pair_stage(prep, st, max_pairs: int, pair_contrib, site: str,
+               grids: bool = False) -> dict:
+    """Device ms (median of 50, behind a spin kernel) of two pieces of the
+    pair stage on one frame: with a stream ``pair_contrib``, the
+    statistics (B5 reading the stream through the map, one launch), and
+    binning's owners of every raw slot (``binning.pair_owners``, a binary
+    search), held equal on every slot to the JAX package's route
+    (``torch.cummax`` over ``owner_markers``; not timed). With ``grids``
+    the launch grid of the owners' kernels (later traces in the same
+    process recorded no kernel on the H100). Prints one [pair_stage]
+    line."""
     import torch
     from triangle_splatting_tpu_torch.ops import binning as BN
     from triangle_splatting_tpu_torch.ops.cuda import streams as KS
 
     i32 = torch.int32
-    dev = grads.device
     with torch.no_grad():
         sp = BN.sort_pairs(prep, st, max_pairs)
-        offsets = sp.tri_offsets[:-1]
-        order = torch.sort(sp.key, stable=True).indices
-        tri_l = sp.tri.long()
-        sorted_tri = tri_l[order].to(i32)
-        a3 = sp.relayout_args()
-        pair_tri, pack_perm = KS.relayout_pairs(*a3)
-        P = sp.tri_offsets.shape[0] - 1
-        n = int(sp.num_pairs)
-        starts, ends = segment_bounds(sp.tri_offsets, sp.num_pairs)
-        okey = torch.where(pair_tri >= 0, pair_tri, torch.full_like(pair_tri, P))
-        oorder = owner_order(pair_tri, P)
-        cols = grads.index_select(1, oorder).contiguous()
-        b3_old = b4_old = None
-        if parent is not None:
-            b3_old = lambda: parent[0](sorted_tri, sp.raw_starts, sp.astarts,  # noqa: E731
-                                       sp.tile_counts, sp.ma)
-            b4_old = lambda c: parent[1](c, starts, ends, sp.num_pairs)  # noqa: E731
-            check(bool(torch.equal(b3_old(), pair_tri)),
-                  f"pair_stage {site}: the parent's B3 differs from the current one")
-            check(bool(torch.equal(b4_old(cols), KS.segment_reduce_pairs(
-                grads, starts, ends, sp.num_pairs, pack_perm))),
-                f"pair_stage {site}: the parent's B4 differs from the map form")
-        else:
-            b4_old = lambda c: KS.segment_reduce_pairs(c, starts, ends, sp.num_pairs)  # noqa: E731
-
-        def tail_old():
-            o = torch.sort(sp.key, stable=True).indices
-            return parent[0](tri_l[o].to(i32), sp.raw_starts, sp.astarts, sp.tile_counts, sp.ma)
-
-        def tail_new():
-            o = torch.sort(sp.key, stable=True).indices
-            return KS.relayout_pairs(sp.tri, o.to(i32), *a3[2:])
-
-        def pack_old():
-            o = torch.sort(okey, stable=True).indices
-            return b4_old(grads.index_select(1, o).contiguous())
-
-        def pack_new():
-            return KS.segment_reduce_pairs(grads, starts, ends, sp.num_pairs, pack_perm)
-
-        old = dict(key_sort=lambda: torch.sort(sp.key, stable=True),
-                   tri_gather=lambda: tri_l[order].to(i32))
-        if b3_old is not None:
-            old["b3"] = b3_old
-        old.update(owner_sort=lambda: torch.sort(okey, stable=True).indices,
-                   index_select=lambda: grads.index_select(1, oorder).contiguous(),
-                   b4=lambda: b4_old(cols))
-        new = dict(raw_cast=lambda: order.to(i32), b3=lambda: KS.relayout_pairs(*a3),
-                   b4=pack_new)
-        stages = dict(pack_bwd=(pack_old, pack_new))
-        if b3_old is not None:
-            stages["binning_tail"] = (tail_old, tail_new)
+        ms = {}
         if pair_contrib is not None:
-            pc_old = pair_contrib.index_select(1, oorder)
-            pc_new = pair_contrib.index_select(1, pack_perm)
-
-            def stats_old():
-                c = pair_contrib.index_select(1, torch.sort(okey, stable=True).indices)
-                return KS.segment_reduce_stats(c[0], c[1], starts, ends, sp.num_pairs)
-
-            def stats_new():
-                c = pair_contrib.index_select(1, pack_perm)
-                return KS.segment_reduce_stats(c[0], c[1], starts, ends, sp.num_pairs)
-            old.update(stats_gather=lambda: pair_contrib.index_select(1, oorder),
-                       b5=lambda: KS.segment_reduce_stats(pc_old[0], pc_old[1], starts, ends,
-                                                          sp.num_pairs))
-            new.update(stats_gather=lambda: pair_contrib.index_select(1, pack_perm),
-                       b5=lambda: KS.segment_reduce_stats(pc_new[0], pc_new[1], starts, ends,
-                                                          sp.num_pairs))
-            stages["stats"] = (stats_old, stats_new)
-        ms_old = {k: cuda_ms(fn, 50) for k, fn in old.items()}
-        ms_new = {k: cuda_ms(fn, 50) for k, fn in new.items()}
-        turns = {}
-        for name, (f_old, f_new) in stages.items():
-            t = [cuda_ms(f, 20) for f in (f_old, f_new, f_new, f_old)]
-            turns[name] = dict(old=round((t[0] + t[3]) / 2, 5), new=round((t[1] + t[2]) / 2, 5))
-        # binning's owner expansion: the cummax over the marker scatter, and
-        # a parallel searchsorted over the offsets that gives the same owners
+            _, pack_perm = KS.relayout_pairs(*sp.relayout_args())
+            starts, ends = segment_bounds(sp.tri_offsets, sp.num_pairs)
+            ms["stats"] = cuda_ms(lambda: KS.segment_reduce_stats(
+                pair_contrib[0], pair_contrib[1], starts, ends, sp.num_pairs, pack_perm), 50)
         counts = prep.tiles_touched.to(i32)
-        put = (counts > 0) & (offsets < max_pairs)
-        markers = torch.zeros((max_pairs,), dtype=i32, device=dev)
-        markers.scatter_reduce_(0, offsets[put].long(),
-                                torch.arange(1, P + 1, dtype=i32, device=dev)[put],
-                                reduce="amax")
-        idx = torch.arange(max_pairs, dtype=i32, device=dev)
-        owners = dict(cummax=lambda: torch.cummax(markers, 0).values - 1,
-                      searchsorted=lambda: torch.searchsorted(offsets, idx, right=True,
-                                                              out_int32=True) - 1)
-        check(torch.equal(owners["cummax"]()[:n], owners["searchsorted"]()[:n]),
-              f"pair_stage {site}: searchsorted owners differ from the cummax's")
-        owner_ms = {k: cuda_ms(fn, 20) for k, fn in owners.items()}
-        cummax_kernels = kernel_grids(owners["cummax"]) if grids else None
-    out = dict(site=site, num_pairs=n, max_pairs=max_pairs, ma=sp.ma,
-               tiles=int(sp.tile_counts.shape[0]), live_rows=int(grads.shape[0]),
-               old={k: round(v, 5) for k, v in ms_old.items()},
-               new={k: round(v, 5) for k, v in ms_new.items()}, turns=turns,
-               owners_ms={k: round(v, 5) for k, v in owner_ms.items()},
-               cummax_kernels=cummax_kernels)
+        csum = torch.cumsum(counts, 0)
+        starts64 = csum - counts
+
+        def owners():
+            return BN.pair_owners(counts, starts64, max_pairs)
+        cummax = torch.cummax(owner_markers(counts, starts64.to(i32), max_pairs), 0).values - 1
+        check(bool(torch.equal(owners(), cummax)),
+              f"pair_stage {site}: the searchsorted owners differ from the cummax's")
+        ms["owners"] = cuda_ms(owners, 50)
+        owner_kernels = kernel_grids(owners) if grids else None
+    out = dict(site=site, num_pairs=int(sp.num_pairs), max_pairs=max_pairs, ma=sp.ma,
+               triangles=int(counts.shape[0]), tiles=int(sp.tile_counts.shape[0]),
+               ms={k: round(v, 5) for k, v in ms.items()}, owner_kernels=owner_kernels)
     say("pair_stage", **out)
     return out
 
 
 def check_segment_stats(pair_contrib, pair_tri, pack_perm, starts, ends, num_pairs,
                         what: str) -> dict:
-    """B5 against its plain version on B1's per-pair stream gathered
-    through the map (the inputs ``ops/rasterize.py:_contrib_stats`` gives
-    it): sums within rel 1e-5 of the largest, maxes exact; and its outputs
-    equal, bit for bit, to those on the stream after the old owner sort
-    (the same columns). Returns the errors, the argument tuple, the
-    library yardstick (two ``torch.segment_reduce`` calls on the gathered
-    stream) and the bytes and operations of its bound."""
+    """B5 on B1's per-pair stream read through the map (the inputs
+    ``ops/rasterize.py:_contrib_stats`` gives it) against its plain version
+    (the gather, then the owner-sorted plain version): sums within rel 1e-5
+    of the largest, maxes exact; and its outputs equal, bit for bit, to
+    the old route's (the stream gathered through the map by
+    ``index_select``, then B5 on the owner-sorted columns) and, given the
+    slots' owners ``pair_tri``, to B5 after the owner sort of every slot.
+    Returns the errors, the argument tuple,
+    the library yardstick (the gather and two ``torch.segment_reduce``
+    calls: no one PyTorch call reads through a map) and the bytes and
+    operations of its bound."""
     import torch
     from triangle_splatting_tpu_torch.ops.cuda import streams as KS
 
     P = starts.shape[0]
-    cols = pair_contrib.index_select(1, pack_perm)
-    args = (cols[0], cols[1], starts, ends, num_pairs)
+    args = (pair_contrib[0], pair_contrib[1], starts, ends, num_pairs, pack_perm)
     sums, maxes = KS.segment_reduce_stats(*args)
     ref_s, ref_m = KS.segment_reduce_stats_plain(*args)
-    old = pair_contrib.index_select(1, owner_order(pair_tri, P))
-    old_s, old_m = KS.segment_reduce_stats(old[0], old[1], starts, ends, num_pairs)
+    cols = pair_contrib.index_select(1, pack_perm)
+    old_s, old_m = KS.segment_reduce_stats(cols[0], cols[1], starts, ends, num_pairs)
+    if pair_tri is not None:
+        srt = pair_contrib.index_select(1, owner_order(pair_tri, P))
+        srt_s, srt_m = KS.segment_reduce_stats(srt[0], srt[1], starts, ends, num_pairs)
+        check(bool(torch.equal(sums, srt_s) and torch.equal(maxes, srt_m)),
+              f"segment_reduce_stats {what}: through the map differs from after the owner sort")
     torch.cuda.synchronize()
     err_s = float((sums - ref_s).abs().max())
     rel_s = err_s / max(float(ref_s.abs().max()), 1e-30)
@@ -942,19 +826,20 @@ def check_segment_stats(pair_contrib, pair_tri, pack_perm, starts, ends, num_pai
     check(rel_s <= TOL["b5_rel"], f"segment_reduce_stats {what}: sum rel err {rel_s:.3e}")
     check(err_m == 0.0, f"segment_reduce_stats {what}: max err {err_m:.3e}, expected exact")
     check(bool(torch.equal(sums, old_s) and torch.equal(maxes, old_m)),
-          f"segment_reduce_stats {what}: through the map differs from after the owner sort")
+          f"segment_reduce_stats {what}: through the map differs from the gather and B5")
     n = int(num_pairs)
     lengths = ends - starts
-    data = (cols[0, :n].contiguous(), cols[1, :n].contiguous())
+    head = pack_perm[:n]
 
     def library():
+        data = pair_contrib.index_select(1, head)
         return (torch.segment_reduce(data[0], "sum", lengths=lengths, initial=0),
                 torch.segment_reduce(data[1], "max", lengths=lengths, initial=0))
     lib_s, lib_m = library()
     check(float((lib_s - ref_s).abs().max()) <= TOL["b5_rel"] * float(ref_s.abs().max())
           and bool(torch.equal(lib_m, ref_m)), "segment_reduce yardstick disagrees with B5")
     return dict(args=args, library=library, err=max(err_s, err_m), rel=rel_s,
-                bytes=4 * (2 * n + 2 * P + 1) + 4 * 2 * P, ops=B5_OPS_PER_PAIR * n)
+                bytes=b5_bytes(n, P), ops=B5_OPS_PER_PAIR * n)
 
 
 def check_blend(fields, sp, params, geo, target, what: str) -> dict:
@@ -1137,7 +1022,7 @@ def rich_cotangents(c, H: int, W: int, dev, seed: int = 0):
             (torch.randn((3, H, W), generator=gen) / (3 * H * W)).to(dev))
 
 
-def phase_kernels(b, cmp=None, parent=None) -> dict:
+def phase_kernels(b, cmp=None) -> dict:
     """Each kernel against its plain version at the bench shapes."""
     import torch
     from triangle_splatting_tpu_torch.ops.binning import sort_pairs
@@ -1277,8 +1162,7 @@ def phase_kernels(b, cmp=None, parent=None) -> dict:
             return torch.zeros((live, P + 1), device=dev).index_add_(1, seg, lib_cols)
         check(float((index_add()[:, :P] - ref4[:live]).abs().max())
               <= 1e-5 * float(ref4.abs().max()), "index_add_ yardstick disagrees with B4")
-        pair_stage(prep, st, max_pairs, out2[:live], c["pair_contrib"], "bench-800-100k",
-                   parent, grids=True)
+        pair_stage(prep, st, max_pairs, c["pair_contrib"], "bench-800-100k", grids=True)
         rec["segment_reduce_pairs"] = dict(
             max_abs_err=c4["err"], rel_err=c4["rel"],
             ms=cuda_ms(lambda: KS.segment_reduce_pairs(*args4), 50),
@@ -1295,7 +1179,7 @@ def phase_kernels(b, cmp=None, parent=None) -> dict:
     return rec
 
 
-def phase_kernels_3d(dev, cmp=None, parent=None) -> dict:
+def phase_kernels_3d(dev, cmp=None) -> dict:
     """B1/B2 in variant "3D" against their plain versions on a 100k-triangle
     random scene at the mesh path's rendered size (1600x1600: 2,500 tiles),
     at gamma 1 and at gamma 50; timed at gamma 50, the solidified regime
@@ -1361,8 +1245,7 @@ def phase_kernels_3d(dev, cmp=None, parent=None) -> dict:
                                         what)
         site = None if gamma == 1.0 else "bench3d-1600-100k gamma 50"
         if site is not None:
-            pair_stage(prep, st, _round_up(int(ppt * N_TRI), KB.ALIGN), c["out2"][:live],
-                       c["pair_contrib"], site, parent)
+            pair_stage(prep, st, _round_up(int(ppt * N_TRI), KB.ALIGN), c["pair_contrib"], site)
         ms1rs = b1_ms(c["fwd"], geo, stats=True, rich=True, cmp=cmp, site=site)
         g1 = gamma == 1.0
         bound1rs = bound_ms(rs["bytes"], b1_ops(c["work"], "3D", g1, stats=True, rich=True))
@@ -1515,7 +1398,7 @@ def check_blend_gs(fwd, geo, target, what: str, cot_seed: int = 0) -> dict:
                           * H * W + 4 * 16 * ma for f in bws})
 
 
-def phase_kernels_gs(dev, cmp=None, parent=None) -> dict:
+def phase_kernels_gs(dev, cmp=None) -> dict:
     """bench-gs-800-100k: B1-GS (four forms) and B2-GS (two forms) against
     their plain versions on 100k random Gaussians at 800x800 (the GS twin of
     bench-800-100k: ``make_gs_scene`` over the same frustum, scales 0.01-0.05
@@ -1582,8 +1465,7 @@ def phase_kernels_gs(dev, cmp=None, parent=None) -> dict:
         g1 = gamma == 1.0
         if g1:
             pair_stage(prep, st, _round_up(int(ppt * N_TRI), KB.ALIGN),
-                       c["bws"]["gs"]["out"][:KB.LIVE_GRAD_ROWS[("GS", False)]],
-                       c["outs"]["gs_stats"][5], "bench-gs-800-100k", parent)
+                       c["outs"]["gs_stats"][5], "bench-gs-800-100k")
         times = {}
         for form, stats, rich in GS_FORMS:
             ops = b1_ops(c["work"], "GS", g1, stats=stats, rich=rich)
@@ -1782,7 +1664,8 @@ def phase_renderer(b) -> dict:
     the facade against the dense oracle on the reference phase's scene
     (64x64, 150 triangles; at the bench size the oracle's one Python step
     per triangle would take 100k steps): render 6e-4 abs, n_contrib exact,
-    statistics 5e-4 abs, depth and normal rel 1e-3 of their max. Returns
+    statistics 5e-4 abs, depth and normal rel 1e-3 of their max. B5 is held
+    on each counted render's own inputs (``check_segment_stats``). Returns
     the counted run's launches."""
     import dataclasses
 
@@ -1793,6 +1676,8 @@ def phase_renderer(b) -> dict:
     from triangle_splatting_tpu_torch.renderer import TriangleRenderer
     from triangle_splatting_tpu_torch.utils.testing import make_camera, make_random_scene
 
+    from triangle_splatting_tpu_torch.ops import rasterize as RZ
+
     dev = b["vertex"].device
     # the bench budget with a margin for the 3D variant's coverage
     max_pairs = _round_up(int(1.5 * b["ppt"] * N_TRI), ALIGN)
@@ -1801,14 +1686,31 @@ def phase_renderer(b) -> dict:
                                      gamma=g, rich_info=True, rasterizer_type=v,
                                      max_pairs=max_pairs) for v, g in cases}
     args = (b["vertex"], None, b["rgb"], b["opacity"])
+    b5_calls, real5 = [], RZ.segment_reduce_stats
+
+    def spy5(*a, **kw):
+        b5_calls.append((a, kw))
+        return real5(*a, **kw)
     with torch.no_grad():
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs = {v: renderers[v].render(*args) for v, _ in cases}
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
+        RZ.segment_reduce_stats = spy5
+        try:
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = {v: renderers[v].render(*args) for v, _ in cases}
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            RZ.segment_reduce_stats = real5
         launches = read_launches()
+        # B5 as each render ran it: through the map, against its plain
+        # version and the gather + owner-sorted form
+        check(len(b5_calls) == len(cases), f"renderer: {len(b5_calls)} B5 calls captured")
+        for (v, _), (a, kw) in zip(cases, b5_calls):
+            c5 = check_segment_stats(torch.stack(a[:2]), None, kw["perm"], a[2], a[3],
+                                     kw["nvalid"], f"renderer {v}")
+            say("renderer", variant=v, b5_sum_rel_err=c5["rel"], b5_max_abs_err=c5["err"])
+        del b5_calls
         for name, n in launches.items():
             want = {"blend_forward_rich_stats": 1, "blend_forward_3d_rich_stats": 1,
                     "relayout_pairs": 2, "segment_reduce_stats": 2}.get(name, 0)
@@ -1870,9 +1772,8 @@ def phase_renderer(b) -> dict:
 
 
 def probe_sass() -> dict:
-    """Opcode counts of each probe kernel's SASS (csrc/probes.cu through
+    """Each probe kernel's SASS instructions (csrc/probes.cu through
     compare_sass.compile_sass: build.py's flags, cuobjdump), by kernel."""
-    import collections
     import tempfile
 
     from triangle_splatting_tpu_torch.ops.cuda.build import CSRC
@@ -1880,23 +1781,116 @@ def probe_sass() -> dict:
 
     with tempfile.TemporaryDirectory() as tmp:
         sass, _ = compile_sass(CSRC / "probes.cu", Path(tmp) / "probes.cubin")
-    return {name: collections.Counter(next(t for t in insn.split() if not t.startswith("@"))
-                                      for insn in insns)
-            for name, insns in sass.items()}
+    return sass
 
 
-def phase_probes(dev) -> tuple[dict, dict]:
+def opcode(insn: str) -> str:
+    """The opcode of one SASS instruction (its predicate skipped)."""
+    return next(t for t in insn.split() if not t.startswith("@"))
+
+
+def sass_loop_mix(insns: list) -> dict:
+    """Opcode counts of the innermost loop of one kernel's SASS with the
+    most MUFU instructions: the instructions from the target of a backward
+    branch to the branch (an sm_90 instruction is 16 bytes). ``fp32``
+    counts those issued by the float32 pipe at 128 a clock per SM (FADD,
+    FMUL, FFMA in any form), ``mufu`` the special-function unit's."""
+    import collections
+
+    loops = []
+    for i, insn in enumerate(insns):
+        words = [w for w in insn.split() if not w.startswith("@")]
+        if words and words[0].startswith("BRA") and words[-1].startswith("0x"):
+            target = int(words[-1], 16) // 16
+            if target < i:
+                loops.append(collections.Counter(opcode(x) for x in insns[target:i + 1]))
+    check(bool(loops), "sass_loop_mix: no loop in the kernel")
+    mix = max(loops, key=lambda c: sum(v for o, v in c.items() if o.startswith("MUFU")))
+    return dict(insns=sum(mix.values()),
+                fp32=sum(v for o, v in mix.items() if o.split(".")[0] in ("FADD", "FMUL", "FFMA")),
+                mufu=sum(v for o, v in mix.items() if o.startswith("MUFU")),
+                ops=dict(mix.most_common()))
+
+
+def loaded_clocks_mhz(fn, launches: int) -> dict:
+    """The SM clock and its maximum as nvidia-smi reads them while
+    ``launches`` calls of ``fn`` run back to back on the card: three
+    readings each, in MHz (a diagnostic: no bound uses them)."""
+    import torch
+    for _ in range(launches):
+        fn()
+    got = dict(sm=[], max_sm=[])
+    for _ in range(3):
+        out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=60, check=True).stdout
+        sm, top = out.splitlines()[0].split(",")
+        got["sm"].append(float(sm))
+        got["max_sm"].append(float(top))
+    torch.cuda.synchronize()
+    return got
+
+
+def parent_scan(src_dir: Path):
+    """An earlier ``csrc/probes.cu`` (``DIR/probes.cu``), built with
+    ``nvcc`` beside the current libraries and loaded with ``ctypes``, as a
+    callable (x, variant, k) running its P3 over a (256, C) block, clipped.
+    Its ``ts_probe_scan`` must take the current one's parameters; any
+    other source is refused before the build."""
+    import ctypes
+
+    import torch
+    from triangle_splatting_tpu_torch.ops.cuda import build
+    from triangle_splatting_tpu_torch.ops.cuda import probes as KP
+    from triangle_splatting_tpu_torch.ops.cuda.streams import _stream
+    from triangle_splatting_tpu_torch.tools.blend_compare import c_params
+
+    src = Path(src_dir) / "probes.cu"
+    params = c_params(src.read_text(), "ts_probe_scan")
+    want = c_params((build.CSRC / "probes.cu").read_text(), "ts_probe_scan")
+    check(params == want, f"parent {src}: ts_probe_scan takes {params}, not {want}")
+    so = build.BUILD_DIR / "parent_probes.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(src)],
+                         capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, f"parent probes.cu: nvcc failed\n{res.stdout}{res.stderr}")
+    lib = ctypes.CDLL(str(so))
+    lib.ts_probe_scan.argtypes = [ctypes.c_void_p if "*" in t or t == "cudaStream_t"
+                                  else ctypes.c_int for t, _ in params]
+    say("parent", source=str(src))
+
+    def scan(x, variant, k):
+        out = torch.empty_like(x)
+        build.check_launch(lib.ts_probe_scan(x.data_ptr(), out.data_ptr(), x.shape[0],
+                                             x.shape[1], k, *KP.scan_code(variant), 1,
+                                             _stream()), f"parent scan_probe {variant}")
+        return out
+    return scan
+
+
+def phase_probes(dev, scan_parent=None) -> tuple[dict, dict]:
     """P1-P3 through their tools' entry points at the JAX tools' shapes
     (vpu_probe R x C = 512 x 1024, K = 65536, four ops in float32 and
     bfloat16; exp_probe 512 x 1024, K = 16384, four ops, after its fast_exp
     check; scan_probe S x C = 256 x 1024, K = 2048, seven variants, after
     its check against float64 cumprod), counted; then each probe kernel
     against its plain version at K = 64 on the same shapes (the budgets of
-    tests/test_torch_cuda.py), the opcodes of each probe kernel's SASS (the
-    loop holds the operation measured), and the JSON rows: P1 timed at fma
-    float32, P2 at exp (expf), P3 at hs, each against its plain version at
-    the full K, P3 also against K torch.cumprod + clamp_ calls replayed
-    from one CUDA graph. Returns (the counted run's launches, the rows)."""
+    tests/test_torch_cuda.py; P3 "hs" bit for bit, also unclipped at
+    K = 1), the opcodes of each probe kernel's SASS (the loop holds the
+    operation measured), and the JSON rows: P1 timed at fma float32, P2 at
+    exp (expf), P3 at hs, each against its plain version at the full K, P3
+    also against K torch.cumprod + clamp_ calls replayed from one CUDA
+    graph and bit for bit against its plain version (the product order of
+    the Hillis-Steele passes) at the full K. P2's bound counts its loop's
+    SASS (``sass_loop_mix``) at the peak clock behind ``F32_OPS_PER_S``:
+    the larger of the float32-pipe instructions at 128 a clock per SM and
+    the MUFU ones at 16. With ``scan_parent`` (``parent_scan``), every
+    variant of the parent's P3 must give the current one's output bit for
+    bit at the tool's K (on the tool's block and on a random one), and
+    each variant is timed in turns (parent, new, new, parent).
+    Returns (the counted run's launches, the rows)."""
+    import collections
+
     import torch
     from triangle_splatting_tpu_torch.ops.cuda import probes as KP
     from triangle_splatting_tpu_torch.ops.cuda import reset_launches
@@ -1956,10 +1950,18 @@ def phase_probes(dev) -> tuple[dict, dict]:
         rel = float(((got - ref).abs() / ref).max())
         check(rel <= (4e-5 if v == "mxu_log" else 5e-6), f"scan_probe {v}: rel err {rel:.3e}")
         par[f"scan {v}"] = rel
+    # "hs" keeps the plain passes' products: bit for bit clipped at K = 64
+    # and unclipped at K = 1 (no value held by the clip)
+    x1 = (torch.rand((scan_probe.S, scan_probe.C), generator=gen) * 0.1 + 0.9).to(dev)
+    for xk, kk, clip in ((x3, k, True), (x1, 1, False)):
+        check(torch.equal(KP.scan_probe(xk, "hs", kk, clip),
+                          KP.scan_probe_plain(xk, "hs", kk, clip)),
+              f"scan_probe hs (K {kk}, clip {clip}): differs from the plain passes")
     torch.cuda.synchronize()
     say("probes", parity_k=k, rel_err=par,
         tol="mul, min3 (and bf16 fma) exact; f32 fma rel 1e-5; exp rel 1e-6 (bf16 2^-8); "
-            "mul8 exact; expf, fast_exp, __expf rel 1e-6; scans rel 5e-6 (mxu_log 4e-5)")
+            "mul8 exact; expf, fast_exp, __expf rel 1e-6; scans rel 5e-6 (mxu_log 4e-5); hs "
+            "bit for bit, also unclipped at K = 1")
 
     # the SASS of every probe kernel holds the operation it measures (an
     # opcode holding one of the tokens; bf16 min3 compiles to one
@@ -1972,7 +1974,8 @@ def phase_probes(dev) -> tuple[dict, dict]:
               "vpu_probe_bf16_kernel<3>": ("MUFU.EX2",),
               "exp_probe_kernel<0>": ("FMUL",), "exp_probe_kernel<1>": ("MUFU.EX2",),
               "exp_probe_kernel<2>": ("FFMA",), "exp_probe_kernel<3>": ("MUFU.EX2",)}
-    sass = probe_sass()
+    sass_insns = probe_sass()
+    sass = {n: collections.Counter(opcode(x) for x in v) for n, v in sass_insns.items()}
     for key, tokens in expect.items():
         check(key in sass, f"probe SASS: kernel {key} not found ({sorted(sass)})")
         counts = sass[key]
@@ -1995,14 +1998,30 @@ def phase_probes(dev) -> tuple[dict, dict]:
         bound=bound_ms(8 * R * C, 2 * R * C * K))
     R, C, K = exp_probe.R, exp_probe.C, exp_probe.K
     ones = torch.ones((R, C), device=dev)
+    # expf issues on the special-function unit (MUFU.EX2, 16 a clock per
+    # SM) and the float32 pipe (its range reduction, 128 a clock per SM):
+    # the bound is the larger of the two at the peak clock behind
+    # F32_OPS_PER_S (128 FFMA, 256 operations, a clock per SM). The clocks
+    # read under its load are printed beside it, not used.
+    mix = sass_loop_mix(sass_insns["exp_probe_kernel<1>"])
+    clocks = loaded_clocks_mhz(lambda: KP.exp_probe(ones, "exp", K), 400)
+    fp32_per_s = F32_OPS_PER_S / 2
+    passes = R * C * K
+    t_fp32 = mix["fp32"] / mix["mufu"] * passes / fp32_per_s * 1e3
+    t_mufu = passes / (fp32_per_s * 16 / 128) * 1e3
+    # not the bound: every instruction of the loop through the four
+    # schedulers' one issue a clock each
+    t_issue = mix["insns"] / mix["mufu"] * passes / fp32_per_s * 1e3
+    say("probes", exp_bound=dict(loop=mix, loaded_clocks_mhz=clocks,
+                                 fp32_per_elem_pass=mix["fp32"] / mix["mufu"],
+                                 fp32_ms=t_fp32, mufu_ms=t_mufu, issue_ms=t_issue))
     rows["exp_probe"] = dict(
         max_abs_err=float((KP.exp_probe(x2, "exp", k) - KP.exp_probe_plain(x2, "exp", k))
                           .abs().max()),
         ms=cuda_ms(lambda: KP.exp_probe(ones, "exp", K), 5),
         plain_ms=cuda_ms(lambda: KP.exp_probe_plain(ones, "exp", K), 1, 0, hide_host=False),
         library_ms=None,
-        # |v|, the product and the exp, each one operation
-        bound=bound_ms(8 * R * C, 3 * R * C * K))
+        bound=(max(t_fp32, t_mufu), "operations"))
     S, C, K = scan_probe.S, scan_probe.C, scan_probe.K
     full = torch.full((S, C), 0.9999, device=dev)
 
@@ -2020,9 +2039,24 @@ def phase_probes(dev) -> tuple[dict, dict]:
         lib_out = cumprod_reps(full, K)
     graph.replay()
     kern_out = KP.scan_probe(full, "hs", K)
+    plain_out = KP.scan_probe_plain(full, "hs", K)
     torch.cuda.synchronize()
     lib_rel = float(((lib_out - kern_out).abs() / lib_out).max())
     check(lib_rel <= 5e-6, f"scan_probe: torch.cumprod yardstick differs by rel {lib_rel:.3e}")
+    check(bool(torch.equal(kern_out, plain_out)),
+          f"scan_probe hs: differs from the plain passes at K = {K}")
+    if scan_parent is not None:
+        turns = {}
+        for v in KP.SCAN_VARIANTS:
+            for xk in (full, x3):
+                check(bool(torch.equal(scan_parent(xk, v, K), KP.scan_probe(xk, v, K))),
+                      f"scan_probe {v}: differs from the parent's at K = {K}")
+            fns = dict(parent=lambda v=v: scan_parent(full, v, K),
+                       new=lambda v=v: KP.scan_probe(full, v, K))
+            turns[v] = {n: [] for n in fns}
+            for n in ("parent", "new", "new", "parent"):
+                turns[v][n].append(cuda_ms(fns[n], 5))
+        say("probes", parent_turns=turns, identical_at_k=K)
     rows["scan_probe"] = dict(
         max_abs_err=float((KP.scan_probe(x3, "hs", k) - KP.scan_probe_plain(x3, "hs", k))
                           .abs().max()),
@@ -2487,7 +2521,7 @@ def build_city(dev) -> Path:
     return root
 
 
-def phase_city(dev, root: Path, cmp=None, parent=None) -> tuple[dict, dict]:
+def phase_city(dev, root: Path, cmp=None) -> tuple[dict, dict]:
     """config/MatrixCity_VanillaTS_mesh.yaml as shipped, on the synthetic
     city, with the cuts of CITY_CUTS (the recipe's cadences compressed
     into 50 steps). Gates: losses finite and falling; the geometry term
@@ -2721,8 +2755,7 @@ def phase_city(dev, root: Path, cmp=None, parent=None) -> tuple[dict, dict]:
             plain_ms=round(cuda_ms(lambda: KS.segment_reduce_pairs_plain(*a4), 10), 3),
             bound_ms=round(b4[0], 5), bound_by=b4[1])
         sprep, sst, smax = last["sort"][0][:3]
-        pair_stage(sprep.detach(), sst, smax, last["grads"][:rows4], None, "city last step",
-                   parent)
+        pair_stage(sprep.detach(), sst, smax, None, "city last step")
         del last, r, fwd, off, a3, a4, c4
         check_opacity_adc(trainer.params, trainer.opt, trainer.state)
     profile_steps(trainer, "city_profile", bg=torch.zeros(3, device=dev))
@@ -2865,8 +2898,8 @@ def phase_gs(dev, root: Path) -> dict:
         a5 = last["b5"][0] + tuple(last["b5"][1].values())
         pair_tri, pack_perm, err3 = hold_relayout(a3, "gs")
         c4 = check_segment_reduce(a4[0], pair_tri, pack_perm, *a4[1:4], "gs")
-        # B5 through the map against B5 after the old owner sort, on the
-        # last step's stream
+        # B5 through the map against the gather + owner-sorted form and
+        # B5 after the old owner sort, on the last step's stream
         check_segment_stats(out[5], pair_tri, pack_perm, *a5[2:5], "gs")
         s5, m5 = KS.segment_reduce_stats(*a5)
         rs5, rm5 = KS.segment_reduce_stats_plain(*a5)
@@ -2884,7 +2917,7 @@ def phase_gs(dev, root: Path) -> dict:
         b2 = bound_ms(pairs_in + 4 * 6 * H * W + 4 * 16 * ma, BWD_OPS_PER_EVAL_GS[True] * evals)
         b3 = bound_ms(b3_bytes(a3))
         b4 = bound_ms(b4_bytes(rows4, np4, P), rows4 * np4)
-        b5 = bound_ms(4 * (2 * np5 + 2 * P + 1) + 4 * 2 * P, B5_OPS_PER_PAIR * np5)
+        b5 = bound_ms(b5_bytes(np5, P), B5_OPS_PER_PAIR * np5)
         rows = {
             "blend_forward_gs_stats": (e_c, lambda: KB.blend_forward(*fwd, stats=True, **geo),
                                        lambda: KB.blend_forward_plain(*fwd, stats=True, **geo), b1),
@@ -2972,11 +3005,11 @@ def main(argv=None) -> int:
                     help="a directory with an earlier blend.cu and blend_gs.cu: time their "
                          "B1 and B2 in turns with the current ones (tools/blend_compare.py); "
                          "repeatable, the first is the parent")
-    ap.add_argument("--streams-parent", type=Path, default=None, metavar="DIR",
-                    help="a directory with the streams.cu of the route before the map (B3 "
-                         "without the map, B4 on owner-sorted columns; entry points as in "
-                         "PRE_MAP_PARAMS, any other is refused): the [pair_stage] lines time "
-                         "its B3 and B4 in the old route, in turns with the map's")
+    ap.add_argument("--probes-parent", type=Path, default=None, metavar="DIR",
+                    help="a directory with an earlier probes.cu whose ts_probe_scan takes "
+                         "the current parameters: the probes phase holds each P3 variant "
+                         "of it against the current one bit for bit at the tool's K and "
+                         "times the two in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3000,15 +3033,15 @@ def main(argv=None) -> int:
             from triangle_splatting_tpu_torch.tools.blend_compare import Comparison
             cmp = Comparison(args.blend_parent)
             say("blend_parent", builds=cmp.builds, takes_order=cmp.takes_order, sass=cmp.sass)
-        parent = parent_streams(args.streams_parent) if args.streams_parent else None
+        scan_parent = parent_scan(args.probes_parent) if args.probes_parent else None
         bench = make_bench(dev)
-        rec = phase_kernels(bench, cmp, parent)
-        rec.update(phase_kernels_3d(dev, cmp, parent))
-        rec.update(phase_kernels_gs(dev, cmp, parent))
+        rec = phase_kernels(bench, cmp)
+        rec.update(phase_kernels_3d(dev, cmp))
+        rec.update(phase_kernels_gs(dev, cmp))
         phase_reference(dev)
         phase_rasterize(bench)
         runs = dict(renderer=phase_renderer(bench))
-        runs["probes"], probe_rec = phase_probes(dev)
+        runs["probes"], probe_rec = phase_probes(dev, scan_parent)
         rec.update(probe_rec)
         shutil.rmtree(WORK, ignore_errors=True)
         soup = build_dataset(dev, "soup")
@@ -3019,7 +3052,7 @@ def main(argv=None) -> int:
         runs["mesh"] = phase_mesh_train(dev, surface)
         runs["mesh_adc"] = phase_mesh_adc(dev, surface)
         shutil.rmtree(surface, ignore_errors=True)
-        runs["city"], city_rec = phase_city(dev, build_city(dev), cmp, parent)
+        runs["city"], city_rec = phase_city(dev, build_city(dev), cmp)
         rec.update(city_rec)
     except SmokeFailure as e:
         print(f"FAIL {e}", flush=True)

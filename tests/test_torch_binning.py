@@ -70,3 +70,58 @@ def test_overflow_case_integer_exact():
     for name in FIELDS:
         np.testing.assert_array_equal(getattr(tb, name).numpy(),
                                       np.asarray(getattr(jb, name)), err_msg=name)
+
+
+def owner_counts(kind, seed):
+    """Random tiles_touched (int32) and a pair budget for one kind of frame."""
+    rng = np.random.default_rng(seed)
+    P = 1 if kind == "single" else int(rng.integers(50, 400))
+    counts = rng.integers(1, 9, P).astype(np.int32)
+    if kind == "empty_runs":
+        for start in rng.integers(0, P, 12):
+            counts[start:start + int(rng.integers(1, 7))] = 0
+    elif kind == "trailing_empties":
+        counts[rng.random(P) < 0.3] = 0
+        counts[-int(rng.integers(1, 20)):] = 0
+    elif kind == "all_empty":
+        counts[:] = 0
+    elif kind == "single":
+        counts[:] = int(rng.integers(0, 9)) if seed % 2 else 5
+    demand = int(counts.sum())
+    max_pairs = max(demand // 2, 1) if kind == "overflow" else demand + 37 + seed
+    return counts, max_pairs
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("kind", ["empty_runs", "trailing_empties", "overflow",
+                                  "all_empty", "single"])
+def test_pair_owners_match_jax_cummax(kind, seed):
+    """The port's owners (a binary search over the exclusive offsets)
+    against the JAX route: the marker scatter-max of t + 1 at each first
+    slot (``ops/binning.py`` of the JAX package) expanded by its ``cummax``,
+    minus one, on every slot of the budget: the unbinned tail, the slots
+    past trailing empty triangles, an overflowing budget and a frame with
+    no pair (-1 everywhere) included."""
+    import jax
+
+    from triangle_splatting_tpu.ops.binning import cummax
+    from triangle_splatting_tpu_torch.ops.binning import pair_owners
+
+    counts, max_pairs = owner_counts(kind, seed)
+    P = counts.shape[0]
+    c = jnp.asarray(counts)
+    offsets = jnp.cumsum(c) - c
+    has_pairs = c > 0
+    scatter_idx = jnp.where(has_pairs, offsets, max_pairs)
+    markers = jnp.zeros((max_pairs,), jnp.int32).at[scatter_idx].max(
+        jnp.where(has_pairs, jnp.arange(P, dtype=jnp.int32) + 1, 0), mode="drop")
+    want = np.asarray(jax.jit(cummax)(markers) - 1)
+    tc = torch.as_tensor(counts)
+    csum = torch.cumsum(tc, 0)
+    got = pair_owners(tc, csum - tc, max_pairs).numpy()
+    assert got.dtype == np.int32 and got.shape == (max_pairs,)
+    np.testing.assert_array_equal(got, want)
+    if kind == "all_empty":
+        assert (got == -1).all()
+    if kind == "trailing_empties":
+        assert got[-1] == np.flatnonzero(counts)[-1] < P - 1

@@ -165,8 +165,9 @@ def test_segment_reduce_map_kernel(dev, variant, rich):
 
 @pytest.mark.parametrize("variant", ["2D", "3D"])
 def test_segment_stats_through_map(dev, variant):
-    """B5 on the stream gathered through the map equals B5 after the old
-    owner sort, bit for bit: the same columns up to num_pairs."""
+    """B5 reading the stream through the map equals B5 on the stream
+    gathered through the map and B5 after the old owner sort, bit for bit:
+    the same columns up to num_pairs, added in the same order."""
     sp = pipeline_inputs(CASES[0], dev, variant)[0]
     pair_tri, perm = KS.relayout_pairs(*sp.relayout_args())
     gen = torch.Generator().manual_seed(3)
@@ -176,11 +177,58 @@ def test_segment_stats_through_map(dev, variant):
     ends = torch.minimum(sp.tri_offsets[1:], sp.num_pairs).contiguous()
     _, old_cols = old_pack_backward(pc, pair_tri, starts, ends, sp.num_pairs)
     new_cols = pc.index_select(1, perm)
-    got = KS.segment_reduce_stats(new_cols[0], new_cols[1], starts, ends, sp.num_pairs)
+    n = KS.segment_reduce_stats.launches
+    got = KS.segment_reduce_stats(pc[0], pc[1], starts, ends, sp.num_pairs, perm)
+    assert KS.segment_reduce_stats.launches == n + 1
+    gathered = KS.segment_reduce_stats(new_cols[0], new_cols[1], starts, ends, sp.num_pairs)
     old = KS.segment_reduce_stats(old_cols[0], old_cols[1], starts, ends, sp.num_pairs)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, old))
+    assert all(torch.equal(a, b) for a, b in zip(got, gathered))
     assert float(got[0].max()) > 0
+
+
+@pytest.mark.parametrize("seed,M,P,maxlen", [
+    (0, 128 * 37, 700, 12), (1, 128 * 8, 2000, 1), (2, 128 * 64, 9, 2000),
+    (3, 128 * 40, 3000, 600)])
+def test_segment_reduce_stats_map_kernel(dev, seed, M, P, maxlen):
+    """B5 through a map (position j is column perm[j], a random injection
+    into M columns holding NaN everywhere else) against its plain version
+    (sums rel 1e-5 of the largest, maxes exact) and against the gather
+    through the map followed by the owner-sorted kernel, bit for bit: the
+    same values added in the same order. Segments of up to 2,000 positions
+    cross many of the 256-position rounds a warp stages; positions at or
+    past nvalid are never read, empty segments give 0."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, maxlen + 1, P)
+    counts[rng.random(P) < 0.2] = 0
+    L = int(min(counts.sum(), M // 2))
+    nvalid = int(L * 0.9)
+    offs = np.minimum(np.concatenate([[0], np.cumsum(counts)]), L)
+    perm = rng.permutation(M)[:L].astype(np.int32)
+    sc = np.full(M, np.nan, np.float32)
+    mc = np.full(M, np.nan, np.float32)
+    sc[perm[:nvalid]] = rng.uniform(0, 2, nvalid)
+    mc[perm[:nvalid]] = rng.uniform(0, 1, nvalid)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    starts, ends = t(offs[:-1].astype(np.int32)), t(offs[1:].astype(np.int32))
+    nv = torch.tensor(nvalid, dtype=torch.int32, device=dev)
+    args = (t(sc), t(mc), starts, ends, nv, t(perm))
+    n = KS.segment_reduce_stats.launches
+    gs, gm = KS.segment_reduce_stats(*args)
+    assert KS.segment_reduce_stats.launches == n + 1
+    ws, wm = KS.segment_reduce_stats_plain(*args)
+    pl = args[5].long()
+    os_, om = KS.segment_reduce_stats(args[0][pl].contiguous(), args[1][pl].contiguous(),
+                                      starts, ends, nv)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(gs).all()) and bool(torch.isfinite(gm).all())
+    assert float((gs - ws).abs().max()) <= 1e-5 * float(ws.abs().max())
+    assert torch.equal(gm, wm)
+    assert torch.equal(gs, os_) and torch.equal(gm, om)
+    empty = torch.minimum(ends, nv) <= starts
+    assert not bool(gs[empty].any()) and not bool(gm[empty].any())
+    assert int((ends - starts).max()) > 256 or maxlen < 256
 
 
 CASES_3D = [
@@ -838,6 +886,21 @@ def test_scan_probe_kernel_matches_cumprod_and_plain(dev, variant):
     err = float(((got - want).abs() / want).max())
     assert err <= (4e-5 if variant == "mxu_log" else 5e-6), err
     assert float(got.min()) >= float(np.float32(0.9)) and float(got.max()) <= 1.0
+
+
+def test_scan_hs_kernel_keeps_the_plain_products(dev):
+    """P3 "hs" in registers and shuffles against the plain Hillis-Steele
+    passes (the products of the shared-memory kernel it replaced): bit for
+    bit unclipped at K = 1 on [0.9, 1] (no value held by the clip),
+    clipped at K = 64, and on 40 columns (five blocks of eight)."""
+    from triangle_splatting_tpu_torch.ops.cuda import probes as KP
+    for cols, k, lo, clip in ((256, 1, 0.9, False), (256, PROBE_K, 0.9, True),
+                              (40, 3, 0.999999, True)):
+        x = probe_block(dev, 256, cols, lo, 1.0, seed=4)
+        got = KP.scan_probe(x, "hs", k, clip)
+        want = KP.scan_probe_plain(x, "hs", k, clip)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (cols, k, clip)
 
 
 # ---------------------------------------------------------------------------

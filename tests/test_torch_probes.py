@@ -170,6 +170,28 @@ def test_scan_probe_plain_matches_float64_cumprod(variant):
     assert err <= (2e-5 if variant == "mxu_log" else 2e-6), err
 
 
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_scan_hs_register_layout_keeps_the_products(k):
+    """The "hs" kernel's register layout (``prefix_hs_lanes``: lanes of 8
+    rows, passes below 8 within a lane and from the previous lane, larger
+    ones a whole lane back) against the plain "hs" passes over the 256
+    rows: bit for bit, so the layout keeps every product and its order.
+    K = 1 unclipped on [0.9, 1]; K = 2 and 3 clipped on [0.999999, 1],
+    where the first 100 rows stay above the clip's 0.9 (below it the clip
+    would hide a wrong product)."""
+    lo = 0.9 if k == 1 else 0.999999
+    x = torch.as_tensor(block(256, SCAN_C, lo, 1.0, seed=7))
+    v = x
+    for _ in range(k):
+        v = TP.prefix_hs_lanes(v)
+        if k > 1:
+            v = torch.clamp(v, 0.9, 1.0)
+    want = TP.scan_probe_plain(x, "hs", k, clip=k > 1)
+    assert torch.equal(v, want) and not torch.equal(want, x)
+    if k > 1:
+        assert bool((want[:100] > 0.9).all())
+
+
 def test_scan_probe_rejects_unknown_variant():
     with pytest.raises(ValueError):
         TP.scan_probe(torch.ones((256, 128)), "hs_sideways")

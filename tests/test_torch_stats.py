@@ -15,16 +15,21 @@ import torch
 from triangle_splatting_tpu.ops.binning import bin_triangles
 from triangle_splatting_tpu.ops.pallas import blend as JB
 from triangle_splatting_tpu.ops.pallas import streams as JS
+from triangle_splatting_tpu.ops.projection import Preprocessed as JPrep
 from triangle_splatting_tpu.ops.projection import RasterSettings as JRS
 from triangle_splatting_tpu.ops.projection import preprocess_2d, preprocess_3d
 from triangle_splatting_tpu.ops.rasterize import (pack_pair_fields, triangle_field_matrix,
                                                   triangle_field_matrix_3d)
+from triangle_splatting_tpu.ops.rasterize import _contrib_stats as j_contrib_stats
 from triangle_splatting_tpu.ops.rasterize import rasterize as j_rasterize
 from triangle_splatting_tpu.utils.testing import make_camera as j_camera
 from triangle_splatting_tpu.utils.testing import make_random_scene
+from triangle_splatting_tpu_torch.ops.binning import bin_triangles as t_bin
 from triangle_splatting_tpu_torch.ops.cuda import blend as TB
 from triangle_splatting_tpu_torch.ops.cuda import streams as TS
+from triangle_splatting_tpu_torch.ops.projection import Preprocessed as TPrep
 from triangle_splatting_tpu_torch.ops.projection import RasterSettings as TRS
+from triangle_splatting_tpu_torch.ops.rasterize import _contrib_stats as t_contrib_stats
 from triangle_splatting_tpu_torch.ops.rasterize import rasterize as t_rasterize
 from triangle_splatting_tpu_torch.utils.testing import make_camera as t_camera
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
@@ -172,6 +177,87 @@ def test_segment_reduce_stats_rejects_bad_inputs():
         TS.segment_reduce_stats(z, z, i.long(), i)
     with pytest.raises(ValueError):
         TS.segment_reduce_stats(z, torch.zeros(256), i, i)
+
+
+# ---------------------------------------------------------------------------
+# B5 through the owner-order map
+# ---------------------------------------------------------------------------
+
+MAP_W = MAP_H = 288     # 18 x 18 tiles of 16 x 16: a screen-filling triangle
+MAP_TILE = dict(tile_h=16, tile_w=16)   # owns 324 pairs, past one staged round
+
+
+@functools.lru_cache(maxsize=None)
+def map_frame(kind, seed):
+    """The port's and the JAX package's binning of one random scene (the
+    same numpy preprocess), and a random (2, MA) stream over its slots with
+    NaN in every slot that holds no binned pair. "long": triangle 0 covers
+    every tile; "overflow": a budget of half the demand."""
+    P = 200
+    s = make_random_scene(P, seed=seed, size_range=(0.02, 0.2))
+    s["vertex"][1:16, :, 2] = -50.0         # behind the camera: empty segments
+    jst = JRS(image_width=MAP_W, image_height=MAP_H, rich_info=False, **MAP_TILE)
+    cam = j_camera(MAP_W, MAP_H)
+    prep = preprocess_2d(jnp.asarray(s["vertex"]), jnp.zeros((P, 2)), jnp.asarray(s["rgb"]),
+                         cam.world_view, cam.full_proj, cam.tan_fovx, cam.tan_fovy, jst,
+                         opacity=jnp.asarray(s["opacity"]), gamma=jnp.float32(1.0))
+    arrs = {k: np.array(v) for k, v in vars(prep).items()}
+    if kind == "long":
+        arrs["rect_min"][0] = 0
+        arrs["rect_max"][0] = (jst.grid_w, jst.grid_h)
+        arrs["tiles_touched"][0] = jst.num_tiles
+        arrs["valid"][0] = True
+    demand = int(arrs["tiles_touched"].sum())
+    max_pairs = 128 * (demand // 256 if kind == "overflow" else demand // 128 + 2)
+    jb = bin_triangles(JPrep(**{k: jnp.asarray(v) for k, v in arrs.items()}), jst,
+                       max_pairs, interpret=True)
+    tst = TRS(image_width=MAP_W, image_height=MAP_H, rich_info=False, **MAP_TILE)
+    tb = t_bin(TPrep(**{k: torch.as_tensor(v) for k, v in arrs.items()}), tst, max_pairs)
+    assert bool(tb.overflow) == (kind == "overflow")
+    pair_tri = tb.pair_tri.numpy()
+    np.testing.assert_array_equal(pair_tri, np.asarray(jb.pair_tri))
+    rng = np.random.default_rng(seed + 100)
+    pc = rng.uniform(0.0, 1.0, (2, pair_tri.shape[0])).astype(np.float32)
+    pc[:, pair_tri < 0] = np.nan
+    return jb, tb, pc
+
+
+@pytest.mark.parametrize("kind,seed", [("scene", 0), ("scene", 1), ("long", 2),
+                                       ("overflow", 3)])
+def test_segment_reduce_stats_map_plain_matches_jax_and_old_route(kind, seed):
+    """B5's map form (the stream read through ``pack_perm``; on the CPU
+    its plain version: the gather, then the owner-sorted plain version) on
+    a stream over the port's binning: equal, bit for bit, to the old route
+    (``index_select`` through the map, then B5 on the owner-sorted
+    columns) and to ``_contrib_stats``, and within the statistics' 5e-4
+    abs of the JAX ``_contrib_stats`` (owner sort, Pallas B5 in interpret
+    mode), maxes exact. NaN in every slot without a binned pair (past
+    num_pairs in owner order) never reaches an output; empty segments give
+    0; "long" holds a triangle of 324 pairs (more than the kernel stages a
+    round), "overflow" a budget of half the demand."""
+    jb, tb, pc = map_frame(kind, seed)
+    P = tb.tri_offsets.shape[0] - 1
+    want = [np.asarray(x) for x in j_contrib_stats(jnp.asarray(pc), jb, P, True)]
+    tpc = torch.as_tensor(pc)
+    starts = torch.minimum(tb.tri_offsets[:-1], tb.num_pairs).contiguous()
+    ends = torch.minimum(tb.tri_offsets[1:], tb.num_pairs).contiguous()
+    got = TS.segment_reduce_stats(tpc[0], tpc[1], starts, ends, tb.num_pairs,
+                                  perm=tb.pack_perm)
+    cols = tpc.index_select(1, tb.pack_perm)
+    old = TS.segment_reduce_stats(cols[0], cols[1], starts, ends, tb.num_pairs)
+    piped = t_contrib_stats(tpc, tb)
+    for g, o, p_ in zip(got, old, piped):
+        assert torch.equal(g, o) and torch.equal(g, p_)
+    gs, gm = (x.numpy() for x in got)
+    assert np.isfinite(gs).all() and np.isfinite(gm).all()
+    empty = (starts == ends).numpy()
+    assert empty.sum() >= 15 and not gs[empty].any() and not gm[empty].any()
+    assert np.abs(gs - want[0]).max() <= STATS_ATOL
+    np.testing.assert_array_equal(gm, want[1])
+    if kind == "long":
+        assert int((ends - starts).max()) == 324
+    if kind == "overflow":
+        assert int(ends[-1]) == int(tb.num_pairs) < int(tb.tri_offsets[-1])
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,10 @@ map) on its first ``num_pairs`` entries:
 - exclusive sum of tiles_touched; ``total`` is kept in int64, so
   ``overflow = total > max_pairs`` also covers the int32 wrap the JAX
   function checks for;
-- marker scatter-max of (tri + 1) at each triangle's first slot, expanded
-  by ``cummax`` into the owning triangle of every slot;
+- the owning triangle of every raw slot by a binary search of the slot
+  over the exclusive sums (``pair_owners``: the JAX function's marker
+  scatter and ``cummax``, equal on every slot; on the card ``cummax`` over
+  one long axis runs as a single block);
 - one fused int32 key ``tile << depth_bits | quantize(depth)``, computed
   from the per-triangle constants K0 and A as
   ``K0 + (within << dbits) + q * A`` with exact integer division for q;
@@ -85,8 +87,6 @@ def quantize_depth(depth: torch.Tensor, valid: torch.Tensor, bits: int) -> torch
 class SortedPairs(NamedTuple):
     """The tile-sorted pair stream, before the aligned relayout (the inputs
     of kernel B3) plus the per-triangle offsets."""
-    key: torch.Tensor            # (max_pairs,) int32 raw keys, tile << dbits | depth;
-    #                              num_tiles << dbits at and past num_pairs
     tri: torch.Tensor            # (max_pairs,) int32 owning triangle per RAW pair
     sorted_raw: torch.Tensor     # (max_pairs,) int32 raw pair at each sorted position
     sorted_key: torch.Tensor     # (max_pairs,) int32 sorted keys
@@ -104,6 +104,28 @@ class SortedPairs(NamedTuple):
         """The arguments of kernel B3 (``relayout_pairs``)."""
         return (self.tri, self.sorted_raw, self.sorted_key, self.raw_starts,
                 self.astarts, self.ma, self.dbits, self.align)
+
+
+def pair_owners(counts: torch.Tensor, starts: torch.Tensor, max_pairs: int) -> torch.Tensor:
+    """The owning triangle of every raw pair slot, (max_pairs,) int32: the
+    last triangle with pairs whose first slot ``starts[t]`` (the exclusive
+    sum of ``counts``, int64, nondecreasing) is at or before the slot; -1
+    where no triangle has pairs. This is the JAX function's marker
+    scatter-max of t + 1 at each first slot expanded by ``cummax``, minus
+    one, on every slot, the unbinned tail included: a binary search finds
+    the last triangle starting at or before the slot, which has pairs
+    unless it is the last triangle (an empty one shares its start with the
+    next), so the trailing empties are cut to the last triangle with
+    pairs."""
+    dev = counts.device
+    P = counts.shape[0]
+    if P == 0:
+        return torch.full((max_pairs,), -1, dtype=torch.int32, device=dev)
+    slot = torch.arange(max_pairs, dtype=starts.dtype, device=dev)
+    t = torch.searchsorted(starts, slot, right=True, out_int32=True) - 1
+    ids = torch.arange(P, dtype=torch.int32, device=dev)
+    last = torch.where(counts > 0, ids, torch.full_like(ids, -1)).amax()
+    return torch.minimum(t, last)
 
 
 @torch.no_grad()
@@ -130,13 +152,7 @@ def sort_pairs(prep: Preprocessed, settings: RasterSettings,
     K0_t = torch.bitwise_or(torch.bitwise_left_shift(base, dbits), depth_q)
     A_t = torch.bitwise_left_shift((grid_w - rw_t).to(i32), dbits)
 
-    # owning triangle of every raw slot: marker at each first slot, cummax
-    has_pairs = counts > 0
-    put = has_pairs & (offsets >= 0) & (offsets < max_pairs)
-    markers = torch.zeros((max_pairs,), dtype=i32, device=dev)
-    tri_ids = torch.arange(1, P + 1, dtype=i32, device=dev)
-    markers.scatter_reduce_(0, offsets[put].long(), tri_ids[put], reduce="amax")
-    tri = torch.cummax(markers, 0).values - 1                 # (max_pairs,)
+    tri = pair_owners(counts, csum - counts, max_pairs)       # (max_pairs,)
     pair_idx = torch.arange(max_pairs, dtype=i32, device=dev)
     valid = (pair_idx < num_pairs) & (tri >= 0)
     tri_c = torch.clamp(tri, 0, max(P - 1, 0))
@@ -160,7 +176,7 @@ def sort_pairs(prep: Preprocessed, settings: RasterSettings,
     astarts = torch.cat([torch.zeros((1,), dtype=i32, device=dev),
                          torch.cumsum(padded, 0).to(i32)])
     tri_offsets = torch.cat([offsets, total.reshape(1).to(i32)])
-    return SortedPairs(key=key, tri=tri_c, sorted_raw=order.to(i32), sorted_key=sorted_key,
+    return SortedPairs(tri=tri_c, sorted_raw=order.to(i32), sorted_key=sorted_key,
                        dbits=dbits, raw_starts=raw_starts.contiguous(),
                        astarts=astarts, tile_counts=tile_counts.contiguous(), ma=ma,
                        align=align, tri_offsets=tri_offsets, num_pairs=num_pairs,

@@ -22,15 +22,25 @@
 // ~1.94 waves of 2,048 resident threads on 132 SMs. fma is one FFMA
 // (__fmaf_rn, one rounding), where the JAX probe's op is a mul and an add.
 //
-// P3 keeps the scanned axis inside one block (the TPU keeps it in one vreg
-// stack): one column per 256 threads for "hs" (Hillis-Steele passes through
-// shared memory) and "hs_roll" (warp shuffles, then a carry across the
-// column's eight warps), four columns a block; 256 / chunk threads per
-// column for "two_level" (a sequential product over the chunk in
-// registers, a shuffle scan of the chunk totals, one broadcast multiply)
-// and one warp per column for "mxu_log" (exp of a dense lower-triangular
-// product with log x, written out in float32: 8 rows a lane, the column's
-// logs in shared memory), eight columns a block, so 1,024 columns make 128
+// P3 keeps the scanned axis inside one warp or block (the TPU keeps it in
+// one vreg stack). "hs" holds a column in registers: one warp per column,
+// 8 consecutive rows a lane, eight columns a block; a Hillis-Steele pass with a shift below the rows a lane holds multiplies
+// in registers, taking the first rows' partners from the previous lane by
+// __shfl_up_sync, and a pass with a larger shift is a shuffle of every row
+// by shift / rows lanes. No shared memory and no barrier: a rep is 8 passes
+// of at most 8 shuffles and 8 products a lane, and every element gets the
+// products, in the order, of the Hillis-Steele passes through shared
+// memory that it replaces (so the outputs are bit for bit those of the
+// plain version's passes). What bounds it is the shuffle issue (47 a rep
+// and column) and the dependent chain of 8 shuffle-then-multiply steps a
+// rep, not the products. "hs_roll" keeps one thread per (row, column),
+// 256 threads a column (warp shuffles, then a carry across the column's
+// eight warps), four columns a block; 256 / chunk threads per column for
+// "two_level" (a sequential product over the chunk in registers, a
+// shuffle scan of the chunk totals, one broadcast multiply) and one warp
+// per column for "mxu_log" (exp of a dense lower-triangular product with
+// log x, written out in float32: 8 rows a lane, the column's logs in
+// shared memory), eight columns a block, so 1,024 columns make 128
 // blocks, one per SM.
 //
 // C interface: each entry point launches on the given stream and returns
@@ -43,8 +53,9 @@ namespace {
 
 constexpr int kElemThreads = 256;   // P1 / P2 block
 constexpr int kScanRows = 256;      // P3: rows of the scanned axis
-constexpr int kScanThreads = 1024;  // P3: the largest block ("hs")
-constexpr int kScanCols = 8;        // P3: columns per block but "hs"
+constexpr int kScanThreads = 1024;  // P3: the largest block ("hs_roll")
+constexpr int kScanCols = 8;        // P3: columns per block but "hs_roll"
+constexpr int kHsRows = kScanRows / 32;  // P3 "hs": the rows a lane holds
 
 // ---------------------------------------------------------------------------
 // P1
@@ -181,30 +192,68 @@ __device__ __forceinline__ float column_scan(float v, float* carry, float& prev)
   return v;
 }
 
-// "hs" (kRoll false) and "hs_roll": one thread per (row, column), 256
-// consecutive threads per column, four columns per block.
-template <bool kRoll>
-__global__ void __launch_bounds__(kScanThreads) scan_hs_kernel(
+// One "hs" pass with shift kShift < kHsRows, and the later ones: row
+// r0 + i takes row r0 + i - kShift, from this lane for i >= kShift (updated
+// from the top down, so each reads the pass's input) and from the previous
+// lane's row kHsRows - kShift + i otherwise (lane 0 keeps its first rows).
+// A template per shift, so every register index is a constant.
+template <int kShift>
+__device__ __forceinline__ void hs_lane_passes(float (&v)[kHsRows], int lane) {
+  float t[kShift];
+#pragma unroll
+  for (int i = 0; i < kShift; ++i)
+    t[i] = __shfl_up_sync(0xffffffffu, v[kHsRows - kShift + i], 1);
+#pragma unroll
+  for (int i = kHsRows - 1; i >= kShift; --i) v[i] = __fmul_rn(v[i], v[i - kShift]);
+  if (lane > 0) {
+#pragma unroll
+    for (int i = 0; i < kShift; ++i) v[i] = __fmul_rn(v[i], t[i]);
+  }
+  if constexpr (2 * kShift < kHsRows) hs_lane_passes<2 * kShift>(v, lane);
+}
+
+// "hs": a warp per column, kHsRows consecutive rows a lane, the
+// Hillis-Steele passes in registers and shuffles; kScanCols columns a block.
+__global__ void __launch_bounds__(kScanCols * 32) scan_hs_kernel(
+    const float* __restrict__ x, float* __restrict__ out, int cols, int k, int clip) {
+  const int lane = threadIdx.x % 32;
+  const int c = blockIdx.x * kScanCols + threadIdx.x / 32;
+  const int r0 = lane * kHsRows;
+  float v[kHsRows];
+#pragma unroll
+  for (int i = 0; i < kHsRows; ++i) v[i] = x[(size_t)(r0 + i) * cols + c];
+  for (int it = 0; it < k; ++it) {
+    hs_lane_passes<1>(v, lane);
+    // shifts d * kHsRows: every row takes the same row d lanes back
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+      for (int i = 0; i < kHsRows; ++i) {
+        const float t = __shfl_up_sync(0xffffffffu, v[i], d);
+        if (lane >= d) v[i] = __fmul_rn(v[i], t);
+      }
+    }
+    if (clip) {
+#pragma unroll
+      for (int i = 0; i < kHsRows; ++i) v[i] = clip_unit(v[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kHsRows; ++i) out[(size_t)(r0 + i) * cols + c] = v[i];
+}
+
+// "hs_roll": one thread per (row, column), 256 consecutive threads per
+// column, four columns per block.
+__global__ void __launch_bounds__(kScanThreads) scan_hs_roll_kernel(
     const float* __restrict__ x, float* __restrict__ out, int cols, int k, int clip) {
   constexpr int kCols = kScanThreads / kScanRows;
-  __shared__ float sv[kCols][kScanRows];      // "hs": the columns' values
-  __shared__ float carry[kScanThreads / 32];  // "hs_roll": the warp totals
+  __shared__ float carry[kScanThreads / 32];  // the warp totals
   const int r = threadIdx.x % kScanRows, cl = threadIdx.x / kScanRows;
   const int c = blockIdx.x * kCols + cl;
   float v = x[(size_t)r * cols + c];
   for (int it = 0; it < k; ++it) {
-    if constexpr (kRoll) {
-      float prev;
-      v = column_scan<kScanRows>(v, carry, prev);
-    } else {
-#pragma unroll
-      for (int sh = 1; sh < kScanRows; sh <<= 1) {
-        sv[cl][r] = v;
-        __syncthreads();
-        if (r >= sh) v = __fmul_rn(v, sv[cl][r - sh]);
-        __syncthreads();
-      }
-    }
+    float prev;
+    v = column_scan<kScanRows>(v, carry, prev);
     if (clip) v = clip_unit(v);
   }
   out[(size_t)r * cols + c] = v;
@@ -326,10 +375,10 @@ extern "C" int ts_probe_scan(const float* x, float* out, int rows, int cols, int
     return (int)cudaErrorInvalidValue;
   switch (variant) {
     case 0:
-      scan_hs_kernel<false><<<cols / 4, kScanThreads, 0, stream>>>(x, out, cols, k, clip);
+      scan_hs_kernel<<<cols / kScanCols, kScanCols * 32, 0, stream>>>(x, out, cols, k, clip);
       break;
     case 1:
-      scan_hs_kernel<true><<<cols / 4, kScanThreads, 0, stream>>>(x, out, cols, k, clip);
+      scan_hs_roll_kernel<<<cols / 4, kScanThreads, 0, stream>>>(x, out, cols, k, clip);
       break;
     case 2: {
       const auto kernel = chunk == 4 ? &scan_two_level_kernel<4>

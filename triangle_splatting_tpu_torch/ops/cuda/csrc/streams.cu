@@ -43,15 +43,28 @@
 //    columns are already owner-sorted (the JAX contract). Positions at or
 //    past nvalid are cut off the segment before any load, so NaN in the
 //    unused tail cannot leak into a sum.
-//  - B5: B4's design on two columns: one thread per segment sums the first
-//    column in float32 and maxes the second (contributions are >= 0, so the
-//    identity is 0 and an empty segment gives 0 for both), with the same
-//    nvalid cut and the same launch plumbing. The Pallas kernel's one-hot
-//    MXU products become a plain loop; no atomics, so the order of each sum
-//    is fixed. Its caller gathers the stream's two rows through B3's map.
+//  - B5: the per-triangle sum of the first row of B1's (2, MA) stream and
+//    max of the second (contributions are >= 0, so the identity is 0 and
+//    an empty segment gives 0 for both), read through B3's map as B4 reads
+//    B2's rows: position pos of a segment is column pack_perm[pos], so the
+//    stream is neither sorted nor gathered first (the null-map form takes
+//    owner-sorted columns, the JAX contract). Segments are short (2.7 pairs
+//    a triangle at 800^2 / 100k) but ragged, so a warp takes 32
+//    consecutive triangles, whose positions are one span [lo, hi): it reads
+//    the span's map entries coalesced and gathers both rows, 8 loads of
+//    each a lane in flight, into shared memory, 256 positions a round;
+//    then each lane adds its own triangle's values from shared memory in
+//    ascending position, carrying its sum across rounds. That is the
+//    order of the one-thread-per-segment loop on gathered columns, so
+//    every sum is that route's bit for bit; no atomics. The same nvalid
+//    cut: positions at or past it are never read. Bytes: 4 for the map
+//    entry and 8 for the two values a binned pair, the bounds, the (2, P)
+//    output.
 //
 // C interface: each entry point launches on the given stream and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
+
+#include <climits>
 
 #include <cuda_runtime.h>
 
@@ -61,6 +74,8 @@ constexpr int kMaxRows = 16;
 constexpr int kThreads = 256;
 // blocks of the grid-stride loop over the slots past the last tile
 constexpr int kTailBlocks = 4 * 132;
+// B5: positions a warp stages in shared memory per round
+constexpr int kStatsChunk = 256;
 
 // Block roles by blockIdx.x: [0, pair_blocks) one thread per sorted pair,
 // then pad_blocks with one warp per tile, then the tail's blocks.
@@ -129,25 +144,69 @@ __global__ void segment_reduce_pairs_kernel(const float* __restrict__ cols,
   for (int r = 0; r < kMaxRows; ++r) out[(size_t)r * p + t] = r < nrows ? acc[r] : 0.0f;
 }
 
-__global__ void segment_reduce_stats_kernel(const float* __restrict__ sum_col,
-                                            const float* __restrict__ max_col,
-                                            int m, const int* __restrict__ starts,
-                                            const int* __restrict__ ends,
-                                            const int* __restrict__ nvalid_ptr,
-                                            int p, float* __restrict__ sums,
-                                            float* __restrict__ maxes) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= p) return;
-  const int nvalid = min(*nvalid_ptr, m);
-  const int s = starts[t];
-  const int e = min(ends[t], nvalid);
-  float acc = 0.0f, mx = 0.0f;
-  for (int pos = s; pos < e; ++pos) {
-    acc += sum_col[pos];
-    mx = fmaxf(mx, max_col[pos]);
+// kMapped: position pos of a segment is column perm[pos] of both rows
+// (B1's stream read in place); otherwise column pos (owner-sorted
+// columns). Blocks of kThreads: a warp per 32 consecutive segments.
+template <bool kMapped>
+__global__ void __launch_bounds__(kThreads) segment_reduce_stats_kernel(
+    const float* __restrict__ sum_col, const float* __restrict__ max_col, int m,
+    const int* __restrict__ perm, int nperm, const int* __restrict__ starts,
+    const int* __restrict__ ends, const int* __restrict__ nvalid_ptr, int p,
+    float* __restrict__ sums, float* __restrict__ maxes) {
+  constexpr int kLoads = kStatsChunk / 32;
+  __shared__ float s_sum[kThreads / 32][kStatsChunk];
+  __shared__ float s_max[kThreads / 32][kStatsChunk];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  const int nvalid = min(*nvalid_ptr, kMapped ? nperm : m);
+  // this lane's segment cut at nvalid (empty past p), and the warp's span
+  int s = 0, e = 0;
+  if (t < p) {
+    s = starts[t];
+    e = min(ends[t], nvalid);
   }
-  sums[t] = acc;
-  maxes[t] = mx;
+  int lo = s < e ? s : INT_MAX, hi = s < e ? e : INT_MIN;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  float acc = 0.0f, mx = 0.0f;
+  for (int c0 = lo; c0 < hi; c0 += kStatsChunk) {
+    const int n = min(kStatsChunk, hi - c0);
+    int col[kLoads];
+    float vs[kLoads], vm[kLoads];
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      const int i = j * 32 + lane;
+      col[j] = i < n ? (kMapped ? perm[c0 + i] : c0 + i) : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      if (j * 32 + lane < n) {
+        vs[j] = sum_col[col[j]];
+        vm[j] = max_col[col[j]];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      if (j * 32 + lane < n) {
+        s_sum[w][j * 32 + lane] = vs[j];
+        s_max[w][j * 32 + lane] = vm[j];
+      }
+    }
+    __syncwarp();
+    const int b = min(e, c0 + n);
+    for (int pos = max(s, c0); pos < b; ++pos) {
+      acc += s_sum[w][pos - c0];
+      mx = fmaxf(mx, s_max[w][pos - c0]);
+    }
+    __syncwarp();   // every value read before the next round writes
+  }
+  if (t < p) {
+    sums[t] = acc;
+    maxes[t] = mx;
+  }
 }
 
 }  // namespace
@@ -191,15 +250,20 @@ extern "C" int ts_segment_reduce_pairs(const float* cols, int nrows, int m,
   return (int)cudaGetLastError();
 }
 
-extern "C" int ts_segment_reduce_stats(const float* sum_col, const float* max_col,
-                                       int m, const int* starts, const int* ends,
-                                       const int* nvalid, int p, float* sums,
-                                       float* maxes, cudaStream_t stream) {
+// perm == nullptr: the owner-sorted form (columns already in segment order).
+extern "C" int ts_segment_reduce_stats(const float* sum_col, const float* max_col, int m,
+                                       const int* perm, int nperm, const int* starts,
+                                       const int* ends, const int* nvalid, int p,
+                                       float* sums, float* maxes, cudaStream_t stream) {
   if (p > 0) {
-    const int threads = 256;
-    const int blocks = (p + threads - 1) / threads;
-    segment_reduce_stats_kernel<<<blocks, threads, 0, stream>>>(
-        sum_col, max_col, m, starts, ends, nvalid, p, sums, maxes);
+    const int blocks = (p + kThreads - 1) / kThreads;
+    if (perm != nullptr) {
+      segment_reduce_stats_kernel<true><<<blocks, kThreads, 0, stream>>>(
+          sum_col, max_col, m, perm, nperm, starts, ends, nvalid, p, sums, maxes);
+    } else {
+      segment_reduce_stats_kernel<false><<<blocks, kThreads, 0, stream>>>(
+          sum_col, max_col, m, perm, nperm, starts, ends, nvalid, p, sums, maxes);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -157,6 +157,31 @@ def _prefix_hs(x):
     return x
 
 
+def prefix_hs_lanes(x: torch.Tensor) -> torch.Tensor:
+    """One "hs" prefix product along axis 0 as the kernel lays it out: the
+    256 rows split into 32 lanes of 8 consecutive rows, a pass with a shift
+    below 8 multiplied within each lane and, for a lane's first rows, by
+    the previous lane's last rows (the kernel's ``__shfl_up_sync`` by one
+    lane), a pass with a larger shift by the same row ``shift / 8`` lanes
+    back. The float32 twin of the kernel's layout: each product is
+    ``_prefix_hs``'s, so the two agree bit for bit."""
+    s, c = x.shape
+    lane_rows = s // 32
+    v = x.reshape(s // lane_rows, lane_rows, c)
+    sh = 1
+    while sh < lane_rows:
+        new = v.clone()
+        new[:, sh:] = v[:, sh:] * v[:, :-sh]
+        new[1:, :sh] = v[1:, :sh] * v[:-1, lane_rows - sh:]
+        v, sh = new, sh * 2
+    d = 1
+    while d < v.shape[0]:
+        new = v.clone()
+        new[d:] = v[d:] * v[:-d]
+        v, d = new, d * 2
+    return v.reshape(s, c)
+
+
 def _prefix_roll(x):
     row = torch.arange(x.shape[0], device=x.device)[:, None]
     k = 1
@@ -206,6 +231,13 @@ def scan_probe_plain(x: torch.Tensor, variant: str, k: int = 1,
     return v
 
 
+def scan_code(variant: str) -> tuple[int, int]:
+    """``ts_probe_scan``'s (variant, chunk) arguments for ``variant``."""
+    if variant.startswith("two_level"):
+        return 2, int(variant[len("two_level"):])
+    return {"hs": 0, "hs_roll": 1, "mxu_log": 3}[variant], 0
+
+
 def scan_probe(x: torch.Tensor, variant: str, k: int = 1, clip: bool = True) -> torch.Tensor:
     """K dependent prefix products of the (256, C) float32 block ``x``
     along its rows, each clipped to [0.9, 1] when ``clip``, computed as
@@ -219,10 +251,7 @@ def scan_probe(x: torch.Tensor, variant: str, k: int = 1, clip: bool = True) -> 
     if rows != SCAN_ROWS or cols % 8:
         raise ValueError(f"scan_probe: the kernel takes ({SCAN_ROWS}, C) with C a multiple "
                          f"of 8, got {tuple(x.shape)}")
-    if variant.startswith("two_level"):
-        code, chunk = 2, int(variant[len("two_level"):])
-    else:
-        code, chunk = {"hs": 0, "hs_roll": 1, "mxu_log": 3}[variant], 0
+    code, chunk = scan_code(variant)
     out = torch.empty_like(x)
     scan_probe.launches += 1
     check_launch(library("probes").ts_probe_scan(

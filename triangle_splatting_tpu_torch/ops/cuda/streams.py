@@ -204,12 +204,15 @@ segment_reduce_pairs.launches = 0
 
 def segment_reduce_stats_plain(sum_col: torch.Tensor, max_col: torch.Tensor,
                                starts: torch.Tensor, ends: torch.Tensor,
-                               nvalid: torch.Tensor):
-    """Plain PyTorch B5: the sums as B4's plain version takes them (an
-    exclusive prefix sum in float64, differences at the segment bounds),
-    the maxes as a masked segment max: each column below ``nvalid`` finds
-    its segment by a binary search over the starts and is scattered with
-    ``amax`` onto zeros (columns in no segment scatter a 0)."""
+                               nvalid: torch.Tensor, perm: torch.Tensor | None = None):
+    """Plain PyTorch B5: with a map, both columns gathered through it
+    first; then the sums as B4's plain version takes them (an exclusive
+    prefix sum in float64, differences at the segment bounds), the maxes as
+    a masked segment max: each column below ``nvalid`` finds its segment by
+    a binary search over the starts and is scattered with ``amax`` onto
+    zeros (columns in no segment scatter a 0)."""
+    if perm is not None:
+        sum_col, max_col = sum_col[perm.long()], max_col[perm.long()]
     m, p = sum_col.shape[0], starts.shape[0]
     dev, dt = sum_col.device, sum_col.dtype
     pos = torch.arange(m, device=dev)
@@ -234,17 +237,20 @@ def segment_reduce_stats_plain(sum_col: torch.Tensor, max_col: torch.Tensor,
 
 def segment_reduce_stats(sum_col: torch.Tensor, max_col: torch.Tensor,
                          starts: torch.Tensor, ends: torch.Tensor,
-                         nvalid: torch.Tensor | int | None = None):
+                         nvalid: torch.Tensor | int | None = None,
+                         perm: torch.Tensor | None = None):
     """Segment sum of ``sum_col`` and segment max of ``max_col``.
 
-    The per-triangle contribution statistics: after the per-pair
-    contribution stream is sorted by owning triangle, triangle t owns
-    columns [starts[t], ends[t]) of both (M,) float32 columns (values
-    >= 0). ``starts``/``ends`` are (P,) int32, nondecreasing and disjoint.
-    Empty segments give 0 for both (the max identity is 0). Columns at or
-    past ``nvalid`` (a 0-dim int32 tensor on the same device, or None for
-    M) count as 0 even when they hold NaN. Returns (sums, maxes), two (P,)
-    float32.
+    The per-triangle contribution statistics: triangle t owns positions
+    [starts[t], ends[t]) (P,) int32, nondecreasing and disjoint. With
+    ``perm`` (int32 (L,), B3's ``pack_perm``) position j is column
+    ``perm[j]`` of both (M,) float32 columns (the two rows of B1's (2, MA)
+    stream in the aligned slot order, read in place); without it position
+    j is column j (columns already sorted by owning triangle, the JAX
+    contract). Values are >= 0; empty segments give 0 for both (the max
+    identity is 0). Positions at or past ``nvalid`` (a 0-dim int32 tensor
+    on the same device, or None for L, M without a map) count as 0 even
+    when their columns hold NaN. Returns (sums, maxes), two (P,) float32.
     """
     dev = sum_col.device
     dt = torch.float32 if dev.type == "cuda" else sum_col.dtype
@@ -254,14 +260,16 @@ def segment_reduce_stats(sum_col: torch.Tensor, max_col: torch.Tensor,
         raise TypeError(f"sum_col: expected float32, got {dt}")
     _check(starts, "starts", torch.int32, 1, dev)
     _check(ends, "ends", torch.int32, 1, dev)
+    if perm is not None:
+        _check(perm, "perm", torch.int32, 1, dev)
     m, p = sum_col.shape[0], starts.shape[0]
     if max_col.shape[0] != m or ends.shape[0] != p:
         raise ValueError("sum_col/max_col and starts/ends must have equal lengths")
     if nvalid is None:
-        nvalid = m
+        nvalid = m if perm is None else perm.shape[0]
     nvalid = torch.as_tensor(nvalid, dtype=torch.int32, device=dev).reshape(())
     if dev.type == "cpu":
-        return segment_reduce_stats_plain(sum_col, max_col, starts, ends, nvalid)
+        return segment_reduce_stats_plain(sum_col, max_col, starts, ends, nvalid, perm)
     if dev.type != "cuda":
         raise ValueError(f"segment_reduce_stats: unsupported device {dev}")
     sums = torch.empty((p,), dtype=torch.float32, device=dev)
@@ -269,8 +277,9 @@ def segment_reduce_stats(sum_col: torch.Tensor, max_col: torch.Tensor,
     lib = library("streams")
     segment_reduce_stats.launches += 1
     check_launch(lib.ts_segment_reduce_stats(
-        sum_col.data_ptr(), max_col.data_ptr(), m, starts.data_ptr(),
-        ends.data_ptr(), nvalid.data_ptr(), p, sums.data_ptr(),
+        sum_col.data_ptr(), max_col.data_ptr(), m,
+        None if perm is None else perm.data_ptr(), 0 if perm is None else perm.shape[0],
+        starts.data_ptr(), ends.data_ptr(), nvalid.data_ptr(), p, sums.data_ptr(),
         maxes.data_ptr(), _stream()), "segment_reduce_stats")
     return sums, maxes
 

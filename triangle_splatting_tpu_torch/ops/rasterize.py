@@ -213,15 +213,15 @@ class BlendTiles(torch.autograd.Function):
 @torch.no_grad()
 def _contrib_stats(pair_contrib: torch.Tensor, binning: Binning):
     """Per-triangle (contrib_sum, contrib_max) from B1's per-pair stream
-    (``ops/rasterize.py:_contrib_stats`` of the JAX package): both rows
-    gathered through binning's owner-order map, after which triangle t owns
-    columns [tri_offsets[t], tri_offsets[t+1]) clipped to num_pairs; then
-    kernel B5. No gradient: the statistics only feed the ADC decisions."""
-    cols = pair_contrib.index_select(1, binning.pack_perm)
+    (``ops/rasterize.py:_contrib_stats`` of the JAX package): kernel B5
+    reads both rows through binning's owner-order map, in place, so
+    triangle t owns map positions [tri_offsets[t], tri_offsets[t+1])
+    clipped to num_pairs. No gradient: the statistics only feed the ADC
+    decisions."""
     starts = torch.minimum(binning.tri_offsets[:-1], binning.num_pairs).contiguous()
     ends = torch.minimum(binning.tri_offsets[1:], binning.num_pairs).contiguous()
-    return segment_reduce_stats(cols[0], cols[1], starts, ends,
-                                nvalid=binning.num_pairs)
+    return segment_reduce_stats(pair_contrib[0], pair_contrib[1], starts, ends,
+                                nvalid=binning.num_pairs, perm=binning.pack_perm)
 
 
 def _oracle_result(out, prep) -> dict:
