@@ -89,7 +89,26 @@ Phases (any failure exits non-zero before the final line):
              probe kernel against its plain version at K = 64 on those
              shapes (P3 "hs" bit for bit), the opcodes of each probe
              kernel's SASS, P2's bound from its loop's SASS and the SM
-             clock under load, and the rates.
+             clock under load, and the rates;
+13. smoke  — the port's trainers.smoke at its defaults but for its
+             densification thresholds and the mesh run's initial opacity
+             (SMOKE_CUTS): photo, --mesh and
+             --model gs at 400x400 for 400 iterations, each on the soup it
+             builds on the card (cells smoke-400-ts / -mesh / -gs): the PSNR
+             climbs by 2 dB, densification grows rows, the alive count moves
+             by the logged counts, the PLY and checkpoint (and GLB) at 400,
+             the run's variant of B1 stats / B2 / B3 / B4 / B5 once per step;
+14. resume — the photo smoke with a checkpoint at 200: a new trainer
+             resumes from it bit for bit and lands within 2 dB;
+15. adc    — tools/full_run.py --adc (the port's twin) cut to 1,000 steps
+             (cell adc-800-20k, cuts in ADC_CUTS): the capacity grows, the
+             first densify on the card equals the CPU's bit for bit, a
+             forced overflow places no orphan half; 10 profiled steps;
+16. mesh_tools — tools/full_run.py --mesh --scene surface at 600 steps
+             (cell fullrun-mesh-surface-800): chamfer / F-score of the GLB
+             against the GT soup, the ray-traced test PSNR (within 1 dB of
+             the rasterized one), and kNN and the ray tracer on the card
+             against the CPU.
 The mesh phase's run saves the PLY (steps 10 and 50) and the GLB (step 50)
 as the recipe does at its ends; the files are read back, and the GLB is
 rendered through MeshRenderer on the card (its mask over the trained
@@ -249,10 +268,12 @@ _CSRC = "triangle_splatting_tpu_torch/ops/cuda/csrc"
 SOURCES = {name: f"{_CSRC}/{'probes' if name in _PROBES else 'streams' if _STREAMS in r else 'blend_gs' if '_gs' in name else 'blend'}.cu"
            for name, r in REPLACES.items()}
 # the training phase whose run each kernel's launches are read from: the
-# path that runs it (the 2D stats form is on none of them: no shipped
-# photo recipe has a statistic block, so its count is the photo run's 0)
+# path that runs it
 PATH_OF = dict.fromkeys(REPLACES, "train")
 PATH_OF.update(blend_forward_3d="mesh", blend_backward_3d="mesh",
+               # the 2D stats form: the densification rehearsal (a photo
+               # recipe with a statistic block)
+               blend_forward_stats="adc",
                blend_forward_3d_stats="mesh_adc", segment_reduce_stats="mesh_adc",
                blend_forward_3d_rich="city", blend_backward_3d_rich="city",
                # the VanillaGS trainer renders with statistics and without
@@ -295,12 +316,67 @@ GS_TARGET = 93_000
 GS_CUTS = dict(
     iterations="50 (the smoke's own count; no published VanillaGS recipe ships)",
     sh="max_sh_degree 1 -> 3 (GSModelConfig's default), one_up_iters [12] -> [10, 20, 30]",
-    densification="removed (not ported: ROADMAP Queue A item 5)",
+    densification="left out so that the cell stays comparable with its earlier runs "
+                  "(densification runs in the smoke phase's cell smoke-400-gs)",
     contribution_pruning="added: config/NerfSynthetic_VanillaTS_mesh.yaml's block, window "
                          "(1,000, 40,000] every 1,000 -> (5, 40] every 20, target 93,000",
-    saves="save_iterations / checkpoint_iterations [50] -> none",
+    saves="save_iterations / checkpoint_iterations [50] -> none, so that the cell stays "
+          "comparable (the saves run in the smoke phase)",
     eval="outside the counted run (test PSNR before and after)",
     data="the photo phase's soup: 8 train / 2 test views at 800x800, a 100k-point cloud")
+
+
+# the smoke phase: trainers.smoke at its defaults (cells smoke-400-ts,
+# smoke-400-mesh, smoke-400-gs), and the JAX package's TPU v5e trajectories
+# at that size (the JAX package's recorded smoke results), a check of
+# convergence and not of speed
+SMOKE_RUNS = (("ts", []), ("mesh", ["--mesh"]), ("gs", ["--model", "gs"]))
+SMOKE_ITERS = 400
+SMOKE_V5E = {"ts": (17.4, 26.7), "mesh": (17.1, 21.6), "gs": None}
+# the smoke's densify thresholds (6e-4 -> 3e-4) lie 7-15x above the largest
+# mean screen-space gradient at 400x400 (the photo run at its defaults:
+# p50 2.4e-6, p99 2.0e-5-2.8e-5, max 2.7e-5-4.2e-5 at its five firings; it
+# grew nothing), so they are lowered as tools/full_run.py lowers them
+SMOKE_GRAD_THRESHOLD = (1e-5, 1e-5 * 2 / 3)
+# the mesh recipe starts every triangle at opacity 0.3, its STE threshold:
+# sigmoid(logit(0.3)) is 0.3f and 0.3f > 0.3 is false, so every triangle
+# renders transparent, none is seen in a view, and densification finds no
+# eligible row (ROADMAP Queue C); just above it they render from step 0
+SMOKE_MESH_INIT_OPACITY = 0.31
+SMOKE_CUTS = dict(
+    densification="grad_threshold_init / _final 6e-4 / 3e-4 -> 1e-5 / 6.7e-6 (at the defaults "
+                  "nothing grows at 400x400: the largest grad statistic was 4.2e-5)",
+    mesh_init_opacity="0.3 -> 0.31 (--mesh only: at 0.3, the STE threshold, every triangle "
+                      "renders transparent and no row is ever eligible to densify)",
+    rest="trainers.smoke's defaults (400x400, 400 iterations, 800 GT triangles, 24 train / 4 "
+         "test views, GT rendered on the card)")
+RESUME_AT = 200
+# adc-800-20k: tools/full_run.py --adc (the densification rehearsal) cut to
+# fit the script's time
+ADC_ITERS = 1000
+ADC_INTERVAL = 100
+# the grad statistic at 800x800 (an H100 run): p50 1e-9-2.5e-8, p99 4.9e-7-1.3e-6
+# over the firings; at 1e-7 the six firings placed 16,557 rows into 20,192 dead slots
+ADC_GRAD_THRESHOLD = 3e-8
+ADC_CUTS = dict(
+    iterations="30,000 (full_run's default) -> 1,000",
+    densification="every 500 from 500 to 3/4 of the run -> every 100 from 100 to 750; "
+                  "--grad_threshold 1.5e-4 -> 3e-8 (its final 2/3 of it), from the grad "
+                  "statistics' quantiles (at 1.5e-4 nothing grows at 800x800)",
+    opacity_pruning="every 500 from 1,000 -> every 100 from 200",
+    eval="every 2,000 -> before and after the counted run",
+    log="every 250 -> every 100 (the pair budget is re-sized at log steps)",
+    checkpoints="every 5,000 -> none")
+# fullrun-mesh-surface-800: tools/full_run.py --mesh --scene surface, the
+# mesh recipe's windows scaled to 600 iterations by full_run itself
+MESH_TOOLS_ITERS = 600
+# at gamma 50 the rasterized test views are close to the opaque endpoint the
+# ray tracer draws from the GLB (19.88 and 19.67 dB in an H100 run)
+MESH_TOOLS_TRACE_GAP_DB = 1.0
+MESH_TOOLS_CUTS = dict(
+    iterations="60,000 (the recipe) -> 600, every window scaled by 1/100 as full_run scales "
+               "it",
+    checkpoints="every 5,000 -> none")
 
 
 def gs_config(root: Path) -> dict:
@@ -2996,6 +3072,462 @@ def check_opacity_adc(params, opt, state) -> None:
             card_vs_cpu="exact")
 
 
+# ---------------------------------------------------------------------------
+# the smoke twin, resume, densification rehearsal and mesh tools
+# ---------------------------------------------------------------------------
+
+class counted_train:
+    """Within the block, every trainer's ``train()`` sets the launch counts
+    to 0 just before its loop and records them (``train_launches``) and its
+    seconds (``train_seconds``) just after: the counts of a run's own
+    steps, without its dataset build and evaluations."""
+
+    def __enter__(self):
+        import torch
+        from triangle_splatting_tpu_torch.ops.cuda import reset_launches
+        from triangle_splatting_tpu_torch.trainers.vanilla_gs import VanillaGSTrainer
+        from triangle_splatting_tpu_torch.trainers.vanilla_ts import VanillaTSTrainer
+        self.real = {cls: cls.train for cls in (VanillaTSTrainer, VanillaGSTrainer)}
+
+        def wrap(train):
+            def counted(trainer):
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                train(trainer)
+                torch.cuda.synchronize()
+                trainer.train_seconds = time.perf_counter() - t0
+                trainer.train_launches = read_launches()
+            return counted
+        for cls, train in self.real.items():
+            cls.train = wrap(train)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, train in self.real.items():
+            cls.train = train
+
+
+class smoke_cuts:
+    """Within the block, ``trainers.smoke.make_smoke_config`` gives the
+    densification thresholds of SMOKE_GRAD_THRESHOLD and, in the mesh
+    recipe, the initial opacity SMOKE_MESH_INIT_OPACITY (the smoke
+    phase's cuts)."""
+
+    def __enter__(self):
+        from triangle_splatting_tpu_torch.trainers import smoke
+        self.real = real = smoke.make_smoke_config
+
+        def lowered(*a, **kw):
+            cfg = real(*a, **kw)
+            d = cfg.model.model_update.densification
+            if d is not None:
+                d.grad_threshold_init, d.grad_threshold_final = SMOKE_GRAD_THRESHOLD
+            if cfg.model.ste_threshold is not None:
+                cfg.model.sampling.init_opacity = SMOKE_MESH_INIT_OPACITY
+            return cfg
+        smoke.make_smoke_config = lowered
+        return self
+
+    def __exit__(self, *exc):
+        from triangle_splatting_tpu_torch.trainers import smoke
+        smoke.make_smoke_config = self.real
+
+
+def check_alive_bookkeeping(trainer, alive0: int, what: str) -> dict:
+    """The alive count moved by exactly the logged counts: rows placed by
+    densification, minus split originals, minus every pruning (clippings
+    remove nothing). Returns the totals."""
+    dens = trainer.densify_history
+    tot = dict(grown=sum(d["grown"] for d in dens), placed=sum(d["placed"] for d in dens),
+               split_pruned=sum(d["split_pruned"] for d in dens),
+               pruned=sum(n for _, kind, n in trainer.prune_history if "clipping" not in kind))
+    alive1 = int(trainer.state.alive.sum())
+    check(alive1 == alive0 + tot["placed"] - tot["split_pruned"] - tot["pruned"],
+          f"{what}: alive {alive0} -> {alive1}, logged {tot}")
+    return dict(tot, alive_before=alive0, alive_after=alive1)
+
+
+def check_path_launches(launches: dict, n: int, variant: str, what: str) -> None:
+    """One step of a statistic-window training run launches B1's stats
+    form and B2 of ``variant``, B3, B4 and B5 once, and no other blend
+    form."""
+    sfx = {"2D": "", "3D": "_3d", "GS": "_gs"}[variant]
+    own = (f"blend_forward{sfx}_stats", f"blend_backward{sfx}", "relayout_pairs",
+           "segment_reduce_pairs", "segment_reduce_stats")
+    for name in own:
+        check(launches[name] == n, f"{what}: kernel {name} launched {launches[name]} times "
+              f"in {n} steps")
+    for name, k in launches.items():
+        if name.startswith("blend_") and name not in own:
+            check(k == 0, f"{what}: kernel {name} launched {k} times on a {variant} path")
+
+
+def phase_smoke(dev) -> dict:
+    """Cells smoke-400-ts, smoke-400-mesh, smoke-400-gs: the port's
+    ``trainers.smoke`` at its defaults (``smoke.run``, the body of its
+    ``main``), photo, ``--mesh`` and ``--model gs``, each on the soup it
+    builds on the card. Gates per run: the PSNR climbs by the smoke's 2 dB
+    (its exit criterion); densification grew rows; the alive count moved
+    by the logged counts; the PLY and the checkpoint at 400 (and the mesh
+    run's GLB, gamma 50); B1's stats form, B2, B3, B4 and B5 of the run's
+    variant once per step and no other blend form. Returns each run's
+    launches."""
+    from triangle_splatting_tpu_torch.trainers import smoke
+
+    t_phase = time.perf_counter()
+    out = {}
+    for name, flags in SMOKE_RUNS:
+        t0 = time.perf_counter()
+        root = WORK / f"smoke_{name}"
+        args = smoke.parse_args(["--root", str(root)] + flags)
+        with counted_train(), smoke_cuts():
+            trainer, rec = smoke.run(args)
+        what = f"smoke-400-{name}"
+        check(rec["psnr_final"] >= rec["psnr_init"] + args.min_gain,
+              f"{what}: PSNR {rec['psnr_init']} -> {rec['psnr_final']}, below +{args.min_gain}")
+        alive0 = len(trainer.dataset.getPointCloud().points)
+        book = check_alive_bookkeeping(trainer, alive0, what)
+        dens = trainer.densify_history
+        check(len(dens) == 5, f"{what}: densification fired at {[d['iteration'] for d in dens]}")
+        check(book["grown"] > 0 and book["placed"] > 0,
+              f"{what}: densification grew nothing {dens}")
+        out_dir = root / "out"
+        for f in (f"point_cloud/{SMOKE_ITERS}.ply", f"ckpt/{SMOKE_ITERS}.ckpt"):
+            check((out_dir / f).exists(), f"{what}: {f} was not written")
+        if name == "mesh":
+            check(rec["gamma_final"] == 50.0 and rec["glb_exported"],
+                  f"{what}: gamma {rec['gamma_final']}, GLB {rec['glb_exported']}")
+        variant = {"ts": "2D", "mesh": "3D", "gs": "GS"}[name]
+        check_path_launches(trainer.train_launches, SMOKE_ITERS, variant, what)
+        v5e = SMOKE_V5E[name]
+        say("smoke", cell=what, cuts=SMOKE_CUTS, card=card_line(), **rec,
+            ms_per_step=round(trainer.train_seconds / SMOKE_ITERS * 1e3, 3),
+            densify=trainer.densify_history, prune=trainer.prune_history, **book,
+            capacity=trainer.params.capacity, pairs_per_triangle=trainer._ppt,
+            max_eligible=max(d["grad_stat"]["eligible"] for d in dens),
+            v5e_psnr=v5e, below_v5e_final_db=None if v5e is None
+            else round(v5e[1] - rec["psnr_final"], 2),
+            launches=trainer.train_launches, seconds=round(time.perf_counter() - t0, 3))
+        out[name] = trainer.train_launches
+    say("smoke", seconds=round(time.perf_counter() - t_phase, 3))
+    return out
+
+
+def tensors_of(tree) -> dict:
+    """Every tensor of a model dataclass tree keyed by its path."""
+    import dataclasses
+
+    import torch
+    out = {}
+    for f in dataclasses.fields(tree):
+        x = getattr(tree, f.name)
+        if dataclasses.is_dataclass(x):
+            out.update({f"{f.name}.{k}": v for k, v in tensors_of(x).items()})
+        elif torch.is_tensor(x):
+            out[f.name] = x.detach().clone()
+        else:
+            out[f.name] = x
+    return out
+
+
+def phase_resume() -> None:
+    """The smoke photo recipe on the smoke phase's photo dataset with a
+    checkpoint at 200 (and 400): a new trainer resumes from it through
+    ``start_checkpoint`` and every array of params, moments and state
+    equals the saving trainer's at step 200 bit for bit; it trains 201-400
+    and lands within 2 dB of the uninterrupted run's final test PSNR (the
+    JAX criterion, tests/test_trainer_e2e.py:270-292)."""
+    import torch
+    from triangle_splatting_tpu_torch.trainers import build_trainer, smoke
+
+    t0 = time.perf_counter()
+    data = WORK / "smoke_ts" / "data"
+    with smoke_cuts():
+        cfg = smoke.make_smoke_config(data, WORK / "resume" / "out", SMOKE_ITERS)
+    cfg.trainer.checkpoint_iterations = [RESUME_AT, SMOKE_ITERS]
+    trainer = build_trainer(cfg, log_file=False)
+    snap = {}
+    save = trainer.save_ckpt
+
+    def snapshot_save(path):
+        save(path)
+        if Path(path).stem == str(RESUME_AT):
+            snap.update({f"{k}.{n}": x for k, t in (("params", trainer.params),
+                                                   ("opt", trainer.opt),
+                                                   ("state", trainer.state))
+                         for n, x in tensors_of(t).items()})
+    trainer.save_ckpt = snapshot_save
+    trainer._init_model()
+    trainer.train()
+    psnr_full = float(trainer._evaluate(SMOKE_ITERS))
+    check(bool(snap), f"resume: no checkpoint was written at {RESUME_AT}")
+
+    cfg.trainer.start_checkpoint = RESUME_AT
+    t2 = build_trainer(cfg, log_file=False)
+    first = t2._init_model()
+    check(first == RESUME_AT, f"resume: the run continues after {first}, not {RESUME_AT}")
+    loaded = {f"{k}.{n}": x for k, t in (("params", t2.params), ("opt", t2.opt),
+                                          ("state", t2.state))
+              for n, x in tensors_of(t).items()}
+    check(loaded.keys() == snap.keys(), f"resume: fields {loaded.keys() ^ snap.keys()}")
+    for k, want in snap.items():
+        got = loaded[k]
+        same = (torch.equal(got, want) and got.dtype == want.dtype) if torch.is_tensor(want) \
+            else got == want
+        check(same, f"resume: {k} differs from the saving trainer's step {RESUME_AT}")
+    t2.train()
+    psnr_resumed = float(t2._evaluate(SMOKE_ITERS))
+    check(psnr_resumed > psnr_full - 2.0,
+          f"resume: resumed PSNR {psnr_resumed:.3f}, uninterrupted {psnr_full:.3f}")
+    say("resume", cell="smoke-400-ts", card=card_line(), checkpoint_at=RESUME_AT,
+        arrays_equal=len(snap), psnr_uninterrupted=psnr_full, psnr_resumed=psnr_resumed,
+        resumed_steps=len(t2.loss_history), seconds=round(time.perf_counter() - t0, 3))
+    shutil.rmtree(WORK / "resume", ignore_errors=True)
+
+
+def to_cpu(params, opt, state):
+    """CPU copies of a triangle model's params, Adam state and state."""
+    from triangle_splatting_tpu_torch.convert import triangle_from_numpy, triangle_to_numpy
+    p, s, o = triangle_to_numpy(params, state, opt)
+    params, state, opt = triangle_from_numpy(p, s, o, device="cpu")
+    return params, opt, state
+
+
+def assert_models_identical(a, b, what: str) -> None:
+    """(params, opt, state[, grown, overflow]) of two densify calls, the
+    second on the CPU: every tensor bit for bit."""
+    import torch
+    for tree_a, tree_b, name in zip(a[:3], b[:3], ("params", "opt", "state")):
+        ta, tb = tensors_of(tree_a), tensors_of(tree_b)
+        for k, x in ta.items():
+            y = tb[k]
+            same = torch.equal(x.cpu(), y) if torch.is_tensor(x) else x == y
+            check(same, f"{what}: {name}.{k} differs between the card and the CPU")
+    for x, y in zip(a[3:], b[3:]):
+        check(int(x) == int(y), f"{what}: counts {a[3:]} on the card, {b[3:]} on the CPU")
+
+
+def check_forced_overflow(trainer) -> dict:
+    """On a copy of the trained model on the card: the first alive rows
+    (as many as there are dead slots, or all) all split, more halves than
+    dead slots and an odd dead count, so the capacity boundary falls on a
+    half 1. The first
+    call places whole splits only (the orphan half held back), reports
+    overflow and keeps the unsplit originals; after ``grow_capacity`` the
+    originals' statistics are set again and a second call places all of
+    the rest."""
+    import torch
+    from triangle_splatting_tpu_torch.models import triangle as TM
+    from triangle_splatting_tpu_torch.trainers.adc_utils import grow_capacity
+
+    from triangle_splatting_tpu_torch.convert import triangle_from_numpy, triangle_to_numpy
+
+    p, s, o = triangle_to_numpy(trainer.params, trainer.state, trainer.opt)
+    params, state, opt = triangle_from_numpy(p, s, o, device=trainer.device)
+    alive = state.alive.clone()
+    n_dead = int((~alive).sum())
+    if n_dead % 2 == 0:                       # an odd count: the last slot meets a half 1
+        alive[torch.nonzero(alive)[-1]] = False
+        n_dead += 1
+    idx = torch.nonzero(alive)[:, 0][:n_dead]
+    k = len(idx)
+    check(2 * k > n_dead, f"forced overflow: {k} alive rows, {n_dead} dead slots")
+    cand = torch.zeros_like(alive)
+    cand[idx] = True
+
+    def with_stats(st, rows):
+        one = rows.to(torch.float32)
+        st.gradient_accum, st.gradient_denom = one.clone(), one.clone()
+        return st
+    state.alive = alive
+    state = with_stats(state, cand)
+    a0 = state.alive.clone()
+    params, opt, state, grown, over = TM.densify(params, opt, state, 0.5, 1, 0.0)
+    placed = int((state.alive & ~a0).sum())
+    split = int((a0 & ~state.alive).sum())
+    check(bool(over) and int(grown) == k, f"forced overflow: grown {int(grown)} of {k}, "
+          f"overflow {bool(over)}")
+    check(placed == 2 * split == n_dead - 1, f"forced overflow: {placed} placed, {split} "
+          f"originals removed, {n_dead} dead slots (an orphan half was placed)")
+    cap0 = params.capacity
+    params, opt, state = grow_capacity(params, opt, state)
+    rest = cand.clone()
+    rest = torch.cat([rest, rest.new_zeros(params.capacity - cap0)]) & state.alive
+    state = with_stats(state, rest)
+    a1 = state.alive.clone()
+    params, opt, state, grown2, over2 = TM.densify(params, opt, state, 0.5, 1, 0.0)
+    placed2 = int((state.alive & ~a1).sum())
+    check(not bool(over2) and placed2 == 2 * int(rest.sum()) and
+          not bool((rest & state.alive).any()),
+          f"forced overflow: after growth {placed2} placed for {int(rest.sum())} splits")
+    return dict(dead_slots=n_dead, splits=k, first_placed=placed, first_split=split,
+                capacity=[cap0, params.capacity], second_placed=placed2)
+
+
+def phase_adc(dev) -> dict:
+    """Cell adc-800-20k: ``tools/full_run.py --adc`` (the port's twin)
+    with the cuts of ADC_CUTS: 800x800, 100k GT soup triangles, a
+    20k-point cloud, SH 3, densification every 100 from 100 to 750 and
+    opacity pruning every 100 from 200. Gates: the capacity grew at least
+    once with training after it; the alive count moved by the logged
+    counts; the loss fell; the 2D stats form of B1, B2, B3, B4 and B5 once
+    per step; at the first firing the card's ``densify`` equals the plain
+    run on a CPU copy of its inputs bit for bit; a forced overflow places
+    no orphan half and places the rest after growing. Then 10 profiled
+    steps. Returns the launches."""
+    import numpy as np
+    import torch
+    from triangle_splatting_tpu_torch.models import triangle as TM
+    from triangle_splatting_tpu_torch.tools import full_run
+    from triangle_splatting_tpu_torch.trainers import build_trainer
+
+    t0 = time.perf_counter()
+    args = full_run.parse_args(["--adc", "--root", str(WORK / "adc"), "--iters", str(ADC_ITERS),
+                                "--grad_threshold", str(ADC_GRAD_THRESHOLD), "--ckpt_every", "0"])
+    data = full_run.build_data(args, "cuda")
+    t_data = time.perf_counter() - t0
+    cfg = full_run.build_config(args, data)
+    mu = cfg.model.model_update
+    mu.densification.start_iter = mu.densification.interval_iter = ADC_INTERVAL
+    mu.opacity_pruning.start_iter = 2 * ADC_INTERVAL
+    mu.opacity_pruning.interval_iter = ADC_INTERVAL
+    cfg.trainer.eval_interval_iter = 0
+    cfg.trainer.log_interval_iter = ADC_INTERVAL
+    trainer = build_trainer(cfg, log_file=False)
+    trainer._init_model()
+    alive0, cap0 = int(trainer.state.alive.sum()), trainer.params.capacity
+    psnr0 = float(trainer._evaluate(0))
+
+    first = {}
+    real_densify = TM.densify
+
+    def spy(params, opt, state, *a):
+        if not first:
+            first["cpu"] = to_cpu(params, opt, state) + a
+        out = real_densify(params, opt, state, *a)
+        if "card" not in first:
+            first["card"] = out
+        return out
+    stamps = []
+
+    def timed_model_update(it, update=trainer._model_update):
+        update(it)
+        stamps.append(time.perf_counter())
+    trainer._model_update = timed_model_update
+    TM.densify = spy
+    t_train = time.perf_counter()
+    try:
+        with counted_train():
+            trainer.train()
+    finally:
+        TM.densify = real_densify
+        del trainer._model_update
+    secs = trainer.train_seconds
+    launches = trainer.train_launches
+    psnr1 = float(trainer._evaluate(ADC_ITERS))
+
+    losses = torch.stack(trainer.loss_history).cpu().numpy()
+    check(len(losses) == ADC_ITERS and bool(np.isfinite(losses).all()), "adc: bad losses")
+    lf, ll = float(losses[:100].mean()), float(losses[-100:].mean())
+    check(ll < lf, f"adc: loss did not fall (first100 {lf:.5f}, last100 {ll:.5f})")
+    dens = trainer.densify_history
+    grew = [d["iteration"] for d in dens if d["overflow"]]
+    check(bool(grew) and grew[0] < ADC_ITERS and trainer.params.capacity > cap0,
+          f"adc: the capacity never grew ({cap0} -> {trainer.params.capacity}, {dens})")
+    book = check_alive_bookkeeping(trainer, alive0, "adc")
+    check_path_launches(launches, ADC_ITERS, "2D", "adc")
+    cpu = first["cpu"]
+    assert_models_identical(first["card"], real_densify(*cpu), "adc first densify")
+
+    fired = {d["iteration"] for d in dens} | {it for it, _, _ in trainer.prune_history}
+    steps = np.diff(np.array([t_train] + stamps)) * 1e3
+    quiet = [ms for it, ms in zip(range(1, ADC_ITERS + 1), steps) if it not in fired]
+    firing = {it: round(float(steps[it - 1]), 3) for it in sorted(fired)}
+    extra = sum(firing.values()) - len(firing) * float(np.mean(quiet))
+    forced = check_forced_overflow(trainer)
+    say("adc", cell="adc-800-20k", cuts=ADC_CUTS, card=card_line(), iterations=ADC_ITERS,
+        grad_threshold=ADC_GRAD_THRESHOLD, psnr_init=psnr0, psnr_final=psnr1,
+        loss_first100=lf, loss_last100=ll, ms_per_step=round(secs / ADC_ITERS * 1e3, 3),
+        ms_per_quiet_step=round(float(np.mean(quiet)), 3), ms_firing_steps=firing,
+        firing_share_of_wall=round(extra / (secs * 1e3), 4), densify=dens,
+        prune=trainer.prune_history, capacity=[cap0, trainer.params.capacity],
+        capacity_grown_at=grew, **book, pairs_per_triangle=trainer._ppt,
+        first_densify_card_vs_cpu="identical", forced_overflow=forced, launches=launches,
+        data_seconds=round(t_data, 3))
+    profile_steps(trainer, "adc_profile")
+    say("adc", seconds=round(time.perf_counter() - t0, 3))
+    shutil.rmtree(WORK / "adc", ignore_errors=True)
+    return launches
+
+
+def camera_on(camera, device):
+    import dataclasses
+
+    import torch
+    return dataclasses.replace(camera, **{
+        f.name: getattr(camera, f.name).to(device) for f in dataclasses.fields(camera)
+        if torch.is_tensor(getattr(camera, f.name))})
+
+
+def phase_mesh_tools(dev) -> None:
+    """Cell fullrun-mesh-surface-800: ``tools/full_run.py --mesh --scene
+    surface`` (the port's twin) at 600 iterations: 800x800, a 100k-triangle
+    GT surface, the mesh recipe with its windows scaled by full_run, the
+    GLB export, chamfer / F-score with 100k samples a side (tau 0.05) and
+    the ray-traced test PSNR of the GLB. Gates: chamfer finite and below
+    1.5, recall above 0.3 (the JAX e2e test's sanity bounds), the traced
+    PSNR within MESH_TOOLS_TRACE_GAP_DB of the rasterized test PSNR; kNN on 2k points and the ray tracer on 400 of the GLB's
+    triangles at 128x128 equal on the card and the CPU."""
+    import numpy as np
+    import torch
+    from triangle_splatting_tpu_torch.models.raw_triangle import RawTriangle
+    from triangle_splatting_tpu_torch.ops.knn import knn
+    from triangle_splatting_tpu_torch.ops.projection import RasterSettings
+    from triangle_splatting_tpu_torch.ops.raytrace import raytrace_soup
+    from triangle_splatting_tpu_torch.ops.sh import SH2RGB
+    from triangle_splatting_tpu_torch.tools import full_run
+
+    t0 = time.perf_counter()
+    args = full_run.parse_args(["--mesh", "--scene", "surface", "--root", str(WORK / "mesh_tools"),
+                                "--iters", str(MESH_TOOLS_ITERS), "--ckpt_every", "0"])
+    with counted_train():
+        trainer, rec = full_run.run(args)
+    geo = rec["geometry"]
+    check(np.isfinite(geo["chamfer"]) and geo["chamfer"] < 1.5 and geo["recall"] > 0.3,
+          f"mesh_tools: geometry {geo}")
+    check(abs(rec["raytrace_psnr"] - rec["psnr_final"]) < MESH_TOOLS_TRACE_GAP_DB,
+          f"mesh_tools: traced PSNR {rec['raytrace_psnr']}, rasterized {rec['psnr_final']}")
+    check(float(trainer.state.gamma) == 50.0, f"mesh_tools: gamma {float(trainer.state.gamma)}")
+
+    glb = WORK / "mesh_tools" / "out" / "glb" / f"{MESH_TOOLS_ITERS}.glb"
+    raw = RawTriangle(glb_path=str(glb))
+    gt = np.load(WORK / "mesh_tools" / "data_surface" / "gt_scene.npz")
+    pts = gt["vertex"].reshape(-1, 3)[:2000]
+    card, host = knn(pts, k=3, group_size=3, device=dev), knn(pts, k=3, group_size=3,
+                                                             device="cpu")
+    check(torch.equal(card[1].cpu(), host[1]) and torch.equal(card[0].cpu(), host[0]),
+          "mesh_tools: kNN differs between the card and the CPU")
+    cam = next(iter(trainer.dataset.getTestDataset()))
+    small = RasterSettings(image_width=128, image_height=128)
+    sl = slice(0, 400)
+    cols = np.clip(SH2RGB(raw.shs[sl, :3]), 0, 1)
+    outs = [raytrace_soup(torch.as_tensor(raw.vertex[sl]).to(d), torch.as_tensor(cols).to(d),
+                          camera_on(cam, d), small, background=torch.ones(3))
+            for d in (dev, torch.device("cpu"))]
+    check(torch.equal(outs[0]["render"].cpu(), outs[1]["render"]) and
+          torch.equal(outs[0]["hit"].cpu(), outs[1]["hit"]) and
+          int(outs[1]["hit"].sum()) > 0,
+          "mesh_tools: the ray tracer differs between the card and the CPU")
+    say("mesh_tools", cell="fullrun-mesh-surface-800", cuts=MESH_TOOLS_CUTS, card=card_line(),
+        **rec, ms_per_step=round(trainer.train_seconds / MESH_TOOLS_ITERS * 1e3, 3),
+        prune=trainer.prune_history, launches=trainer.train_launches,
+        card_vs_cpu=dict(knn_points=len(pts), raytrace_triangles=400, raytrace_size=128,
+                         hit_pixels=int(outs[1]["hit"].sum()), equal=True),
+        seconds=round(time.perf_counter() - t0, 3))
+    shutil.rmtree(WORK / "mesh_tools", ignore_errors=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3054,6 +3586,12 @@ def main(argv=None) -> int:
         shutil.rmtree(surface, ignore_errors=True)
         runs["city"], city_rec = phase_city(dev, build_city(dev), cmp)
         rec.update(city_rec)
+        runs["smoke"] = phase_smoke(dev)
+        phase_resume()                      # on the smoke photo run's dataset
+        for name, _ in SMOKE_RUNS:
+            shutil.rmtree(WORK / f"smoke_{name}", ignore_errors=True)
+        runs["adc"] = phase_adc(dev)
+        phase_mesh_tools(dev)
     except SmokeFailure as e:
         print(f"FAIL {e}", flush=True)
         return 1

@@ -4,7 +4,7 @@ same arrays, and each package reads the other's files; the VanillaTS
 trainer's ``toRawTriangle`` / ``savePLY`` / ``saveGLB`` / ``loadPLY`` give
 the JAX trainer's files and arrays on the same state; the saves fire at
 ``save_iterations`` / ``save_interval_iter`` / ``save_glb_iterations``
-while the checkpoint keys are still refused."""
+(checkpoints and resumes: ``tests/test_torch_checkpoint.py``)."""
 
 import dataclasses
 
@@ -224,15 +224,3 @@ def test_trainer_saves_at_their_iterations(dataset, tmp_path):
     glb = TRaw(glb_path=out / "glb" / "4.glb")
     np.testing.assert_array_equal(glb.vertex, raw.vertex)
     assert (out / "point_cloud" / "1.ply").read_bytes() != (tmp_path / "now.ply").read_bytes()
-
-
-@pytest.mark.parametrize("trainer,key", [
-    ({"checkpoint_iterations": [2]}, "checkpoint_iterations"),
-    ({"ckpt_interval_iter": 2}, "ckpt_interval_iter"),
-    ({"start_checkpoint": "some.ckpt"}, "start_checkpoint"),
-    ({"start_pointcloud": "some.ply"}, "start_pointcloud"),
-])
-def test_trainer_still_refuses_checkpoints(dataset, tmp_path, trainer, key):
-    cfg = make_config(dataset, tmp_path / "out", trainer=trainer)
-    with pytest.raises(NotImplementedError, match=key):
-        build_trainer(dict_to_config(cfg), device="cpu", log_file=False)

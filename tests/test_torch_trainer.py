@@ -188,16 +188,11 @@ def test_trainer_e2e_loss_falls(dataset, tmp_path):
 
 
 @pytest.mark.parametrize("patch", [
-    {"model": {"model_update": {"densification": {"start_iter": 0}}}},
-    {"trainer": {"checkpoint_iterations": [30]}},
-    {"model": {"model_update": {"scale_clipping": {"start_iter": 0}}}},
     {"trainer": {"data_parallel": 2}},
     {"model": {"use_color_affine": True}},
     {"model": {"rasterizer_type": "GS"}},
-    {"model": {"model_update": {"opacity_reset": {"start_iter": 0}}}},
     {"trainer": {"w_dog": 0.1}},
     {"trainer": {"vertex_reg": {"w_vertex_reg": 0.1}}},
-    {"trainer": {"start_checkpoint": "model.ckpt"}},
 ])
 def test_unported_config_blocks_raise(dataset, tmp_path, patch):
     base = make_config(dataset, tmp_path / "out").to_dict()

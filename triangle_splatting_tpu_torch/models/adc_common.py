@@ -1,6 +1,7 @@
-"""Adaptive-density-control ranking shared by the models (port of
-``triangle_splatting_tpu/models/adc_common.py``): fixed-shape argsort
-ranking of the lowest-contribution rows toward a target count."""
+"""Adaptive-density-control code shared by the models: the fixed-shape
+argsort ranking of the lowest-contribution rows toward a target count
+(port of ``triangle_splatting_tpu/models/adc_common.py``), and the slot
+placement of densification (the JAX ``densify`` functions' assignment)."""
 
 from __future__ import annotations
 
@@ -72,3 +73,48 @@ def reset_contribution_stats(state, select):
     return replace(state, contrib_sum=zero(state.contrib_sum),
                    contrib_max=zero(state.contrib_max),
                    contrib_denom=zero(state.contrib_denom))
+
+
+def place_candidates(alive: torch.Tensor, new_valid: torch.Tensor, split_mask: torch.Tensor):
+    """Slot assignment of densification (shared by triangles and Gaussians).
+
+    ``new_valid`` (2C,) marks candidate rows: 2i the clone copy or split
+    half 1 of row i, 2i+1 split half 2. The k-th valid candidate (stable,
+    valid first) goes to the k-th dead slot (stable, dead first); at the
+    capacity boundary a split's half 1 is held back when its half 2 does
+    not fit (a lone half would duplicate geometry, the original is kept).
+
+    Returns ``(take, dst, placed, both_placed, overflow)``: (C,) candidate
+    index of the k-th placement, (C,) its slot (C = dropped), (C,) the
+    slots filled, (C,) the rows whose two candidates were both placed,
+    and whether candidates were left over.
+    """
+    C = alive.shape[0]
+    dev = alive.device
+    k = torch.arange(C, device=dev)
+    new_order = torch.argsort((~new_valid).to(torch.uint8), stable=True)    # valid first
+    dead_order = torch.argsort(alive.to(torch.uint8), stable=True)          # dead first
+    n_new = new_valid.sum()
+    n_dead = (~alive).sum()
+    n_place = torch.minimum(n_new, n_dead)
+    overflow = n_new > n_dead
+    inv = torch.empty_like(new_order)                                     # cand -> rank
+    inv[new_order] = torch.arange(2 * C, device=dev)
+    last = new_order[torch.clamp(n_place - 1, 0, 2 * C - 1)]
+    orphan = ((n_place > 0) & (last % 2 == 0) & split_mask[last // 2]
+              & (inv[torch.clamp_max(last + 1, 2 * C - 1)] >= n_place))
+    n_place = n_place - orphan.to(n_place.dtype)
+    take = new_order[:C]
+    dst = torch.where(k < n_place, dead_order, torch.full_like(dead_order, C))
+    placed = torch.zeros(C + 1, dtype=torch.bool, device=dev)
+    placed[dst] = k < n_place
+    placed_cand = (inv < n_place) & new_valid
+    return take, dst, placed[:C], placed_cand.reshape(C, 2).all(dim=1), overflow
+
+
+def put_rows(leaf: torch.Tensor, dst: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``leaf`` with ``rows[k]`` written to slot ``dst[k]``; slots equal to
+    the capacity are dropped (a scatter into one spare row)."""
+    out = torch.cat([leaf, leaf.new_zeros((1,) + leaf.shape[1:])])
+    out[dst] = rows
+    return out[:-1]

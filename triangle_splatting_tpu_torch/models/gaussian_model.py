@@ -5,9 +5,10 @@ state and Adam containers at a fixed capacity C with an ``alive`` mask (the
 JAX layout, so weights convert one to one, ``convert.py``), the getters,
 ``forward`` through ``rasterize_gaussian``, ``adam_update`` (eps 1e-15),
 ``create_from_points``, and the adaptive density control the VanillaGS
-trainer runs: the statistics update, ``prune`` and the opacity, scale and
-contribution pruning and opacity clipping stages. ``densify``,
-``scale_clipping`` and ``opacity_reset`` are not ported yet.
+trainer runs: the statistics update, ``densify`` (clone / split into dead
+capacity slots, the split's noise drawn from a ``torch.Generator`` or
+given), ``prune``, the opacity, scale and contribution pruning, scale and
+opacity clipping, and opacity reset.
 """
 
 from __future__ import annotations
@@ -23,8 +24,10 @@ from ..ops import sh as sh_mod
 from ..ops.projection import RasterSettings, safe_norm
 from ..ops.rasterize import rasterize_gaussian
 from ..utils.camera import Camera
-from .adc_common import contribution_prune_mask, reset_contribution_stats
-from .model_utils import get_inside_mask, inter_point_distance_np, inverse_sigmoid_np
+from .adc_common import (contribution_prune_mask, place_candidates, put_rows,
+                         reset_contribution_stats)
+from .model_utils import (get_inside_mask, inter_point_distance_np, inverse_sigmoid,
+                          inverse_sigmoid_np)
 
 GS_PARAM_GROUPS = ("xyz", "scaling", "rotation", "opacity", "f_dc", "f_rest")
 
@@ -289,3 +292,98 @@ def contribution_pruning(params, opt, state, *, min_view_count, target_point_num
         inter_point_dist=inter_point_dist, sparsity_retain_ratio=sparsity_retain_ratio)
     state = reset_contribution_stats(state, select)
     return prune(params, opt, state, prune_mask) + (prune_mask.sum(),)
+
+
+@torch.no_grad()
+def opacity_reset(params, opt, state, reset_value):
+    """Clamp every opacity down to ``reset_value`` and zero the whole
+    ``opacity`` moments. Returns (params, opt, state)."""
+    op = get_opacity(params)
+    cap = torch.full_like(op, float(np.float32(reset_value)))
+    params = replace(params, opacity=inverse_sigmoid(torch.minimum(op, cap)))
+    every = torch.ones(params.capacity, dtype=torch.bool, device=op.device)
+    return params, zero_moments(opt, every, groups=("opacity",)), state
+
+
+@torch.no_grad()
+def scale_clipping(params, opt, state, scale_max):
+    """Clamp the per-axis log-scales of alive rows to log(scale_max) and
+    zero the ``scaling`` moments of the rows clipped. Returns (params, opt,
+    state, count)."""
+    log_max = torch.log(torch.tensor(float(np.float32(scale_max)), dtype=torch.float32,
+                                     device=params.scaling.device))
+    clip = (params.scaling > log_max) & state.alive[:, None]
+    params = replace(params, scaling=torch.where(clip, log_max, params.scaling))
+    rows = clip.any(dim=1)
+    return params, zero_moments(opt, rows, groups=("scaling",)), state, rows.sum()
+
+
+def densify_noise(capacity: int, generator: torch.Generator, device) -> tuple:
+    """The split's two (C, 3) standard normal draws from ``generator``."""
+    return tuple(torch.randn((capacity, 3), generator=generator, dtype=torch.float32,
+                             device=device) for _ in range(2))
+
+
+@torch.no_grad()
+def densify(params: GaussianParams, opt: GSAdamState, state: GaussianState,
+            grad_threshold, min_view_count, split_scale_threshold, split_num: int = 2, *,
+            generator: Optional[torch.Generator] = None, noise=None):
+    """Clone small and split large high-gradient Gaussians into dead
+    capacity slots (fixed shape, the JAX function's semantics and slot
+    assignment, ``adc_common.place_candidates``).
+
+    A split's two halves move to centers sampled from the Gaussian itself
+    (``xyz + R (eps * scale)``) and take the scale shrunk by 0.8 *
+    ``split_num``; a clone copies its row. ``noise`` is the pair of (C, 3)
+    standard normal draws (eps of half 1 and half 2); without it they are
+    drawn from ``generator``. Returns (params, opt, state, grown,
+    overflow)."""
+    from ..ops.gaussian import quat_to_rotmat
+    C = params.capacity
+    dev = params.xyz.device
+    select = state.gradient_denom >= min_view_count
+    grow = select & (state.gradient_accum > grad_threshold * state.gradient_denom) & state.alive
+    scaling = get_scaling(params)
+    large = scaling.amax(dim=1) > split_scale_threshold
+    clone_mask = grow & ~large
+    split_mask = grow & large
+
+    if noise is None:
+        noise = densify_noise(C, generator, dev)
+    R = quat_to_rotmat(get_rotation(params))
+
+    def offset(eps):
+        e = eps.to(device=dev, dtype=torch.float32) * scaling
+        return R[:, :, 0] * e[:, 0:1] + R[:, :, 1] * e[:, 1:2] + R[:, :, 2] * e[:, 2:3]
+    shrink = torch.full_like(scaling, float(np.float32(0.8 * split_num)))
+    new_scaling = torch.log(torch.clamp_min(scaling / shrink, 1e-7))
+    split_col = split_mask[:, None]
+
+    def cand(xyz_off):
+        # clones copy the original verbatim; split halves move to a sampled
+        # center and take the shrunken scale
+        return dict(xyz=torch.where(split_col, params.xyz + xyz_off, params.xyz),
+                    scaling=torch.where(split_col, new_scaling, params.scaling),
+                    rotation=params.rotation, opacity=params.opacity,
+                    f_dc=params.f_dc, f_rest=params.f_rest)
+    c1, c2 = cand(offset(noise[0])), cand(offset(noise[1]))
+    new_valid = torch.stack([clone_mask | split_mask, split_mask], dim=1).reshape(2 * C)
+
+    take, dst, placed, both_placed, overflow = place_candidates(state.alive, new_valid,
+                                                                split_mask)
+    src, first = take // 2, take % 2 == 0
+
+    def place(name):
+        leaf = getattr(params, name)
+        sel = first.reshape((-1,) + (1,) * (leaf.dim() - 1))
+        return put_rows(leaf, dst, torch.where(sel, c1[name][src], c2[name][src]))
+    params = GaussianParams(**{name: place(name) for name in GS_PARAM_GROUPS})
+    opt = zero_moments(opt, placed)
+    clear = placed | select
+    state = replace(state, alive=state.alive | placed,
+                    gradient_accum=torch.where(clear, torch.zeros_like(state.gradient_accum),
+                                               state.gradient_accum),
+                    gradient_denom=torch.where(clear, torch.zeros_like(state.gradient_denom),
+                                               state.gradient_denom))
+    params, opt, state = prune(params, opt, state, split_mask & both_placed)
+    return params, opt, state, grow.sum(), overflow

@@ -4,10 +4,10 @@ Port of ``triangle_splatting_tpu/models/triangle.py`` for the photo and
 mesh training paths: the parameter / state / Adam containers, the derived
 quantities, ``forward`` (STE, gamma rescale, background depth and
 ``render_up_scale`` as the JAX function does them), ``adam_update`` (eps
-1e-15), ``create_from_points``, and the adaptive density control the mesh
-recipes run (statistics update, scale, contribution and opacity pruning,
-opacity clipping). The other ADC operations (densify, scale clipping,
-opacity reset) are not ported yet.
+1e-15), ``create_from_points``, and the adaptive density control: the
+statistics update, densification (clone / split into dead capacity
+slots), scale, contribution and opacity pruning, scale and opacity
+clipping, and opacity reset.
 
 Parameters stay plain dataclasses of tensors at a fixed capacity C with an
 ``alive`` mask, the layout the JAX package uses, so weights convert one to
@@ -28,9 +28,10 @@ from ..ops import sh as sh_mod
 from ..ops.projection import RasterSettings, safe_norm
 from ..ops.rasterize import rasterize
 from ..utils.camera import Camera
-from .adc_common import contribution_prune_mask, reset_contribution_stats
-from .model_utils import (get_inside_mask, inter_point_distance_np, inverse_sigmoid_np,
-                          resize_linear)
+from .adc_common import (contribution_prune_mask, place_candidates, put_rows,
+                         reset_contribution_stats)
+from .model_utils import (get_inside_mask, inter_point_distance_np, inverse_sigmoid,
+                          inverse_sigmoid_np, resize_linear)
 
 
 @dataclass
@@ -478,3 +479,126 @@ def contribution_pruning(params, opt, state, *, min_view_count,
         sparsity_retain_ratio=sparsity_retain_ratio)
     state = reset_contribution_stats(state, select)
     return prune(params, opt, state, prune_mask) + (prune_mask.sum(),)
+
+
+@torch.no_grad()
+def scale_clipping(params, opt, state, scale_max):
+    """Shrink alive rows whose mean side length exceeds ``scale_max``
+    about their centroid down to it and zero their ``vertex`` moments.
+    Returns (params, opt, state, count)."""
+    scaling = get_scaling(params)
+    mask = (scaling > scale_max) & state.alive
+    # a tensor numerator: a Python scalar over a tensor is a reciprocal
+    # times the scalar in PyTorch, an ulp away from the division
+    num = torch.full_like(scaling, float(np.float32(scale_max)))
+    ratio = torch.where(mask, num / torch.clamp_min(scaling, 1e-12), torch.ones_like(scaling))
+    new_v = rescale_triangles(params.vertex, ratio)
+    params = replace(params, vertex=torch.where(mask[:, None, None], new_v, params.vertex))
+    return params, zero_moments(opt, mask, groups=("vertex",)), state, mask.sum()
+
+
+@torch.no_grad()
+def opacity_reset(params, opt, state, reset_value):
+    """Clamp every opacity down to ``reset_value`` and zero the whole
+    ``opacity`` moments. Returns (params, opt, state)."""
+    op = get_opacity(params)
+    cap = torch.full_like(op, float(np.float32(reset_value)))
+    params = replace(params, opacity=inverse_sigmoid(torch.minimum(op, cap)))
+    every = torch.ones(params.capacity, dtype=torch.bool, device=op.device)
+    return params, zero_moments(opt, every, groups=("opacity",)), state
+
+
+def _side_lengths(v: torch.Tensor) -> torch.Tensor:
+    """(C, 3) lengths of the sides opposite each vertex. The squares are
+    accumulated as fused multiply-adds rounded to float32 after each step
+    (x0^2, then + x1^2, then + x2^2), which is how the JAX reference's norm
+    rounds on the CPU: densify splits along the longest side, and the
+    initial triangles are equilateral, so the argmax hangs on the last
+    ulp. The steps run in float64 (each product exact), and so does the
+    square root, rounded once to float32: PyTorch's vectorized float32
+    sqrt on the CPU is not always correctly rounded, the card's is."""
+    def norm(d):
+        x = d.to(torch.float64)
+        acc = (x[:, 0] * x[:, 0]).to(torch.float32)
+        for i in (1, 2):
+            acc = (x[:, i] * x[:, i] + acc.to(torch.float64)).to(torch.float32)
+        return torch.sqrt(acc.to(torch.float64)).to(torch.float32)
+    return torch.stack([norm(v[:, 2] - v[:, 1]), norm(v[:, 0] - v[:, 2]),
+                        norm(v[:, 1] - v[:, 0])], dim=1)
+
+
+@torch.no_grad()
+def densify(params: TriangleParams, opt: AdamState, state: TriangleState,
+            grad_threshold, min_view_count, split_scale_threshold):
+    """Clone small and split large high-gradient triangles into dead
+    capacity slots (fixed shape, the JAX function's semantics).
+
+    A row grows when it was seen in at least ``min_view_count`` views and
+    its mean screen-space gradient exceeds ``grad_threshold``; it is cloned
+    (a copy) when its mean side length is at most ``split_scale_threshold``
+    and otherwise split along its longest side into two halves. New rows
+    get zero Adam moments and cleared statistics; every selected row's
+    gradient statistics are reset; a split's original is pruned only when
+    both halves were placed. Returns (params, opt, state, grown, overflow).
+    """
+    C = params.capacity
+    select = state.gradient_denom >= min_view_count
+    grow = select & (state.gradient_accum > grad_threshold * state.gradient_denom) & state.alive
+    large = get_scaling(params) > split_scale_threshold
+    clone_mask = grow & ~large       # original kept + 1 copy
+    split_mask = grow & large        # original pruned + 2 halves
+
+    v = params.vertex
+    lside = torch.argmax(_side_lengths(v), dim=1)
+    r = torch.arange(C, device=v.device)
+    p1 = (lside + 1) % 3
+    p2 = (lside + 2) % 3
+    mid = (v[r, p1] + v[r, p2]) / 2
+    tri1 = torch.stack([v[r, lside], v[r, p1], mid], dim=1)
+    tri2 = torch.stack([v[r, lside], mid, v[r, p2]], dim=1)
+    new_vertex = torch.stack([torch.where(split_mask[:, None, None], tri1, v), tri2],
+                             dim=1).reshape(2 * C, 3, 3)
+    new_valid = torch.stack([clone_mask | split_mask, split_mask], dim=1).reshape(2 * C)
+
+    take, dst, placed, both_placed, overflow = place_candidates(state.alive, new_valid,
+                                                                split_mask)
+    src = take // 2
+    params = replace(params, vertex=put_rows(v, dst, new_vertex[take]),
+                     opacity=put_rows(params.opacity, dst, params.opacity[src]),
+                     f_dc=put_rows(params.f_dc, dst, params.f_dc[src]),
+                     f_rest=put_rows(params.f_rest, dst, params.f_rest[src]))
+    opt = zero_moments(opt, placed)
+
+    def zero(x, where):
+        return torch.where(where, torch.zeros_like(x), x)
+    clear = placed | select
+    state = replace(
+        state, alive=state.alive | placed,
+        gradient_accum=zero(state.gradient_accum, clear),
+        gradient_denom=zero(state.gradient_denom, clear),
+        max_radii2d=zero(state.max_radii2d, placed),
+        contrib_sum=zero(state.contrib_sum, placed),
+        contrib_max=zero(state.contrib_max, placed),
+        contrib_denom=zero(state.contrib_denom, placed))
+    params, opt, state = prune(params, opt, state, split_mask & both_placed)
+    return params, opt, state, grow.sum(), overflow
+
+
+@torch.no_grad()
+def densify_stats(state, min_view_count) -> torch.Tensor:
+    """[p50, p99, max, n_eligible] of the mean screen-space gradient that
+    ``densify`` compares with its threshold, over the alive rows seen in at
+    least ``min_view_count`` views (the JAX trainer's log of them, taken
+    before densify resets them): the order statistics at 0.5 and 0.01 of
+    the eligible count from the top of the sorted (C,) means."""
+    ok = state.alive & (state.gradient_denom >= min_view_count)
+    mean = state.gradient_accum / torch.clamp_min(state.gradient_denom, 1.0)
+    g = torch.where(ok, mean, torch.zeros_like(mean))
+    srt = torch.sort(g).values
+    cnt = ok.sum()
+    C = g.shape[0]
+
+    def at(q):
+        i = C - 1 - (cnt.to(torch.float32) * q).to(torch.int64)
+        return srt[torch.clamp(i, 0, C - 1)]
+    return torch.stack([at(0.5), at(0.01), srt[-1], cnt.to(torch.float32)])

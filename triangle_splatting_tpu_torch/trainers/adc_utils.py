@@ -1,8 +1,10 @@
 """ADC cadence helpers (port of ``triangle_splatting_tpu/trainers/adc_utils.py``:
-the pair-budget adaptation, the contribution-pruning schedule and the
-sparsity distances; ``grow_capacity`` waits for densification)."""
+the pair-budget adaptation, the contribution-pruning schedule, capacity
+growth and the sparsity distances)."""
 
 from __future__ import annotations
+
+from dataclasses import fields, is_dataclass, replace
 
 import numpy as np
 import torch
@@ -70,3 +72,44 @@ def alive_inter_point_dist(xyz: torch.Tensor, alive: torch.Tensor) -> torch.Tens
     if keep.any():
         full[keep] = inter_point_distance_np(pts[keep])
     return torch.as_tensor(full).to(xyz.device)
+
+
+# Leaf field names that are not capacity-indexed even when their leading
+# dim equals the capacity (affine_weight is (num_cameras, 3, 3): a scene
+# with as many cameras as capacity slots must not get zero rows appended).
+# Keyed by name because the same fields appear inside AdamState.m / .v.
+NON_CAPACITY_FIELDS = frozenset({"affine_weight", "affine_bias"})
+
+
+def _pad_rows(tree, old: int, new: int):
+    """``tree`` (a dataclass of tensors and nested dataclasses) with every
+    tensor of leading dim ``old`` zero-padded to ``new`` rows, fields named
+    in NON_CAPACITY_FIELDS and non-tensor leaves left alone."""
+    kw = {}
+    for f in fields(tree):
+        x = getattr(tree, f.name)
+        if f.name in NON_CAPACITY_FIELDS:
+            kw[f.name] = x
+        elif is_dataclass(x):
+            kw[f.name] = _pad_rows(x, old, new)
+        elif isinstance(x, torch.Tensor) and x.dim() > 0 and x.shape[0] == old:
+            kw[f.name] = torch.cat([x, x.new_zeros((new - old,) + tuple(x.shape[1:]))])
+        else:
+            kw[f.name] = x
+    return replace(tree, **kw)
+
+
+def grow_capacity(params, opt, state, logger=None, factor: float = 1.5,
+                  round_to: int = 256):
+    """Capacity reallocation shared by the trainers: zero-pad every
+    capacity-sized tensor of params / opt / state (leading dim == capacity
+    and the field not in NON_CAPACITY_FIELDS) to ``factor`` times the
+    capacity, rounded up to ``round_to``. Callers restore any non-zero
+    dead-slot invariant afterwards (the Gaussians' identity quaternions).
+    Returns (params, opt, state)."""
+    old = params.capacity
+    new = int(old * factor + round_to - 1) // round_to * round_to
+    params, opt, state = (_pad_rows(t, old, new) for t in (params, opt, state))
+    if logger is not None:
+        logger.warning(f"Capacity grown {old} -> {new}")
+    return params, opt, state

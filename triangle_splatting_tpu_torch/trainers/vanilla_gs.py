@@ -7,34 +7,45 @@ autograd backward, Adam (eps 1e-15) with per-group learning-rate
 schedules; SH bands come on along ``sh_schedule``. With a ``statistic``
 block every step renders with the contribution statistics (B1-GS's stats
 form, the map gather, B5) and, inside the block's window, accumulates them
-with the screen-space center gradient. Opacity pruning and clipping,
-scale pruning and contribution pruning fire on their cadences.
+with the screen-space center gradient. Densification (its splits' noise
+from the trainer's ``torch.Generator``, seeded by ``trainer.seed``),
+opacity pruning and clipping, scale pruning and clipping, contribution
+pruning and opacity reset fire on their cadences, in the JAX trainer's
+order; a densification that runs out of dead slots grows the capacity by
+half and restores the new dead slots' identity quaternions. With a
+densification block the capacity starts at four times the point count.
+The alive Gaussians are saved as a 3DGS PLY (``models/raw_gaussian.py``)
+at ``save_iterations`` and the whole model as a checkpoint at
+``checkpoint_iterations``; a run resumes from ``start_checkpoint``.
+``save_interval_iter``, ``ckpt_interval_iter`` and ``start_pointcloud``
+are left unread, as the JAX VanillaGS trainer leaves them.
 
 Config blocks this port does not serve raise ``NotImplementedError`` at
-construction, naming the block: densification, scale clipping, opacity
-reset, data parallelism, PLY / checkpoint saving at an iteration the run
-reaches, ``start_checkpoint`` and LPIPS.
+construction, naming the block: color affine, data parallelism, LPIPS
+and the orbax checkpoint format.
 """
 
 from __future__ import annotations
 
 import time
+from dataclasses import replace
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..convert import gaussian_from_numpy, gaussian_to_numpy
 from ..models import gaussian_model as G
 from ..models.model_utils import get_color_tensor
+from ..models.raw_gaussian import RawGaussian, pack_sh_features, unpack_sh_features
 from ..ops.projection import RasterSettings
 from ..utils.camera import Camera
+from ..utils.checkpoint import load_ckpt, model_blob, save_ckpt
 from ..utils.config import Config
 from ..utils.scheduler import exponential_scheduler
 from . import losses as L
-from .adc_utils import alive_inter_point_dist, resolve_contribution_pruning
+from .adc_utils import alive_inter_point_dist, grow_capacity, resolve_contribution_pruning
 from .base import BaseTrainer
-
-# ADC blocks of the JAX trainer this port does not run yet
-_ADC_BLOCKS = ("densification", "scale_clipping", "opacity_reset")
 
 
 def _f32(x) -> float:
@@ -63,6 +74,8 @@ class VanillaGSTrainer(BaseTrainer):
         self.opt: G.GSAdamState | None = None
         self._setup_schedulers()
         self._rng = np.random.default_rng(self.seed)
+        # the densification splits' normal draws
+        self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
         self._sh_degree_host = 0
         # per-step losses of the last train() as device scalars
         self.loss_history: list[torch.Tensor] = []
@@ -72,30 +85,19 @@ class VanillaGSTrainer(BaseTrainer):
     # ------------------------------------------------------------------
     def _check_supported(self):
         t = self.config.trainer
-        mu = self.config.model.model_update
-        iters = t.iterations or 30000
 
         def refuse(what):
             raise NotImplementedError(
                 f"{what} is not ported to triangle_splatting_tpu_torch yet")
 
-        for name in _ADC_BLOCKS:
-            if mu is not None and getattr(mu, name) is not None:
-                refuse(f"model.model_update.{name}")
         if self.config.model.use_color_affine:
             refuse("model.use_color_affine")
         if int(t.data_parallel or 0) > 1:
             refuse("trainer.data_parallel")
         if t.eval_lpips:
             refuse("trainer.eval_lpips")
-        if t.start_checkpoint:
-            refuse("trainer.start_checkpoint")
-        for key in ("save_iterations", "checkpoint_iterations"):
-            if any(0 < int(it) <= iters for it in (getattr(t, key) or [])):
-                refuse(f"trainer.{key} (PLY/checkpoint saving)")
-        for key in ("save_interval_iter", "ckpt_interval_iter"):
-            if (getattr(t, key) or 0) and getattr(t, key) <= iters:
-                refuse(f"trainer.{key} (PLY/checkpoint saving)")
+        if t.ckpt_format == "orbax":
+            refuse("trainer.ckpt_format 'orbax' (it needs JAX)")
 
     def _setup_schedulers(self):
         oc = self.config.model.optimizer
@@ -108,12 +110,7 @@ class VanillaGSTrainer(BaseTrainer):
         self._mu = self.config.model.model_update
         # every step renders with the statistics while a statistic block exists
         self._track_stats = self._mu is not None and self._mu.statistic is not None
-        for name in ("opacity_pruning", "opacity_clipping"):
-            b = getattr(self._mu, name) if self._mu is not None else None
-            if b is not None:
-                setattr(self, f"{name}_scheduler", exponential_scheduler(
-                    v_init=b.opacity_threshold_init, v_final=b.opacity_threshold_final,
-                    max_steps=b.end_iter - b.start_iter))
+        self._setup_adc_schedulers(self._mu)
 
     def _lrs(self, iteration: int) -> dict:
         lrs = {n: _f32(fn(iteration)) for n, fn in self.lr_schedulers.items()}
@@ -193,27 +190,44 @@ class VanillaGSTrainer(BaseTrainer):
     # loop
     # ------------------------------------------------------------------
     def _init_model(self):
+        """Resume from ``start_checkpoint`` or, on the first call,
+        initialize from the point cloud. Returns the iteration the run
+        continues after."""
+        cfgt = self.config.trainer
+        first_iter = 0
+        if cfgt.start_checkpoint:
+            self.load_ckpt(f"{self.output_dir}/ckpt/{cfgt.start_checkpoint}.ckpt")
+            first_iter = int(cfgt.start_checkpoint)
         if self.params is None:
             pcd = self.dataset.getPointCloud()
             sampling = self.config.model.sampling or Config()
+            has_densify = self._mu is not None and self._mu.densification is not None
             self.params, self.state = G.create_from_points(
                 pcd.points, pcd.colors, self.model_cfg,
                 init_opacity=sampling.init_opacity if sampling.init_opacity is not None else 0.1,
-                capacity_factor=1.0, device=self.device)
+                capacity_factor=4.0 if has_densify else 1.0, device=self.device)
             self.opt = G.GSAdamState.create(self.params)
             self.logger.info(f"Initialized {int(self.state.alive.sum())} gaussians "
                              f"(capacity {self.params.capacity})")
-        return 0
+        return first_iter
 
     def _model_update(self, iteration: int):
-        """Opacity pruning, opacity clipping, scale pruning and contribution
-        pruning on their cadences, then the SH schedule (the JAX trainer's
-        order). Opacity pruning and clipping fire through ``hold_iter``
+        """Densification, opacity pruning, opacity clipping, scale pruning,
+        scale clipping, contribution pruning and opacity reset on their
+        cadences, then the SH schedule (the JAX trainer's order). Opacity
+        pruning and clipping and scale clipping fire through ``hold_iter``
         (default ``end_iter``)."""
         mu = self._mu
         if mu is None:
             return
         active = lambda block, hold=False: self._fires(block, iteration, hold)  # noqa: E731
+
+        d = mu.densification
+        if active(d):
+            thr = self.grad_threshold_scheduler(iteration - d.start_iter)
+            self._densify(iteration, thr, d.min_view_count, lambda: G.densify(
+                self.params, self.opt, self.state, _f32(thr), d.min_view_count,
+                _f32(d.split_scale_threshold), d.split_num or 2, generator=self._gen))
 
         op = mu.opacity_pruning
         if active(op, hold=True):
@@ -233,6 +247,12 @@ class VanillaGSTrainer(BaseTrainer):
                 self.params, self.opt, self.state, _f32(sp.radii_threshold),
                 _f32(sp.scale_threshold))
             self._log_prune(iteration, "scale", int(n))
+        sc = mu.scale_clipping
+        if active(sc, hold=True):
+            mx = self.scale_max_scheduler(iteration - sc.start_iter)
+            self.params, self.opt, self.state, n = G.scale_clipping(
+                self.params, self.opt, self.state, _f32(mx))
+            self._log_prune(iteration, "scale clipping", int(n), f", max {mx:.4f}")
         cp = mu.contribution_pruning
         if active(cp):
             target, ratio, prune_ratio, retain = resolve_contribution_pruning(cp, iteration)
@@ -251,6 +271,11 @@ class VanillaGSTrainer(BaseTrainer):
                 contrib_max_ratio=_f32(ratio), scene_bbox=self.scene_bbox,
                 inter_point_dist=ipd, sparsity_retain_ratio=retain)
             self._log_prune(iteration, "contribution", int(n))
+        orr = mu.opacity_reset
+        if active(orr):
+            self.params, self.opt, self.state = G.opacity_reset(
+                self.params, self.opt, self.state, _f32(orr.reset_value))
+            self.logger.info(f"[ITER {iteration}, opacity reset] -> {orr.reset_value}")
         shs = mu.sh_schedule
         if shs is not None:
             deg = min(sum(1 for it in shs.one_up_iters if iteration > it),
@@ -259,6 +284,17 @@ class VanillaGSTrainer(BaseTrainer):
                 self._sh_degree_host = deg
                 self.state.active_sh_degree = torch.tensor(deg, dtype=torch.int32,
                                                            device=self.device)
+
+    def _grow_capacity(self):
+        """Zero-pad params, moments and state by half the capacity, then
+        give the new dead slots identity quaternions (their covariances
+        stay regular, as ``create_from_points`` leaves dead slots)."""
+        old = self.params.capacity
+        self.params, self.opt, self.state = grow_capacity(
+            self.params, self.opt, self.state, self.logger)
+        rot = self.params.rotation.clone()
+        rot[old:, 0] = 1.0
+        self.params = replace(self.params, rotation=rot)
 
     def train(self):
         try:
@@ -285,6 +321,7 @@ class VanillaGSTrainer(BaseTrainer):
                 settings, self.params, self.opt, self.state, camera,
                 self._loss_weights(iteration), self._lrs(iteration), background, iteration)
             self.loss_history.append(loss)
+            self._note_overflow(aux["overflow"])
             if cfgt.eval_interval_iter and iteration % cfgt.eval_interval_iter == 0:
                 self._evaluate(iteration)
             self._model_update(iteration)
@@ -300,6 +337,10 @@ class VanillaGSTrainer(BaseTrainer):
                 self.logger.add_scalar("Training Time (min)",
                                        (time.perf_counter() - t_start) / 60, iteration)
                 self._resize_pair_budget(num_pairs, cap_step, overflow)
+            if iteration in (cfgt.save_iterations or []):
+                self.savePLY(f"{self.output_dir}/point_cloud/{iteration}.ply")
+            if iteration in (cfgt.checkpoint_iterations or []):
+                self.save_ckpt(f"{self.output_dir}/ckpt/{iteration}.ckpt")
         self.dataset.close()
         self.logger.info("Training finished")
 
@@ -329,3 +370,56 @@ class VanillaGSTrainer(BaseTrainer):
 
     def evaluate(self):
         return self._evaluate(0)
+
+    # ------------------------------------------------------------------
+    # IO (the 3DGS PLY schema)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def toRawGaussian(self) -> RawGaussian:
+        """The alive Gaussians as a RawGaussian (SH in the 3DGS layout)."""
+        alive = self.state.alive
+        host = lambda x: x[alive].cpu().numpy()  # noqa: E731
+        return RawGaussian(xyz=host(self.params.xyz), opacity=host(self.params.opacity),
+                           shs=pack_sh_features(host(G.get_features(self.params))),
+                           scale=host(self.params.scaling), rotation=host(self.params.rotation))
+
+    def savePLY(self, path):
+        g = self.toRawGaussian()
+        self.logger.info(f"Saving {len(g)} gaussians to {path}")
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        g.savePLY(path)
+
+    def loadPLY(self, path):
+        """Replace the model by the Gaussians of a 3DGS PLY (fresh moments
+        and statistics, capacity rounded up to 256, dead slots zero as the
+        JAX trainer loads them)."""
+        g = RawGaussian(ply_path=str(path))
+        n = len(g)
+        feats = unpack_sh_features(g.shs, (self.model_cfg.max_sh_degree + 1) ** 2)
+        cap = (n + 255) // 256 * 256
+
+        def pad(x):
+            x = np.concatenate([x, np.zeros((cap - n,) + x.shape[1:], x.dtype)])
+            return torch.as_tensor(x).to(self.device)
+        self.params = G.GaussianParams(
+            xyz=pad(g.xyz), scaling=pad(g.scale), rotation=pad(g.rotation),
+            opacity=pad(g.opacity), f_dc=pad(feats[:, :1]), f_rest=pad(feats[:, 1:]))
+        self.state = G.GaussianState.create(cap, device=self.device)
+        self.state.alive = torch.arange(cap, device=self.device) < n
+        self.opt = G.GSAdamState.create(self.params)
+        self.logger.info(f"Loaded {n} gaussians from {path}")
+
+    def save_ckpt(self, path):
+        """The whole model (params, Adam moments and step, state) as host
+        arrays (``utils.checkpoint``; no scene box, as the JAX trainer)."""
+        self.logger.info(f"Saving checkpoint to {path}")
+        blob = model_blob(*gaussian_to_numpy(self.params, self.state, self.opt))
+        del blob["scene_bbox"]
+        save_ckpt(path, blob, self.config.trainer.ckpt_format or "pickle")
+
+    def load_ckpt(self, path):
+        blob = load_ckpt(path)
+        self.params, self.state, self.opt = gaussian_from_numpy(
+            blob["params"], blob["state"], blob["opt"], device=self.device)
+        self.logger.info(f"Restored checkpoint {path} "
+                         f"({int(self.state.alive.sum())} gaussians)")

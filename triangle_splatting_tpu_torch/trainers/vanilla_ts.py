@@ -11,19 +11,24 @@ schedules; SH bands come on along ``sh_schedule`` and gamma along
 ``gamma_schedule`` (the mesh recipes' solidify anneal). With a
 ``statistic`` block every step renders with the contribution statistics
 and, inside the block's window, accumulates them with the screen-space
-centroid gradient. Opacity pruning and clipping, scale pruning and
-contribution pruning fire on their cadences (the mesh recipes' ADC). The
+centroid gradient. Densification, opacity pruning and clipping, scale
+pruning and clipping, contribution pruning and opacity reset fire on their
+cadences, in the JAX trainer's order; a densification that runs out of
+dead slots grows the capacity by half (``adc_utils.grow_capacity``). The
 initial point cloud is split at the scene's bounding box and each part
-used directly, randomly subsampled or grid-sampled. The alive triangles
-are saved as a PLY at ``save_iterations`` / ``save_interval_iter`` and as
-a GLB mesh at ``save_glb_iterations`` (``toRawTriangle``: bounding-box
-filtering and the STE threshold, as the JAX trainer exports).
+used directly, randomly subsampled or grid-sampled (capacity twice the
+count with a densification block). The alive triangles are saved as a
+PLY at ``save_iterations`` / ``save_interval_iter`` and as a GLB mesh at
+``save_glb_iterations`` (``toRawTriangle``: bounding-box filtering and the
+STE threshold, as the JAX trainer exports), the whole model as a
+checkpoint at ``checkpoint_iterations`` / ``ckpt_interval_iter``; a run
+resumes from ``start_checkpoint`` (moments and statistics restored) or
+``start_pointcloud`` (a saved PLY, fresh moments), its iterations
+numbered on from there.
 
-Config blocks this slice does not serve raise ``NotImplementedError`` at
-construction: the other ADC blocks (densification, scale clipping,
-opacity reset), the DoG / smoothness / vertex losses, color affine, data
-parallelism, and checkpoints (saving at an iteration the run reaches,
-``start_checkpoint`` / ``start_pointcloud``).
+Config blocks this port does not serve raise ``NotImplementedError`` at
+construction: the DoG / smoothness / vertex losses, color affine, data
+parallelism, LPIPS and the orbax checkpoint format.
 """
 
 from __future__ import annotations
@@ -39,14 +44,13 @@ from ..models.model_utils import get_color_tensor, grid_sampling, grid_size_sear
 from ..models.raw_triangle import RawTriangle
 from ..ops.projection import RasterSettings
 from ..utils.camera import Camera
+from ..convert import triangle_from_numpy, triangle_to_numpy
+from ..utils.checkpoint import load_ckpt, model_blob, save_ckpt
 from ..utils.config import Config
 from ..utils.scheduler import exponential_scheduler, exponential_step_scheduler
 from . import losses as L
-from .adc_utils import alive_inter_point_dist, resolve_contribution_pruning
+from .adc_utils import alive_inter_point_dist, grow_capacity, resolve_contribution_pruning
 from .base import BaseTrainer
-
-# ADC blocks of the JAX trainer this port does not run yet
-_ADC_BLOCKS = ("densification", "scale_clipping", "opacity_reset")
 
 
 def _f32(x) -> float:
@@ -106,7 +110,6 @@ class VanillaTSTrainer(BaseTrainer):
     def _check_supported(self):
         cfg = self.config
         mc, t = cfg.model, cfg.trainer
-        iters = t.iterations or 30000
 
         def refuse(what):
             raise NotImplementedError(
@@ -119,10 +122,6 @@ class VanillaTSTrainer(BaseTrainer):
         sampling = mc.sampling or Config()
         if (sampling.sample_method or "direct") not in ("direct", "random", "grid"):
             refuse(f"model.sampling.sample_method {sampling.sample_method!r}")
-        mu = mc.model_update
-        for name in _ADC_BLOCKS:
-            if mu is not None and getattr(mu, name) is not None:
-                refuse(f"model.model_update.{name}")
         if (t.w_dog or 0) > 0:
             refuse("trainer.w_dog")
         if (t.w_smoothness or 0) > 0:
@@ -133,12 +132,8 @@ class VanillaTSTrainer(BaseTrainer):
             refuse("trainer.data_parallel")
         if t.eval_lpips:
             refuse("trainer.eval_lpips")
-        if t.start_checkpoint or t.start_pointcloud:
-            refuse("trainer.start_checkpoint / start_pointcloud")
-        if any(0 < int(it) <= iters for it in (t.checkpoint_iterations or [])):
-            refuse("trainer.checkpoint_iterations (checkpoint saving)")
-        if (t.ckpt_interval_iter or 0) and t.ckpt_interval_iter <= iters:
-            refuse("trainer.ckpt_interval_iter (checkpoint saving)")
+        if t.ckpt_format == "orbax":
+            refuse("trainer.ckpt_format 'orbax' (it needs JAX)")
 
     def _setup_schedulers(self):
         oc = self.config.model.optimizer
@@ -158,12 +153,7 @@ class VanillaTSTrainer(BaseTrainer):
         # every step renders with the statistics while a statistic block
         # exists (the JAX trainer's need_stats gating)
         self._track_stats = self._mu is not None and self._mu.statistic is not None
-        for name in ("opacity_pruning", "opacity_clipping"):
-            b = getattr(self._mu, name) if self._mu is not None else None
-            if b is not None:
-                setattr(self, f"{name}_scheduler", exponential_scheduler(
-                    v_init=b.opacity_threshold_init, v_final=b.opacity_threshold_final,
-                    max_steps=b.end_iter - b.start_iter))
+        self._setup_adc_schedulers(self._mu)
         g = self._mu.gamma_schedule if self._mu is not None else None
         if g is not None:
             mk = exponential_step_scheduler if g.step_scheduler else exponential_scheduler
@@ -290,22 +280,34 @@ class VanillaTSTrainer(BaseTrainer):
     # loop
     # ------------------------------------------------------------------
     def _init_model(self):
+        """Resume from ``start_checkpoint`` / ``start_pointcloud`` or, on
+        the first call, initialize from the point cloud. Returns the
+        iteration the run continues after."""
+        cfgt = self.config.trainer
+        first_iter = 0
+        if cfgt.start_checkpoint:
+            self.load_ckpt(f"{self.output_dir}/ckpt/{cfgt.start_checkpoint}.ckpt")
+            first_iter = int(cfgt.start_checkpoint)
+        elif cfgt.start_pointcloud:
+            self.loadPLY(f"{self.output_dir}/point_cloud/{cfgt.start_pointcloud}.ply")
+            first_iter = int(cfgt.start_pointcloud)
         if self.params is None:
             self.logger.info("Initializing triangles from point cloud")
             pcd = self.dataset.getPointCloud()
             sampling = self.config.model.sampling or Config()
             pts, cols, nrm = self._sample_points(pcd)
+            has_densify = self._mu is not None and self._mu.densification is not None
             self.params, self.state = M.create_from_points(
                 pts, cols, nrm, self.model_cfg,
                 init_opacity=sampling.init_opacity if sampling.init_opacity is not None else 0.1,
-                capacity_factor=1.0,
+                capacity_factor=2.0 if has_densify else 1.0,
                 duplicate_count=sampling.duplicate_count or 1,
                 seed=self.seed, device=self.device)
             self.opt = M.AdamState.create(self.params)
             self.logger.info(
                 f"Initialized {int(self.state.alive.sum())} triangles "
                 f"(capacity {self.params.capacity})")
-        return 0
+        return first_iter
 
     def _sample_points(self, pcd):
         """The point cloud split at the scene's bounding box (if it has
@@ -348,16 +350,23 @@ class VanillaTSTrainer(BaseTrainer):
         return np.concatenate(out_p), np.concatenate(out_c), np.concatenate(out_n)
 
     def _model_update(self, iteration: int):
-        """Opacity pruning, opacity clipping, scale pruning and contribution
-        pruning on their cadences, then the gamma and SH schedules (the JAX
-        trainer's order; the other ADC blocks are refused at
-        construction). Opacity pruning and clipping fire through
-        ``hold_iter`` (default ``end_iter``), their thresholds held at the
-        final value past ``end_iter``."""
+        """Densification, opacity pruning, opacity clipping, scale pruning,
+        scale clipping, contribution pruning and opacity reset on their
+        cadences, then the gamma and SH schedules (the JAX trainer's
+        order). Opacity pruning and clipping and scale clipping fire
+        through ``hold_iter`` (default ``end_iter``), their thresholds held
+        at the final value past ``end_iter``."""
         mu = self._mu
         if mu is None:
             return
         active = lambda block, hold=False: self._fires(block, iteration, hold)  # noqa: E731
+
+        d = mu.densification
+        if active(d):
+            thr = self.grad_threshold_scheduler(iteration - d.start_iter)
+            self._densify(iteration, thr, d.min_view_count, lambda: M.densify(
+                self.params, self.opt, self.state, _f32(thr), d.min_view_count,
+                _f32(d.split_scale_threshold)))
 
         op = mu.opacity_pruning
         if active(op, hold=True):
@@ -379,6 +388,13 @@ class VanillaTSTrainer(BaseTrainer):
                 self.params, self.opt, self.state, _f32(sp.radii_threshold),
                 _f32(sp.scale_threshold))
             self._log_prune(iteration, "scale", int(n))
+
+        sc = mu.scale_clipping
+        if active(sc, hold=True):
+            mx = self.scale_max_scheduler(iteration - sc.start_iter)
+            self.params, self.opt, self.state, n = M.scale_clipping(
+                self.params, self.opt, self.state, _f32(mx))
+            self._log_prune(iteration, "scale clipping", int(n), f", max {mx:.4f}")
 
         cp = mu.contribution_pruning
         if active(cp):
@@ -404,6 +420,12 @@ class VanillaTSTrainer(BaseTrainer):
                 inter_point_dist=ipd, sparsity_retain_ratio=retain)
             self._log_prune(iteration, "contribution", int(n))
 
+        orr = mu.opacity_reset
+        if active(orr):
+            self.params, self.opt, self.state = M.opacity_reset(
+                self.params, self.opt, self.state, _f32(orr.reset_value))
+            self.logger.info(f"[ITER {iteration}, opacity reset] -> {orr.reset_value}")
+
         g = mu.gamma_schedule
         if g is not None and g.start_iter < iteration <= g.end_iter:
             gamma = self.gamma_scheduler(iteration - g.start_iter)
@@ -417,6 +439,11 @@ class VanillaTSTrainer(BaseTrainer):
                 self._sh_degree_host = deg
                 self.state.active_sh_degree = torch.tensor(
                     deg, dtype=torch.int32, device=self.device)
+
+    def _grow_capacity(self):
+        """Zero-pad params, moments and state by half the capacity."""
+        self.params, self.opt, self.state = grow_capacity(
+            self.params, self.opt, self.state, self.logger)
 
     def train(self):
         try:
@@ -449,6 +476,7 @@ class VanillaTSTrainer(BaseTrainer):
                 iteration)
             self.loss_history.append(loss)
             self.geo_history.append(aux["geo_loss"])
+            self._note_overflow(aux["overflow"])
 
             if cfgt.eval_interval_iter and iteration % cfgt.eval_interval_iter == 0:
                 self._evaluate(iteration)
@@ -483,6 +511,9 @@ class VanillaTSTrainer(BaseTrainer):
             if iteration in (cfgt.save_iterations or []) or (
                     cfgt.save_interval_iter and iteration % cfgt.save_interval_iter == 0):
                 self.savePLY(f"{self.output_dir}/point_cloud/{iteration}.ply")
+            if iteration in (cfgt.checkpoint_iterations or []) or (
+                    cfgt.ckpt_interval_iter and iteration % cfgt.ckpt_interval_iter == 0):
+                self.save_ckpt(f"{self.output_dir}/ckpt/{iteration}.ckpt")
             if iteration in (cfgt.save_glb_iterations or []):
                 self.saveGLB(f"{self.output_dir}/glb/{iteration}.glb")
         self.dataset.close()
@@ -605,3 +636,19 @@ class VanillaTSTrainer(BaseTrainer):
         self.state.alive = torch.arange(cap, device=self.device) < n
         self.opt = M.AdamState.create(self.params)
         self.logger.info(f"Loaded {n} triangles from {path}")
+
+    def save_ckpt(self, path):
+        """The whole model (params, Adam moments and step, state) and the
+        scene's bounding box as host arrays (``utils.checkpoint``)."""
+        self.logger.info(f"Saving checkpoint to {path}")
+        p, st, o = triangle_to_numpy(self.params, self.state, self.opt)
+        save_ckpt(path, model_blob(p, st, o, self.scene_bbox),
+                  self.config.trainer.ckpt_format or "pickle")
+
+    def load_ckpt(self, path):
+        blob = load_ckpt(path)
+        self.params, self.state, self.opt = triangle_from_numpy(
+            blob["params"], blob["state"], blob["opt"], device=self.device)
+        self.scene_bbox = blob.get("scene_bbox")
+        self.logger.info(f"Restored checkpoint {path} "
+                         f"({int(self.state.alive.sum())} triangles)")

@@ -228,8 +228,11 @@ def build_synthetic_nerf_dataset(root, *, res: int = 48, n_tri: int = 120,
                 # ground truth must never silently drop pairs
                 if not bool(out["overflow"]):
                     return out["render"].clamp(0, 1).cpu().numpy()
+                # double at least: a budget sized past the usual cap by the
+                # probe frame would otherwise be cut back to it for ever
                 settings = replace(settings, pairs_per_triangle=adapt_pair_budget(
-                    settings.pairs_per_triangle, None, n_tri, True))
+                    settings.pairs_per_triangle, None, n_tri, True,
+                    max_ppt=max(32.0, 2 * settings.pairs_per_triangle)))
 
         for split, count in [("train", n_train), ("test", n_test)]:
             frames = []
