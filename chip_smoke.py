@@ -108,7 +108,26 @@ Phases (any failure exits non-zero before the final line):
              (cell fullrun-mesh-surface-800): chamfer / F-score of the GLB
              against the GT soup, the ray-traced test PSNR (within 1 dB of
              the rasterized one), and kNN and the ray tracer on the card
-             against the CPU.
+             against the CPU;
+17. scaffold — (run after city) the photo phase's soup written as a COLMAP
+             capture (16 views at 1297x840, a 100k-point points3D.bin) and
+             config/Colmap_ScaffoldGS.yaml at its widths trained on it for 50
+             steps (cell scaffold-colmap-1297x840, cuts in SCAFFOLD_CUTS):
+             the loss falls, anchors grow and the alive count moves by the
+             logged counts, B1-GS plain / B2-GS / B3 / B4 once per step and no
+             B5, the first anchor-growth level repeated on a CPU copy bit for
+             bit, the kernels against their plain versions on the last
+             step's inputs, the checkpoint restored exactly, the PLY read
+             back, 100 steps of the MLP pretrain; 10 profiled steps;
+18. smoke --model scaffold — the smoke phase's fourth run (cell
+             smoke-400-scaffold): +2 dB, anchors added, the alive bookkeeping,
+             PLY / checkpoint at 400, B1-GS plain / B2-GS / B3 / B4 at 400;
+19. loss_terms — (after resume) the smoke photo recipe without
+             densification plus DoG, smoothness, the vertex regularizer and
+             the color affine for 100 steps (cell loss-terms-photo-400): the
+             loss falls, the kNN refresh on its cadence, the affine off
+             identity, one step card against CPU, LPIPS on random weights
+             card against CPU, eval_lpips without weights.
 The mesh phase's run saves the PLY (steps 10 and 50) and the GLB (step 50)
 as the recipe does at its ends; the files are read back, and the GLB is
 rendered through MeshRenderer on the card (its mask over the trained
@@ -279,7 +298,9 @@ PATH_OF.update(blend_forward_3d="mesh", blend_backward_3d="mesh",
                # the VanillaGS trainer renders with statistics and without
                # rich info: the other GS forms run in its evaluation (outside
                # the counted steps) and in the GaussianRenderer facade
-               **{f"blend_forward_{f}": "gs" for f, _, _ in GS_FORMS},
+               # (ScaffoldGS trains on B1-GS without statistics: below)
+               **{f"blend_forward_{f}": "gs" for f, _, _ in GS_FORMS if f != "gs"},
+               blend_forward_gs="scaffold",
                blend_backward_gs="gs", blend_backward_gs_rich="gs",
                # the triangle renderer facade with rich info
                blend_forward_rich_stats="renderer", blend_forward_3d_rich_stats="renderer",
@@ -330,9 +351,10 @@ GS_CUTS = dict(
 # smoke-400-mesh, smoke-400-gs), and the JAX package's TPU v5e trajectories
 # at that size (the JAX package's recorded smoke results), a check of
 # convergence and not of speed
-SMOKE_RUNS = (("ts", []), ("mesh", ["--mesh"]), ("gs", ["--model", "gs"]))
+SMOKE_RUNS = (("ts", []), ("mesh", ["--mesh"]), ("gs", ["--model", "gs"]),
+              ("scaffold", ["--model", "scaffold"]))
 SMOKE_ITERS = 400
-SMOKE_V5E = {"ts": (17.4, 26.7), "mesh": (17.1, 21.6), "gs": None}
+SMOKE_V5E = {"ts": (17.4, 26.7), "mesh": (17.1, 21.6), "gs": None, "scaffold": (19.5, 29.6)}
 # the smoke's densify thresholds (6e-4 -> 3e-4) lie 7-15x above the largest
 # mean screen-space gradient at 400x400 (the photo run at its defaults:
 # p50 2.4e-6, p99 2.0e-5-2.8e-5, max 2.7e-5-4.2e-5 at its five firings; it
@@ -343,14 +365,55 @@ SMOKE_GRAD_THRESHOLD = (1e-5, 1e-5 * 2 / 3)
 # renders transparent, none is seen in a view, and densification finds no
 # eligible row (ROADMAP Queue C); just above it they render from step 0
 SMOKE_MESH_INIT_OPACITY = 0.31
+# the scaffold smoke's grad threshold 2e-4 lies 4-9x above the largest mean
+# center-gradient norm of its examined offsets at 400x400 (an H100 run at
+# the default: p99 8.6e-6-1.4e-5, max 2.2e-5-4.8e-5 at its seven updates;
+# nothing grew)
+SMOKE_SCAFFOLD_GRAD_THRESHOLD = 1e-5
 SMOKE_CUTS = dict(
     densification="grad_threshold_init / _final 6e-4 / 3e-4 -> 1e-5 / 6.7e-6 (at the defaults "
                   "nothing grows at 400x400: the largest grad statistic was 4.2e-5)",
     mesh_init_opacity="0.3 -> 0.31 (--mesh only: at 0.3, the STE threshold, every triangle "
                       "renders transparent and no row is ever eligible to densify)",
+    scaffold_grad_threshold="anchor_update.grad_threshold_init / _final 2e-4 -> 1e-5 "
+                            "(--model scaffold only: at 2e-4 nothing grows at 400x400, the "
+                            "largest grad statistic was 4.8e-5)",
     rest="trainers.smoke's defaults (400x400, 400 iterations, 800 GT triangles, 24 train / 4 "
          "test views, GT rendered on the card)")
 RESUME_AT = 200
+# scaffold-colmap-1297x840: config/Colmap_ScaffoldGS.yaml at its own widths
+# on a synthetic COLMAP capture of the photo phase's soup (the size of a
+# Mip-NeRF 360 images_4 view, a sparse cloud of ~10^5 points)
+SCAFFOLD_W, SCAFFOLD_H = 1297, 840
+SCAFFOLD_VIEWS = 16
+SCAFFOLD_POINTS = 100_000
+SCAFFOLD_ITERS = 50
+SCAFFOLD_WINDOW = (5, 45)
+SCAFFOLD_INTERVAL = 10
+SCAFFOLD_PRETRAIN_ITERS = 100
+# the examined offsets' mean center-gradient norm at 1297x840 (an H100 run
+# at the recipe's 2e-4): p50 2.5e-8-3.5e-8, p99 7.8e-8-1.2e-7, max
+# 2.4e-7-2.5e-6 over the four updates; nothing grew
+SCAFFOLD_GRAD_THRESHOLD = 1e-7
+SCAFFOLD_GT_GAUSSIANS = 100_000
+SCAFFOLD_CUTS = dict(
+    iterations="30,000 -> 50",
+    anchor_update="start 500, end 15,000, every 100 -> start 5, end 45, every 10",
+    view_counts="grad_min_view_count / opacity_min_view_count 100 -> 1 (no offset is seen "
+                "100 times in 50 steps)",
+    grad_threshold="grad_threshold_init / _final 2e-4 -> 1e-7 (at 2e-4 nothing grows at "
+                   "1297x840: the mean center-gradient norm's p99 was 7.8e-8-1.2e-7)",
+    log="every 100 -> every 10 (the pair budget is re-sized at log steps)",
+    eval="every 5,000 -> before and after the counted run",
+    pretrain="1,000 -> 100 steps, on a GT PLY of 100k random Gaussians",
+    data="16 synthetic views (2 held out by hold_interval 8) of the photo phase's soup "
+         "(100k GT triangles) at 1297x840, a 100k-point points3D.bin drawn on its faces")
+# loss-terms-photo-400: the smoke photo recipe without densification (no
+# statistic block) with the four refused terms on
+LOSS_TERMS_ITERS = 100
+LOSS_TERMS = dict(w_dog=0.05, w_smoothness=0.05,
+                  vertex_reg=dict(w_vertex_reg=0.01, start_iter=0, interval_iter=10))
+LOSS_TERMS_AFFINE_LR = 0.001            # config/MipNerf360_VanillaTS.yaml's color_affine v_init
 # adc-800-20k: tools/full_run.py --adc (the densification rehearsal) cut to
 # fit the script's time
 ADC_ITERS = 1000
@@ -3085,9 +3148,11 @@ class counted_train:
     def __enter__(self):
         import torch
         from triangle_splatting_tpu_torch.ops.cuda import reset_launches
+        from triangle_splatting_tpu_torch.trainers.scaffold_gs import ScaffoldGSTrainer
         from triangle_splatting_tpu_torch.trainers.vanilla_gs import VanillaGSTrainer
         from triangle_splatting_tpu_torch.trainers.vanilla_ts import VanillaTSTrainer
-        self.real = {cls: cls.train for cls in (VanillaTSTrainer, VanillaGSTrainer)}
+        self.real = {cls: cls.train for cls in (VanillaTSTrainer, VanillaGSTrainer,
+                                                ScaffoldGSTrainer)}
 
         def wrap(train):
             def counted(trainer):
@@ -3110,9 +3175,10 @@ class counted_train:
 
 class smoke_cuts:
     """Within the block, ``trainers.smoke.make_smoke_config`` gives the
-    densification thresholds of SMOKE_GRAD_THRESHOLD and, in the mesh
-    recipe, the initial opacity SMOKE_MESH_INIT_OPACITY (the smoke
-    phase's cuts)."""
+    densification thresholds of SMOKE_GRAD_THRESHOLD, in the mesh recipe
+    the initial opacity SMOKE_MESH_INIT_OPACITY and in the scaffold recipe
+    the growth threshold SMOKE_SCAFFOLD_GRAD_THRESHOLD (the smoke phase's
+    cuts)."""
 
     def __enter__(self):
         from triangle_splatting_tpu_torch.trainers import smoke
@@ -3120,11 +3186,15 @@ class smoke_cuts:
 
         def lowered(*a, **kw):
             cfg = real(*a, **kw)
-            d = cfg.model.model_update.densification
+            mu = cfg.model.model_update
+            d = mu.densification if mu is not None else None
             if d is not None:
                 d.grad_threshold_init, d.grad_threshold_final = SMOKE_GRAD_THRESHOLD
             if cfg.model.ste_threshold is not None:
                 cfg.model.sampling.init_opacity = SMOKE_MESH_INIT_OPACITY
+            au = cfg.model.anchor_update
+            if au is not None:
+                au.grad_threshold_init = au.grad_threshold_final = SMOKE_SCAFFOLD_GRAD_THRESHOLD
             return cfg
         smoke.make_smoke_config = lowered
         return self
@@ -3163,15 +3233,51 @@ def check_path_launches(launches: dict, n: int, variant: str, what: str) -> None
             check(k == 0, f"{what}: kernel {name} launched {k} times on a {variant} path")
 
 
+def check_anchor_bookkeeping(trainer, what: str) -> dict:
+    """A ScaffoldGS run's alive anchors moved by exactly the logged counts:
+    the initial voxel anchors plus the placed minus the pruned, and every
+    update placed all it emitted (no overflow). Returns the totals."""
+    from triangle_splatting_tpu_torch.models import scaffold as S
+
+    mc = trainer.config.model
+    alive0 = int(S.create_from_points(
+        trainer.dataset.getPointCloud().points, trainer.model_cfg,
+        voxel_size=mc.voxel_size if mc.voxel_size is not None else 0.001,
+        scene_bbox=trainer.scene_bbox, device="cpu")[1].alive.sum())
+    hist = trainer.anchor_history
+    tot = dict(added=sum(h["added"] for h in hist), placed=sum(h["placed"] for h in hist),
+               removed=sum(h["removed"] for h in hist))
+    alive1 = int(trainer.state.alive.sum())
+    check(alive1 == alive0 + tot["placed"] - tot["removed"] and tot["added"] == tot["placed"],
+          f"{what}: anchors {alive0} -> {alive1}, logged {tot}")
+    return dict(tot, alive_before=alive0, alive_after=alive1)
+
+
+def check_plain_gs_launches(launches: dict, n: int, what: str) -> None:
+    """A ScaffoldGS step launches B1-GS without statistics, B2-GS, B3 and B4
+    once, and neither B5 nor any other blend form."""
+    own = ("blend_forward_gs", "blend_backward_gs", "relayout_pairs", "segment_reduce_pairs")
+    for name in own:
+        check(launches[name] == n, f"{what}: kernel {name} launched {launches[name]} times "
+              f"in {n} steps")
+    check(launches["segment_reduce_stats"] == 0,
+          f"{what}: B5 launched {launches['segment_reduce_stats']} times")
+    for name, k in launches.items():
+        if name.startswith("blend_") and name not in own:
+            check(k == 0, f"{what}: kernel {name} launched {k} times on the ScaffoldGS path")
+
+
 def phase_smoke(dev) -> dict:
-    """Cells smoke-400-ts, smoke-400-mesh, smoke-400-gs: the port's
-    ``trainers.smoke`` at its defaults (``smoke.run``, the body of its
-    ``main``), photo, ``--mesh`` and ``--model gs``, each on the soup it
-    builds on the card. Gates per run: the PSNR climbs by the smoke's 2 dB
-    (its exit criterion); densification grew rows; the alive count moved
-    by the logged counts; the PLY and the checkpoint at 400 (and the mesh
-    run's GLB, gamma 50); B1's stats form, B2, B3, B4 and B5 of the run's
-    variant once per step and no other blend form. Returns each run's
+    """Cells smoke-400-ts, smoke-400-mesh, smoke-400-gs, smoke-400-scaffold:
+    the port's ``trainers.smoke`` at its defaults (``smoke.run``, the body of
+    its ``main``), photo, ``--mesh``, ``--model gs`` and ``--model
+    scaffold``, each on the soup it builds on the card. Gates per run: the
+    PSNR climbs by the smoke's 2 dB (its exit criterion); densification
+    grew rows (scaffold: an anchor update added anchors); the alive count
+    moved by the logged counts; the PLY and the checkpoint at 400 (and the
+    mesh run's GLB, gamma 50); B1's stats form, B2, B3, B4 and B5 of the
+    run's variant once per step and no other blend form (scaffold: B1-GS
+    plain, B2-GS, B3, B4 once per step, no B5). Returns each run's
     launches."""
     from triangle_splatting_tpu_torch.trainers import smoke
 
@@ -3186,26 +3292,37 @@ def phase_smoke(dev) -> dict:
         what = f"smoke-400-{name}"
         check(rec["psnr_final"] >= rec["psnr_init"] + args.min_gain,
               f"{what}: PSNR {rec['psnr_init']} -> {rec['psnr_final']}, below +{args.min_gain}")
-        alive0 = len(trainer.dataset.getPointCloud().points)
-        book = check_alive_bookkeeping(trainer, alive0, what)
-        dens = trainer.densify_history
-        check(len(dens) == 5, f"{what}: densification fired at {[d['iteration'] for d in dens]}")
-        check(book["grown"] > 0 and book["placed"] > 0,
-              f"{what}: densification grew nothing {dens}")
+        if name == "scaffold":
+            book = check_anchor_bookkeeping(trainer, what)
+            dens = trainer.anchor_history
+            check(len(dens) == 7 and book["added"] > 0,
+                  f"{what}: the anchor updates {dens} added no anchor (due 7 times)")
+        else:
+            alive0 = len(trainer.dataset.getPointCloud().points)
+            book = check_alive_bookkeeping(trainer, alive0, what)
+            dens = trainer.densify_history
+            check(len(dens) == 5,
+                  f"{what}: densification fired at {[d['iteration'] for d in dens]}")
+            check(book["grown"] > 0 and book["placed"] > 0,
+                  f"{what}: densification grew nothing {dens}")
         out_dir = root / "out"
         for f in (f"point_cloud/{SMOKE_ITERS}.ply", f"ckpt/{SMOKE_ITERS}.ckpt"):
             check((out_dir / f).exists(), f"{what}: {f} was not written")
         if name == "mesh":
             check(rec["gamma_final"] == 50.0 and rec["glb_exported"],
                   f"{what}: gamma {rec['gamma_final']}, GLB {rec['glb_exported']}")
-        variant = {"ts": "2D", "mesh": "3D", "gs": "GS"}[name]
-        check_path_launches(trainer.train_launches, SMOKE_ITERS, variant, what)
+        if name == "scaffold":
+            check_plain_gs_launches(trainer.train_launches, SMOKE_ITERS, what)
+        else:
+            variant = {"ts": "2D", "mesh": "3D", "gs": "GS"}[name]
+            check_path_launches(trainer.train_launches, SMOKE_ITERS, variant, what)
         v5e = SMOKE_V5E[name]
         say("smoke", cell=what, cuts=SMOKE_CUTS, card=card_line(), **rec,
             ms_per_step=round(trainer.train_seconds / SMOKE_ITERS * 1e3, 3),
-            densify=trainer.densify_history, prune=trainer.prune_history, **book,
+            densify=dens, prune=trainer.prune_history, **book,
             capacity=trainer.params.capacity, pairs_per_triangle=trainer._ppt,
-            max_eligible=max(d["grad_stat"]["eligible"] for d in dens),
+            max_eligible=max(d["grad_stat"].get("eligible", d["grad_stat"].get("examined", 0))
+                             for d in dens),
             v5e_psnr=v5e, below_v5e_final_db=None if v5e is None
             else round(v5e[1] - rec["psnr_final"], 2),
             launches=trainer.train_launches, seconds=round(time.perf_counter() - t0, 3))
@@ -3284,6 +3401,425 @@ def phase_resume() -> None:
         arrays_equal=len(snap), psnr_uninterrupted=psnr_full, psnr_resumed=psnr_resumed,
         resumed_steps=len(t2.loss_history), seconds=round(time.perf_counter() - t0, 3))
     shutil.rmtree(WORK / "resume", ignore_errors=True)
+
+
+def build_colmap(dev) -> Path:
+    """The scaffold cell's capture: the photo phase's soup (100k GT
+    triangles, ``build_dataset``'s scene) written as a COLMAP capture of
+    SCAFFOLD_VIEWS views at SCAFFOLD_W x SCAFFOLD_H with a
+    SCAFFOLD_POINTS-point ``points3D.bin`` (``utils/testing.py:write_colmap_scene``)."""
+    from triangle_splatting_tpu_torch.utils.testing import make_random_scene, write_colmap_scene
+
+    t0 = time.perf_counter()
+    scene = make_random_scene(N_TRI, seed=7, z_range=(-0.8, 0.8), xy_extent=0.8,
+                              size_range=(0.01, 0.05), opacity_range=(0.7, 0.95))
+    root = WORK / "colmap_scaffold"
+    secs = write_colmap_scene(root, scene, width=SCAFFOLD_W, height=SCAFFOLD_H,
+                              n_views=SCAFFOLD_VIEWS, n_points=SCAFFOLD_POINTS, device=dev)
+    say("colmap", views=SCAFFOLD_VIEWS, width=SCAFFOLD_W, height=SCAFFOLD_H,
+        points=SCAFFOLD_POINTS, **{k: round(v, 3) for k, v in secs.items()},
+        seconds=round(time.perf_counter() - t0, 3))
+    return root
+
+
+def scaffold_config(root: Path):
+    """config/Colmap_ScaffoldGS.yaml as shipped (its widths) with the cuts of
+    SCAFFOLD_CUTS."""
+    from triangle_splatting_tpu_torch.utils.config import loadConfig
+
+    cfg = loadConfig(REPO / "config" / "Colmap_ScaffoldGS.yaml")
+    cfg.dataset.local_dir = str(root)
+    t = cfg.trainer
+    t.output_dir = str(WORK / "out_scaffold")
+    t.iterations = SCAFFOLD_ITERS
+    t.log_interval_iter = 10
+    t.eval_interval_iter = 0
+    t.save_iterations, t.checkpoint_iterations = [SCAFFOLD_ITERS], [SCAFFOLD_ITERS]
+    t.use_tensorboard = False
+    au = cfg.model.anchor_update
+    au.start_iter, au.end_iter = SCAFFOLD_WINDOW
+    au.interval_iter = SCAFFOLD_INTERVAL
+    au.grad_min_view_count = au.opacity_min_view_count = 1
+    au.grad_threshold_init = au.grad_threshold_final = SCAFFOLD_GRAD_THRESHOLD
+    return cfg
+
+
+def scaffold_numpy(trainer) -> dict:
+    from triangle_splatting_tpu_torch.convert import scaffold_to_numpy
+    p, s, o = scaffold_to_numpy(trainer.params, trainer.state, trainer.opt)
+    return dict(params=p, state=s, opt=o)
+
+
+def flat_arrays(tree, prefix="") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_arrays(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def check_grow_level_on_cpu(call: dict) -> dict:
+    """The captured ``_grow_level`` call of the card (its inputs: the model,
+    the card's decoded positions, gradients and coins) repeated on CPU
+    copies: every output array and both counts equal bit for bit."""
+    import numpy as np
+    from triangle_splatting_tpu_torch.convert import scaffold_from_numpy, scaffold_to_numpy
+    from triangle_splatting_tpu_torch.models import scaffold as S
+
+    params, opt, state, coins, grad, mask, g_xyz, level, cfg, thr = call["args"]
+    p, s, o = scaffold_to_numpy(params, state, opt)
+    cp, cs, co = scaffold_from_numpy(p, s, o, device="cpu")
+    cpu = S._grow_level(cp, co, cs, coins.cpu(), grad.cpu(), mask.cpu(), g_xyz.cpu(), level, cfg,
+                        thr)
+    card = call["out"]
+    want = flat_arrays(dict(zip(("params", "state", "opt"),
+                                scaffold_to_numpy(card[0], card[2], card[1]))))
+    got = flat_arrays(dict(zip(("params", "state", "opt"), scaffold_to_numpy(cpu[0], cpu[2],
+                                                                           cpu[1]))))
+    differ = [k for k in want if not np.array_equal(want[k], got[k])]
+    check(not differ and int(cpu[3]) == int(card[3]) and bool(cpu[4]) == bool(card[4]),
+          f"scaffold _grow_level: card and CPU differ in {differ}, emitted "
+          f"{int(card[3])} / {int(cpu[3])}")
+    placed = int((card[2].alive & ~state.alive).sum())
+    lthr = float(thr) * (cfg.update_hierachy_factor // 2) ** level
+    return dict(level=level, emitted=int(card[3]), placed=placed, arrays=len(want),
+                candidates=int(((grad >= lthr) & mask & state.alive[:, None]).sum()),
+                card_vs_cpu="exact")
+
+
+def hold_plain_gs(last: dict, what: str) -> None:
+    """B1-GS plain, B2-GS, B3 and B4 against their plain versions on a
+    step's captured inputs (n_contrib and final_T exact, color abs 1e-5,
+    B2 rel 1e-4, B3 exact, B4 rel 1e-5), timed, with their bounds."""
+    import torch
+    from triangle_splatting_tpu_torch.ops.cuda import blend as KB
+    from triangle_splatting_tpu_torch.ops.cuda import streams as KS
+
+    (fa, fkw), (ba, bkw) = last["fwd"], last["bwd"]
+    geo = {k: fkw[k] for k in ("image_width", "image_height", "tile_h", "tile_w", "variant")}
+    check(not fkw["stats"] and not fkw["rich"] and geo["variant"] == "GS",
+          f"{what}: the last step's B1 ran in form {fkw}")
+    fwd = fa[:4]
+    H, W = geo["image_height"], geo["image_width"]
+    with torch.no_grad():
+        out = KB.blend_forward(*fwd, stats=False, **geo)
+        ref = KB.blend_forward_plain(*fwd, stats=False, **geo)
+        torch.cuda.synchronize()
+        e_nc = int((out[4] != ref[4]).sum())
+        e_T = float((out[3] - ref[3]).abs().max())
+        e_c = float((out[0] - ref[0]).abs().max())
+        check(e_nc == 0 and e_T == 0.0 and e_c <= TOL["b1_abs"],
+              f"{what}: B1-GS vs plain: n_contrib {e_nc}, final_T {e_T:.3e}, color {e_c:.3e}")
+        bw = fa[:4] + ba[4:8]
+        out2 = KB.blend_backward(*bw, **geo)
+        ref2 = KB.blend_backward_plain(*bw, **geo)
+        torch.cuda.synchronize()
+        live = KB.LIVE_GRAD_ROWS[("GS", False)]
+        diff2 = (out2 - ref2).abs()
+        rel2 = float((diff2.amax(dim=1) / ref2.abs().amax(dim=1).clamp_min(1e-30))[:live].max())
+        check(rel2 <= TOL["b2_rel"] and not bool(out2[live:].any()),
+              f"{what}: B2-GS vs plain rel err {rel2:.3e}")
+        a3 = last["b3"][0] + tuple(last["b3"][1].values())
+        a4 = last["b4"][0] + tuple(last["b4"][1].values())
+        pair_tri, pack_perm, err3 = hold_relayout(a3, what)
+        c4 = check_segment_reduce(a4[0], pair_tri, pack_perm, *a4[1:4], what)
+        evals = float(out[4].to(torch.float64).sum())
+        num_pairs, T, ma = int(fwd[2].to(torch.int64).sum()), fwd[2].shape[0], fwd[0].shape[1]
+        pairs_in = 4 * (10 * num_pairs + 2 * T + 1 + 8)
+        rows4, P, np4 = int(a4[0].shape[0]), int(a4[1].shape[0]), int(a4[3])
+        b1 = bound_ms(pairs_in + 4 * 9 * H * W,
+                      b1_ops(b1_work(fwd, geo, out[4], what), "GS", True))
+        b2 = bound_ms(pairs_in + 4 * 6 * H * W + 4 * 16 * ma, BWD_OPS_PER_EVAL_GS[True] * evals)
+        rows = {
+            "blend_forward_gs": (e_c, lambda: KB.blend_forward(*fwd, stats=False, **geo),
+                                 lambda: KB.blend_forward_plain(*fwd, stats=False, **geo), b1),
+            "blend_backward_gs": (float(diff2.max()), lambda: KB.blend_backward(*bw, **geo),
+                                  lambda: KB.blend_backward_plain(*bw, **geo), b2),
+            "relayout_pairs": (err3, lambda: KS.relayout_pairs(*a3),
+                               lambda: KS.relayout_pairs_plain(*a3), bound_ms(b3_bytes(a3))),
+            "segment_reduce_pairs": (c4["err"], lambda: KS.segment_reduce_pairs(*a4),
+                                     lambda: KS.segment_reduce_pairs_plain(*a4),
+                                     bound_ms(b4_bytes(rows4, np4, P), rows4 * np4)),
+        }
+        for name, (err, kfn, pfn, b) in rows.items():
+            ms, plain = cuda_ms(kfn, 20 if "blend" in name else 50), cuda_ms(pfn, 2, 1)
+            say(f"{what}_kernels", kernel=name, max_abs_err=err, ms=round(ms, 4),
+                plain_ms=round(plain, 3), bound_ms=round(b[0], 5), bound_by=b[1])
+        say(f"{what}_kernels", tiles=T, num_pairs=num_pairs, ma=ma, pair_pixel_evals=evals,
+            b1_n_contrib_mismatch=e_nc, b1_final_T_err=e_T, b2_rel_err=rel2, b3_mismatch=err3,
+            b4_rows=rows4, b4_rel_err=c4["rel"], gaussians=P)
+
+
+def phase_scaffold(dev, root: Path) -> dict:
+    """The scaffold-colmap-1297x840 cell: ``scaffold_config`` (the shipped
+    Colmap_ScaffoldGS recipe at its widths, cuts in SCAFFOLD_CUTS) on the
+    synthetic COLMAP capture through build_trainer for 50 steps. Gates: the
+    losses finite and falling; anchors added at least once and the alive
+    count moving by exactly the logged placed - removed; B1-GS plain,
+    B2-GS, B3 and B4 once per step, B5 and every other blend form never;
+    the first ``_grow_level`` call that placed anchors repeated on a CPU
+    copy of its inputs, bit for bit; B1-GS plain, B2-GS, B3 and B4 against
+    their plain versions on the last step's inputs; the checkpoint at 50
+    restored into a new trainer with every array equal and the test PSNR
+    within 1e-3 dB; the PLY read back; ``mlp_pretrain`` for 100 steps on a
+    GT PLY with its loss falling. Then 10 profiled steps. Returns the
+    launches."""
+    import numpy as np
+    import torch
+    from triangle_splatting_tpu_torch.models import scaffold as S
+    from triangle_splatting_tpu_torch.models.raw_gaussian import RawGaussian
+    from triangle_splatting_tpu_torch.ops import binning as BN
+    from triangle_splatting_tpu_torch.ops import rasterize as RZ
+    from triangle_splatting_tpu_torch.ops.cuda import reset_launches
+    from triangle_splatting_tpu_torch.ops.sh import SH_C0
+    from triangle_splatting_tpu_torch.trainers import build_trainer
+    from triangle_splatting_tpu_torch.utils.config import dict_to_config
+    from triangle_splatting_tpu_torch.utils.testing import make_gs_scene
+
+    n = SCAFFOLD_ITERS
+    say("scaffold", cell="scaffold-colmap-1297x840", cuts=SCAFFOLD_CUTS)
+    cfg = scaffold_config(root)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = build_trainer(cfg, log_file=False)
+    trainer._init_model()
+    k = trainer.model_cfg.n_offsets
+    alive0, cap0, ppt0 = int(trainer.state.alive.sum()), trainer.params.capacity, trainer._ppt
+    psnr0 = trainer._evaluate(0)
+
+    step = {"next": 1}
+    last, grow = {}, {}
+    real = dict(fwd=RZ.blend_forward, bwd=RZ.blend_backward, b3=BN.relayout_pairs,
+                b4=RZ.segment_reduce_pairs)
+    real_grow = S._grow_level
+
+    def detached(x):
+        return x.detach() if torch.is_tensor(x) else x
+
+    def spy(name):
+        def wrapped(*a, **kw):
+            if step["next"] == n:
+                last[name] = (tuple(detached(x) for x in a),
+                              {key: detached(v) for key, v in kw.items()})
+            return real[name](*a, **kw)
+        return wrapped
+
+    def grow_spy(*a):
+        out = real_grow(*a)
+        if not grow and int(out[3]) > 0:
+            grow.update(args=a, out=out)
+        return out
+
+    constraints0 = trainer._maintain_constraints
+
+    def constraints_spy(it):
+        step["next"] = it + 1
+        return constraints0(it)
+    RZ.blend_forward, RZ.blend_backward = spy("fwd"), spy("bwd")
+    BN.relayout_pairs, RZ.segment_reduce_pairs = spy("b3"), spy("b4")
+    S._grow_level = grow_spy
+    trainer._maintain_constraints = constraints_spy
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        RZ.blend_forward, RZ.blend_backward = real["fwd"], real["bwd"]
+        BN.relayout_pairs, RZ.segment_reduce_pairs = real["b3"], real["b4"]
+        S._grow_level = real_grow
+        del trainer._maintain_constraints
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    losses = torch.stack(trainer.loss_history).cpu().numpy()
+    check(len(losses) == n and bool(np.isfinite(losses).all()),
+          f"scaffold: {len(losses)} losses, finite {bool(np.isfinite(losses).all())}")
+    first, last10 = float(losses[:10].mean()), float(losses[-10:].mean())
+    check(last10 < first, f"scaffold: loss did not fall (first10 {first:.5f}, last10 {last10:.5f})")
+    check_plain_gs_launches(launches, n, "scaffold")
+    hist = trainer.anchor_history
+    start, end = SCAFFOLD_WINDOW
+    due = [it for it in range(start + 1, end + 1) if it % SCAFFOLD_INTERVAL == 0]
+    check([h["iteration"] for h in hist] == due, f"scaffold: anchor updates at "
+          f"{[h['iteration'] for h in hist]}, due at {due}")
+    book = check_anchor_bookkeeping(trainer, "scaffold")
+    check(book["alive_before"] == alive0 and book["added"] > 0,
+          f"scaffold: no anchor was added ({hist})")
+    check(bool(grow), "scaffold: no _grow_level call placed anchors")
+    grow_rec = check_grow_level_on_cpu(grow)
+    with torch.no_grad():
+        cam = trainer.dataset.getTestDataset().__next__()
+        pkg = S.forward(trainer.params, trainer.state, cam, torch.ones(3, device=dev),
+                        trainer.model_cfg, trainer._settings_for(cam), is_training=False)
+        selected = int(pkg["selection_mask"].sum())
+        visible = int(pkg["anchor_visible_mask"].sum())
+    psnr1 = trainer._evaluate(n)
+    say("scaffold", card=card_line(), ms_per_step=round(secs / n * 1e3, 3), steps=n,
+        width=SCAFFOLD_W, height=SCAFFOLD_H, peak_mem_gib=round(peak / 2**30, 3),
+        anchors_init=alive0, anchors_end=book["alive_after"], capacity=cap0,
+        capacity_end=trainer.params.capacity, gaussian_slots=cap0 * k,
+        selected_gaussians_test_view=selected, visible_anchors_test_view=visible,
+        pairs_per_triangle_before=ppt0, pairs_per_triangle_after=trainer._ppt,
+        updates=hist, grow_level=grow_rec, loss_first10=first, loss_last10=last10,
+        psnr_test_before=psnr0, psnr_test_after=psnr1, launches=launches)
+
+    hold_plain_gs(last, "scaffold")
+    del last
+
+    # the checkpoint at 50 into a new trainer, and the PLY
+    t2 = build_trainer(cfg, log_file=False)
+    t2.load_ckpt(WORK / "out_scaffold" / "ckpt" / f"{n}.ckpt")
+    want, got = flat_arrays(scaffold_numpy(trainer)), flat_arrays(scaffold_numpy(t2))
+    differ = [key for key in want if not (want[key].dtype == got[key].dtype
+                                          and np.array_equal(want[key], got[key]))]
+    check(want.keys() == got.keys() and not differ, f"scaffold resume: arrays differ {differ}")
+    psnr2 = t2._evaluate(n)
+    check(abs(psnr2 - psnr1) <= 1e-3, f"scaffold resume: PSNR {psnr2} vs {psnr1}")
+    ply = RawGaussian(ply_path=str(WORK / "out_scaffold" / "point_cloud" / f"{n}.ply"))
+    check(len(ply) > 0 and len(ply) == len(trainer.toRawGaussian()),
+          f"scaffold: the PLY holds {len(ply)} Gaussians")
+    del t2
+
+    # the MLP pretrain on a GT Gaussian PLY made from a seed
+    gs = make_gs_scene(SCAFFOLD_GT_GAUSSIANS, seed=11)
+    gt_path = WORK / "scaffold_gt.ply"
+    RawGaussian(xyz=gs["xyz"], opacity=np.log(gs["opacity"] / (1 - gs["opacity"]))[:, None],
+                shs=(gs["rgb"] - 0.5) / SH_C0, scale=np.log(gs["scale"]),
+                rotation=gs["rot"]).savePLY(gt_path)
+    cfg.dataset.gt_gaussian_path = str(gt_path)
+    cfg.trainer.pretrain = dict_to_config(dict(iterations=SCAFFOLD_PRETRAIN_ITERS,
+                                               log_interval_iter=50))
+    t3 = build_trainer(cfg, log_file=False)
+    t0 = time.perf_counter()
+    t3.mlp_pretrain()
+    torch.cuda.synchronize()
+    pre = torch.stack(t3.pretrain_losses).cpu().numpy()
+    check(len(pre) == SCAFFOLD_PRETRAIN_ITERS and bool(np.isfinite(pre).all())
+          and pre[-10:].mean() < pre[:10].mean(),
+          f"scaffold pretrain: loss {pre[:3]} ... {pre[-3:]}")
+    say("scaffold_pretrain", gt_gaussians=SCAFFOLD_GT_GAUSSIANS,
+        anchors=int(t3.state.alive.sum()), capacity=t3.params.capacity,
+        loss_first10=float(pre[:10].mean()), loss_last10=float(pre[-10:].mean()),
+        ms_per_step=round((time.perf_counter() - t0) / len(pre) * 1e3, 3),
+        resume_arrays_equal=len(want), resume_psnr=psnr2, ply_gaussians=len(ply))
+    del t3
+    profile_steps(trainer, "scaffold_profile")
+    return launches
+
+
+def phase_loss_terms(dev) -> dict:
+    """The loss-terms-photo-400 cell: the smoke photo recipe without
+    densification (``make_smoke_config(..., densify=False)``: no statistic
+    block) with LOSS_TERMS (DoG, smoothness, the vertex regularizer every
+    10 steps from step 0) and the color affine, on the smoke phase's photo
+    dataset, 100 steps through build_trainer. Gates: the losses finite and
+    falling; B1/B2 "2D" plain, B3 and B4 once per step and no other form;
+    the kNN refresh at steps 1, 11, ..., 91; the affine parameters off
+    identity; one step's loss (rel 1e-4) and gradients (vertex L2 rel 2e-2:
+    barycentric ties; the rest L2 rel 1e-3) on the card against the CPU;
+    LPIPS on ``random_weights(0)`` on the card against the CPU (rel 1e-4);
+    ``eval_lpips`` without weights logging "LPIPS unavailable" once and
+    reporting NaN. Returns the launches."""
+    import numpy as np
+    import torch
+    from triangle_splatting_tpu_torch.convert import triangle_from_numpy, triangle_to_numpy
+    from triangle_splatting_tpu_torch.models import triangle as M
+    from triangle_splatting_tpu_torch.trainers import build_trainer, smoke
+    from triangle_splatting_tpu_torch.trainers import lpips as LP
+    from triangle_splatting_tpu_torch.utils.config import dict_to_config
+
+    n = LOSS_TERMS_ITERS
+    t_phase = time.perf_counter()
+    data = WORK / "smoke_ts" / "data"
+    cfg = smoke.make_smoke_config(data, WORK / "loss_terms" / "out", n, densify=False)
+    for key, value in LOSS_TERMS.items():
+        setattr(cfg.trainer, key, dict_to_config(value) if isinstance(value, dict) else value)
+    cfg.trainer.eval_lpips = True
+    cfg.model.use_color_affine = True
+    cfg.model.optimizer.color_affine = dict_to_config(dict(
+        v_init=LOSS_TERMS_AFFINE_LR, v_final=LOSS_TERMS_AFFINE_LR, max_steps=n))
+    with counted_train():
+        trainer = build_trainer(cfg, log_file=False)
+        trainer._init_model()
+        trainer.train()
+    launches = trainer.train_launches
+    losses = torch.stack(trainer.loss_history).cpu().numpy()
+    check(len(losses) == n and bool(np.isfinite(losses).all()), "loss_terms: non-finite loss")
+    first, last10 = float(losses[:10].mean()), float(losses[-10:].mean())
+    check(last10 < first, f"loss_terms: loss did not fall ({first:.5f} -> {last10:.5f})")
+    for name in ("blend_forward", "blend_backward", "relayout_pairs", "segment_reduce_pairs"):
+        check(launches[name] == n, f"loss_terms: kernel {name} launched {launches[name]} times")
+    for name, cnt in launches.items():
+        if name.startswith("blend_") and name not in ("blend_forward", "blend_backward"):
+            check(cnt == 0, f"loss_terms: kernel {name} launched {cnt} times")
+    check(launches["segment_reduce_stats"] == 0, "loss_terms: B5 launched")
+    due = list(range(1, n + 1, LOSS_TERMS["vertex_reg"]["interval_iter"]))
+    check(trainer.nearest_history == due,
+          f"loss_terms: kNN refreshed at {trainer.nearest_history}, due at {due}")
+    V = trainer.dataset.getTrainDatasetSize()
+    aff = float((trainer.params.affine_weight - torch.eye(3, device=dev)).abs().max())
+    affb = float(trainer.params.affine_bias.abs().max())
+    check(trainer.params.affine_weight.shape == (V, 3, 3) and aff > 1e-4 and affb > 1e-4,
+          f"loss_terms: the affine stayed at identity ({aff:.3e}, {affb:.3e})")
+
+    # evaluation with eval_lpips and no weights file: one warning, NaN
+    warned = []
+    warn0 = trainer.logger.warning
+    trainer.logger.warning = lambda msg: (warned.append(msg), warn0(msg))
+    psnr = trainer._evaluate(n)
+    trainer._evaluate(n)
+    trainer.logger.warning = warn0
+    check(len([w for w in warned if "LPIPS unavailable" in w]) == 1
+          and np.isnan(trainer.last_eval["lpips"]) and np.isfinite(psnr),
+          f"loss_terms: eval_lpips without weights logged {warned}, {trainer.last_eval}")
+
+    # one step on the card against the same step on the CPU
+    cam = trainer.dataset.getTrainDataset()[1]
+    settings = trainer._settings_for(cam)
+    weights = trainer._loss_weights(n)
+    near = trainer._nearest_idx
+    p, s, _ = triangle_to_numpy(trainer.params, trainer.state)
+    cp, cs, _ = triangle_from_numpy(p, s, device="cpu")
+    res = {}
+    for where, (pp, ss, cc, nn, bg) in {
+            "card": (trainer.params, trainer.state, cam, near, torch.ones(3, device=dev)),
+            "cpu": (cp, cs, camera_on(cam, "cpu"), near.cpu(), torch.ones(3))}.items():
+        res[where] = trainer._loss_and_grads(settings, pp, ss, cc, bg, weights, nn)
+    (lg, gg, ag), (lc, gc, ac) = res["card"], res["cpu"]
+    rel_loss = abs(float(lg) - float(lc)) / float(lc)
+    check(rel_loss <= 1e-4, f"loss_terms: card loss {float(lg)} vs CPU {float(lc)}")
+    errs = {}
+    for name, want in gc.tensors().items():
+        got = getattr(gg, name).cpu()
+        errs[name] = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        check(errs[name] <= (2e-2 if name == "vertex" else 1e-3),
+              f"loss_terms: {name} gradient card vs CPU L2 rel {errs[name]:.3e}")
+
+    # LPIPS on random_weights(0): the card against the CPU
+    w = LP.random_weights(0)
+    test = next(trainer.dataset.getTestDataset())
+    with torch.no_grad():
+        img = M.forward(trainer.params, trainer.state, test, torch.ones(3, device=dev),
+                        trainer.model_cfg, trainer._settings_for(test),
+                        apply_color_affine=False)["render"].clamp(0, 1)
+    d_card = float(LP.lpips(img, test.gt_image, weights=w))
+    d_cpu = float(LP.lpips(img.cpu(), test.gt_image.cpu(), weights=w))
+    check(abs(d_card - d_cpu) <= 1e-4 * d_cpu and d_cpu > 0,
+          f"loss_terms: LPIPS card {d_card} vs CPU {d_cpu}")
+    lp_ms = cuda_ms(lambda: LP.lpips(img, test.gt_image, weights=w), 5, 1)
+    say("loss_terms", cell="loss-terms-photo-400", card=card_line(), terms=LOSS_TERMS,
+        affine_lr=LOSS_TERMS_AFFINE_LR, steps=n,
+        ms_per_step=round(trainer.train_seconds / n * 1e3, 3), loss_first10=first,
+        loss_last10=last10, psnr_test=psnr, knn_refreshes=len(trainer.nearest_history),
+        affine_max_dev=aff, affine_bias_max=affb, step_loss_rel=rel_loss,
+        step_grad_l2_rel=errs, vertex_loss=float(ag["vertex_loss"]),
+        lpips_card=d_card, lpips_cpu=d_cpu, lpips_ms=round(lp_ms, 3), launches=launches,
+        seconds=round(time.perf_counter() - t_phase, 3))
+    shutil.rmtree(WORK / "loss_terms", ignore_errors=True)
+    return launches
 
 
 def to_cpu(params, opt, state):
@@ -3586,8 +4122,13 @@ def main(argv=None) -> int:
         shutil.rmtree(surface, ignore_errors=True)
         runs["city"], city_rec = phase_city(dev, build_city(dev), cmp)
         rec.update(city_rec)
+        shutil.rmtree(WORK / "matrix_city", ignore_errors=True)
+        colmap = build_colmap(dev)
+        runs["scaffold"] = phase_scaffold(dev, colmap)
+        shutil.rmtree(colmap, ignore_errors=True)
         runs["smoke"] = phase_smoke(dev)
         phase_resume()                      # on the smoke photo run's dataset
+        runs["loss_terms"] = phase_loss_terms(dev)      # on that dataset too
         for name, _ in SMOKE_RUNS:
             shutil.rmtree(WORK / f"smoke_{name}", ignore_errors=True)
         runs["adc"] = phase_adc(dev)

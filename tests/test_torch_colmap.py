@@ -245,3 +245,31 @@ def test_city_writer_reads_back_in_both_packages(tmp_path):
     assert pcd.points.shape == (3000, 3)
     np.testing.assert_allclose(np.linalg.norm(pcd.normals, axis=1), 1.0, atol=1e-6)
     assert pcd.points[:, 2].min() >= -1e-6 and (pcd.normals[:, 2] == 1).mean() > 0.5
+
+
+def test_colmap_writer_reads_back_in_both_packages(tmp_path):
+    """The synthetic COLMAP capture of the scaffold cell at a small size: both
+    COLMAP factories read the same cameras and images (2 of 16 views held
+    out by hold_interval 8) and the same points3D.bin cloud, whose points
+    lie on the soup's faces with their colors (to the uint8 step)."""
+    from triangle_splatting_tpu.datasets.colmap import ColmapDatasetFactory as JF
+    from triangle_splatting_tpu_torch.datasets.colmap import ColmapDatasetFactory as TF
+    from triangle_splatting_tpu_torch.utils.testing import make_random_scene, write_colmap_scene
+    scene = make_random_scene(200, seed=7, z_range=(-0.8, 0.8), xy_extent=0.8,
+                              size_range=(0.05, 0.2), opacity_range=(0.7, 0.95))
+    secs = write_colmap_scene(tmp_path, scene, width=48, height=32, n_views=16, n_points=500,
+                              device="cpu")
+    assert set(secs) == {"render", "png", "ply"}
+    cfg = dict(local_dir=str(tmp_path), background="white", use_alpha_mask=False,
+               num_workers=1, pcd_path="sparse/0/points3D.bin", hold_test_set=True,
+               hold_interval=8)
+    tf, jf = TF(dict_to_config(cfg), device="cpu"), JF(j_dict_to_config(cfg))
+    assert (tf.getTrainDatasetSize(), tf.getTestDatasetSize()) == (14, 2)
+    for i in range(14):
+        tcam = tf.getTrainDataset()[i]
+        assert_cameras_equal(tcam, jf.getTrainDataset()[i])
+        assert tcam.gt_image.shape == (3, 32, 48) and float(tcam.gt_image.std()) > 0.02
+    tp, jp = tf.getPointCloud(), jf.getPointCloud()
+    np.testing.assert_array_equal(tp.points, jp.points)
+    assert tp.points.shape == (500, 3) and np.abs(tp.points).max() < 1.2
+    assert ((tp.colors * 255) % 1 == 0).all() and tp.colors.max() <= 1.0

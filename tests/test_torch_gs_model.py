@@ -308,9 +308,9 @@ def dataset(tmp_path_factory):
 
 
 @pytest.mark.parametrize("path,value,block", [
-    ("model.use_color_affine", True, "use_color_affine"),
+    ("trainer.ckpt_format", "orbax", "orbax"),
     ("trainer.data_parallel", 2, "data_parallel"),
-    ("trainer.eval_lpips", True, "eval_lpips"),
+    ("trainer.profile_start_iter", 5, "profile_start_iter"),
 ])
 def test_build_trainer_refuses_unported_blocks(dataset, tmp_path, path, value, block):
     with pytest.raises(NotImplementedError, match=block):
@@ -319,17 +319,50 @@ def test_build_trainer_refuses_unported_blocks(dataset, tmp_path, path, value, b
 
 
 def test_build_trainer_dispatch(dataset, tmp_path):
-    """VanillaGS builds; ScaffoldGS is not ported."""
+    """VanillaGS builds; ScaffoldGS builds its own trainer."""
+    from triangle_splatting_tpu_torch.trainers.scaffold_gs import ScaffoldGSTrainer
     from triangle_splatting_tpu_torch.trainers.vanilla_gs import VanillaGSTrainer
     tr = build_trainer(dict_to_config(gs_config(dataset, tmp_path,
                                                 **{"trainer.save_iterations": [ITERS + 1]})),
                        device="cpu", log_file=False)
     assert isinstance(tr, VanillaGSTrainer) and tr._track_stats
     assert tr._settings_for(tr.dataset.getTrainDataset()[0]).rasterizer_type == "GS"
-    with pytest.raises(NotImplementedError, match="ScaffoldGS"):
-        build_trainer(dict_to_config(gs_config(dataset, tmp_path,
-                                               **{"trainer.type": "ScaffoldGS"})),
-                      device="cpu", log_file=False)
+    tr = build_trainer(dict_to_config(gs_config(dataset, tmp_path,
+                                                **{"trainer.type": "ScaffoldGS"})),
+                       device="cpu", log_file=False)
+    assert isinstance(tr, ScaffoldGSTrainer)
+
+
+def test_color_affine_and_lpips_left_unread_as_jax(dataset, tmp_path):
+    """A VanillaGS config with ``model.use_color_affine`` and
+    ``trainer.eval_lpips`` set builds and trains one step in both packages
+    (the JAX VanillaGS trainer reads neither), and the two steps' losses
+    agree within rel 1e-4 from the same converted weights."""
+    from triangle_splatting_tpu.trainers.vanilla_gs import VanillaGSTrainer as JT
+    from triangle_splatting_tpu.utils.config import dict_to_config as j_dict_to_config
+    patch = {"model.use_color_affine": True, "trainer.eval_lpips": True,
+             "trainer.iterations": 1, "trainer.log_interval_iter": 1}
+    jt = JT(j_dict_to_config(gs_config(dataset, tmp_path / "j", **patch)), impl="oracle",
+            log_file=False)
+    jt._init_model()
+    tt = build_trainer(dict_to_config(gs_config(dataset, tmp_path / "t", **patch)),
+                       device="cpu", log_file=False)
+    tt.params, tt.state, tt.opt = gaussian_from_numpy(
+        leaves(jt.params), leaves(jt.state), dict(m=leaves(jt.opt.m), v=leaves(jt.opt.v),
+                                                  step=0), device="cpu")
+    jt.train()
+    tt.train()
+    assert tt.params.capacity == jt.params.capacity and tt.opt.step == 1
+    assert not hasattr(tt.params, "affine_weight")
+    jv, tv = jt.dataset.getTrainDataset()[0], tt.dataset.getTrainDataset()[0]
+    weights = tt._loss_weights(2)
+    sched = jt._pack.pack({n: np.float32(w) for n, w in weights.items()}, jt._lrs(2),
+                          np.ones(3, np.float32), 2)
+    _, _, _, jl, _ = jt._train_step(jt._settings_for(jv), jt.params, jt.opt, jt.state,
+                                    jv.strip_static(), sched)
+    _, _, _, tl, _ = tt._train_step(tt._settings_for(tv), tt.params, tt.opt, tt.state, tv,
+                                    weights, tt._lrs(2), torch.ones(3), 2)
+    assert abs(float(tl) - float(jl)) <= 1e-4 * float(jl)
 
 
 def stat_tol(name, want):

@@ -33,14 +33,14 @@ def test_smoke_config_equals_jax(kw, iters):
 
 
 def test_smoke_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="scaffold"):
-        make_smoke_config("/d", "/o", 80, model="scaffold")
     with pytest.raises(NotImplementedError, match="dp"):
         smoke.main(QUICK + ["--dp", "2", "--root", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="scaffold"):
-        smoke.main(QUICK + ["--model", "scaffold", "--root", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="dp"):
+        smoke.main(QUICK + ["--model", "scaffold", "--dp", "2", "--root", str(tmp_path)])
     with pytest.raises(ValueError, match="mesh"):
         make_smoke_config("/d", "/o", 80, model="gs", mesh=True)
+    with pytest.raises(ValueError, match="mesh"):
+        make_smoke_config("/d", "/o", 80, model="scaffold", mesh=True)
 
 
 @pytest.mark.parametrize("model", ["ts", "gs"])

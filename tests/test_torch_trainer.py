@@ -189,10 +189,10 @@ def test_trainer_e2e_loss_falls(dataset, tmp_path):
 
 @pytest.mark.parametrize("patch", [
     {"trainer": {"data_parallel": 2}},
-    {"model": {"use_color_affine": True}},
+    {"model": {"sampling": {"sample_method": "poisson"}}},
     {"model": {"rasterizer_type": "GS"}},
-    {"trainer": {"w_dog": 0.1}},
-    {"trainer": {"vertex_reg": {"w_vertex_reg": 0.1}}},
+    {"trainer": {"ckpt_format": "orbax"}},
+    {"trainer": {"profile_start_iter": 5}},
 ])
 def test_unported_config_blocks_raise(dataset, tmp_path, patch):
     base = make_config(dataset, tmp_path / "out").to_dict()

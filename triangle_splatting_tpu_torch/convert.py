@@ -1,7 +1,8 @@
 """Carry model weights between the JAX package and the port.
 
-The JAX package keeps ``TriangleParams`` / ``TriangleState`` / ``AdamState``
-and ``GaussianParams`` / ``GaussianState`` / ``GSAdamState`` as pytrees of
+The JAX package keeps ``TriangleParams`` / ``TriangleState`` / ``AdamState``,
+``GaussianParams`` / ``GaussianState`` / ``GSAdamState`` and
+``ScaffoldParams`` / ``ScaffoldState`` / ``ScaffoldAdamState`` as pytrees of
 arrays; the port keeps dataclasses of tensors with the same field names and
 layouts. These functions move them as numpy arrays keyed by field name, so
 neither package imports the other.
@@ -16,6 +17,7 @@ import torch
 
 from .device import resolve_device
 from .models.gaussian_model import GaussianParams, GaussianState, GSAdamState
+from .models.scaffold import ScaffoldAdamState, ScaffoldParams, ScaffoldState
 from .models.triangle import AdamState, TriangleParams, TriangleState
 
 
@@ -97,3 +99,48 @@ def gaussian_to_numpy(params: GaussianParams, state: GaussianState,
                  v={f.name: _to_np(getattr(opt.v, f.name)) for f in fields(GaussianParams)},
                  step=np.int32(opt.step))
     return p, s, o
+
+
+def _tensor_tree(x, dev):
+    if isinstance(x, dict):
+        return {k: _tensor_tree(v, dev) for k, v in x.items()}
+    return torch.as_tensor(np.array(x, dtype=np.float32)).to(dev)
+
+
+def _scaffold_params(leaves: dict, dev) -> ScaffoldParams:
+    return ScaffoldParams(anchor=_tensor_tree(leaves["anchor"], dev),
+                          anchor_feat=_tensor_tree(leaves["anchor_feat"], dev),
+                          mlps=_tensor_tree(leaves["mlps"], dev))
+
+
+def scaffold_from_numpy(params: dict, state: dict, opt: dict | None = None, device="cuda"):
+    """Port Scaffold containers from numpy leaves keyed by the JAX field
+    names: ``params`` anchor, anchor_feat and mlps (head -> {w1, b1, w2,
+    b2}); ``state`` alive, anchor_scaling, ..., voxel_size,
+    opacity_threshold; ``opt`` {"m": params-like, "v": params-like,
+    "step"} or None. Returns (params, state, opt)."""
+    dev = resolve_device(device)
+    o = None
+    if opt is not None:
+        o = ScaffoldAdamState(m=_scaffold_params(opt["m"], dev), v=_scaffold_params(opt["v"], dev),
+                              step=int(np.asarray(opt["step"])))
+    kw = {f.name: torch.as_tensor(np.array(state[f.name],
+                                           dtype=bool if f.name == "alive" else np.float32)).to(dev)
+          for f in fields(ScaffoldState)}
+    return _scaffold_params(params, dev), ScaffoldState(**kw), o
+
+
+def _scaffold_np(p: ScaffoldParams) -> dict:
+    return {"anchor": _to_np(p.anchor), "anchor_feat": _to_np(p.anchor_feat),
+            "mlps": {h: {leaf: _to_np(t) for leaf, t in d.items()} for h, d in p.mlps.items()}}
+
+
+def scaffold_to_numpy(params: ScaffoldParams, state: ScaffoldState,
+                      opt: ScaffoldAdamState | None = None):
+    """Inverse of :func:`scaffold_from_numpy`: nested dicts of numpy leaves
+    (the JAX checkpoint blob's layout once its dataclasses are dicts)."""
+    s = {f.name: _to_np(getattr(state, f.name)) for f in fields(ScaffoldState)}
+    o = None
+    if opt is not None:
+        o = dict(m=_scaffold_np(opt.m), v=_scaffold_np(opt.v), step=np.int32(opt.step))
+    return _scaffold_np(params), s, o

@@ -134,6 +134,17 @@ class BaseDatasetFactory:
         None: no box, every point counts as inside."""
         return None
 
+    def getGTGaussian(self):
+        """The ground-truth Gaussian set of the Scaffold MLP distillation: the
+        3DGS PLY at the config's ``gt_gaussian_path`` (read once)."""
+        if getattr(self, "_gt_gaussian", None) is None:
+            path = self._config.gt_gaussian_path
+            if path is None:
+                raise FileNotFoundError("dataset config has no gt_gaussian_path")
+            from ..models.raw_gaussian import RawGaussian
+            self._gt_gaussian = RawGaussian(ply_path=str(path))
+        return self._gt_gaussian
+
     def close(self) -> None:
         """Stop the prefetch threads."""
         if self._train_loader is not None:

@@ -160,7 +160,8 @@ def forward(params: TriangleParams, state: TriangleState, camera: Camera,
             settings: RasterSettings, *, is_training: bool = True,
             center2d_offset: Optional[torch.Tensor] = None,
             impl: str = "cuda", max_pairs: Optional[int] = None,
-            need_stats: bool = False) -> dict:
+            need_stats: bool = False,
+            apply_color_affine: Optional[bool] = None) -> dict:
     """Render the scene through one camera.
 
     ``center2d_offset`` (C, 2) zeros is the densification-statistics hook;
@@ -172,9 +173,12 @@ def forward(params: TriangleParams, state: TriangleState, camera: Camera,
     with ``antialias=True``, which matches ``jax.image.resize(...,
     "linear")``; a plain bilinear or average-pool downsample does not);
     radii are divided by up.
+
+    With ``cfg.use_color_affine`` (and ``apply_color_affine`` not False)
+    the render goes through the camera's 3x3 color transform and bias
+    (``params.affine_weight[camera.uid]``) and is clipped to [0, 1]; the
+    untransformed render is kept as ``render_original``.
     """
-    if cfg.use_color_affine:
-        raise NotImplementedError("color affine is not ported yet")
     vertex = params.vertex
     opacity = get_opacity(params)[:, 0]
     shs = get_features(params)
@@ -217,6 +221,15 @@ def forward(params: TriangleParams, state: TriangleState, camera: Camera,
         vertex=params.vertex,
         visible_mask=(out["radii"] > 0) & alive,
     )
+
+    use_affine = cfg.use_color_affine if apply_color_affine is None else apply_color_affine
+    if cfg.use_color_affine and use_affine and params.affine_weight is not None:
+        img = render_pkg["render"]
+        W3 = params.affine_weight[camera.uid]
+        b3 = params.affine_bias[camera.uid]
+        transformed = torch.einsum("chw,cd->dhw", img, W3) + b3[:, None, None]
+        render_pkg["render_original"] = img
+        render_pkg["render"] = transformed.clamp(0.0, 1.0)
     return render_pkg
 
 
@@ -295,6 +308,15 @@ def zero_moments(opt: AdamState, mask: torch.Tensor,
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def setup_color_affine(params: TriangleParams, view_count: int) -> TriangleParams:
+    """Identity per-view color transforms: (V, 3, 3) weights and (V, 3)
+    biases on the device of the params."""
+    dev = params.vertex.device
+    w = torch.eye(3, dtype=torch.float32, device=dev)[None].repeat(view_count, 1, 1)
+    return replace(params, affine_weight=w,
+                   affine_bias=torch.zeros((view_count, 3), dtype=torch.float32, device=dev))
 
 
 def create_from_points(points: np.ndarray, colors: np.ndarray,

@@ -1,7 +1,7 @@
 """Trainers of the port (VanillaTS: the photo and mesh recipes; VanillaGS:
-the Gaussian baseline)."""
+the Gaussian baseline; ScaffoldGS: anchors decoded by MLP heads)."""
 
-TRAINER_TYPES = ("VanillaTS", "VanillaGS")
+TRAINER_TYPES = ("VanillaTS", "VanillaGS", "ScaffoldGS")
 
 
 def build_trainer(config, **kwargs):
@@ -19,5 +19,6 @@ def build_trainer(config, **kwargs):
         from .vanilla_gs import VanillaGSTrainer
         return VanillaGSTrainer(config, **kwargs)
     if ttype == "ScaffoldGS":
-        raise NotImplementedError(f"trainer type {ttype} is not ported yet")
+        from .scaffold_gs import ScaffoldGSTrainer
+        return ScaffoldGSTrainer(config, **kwargs)
     raise ValueError(f"Unknown trainer type: {ttype}")

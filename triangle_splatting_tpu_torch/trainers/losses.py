@@ -1,6 +1,7 @@
-"""Losses and metrics of the photo and mesh recipes (port of the parts of
-``triangle_splatting_tpu/trainers/losses.py`` they use: L1, SSIM, PSNR and
-the depth-normal consistency loss of the geometry term).
+"""Losses and metrics of the photo and mesh recipes (port of
+``triangle_splatting_tpu/trainers/losses.py``: L1, SSIM, PSNR, the
+depth-normal consistency loss of the geometry term, the DoG
+frequency-masked L1 and the Scharr smoothness term).
 
 SSIM and the Scharr gradients use ``conv2d`` (the JAX package's separable
 shift-multiply form was a TPU workaround). All images are (C, H, W)
@@ -80,6 +81,41 @@ def scharr(img: torch.Tensor, ret_norm: bool = False) -> torch.Tensor:
     if ret_norm:
         return torch.linalg.vector_norm(grad, dim=0, keepdim=True)
     return grad
+
+
+def dog_loss(img: torch.Tensor, img_gt: torch.Tensor, freq: int = 90,
+             scale_factor: float = 0.5) -> torch.Tensor:
+    """L1 over the pixels a difference of Gaussians of the GT's gray image
+    (at ``scale_factor`` of the size, resized back) marks: its top half
+    after min-max normalization, inverted for ``freq`` >= 50. The mask
+    carries no gradient."""
+    sigma = 0.1 + (100 - freq) * 0.1 if freq >= 50 else 0.1 + freq * 0.1
+    k1 = _gaussian_kernel(int(2 * round(3 * sigma) + 1), sigma)
+    k2 = _gaussian_kernel(int(2 * round(6 * sigma) + 1), 2 * sigma)
+    with torch.no_grad():
+        gray = img_gt.mean(dim=0, keepdim=True)
+        H, W = gray.shape[-2:]
+        down = resize_linear(gray, int(H * scale_factor), int(W * scale_factor))
+        up = resize_linear(depthwise_conv2d(down, k1) - depthwise_conv2d(down, k2), H, W)
+        normed = (up - up.min()) / (up.max() - up.min() + 1e-12)
+        if freq >= 50:
+            normed = 1.0 - normed
+        mask = (normed >= 0.5).to(img.dtype)
+    return (img * mask - img_gt * mask).abs().mean()
+
+
+def smoothness_loss(img: torch.Tensor, img_gt: torch.Tensor, quantile: float = 0.3,
+                    scale_factor: float = 0.5) -> torch.Tensor:
+    """The render's Scharr gradient norm where the GT is flat: below the
+    ``quantile`` of the GT's gradient norm (taken at ``scale_factor`` of
+    the size and resized back; ``torch.quantile`` interpolates linearly, as
+    ``jnp.quantile``). The mask carries no gradient."""
+    with torch.no_grad():
+        H, W = img_gt.shape[-2:]
+        down = resize_linear(img_gt, int(H * scale_factor), int(W * scale_factor))
+        up = resize_linear(scharr(down, ret_norm=True), H, W)
+        mask = (up < torch.quantile(up, quantile)).to(img.dtype)
+    return (scharr(img, ret_norm=True) * mask).mean()
 
 
 def depth_to_normal(depth: torch.Tensor, tan_fovx, tan_fovy,

@@ -2,7 +2,7 @@
 (port of ``triangle_splatting_tpu/trainers/smoke.py``).
 
 ``python -m triangle_splatting_tpu_torch.trainers.smoke [--res 400] [--iters 400]
-[--mesh | --model gs]``
+[--mesh | --model gs | --model scaffold]``
 
 Builds a NeRF-Synthetic-format dataset on disk by rendering a known random
 triangle scene with the port's own rasterizer, then runs the whole trainer
@@ -10,14 +10,15 @@ loop (config -> dataset -> model init -> train steps -> densification and
 opacity pruning -> eval -> PLY / checkpoint IO) and reports the test-view
 PSNR before and after and the wall-clock per step. ``--mesh`` runs the
 solidify recipe (3D rasterizer, gamma 1 -> 50, STE, GLB export), ``--model
-gs`` the VanillaGS Gaussians. On the GPU by default; ``--device cpu``
+gs`` the VanillaGS Gaussians, ``--model scaffold`` the ScaffoldGS anchors
+and MLP heads (anchor growth and pruning instead of densification). On the GPU by default; ``--device cpu``
 runs the plain kernel versions (the quick check: ``--res 48 --iters 80
 --n_tri 120 --views 6 --impl oracle --device cpu``).
 
 Prints ONE JSON line at the end with psnr_init / psnr_final /
 ms_per_step_incl_compile; the exit code is 0 only if the PSNR climbed by
-``--min-gain`` dB. ``--model scaffold`` and ``--dp`` raise
-``NotImplementedError``: ScaffoldGS and data parallelism are not ported.
+``--min-gain`` dB. ``--dp`` raises ``NotImplementedError``: data
+parallelism is not ported.
 """
 
 from __future__ import annotations
@@ -36,15 +37,53 @@ def make_smoke_config(root, out_dir, iters: int, densify: bool = True,
     rasterizer, gamma annealed 1->50 over the middle half, opacity STE +
     two-phase opacity regularization, GLB export at the end (the
     NerfSynthetic_VanillaTS_mesh recipe at smoke scale). ``model="gs"``
-    trains the VanillaGS Gaussian baseline; ``model="scaffold"`` (ScaffoldGS)
-    is not ported and raises ``NotImplementedError``."""
+    trains the VanillaGS Gaussian baseline; ``model="scaffold"`` the
+    ScaffoldGS anchors + MLPs model (with ``densify`` its anchor update)."""
     from ..utils.config import dict_to_config
     if model != "ts" and mesh:
         raise ValueError("mesh/solidify is a triangle-model pipeline")
     if model == "scaffold":
-        raise NotImplementedError(
-            "smoke --model scaffold (ScaffoldGS) is not ported to "
-            "triangle_splatting_tpu_torch yet")
+        lr = lambda v: {"v_init": v, "v_final": v, "max_steps": iters}  # noqa: E731
+        return dict_to_config({
+            "dataset": {"type": "NerfSynthetic", "local_dir": str(root),
+                        "background": "white", "use_alpha_mask": False,
+                        "num_workers": 2, "pcd_path": "point_cloud.ply",
+                        "hold_test_set": True},
+            "model": {
+                "feat_dim": 16, "hidden_dim": 32, "n_offsets": 5,
+                "voxel_size": 0.1, "max_offset_scale": 1.0,
+                "max_scaling_scale": 1.0, "capacity_factor": 4.0,
+                "optimizer": {
+                    "anchor": lr(0.0001), "anchor_feat": lr(0.05),
+                    "mlp_offset": lr(0.01), "mlp_opacity": lr(0.01),
+                    "mlp_cov": lr(0.01), "mlp_color": lr(0.01),
+                    "mlp_scaling": lr(0.01),
+                },
+                **({"anchor_update": {
+                    "start_iter": iters // 8, "end_iter": iters,
+                    "interval_iter": max(50, iters // 8),
+                    "grad_threshold_init": 0.0002,
+                    "grad_threshold_final": 0.0002,
+                    "opacity_threshold_init": 0.005,
+                    "opacity_threshold_final": 0.005,
+                    "grad_min_view_count": 1, "opacity_min_view_count": 1,
+                    "update_depth": 2, "update_init_factor": 4,
+                    "update_hierachy_factor": 4,
+                }} if densify else {}),
+            },
+            "trainer": {
+                "type": "ScaffoldGS",
+                "output_dir": str(out_dir), "iterations": iters,
+                "initial_eval": False,
+                "log_interval_iter": max(50, iters // 8),
+                "eval_interval_iter": 0, "w_ssim": 0.2,
+                "w_scaling_reg": 0.01, "w_opacity_reg": 0.01,
+                "save_iterations": [iters],
+                "checkpoint_iterations": [iters],
+                "train_background": "white", "eval_background": "white",
+                "use_tensorboard": False, "seed": 0,
+            },
+        })
     model_update = {"sh_schedule": {"one_up_iters": [iters // 4]}}
     if densify:
         model_update.update({
@@ -131,7 +170,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "1->50, STE, GLB export")
     ap.add_argument("--model", default="ts", choices=["ts", "gs", "scaffold"],
                     help="ts = VanillaTS triangles, gs = VanillaGS Gaussians, "
-                         "scaffold = ScaffoldGS (not ported)")
+                         "scaffold = ScaffoldGS anchors + MLPs")
     ap.add_argument("--min-gain", type=float, default=2.0,
                     help="required PSNR gain (dB) for exit code 0")
     ap.add_argument("--dp", type=int, default=0,

@@ -17,12 +17,13 @@ densification block the capacity starts at four times the point count.
 The alive Gaussians are saved as a 3DGS PLY (``models/raw_gaussian.py``)
 at ``save_iterations`` and the whole model as a checkpoint at
 ``checkpoint_iterations``; a run resumes from ``start_checkpoint``.
-``save_interval_iter``, ``ckpt_interval_iter`` and ``start_pointcloud``
-are left unread, as the JAX VanillaGS trainer leaves them.
+``save_interval_iter``, ``ckpt_interval_iter``, ``start_pointcloud``,
+``model.use_color_affine`` and ``trainer.eval_lpips`` are left unread, as
+the JAX VanillaGS trainer leaves them.
 
 Config blocks this port does not serve raise ``NotImplementedError`` at
-construction, naming the block: color affine, data parallelism, LPIPS
-and the orbax checkpoint format.
+construction, naming the block: data parallelism and the orbax checkpoint
+format.
 """
 
 from __future__ import annotations
@@ -90,12 +91,8 @@ class VanillaGSTrainer(BaseTrainer):
             raise NotImplementedError(
                 f"{what} is not ported to triangle_splatting_tpu_torch yet")
 
-        if self.config.model.use_color_affine:
-            refuse("model.use_color_affine")
         if int(t.data_parallel or 0) > 1:
             refuse("trainer.data_parallel")
-        if t.eval_lpips:
-            refuse("trainer.eval_lpips")
         if t.ckpt_format == "orbax":
             refuse("trainer.ckpt_format 'orbax' (it needs JAX)")
 

@@ -3,10 +3,13 @@
 
 One iteration: render one training camera through the kernel pipeline
 (the 2D or the 3D rasterizer, optionally at ``render_up_scale`` times the
-camera's size), L1 + w_ssim * (1 - SSIM) (+ the scaling / opacity
-regularizers, and with a ``geometry_loss`` block the depth-normal
-consistency term, for which every render carries depth and normal),
-autograd backward, Adam (eps 1e-15) with per-group learning-rate
+camera's size, optionally through the camera's color affine transform),
+w_l1 * L1 + w_ssim * (1 - SSIM) (+ the DoG and smoothness terms, whose
+weights come out of L1's, the scaling / opacity regularizers, the vertex
+regularizer toward each vertex's nearest neighbor outside its triangle,
+the affine regularizer, and with a ``geometry_loss`` block the
+depth-normal consistency term, for which every render carries depth and
+normal), autograd backward, Adam (eps 1e-15) with per-group learning-rate
 schedules; SH bands come on along ``sh_schedule`` and gamma along
 ``gamma_schedule`` (the mesh recipes' solidify anneal). With a
 ``statistic`` block every step renders with the contribution statistics
@@ -26,9 +29,11 @@ resumes from ``start_checkpoint`` (moments and statistics restored) or
 ``start_pointcloud`` (a saved PLY, fresh moments), its iterations
 numbered on from there.
 
-Config blocks this port does not serve raise ``NotImplementedError`` at
-construction: the DoG / smoothness / vertex losses, color affine, data
-parallelism, LPIPS and the orbax checkpoint format.
+Evaluation reports PSNR and SSIM, and with ``eval_lpips`` LPIPS
+(``trainers/lpips.py``; without a weights file it logs "LPIPS unavailable"
+once and reports NaN). Config blocks this port does not serve raise
+``NotImplementedError`` at construction: data parallelism and the orbax
+checkpoint format.
 """
 
 from __future__ import annotations
@@ -94,6 +99,18 @@ class VanillaTSTrainer(BaseTrainer):
         self._rich = self._w_geometry > 0
         self._geo_scale_factor = (geo.scale_factor if geo is not None
                                   and geo.scale_factor is not None else 0.5)
+        t = self.config.trainer
+        self._w_dog = t.w_dog or 0.0
+        self._w_smooth = t.w_smoothness or 0.0
+        self._dog_freq = 90
+        self._w_vertex = (t.vertex_reg.w_vertex_reg or 0.0) if t.vertex_reg is not None else 0.0
+        self._w_affine = t.w_affine_reg or 0.0
+        # the vertex regularizer's nearest-neighbor indices, refreshed on its
+        # cadence and after the capacity grows
+        self._nearest_idx = None
+        self._nearest_stale = False
+        # the iterations at which the nearest neighbors were recomputed
+        self.nearest_history: list[int] = []
         self._setup_schedulers()
         self._rng = np.random.default_rng(self.seed)
         self._sh_degree_host = 0
@@ -115,23 +132,13 @@ class VanillaTSTrainer(BaseTrainer):
             raise NotImplementedError(
                 f"{what} is not ported to triangle_splatting_tpu_torch yet")
 
-        if mc.use_color_affine:
-            refuse("model.use_color_affine")
         if (mc.rasterizer_type or "2D") not in ("2D", "3D"):
             refuse(f"model.rasterizer_type {mc.rasterizer_type!r}")
         sampling = mc.sampling or Config()
         if (sampling.sample_method or "direct") not in ("direct", "random", "grid"):
             refuse(f"model.sampling.sample_method {sampling.sample_method!r}")
-        if (t.w_dog or 0) > 0:
-            refuse("trainer.w_dog")
-        if (t.w_smoothness or 0) > 0:
-            refuse("trainer.w_smoothness")
-        if t.vertex_reg is not None and (t.vertex_reg.w_vertex_reg or 0) > 0:
-            refuse("trainer.vertex_reg")
         if int(t.data_parallel or 0) > 1:
             refuse("trainer.data_parallel")
-        if t.eval_lpips:
-            refuse("trainer.eval_lpips")
         if t.ckpt_format == "orbax":
             refuse("trainer.ckpt_format 'orbax' (it needs JAX)")
 
@@ -143,6 +150,8 @@ class VanillaTSTrainer(BaseTrainer):
                 sub = getattr(oc, name)
                 if sub is not None:
                     self.lr_schedulers[name] = exponential_scheduler(**vars(sub))
+            if oc.color_affine is not None:
+                self.lr_schedulers["affine"] = exponential_scheduler(**vars(oc.color_affine))
             if oc.vertex_scale_up_iter is not None and oc.vertex_scale_up is not None:
                 base = self.lr_schedulers["vertex"]
                 it0, mult = oc.vertex_scale_up_iter, oc.vertex_scale_up
@@ -190,18 +199,23 @@ class VanillaTSTrainer(BaseTrainer):
                 w_lin = oreg.linear_reg or 0.0
             elif iteration > (oreg.quad_start_iter or 0):
                 w_quad = oreg.quad_reg or 0.0
+        vr = t.vertex_reg
+        w_v = self._w_vertex if (vr is not None and iteration > (vr.start_iter or 0)) else 0.0
         return {k: _f32(v) for k, v in dict(
-            l1=1.0 - w_ssim, ssim=w_ssim, geometry=w_geo, scaling=t.w_scaling_reg or 0.0,
-            opacity_quad=w_quad, opacity_linear=w_lin).items()}
+            l1=1.0 - w_ssim - self._w_dog - self._w_smooth, ssim=w_ssim, dog=self._w_dog,
+            smooth=self._w_smooth, geometry=w_geo, scaling=t.w_scaling_reg or 0.0,
+            opacity_quad=w_quad, opacity_linear=w_lin, vertex=w_v,
+            affine=self._w_affine).items()}
 
     # ------------------------------------------------------------------
     # step
     # ------------------------------------------------------------------
     def _camera_loss(self, settings: RasterSettings, p: M.TriangleParams,
                      c2d, state: M.TriangleState, camera: Camera, background,
-                     weights: dict):
-        """Per-camera training loss (the JAX twin's, for the blocks this
-        port serves). ``c2d`` is the (C, 2) centroid-offset leaf or None."""
+                     weights: dict, nearest_idx=None):
+        """Per-camera training loss (the JAX twin's). ``c2d`` is the (C, 2)
+        centroid-offset leaf or None; ``nearest_idx`` the (3C,) nearest
+        neighbor of each vertex (the vertex regularizer) or None."""
         pkg = M.forward(p, state, camera, background, self.model_cfg, settings,
                         is_training=True, center2d_offset=c2d, impl=self.impl,
                         need_stats=self._track_stats)
@@ -213,6 +227,10 @@ class VanillaTSTrainer(BaseTrainer):
         w = weights
         loss = w["l1"] * L.l1(img, gt)
         loss = loss + w["ssim"] * L.ssim_loss(img, gt)
+        if self._w_dog > 0:
+            loss = loss + w["dog"] * L.dog_loss(img, gt, freq=self._dog_freq)
+        if self._w_smooth > 0:
+            loss = loss + w["smooth"] * L.smoothness_loss(img, gt)
         if self._w_geometry > 0:
             geo = L.depth_normal_loss(pkg["depth"], pkg["normal"], camera.tan_fovx,
                                       camera.tan_fovy, self._geo_scale_factor)
@@ -227,8 +245,23 @@ class VanillaTSTrainer(BaseTrainer):
         quad = ((0.25 - (op - 0.5) ** 2) * alive_f).sum() / n_alive
         lin = ((1.0 - op) * alive_f).sum() / n_alive
         loss = loss + (w["opacity_quad"] * quad + w["opacity_linear"] * lin)
+
+        if self._w_vertex > 0 and nearest_idx is not None:
+            pts = p.vertex.reshape(-1, 3)
+            d2 = ((pts - pts[nearest_idx]) ** 2).sum(-1)
+            mask3 = alive_f.repeat_interleave(3)
+            vloss = (d2 * mask3).sum() / torch.clamp_min(mask3.sum(), 1.0)
+            loss = loss + w["vertex"] * vloss
+        else:
+            vloss = torch.zeros((), dtype=img.dtype, device=img.device)
+
+        if "render_original" in pkg and self._w_affine > 0:
+            orig = pkg["render_original"]
+            if camera.alpha_mask is not None:
+                orig = orig * camera.alpha_mask
+            loss = loss + w["affine"] * L.l1(img, orig)
         aux = dict(overflow=pkg["overflow"], num_pairs=pkg["num_pairs"],
-                   geo_loss=geo.detach())
+                   geo_loss=geo.detach(), vertex_loss=vloss.detach())
         if self._track_stats:
             aux.update(radii=pkg["radii"], contrib_sum=pkg["contrib_sum"],
                        contrib_max=pkg["contrib_max"],
@@ -236,7 +269,7 @@ class VanillaTSTrainer(BaseTrainer):
         return loss, aux
 
     def _loss_and_grads(self, settings, params, state, camera, background,
-                        weights):
+                        weights, nearest_idx=None):
         """Loss, per-parameter gradients (a TriangleParams) and aux. While
         statistics are tracked, the gradient of a zero (C, 2) centroid
         offset is taken too and returned as ``aux["center2d_grad"]``."""
@@ -250,7 +283,7 @@ class VanillaTSTrainer(BaseTrainer):
                               device=params.vertex.device, requires_grad=True)
             wrt.append(c2d)
         loss, aux = self._camera_loss(settings, M.TriangleParams(**leaves), c2d,
-                                      state, camera, background, weights)
+                                      state, camera, background, weights, nearest_idx)
         gs = torch.autograd.grad(loss, wrt, allow_unused=True)
         gs = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt, gs)]
         if c2d is not None:
@@ -263,12 +296,12 @@ class VanillaTSTrainer(BaseTrainer):
         return st.start_iter < iteration <= st.end_iter
 
     def _train_step(self, settings, params, opt, state, camera, weights, lrs,
-                    background, iteration: int):
+                    background, iteration: int, nearest_idx=None):
         """One iteration: forward, loss, backward, Adam and, inside the
         statistic window, the statistics update. Returns (params, opt,
         state, loss, aux)."""
         loss, grads, aux = self._loss_and_grads(settings, params, state, camera,
-                                                background, weights)
+                                                background, weights, nearest_idx)
         params, opt = M.adam_update(params, opt, grads, lrs)
         if self._track_stats and self._stat_gate(iteration):
             state = M.update_statistics(state, aux["center2d_grad"], aux["radii"],
@@ -303,6 +336,9 @@ class VanillaTSTrainer(BaseTrainer):
                 capacity_factor=2.0 if has_densify else 1.0,
                 duplicate_count=sampling.duplicate_count or 1,
                 seed=self.seed, device=self.device)
+            if self.model_cfg.use_color_affine:
+                self.params = M.setup_color_affine(
+                    self.params, self.dataset.getTrainDatasetSize())
             self.opt = M.AdamState.create(self.params)
             self.logger.info(
                 f"Initialized {int(self.state.alive.sum())} triangles "
@@ -441,9 +477,28 @@ class VanillaTSTrainer(BaseTrainer):
                     deg, dtype=torch.int32, device=self.device)
 
     def _grow_capacity(self):
-        """Zero-pad params, moments and state by half the capacity."""
+        """Zero-pad params, moments and state by half the capacity (the
+        vertex regularizer's nearest neighbors are then recomputed)."""
         self.params, self.opt, self.state = grow_capacity(
             self.params, self.opt, self.state, self.logger)
+        self._nearest_stale = True
+
+    def _refresh_nearest(self, iteration: int):
+        """The vertex regularizer's nearest neighbors over the alive
+        triangles' vertices (``ops/knn.py``), recomputed every
+        ``interval_iter`` steps after ``start_iter``, on the first step and
+        after the capacity grew."""
+        vr = self.config.trainer.vertex_reg
+        if not (self._w_vertex > 0 and iteration > (vr.start_iter or 0)):
+            return
+        if ((iteration - 1) % (vr.interval_iter or 10) == 0 or self._nearest_idx is None
+                or self._nearest_stale):
+            from ..ops.knn import nearest_neighbor
+            self._nearest_stale = False
+            self._nearest_idx = nearest_neighbor(
+                self.params.vertex.detach().reshape(-1, 3), 3,
+                self.state.alive.repeat_interleave(3))
+            self.nearest_history.append(iteration)
 
     def train(self):
         try:
@@ -460,6 +515,7 @@ class VanillaTSTrainer(BaseTrainer):
         self.logger.info("Training started")
         self.loss_history = []
         self.geo_history = []
+        self._nearest_idx = None
         t_start = time.perf_counter()
         for iteration in range(first_iter + 1, (cfgt.iterations or 30000) + 1):
             camera = self.dataset.nextTrainData()
@@ -470,10 +526,11 @@ class VanillaTSTrainer(BaseTrainer):
             bg_name = cfgt.train_background or "random"
             background = torch.as_tensor(get_color_tensor(bg_name, self._rng)).to(self.device)
             cap_step = self.params.capacity
+            self._refresh_nearest(iteration)
             self.params, self.opt, self.state, loss, aux = self._train_step(
                 settings, self.params, self.opt, self.state, camera,
                 self._loss_weights(iteration), self._lrs(iteration), background,
-                iteration)
+                iteration, self._nearest_idx)
             self.loss_history.append(loss)
             self.geo_history.append(aux["geo_loss"])
             self._note_overflow(aux["overflow"])
@@ -539,35 +596,59 @@ class VanillaTSTrainer(BaseTrainer):
         for camera in cameras:
             pkg = M.forward(self.params, self.state, camera, background,
                             self.model_cfg, self._settings_for(camera),
-                            is_training=False, impl=self.impl)
+                            is_training=False, impl=self.impl, apply_color_affine=False)
             mask = camera.alpha_mask if use_mask else None
             out.append(float(L.psnr(pkg["render"], camera.gt_image, mask)))
         return out
 
     @torch.no_grad()
-    def _evaluate(self, iteration: int):
+    def _evaluate(self, iteration: int, compute_lpips: bool | None = None):
+        """Mean PSNR and SSIM over the test views (the color affine not
+        applied), and LPIPS with ``eval_lpips`` (or ``compute_lpips``) while
+        its weights are found. Returns the mean PSNR."""
         cfgt = self.config.trainer
         bg_name = cfgt.eval_background or "black"
         background = torch.as_tensor(get_color_tensor(bg_name, self._rng)).to(self.device)
         eval_mask = True if cfgt.eval_alpha_mask is None else bool(cfgt.eval_alpha_mask)
+        if compute_lpips is None:
+            compute_lpips = bool(cfgt.eval_lpips)
         n_img = cfgt.eval_save_img_count or 3
-        psnrs, ssims = [], []
+        psnrs, ssims, lpips_vals = [], [], []
         for i, camera in enumerate(self.dataset.getTestDataset()):
             pkg = M.forward(self.params, self.state, camera, background,
                             self.model_cfg, self._settings_for(camera),
-                            is_training=False, impl=self.impl)
+                            is_training=False, impl=self.impl, apply_color_affine=False)
             img = pkg["render"]
             mask = camera.alpha_mask if eval_mask else None
             psnrs.append(float(L.psnr(img, camera.gt_image, mask)))
             ssims.append(float(L.ssim(img.clamp(0, 1), camera.gt_image)))
+            if compute_lpips:
+                lpips_vals.append(self._lpips(img, camera.gt_image))
             if i < n_img:
                 self.logger.add_image(f"Pred {i}", img.cpu().numpy(), iteration)
-        self.logger.info(f"[ITER {iteration}] Eval PSNR: {np.mean(psnrs):.3f}, "
-                         f"SSIM: {np.mean(ssims):.3f}, views: {len(psnrs)}, "
+        msg = f"[ITER {iteration}] Eval PSNR: {np.mean(psnrs):.3f}, SSIM: {np.mean(ssims):.3f}"
+        if lpips_vals:
+            msg += f", LPIPS: {np.mean(lpips_vals):.3f}"
+        self.logger.info(msg + f", views: {len(psnrs)}, "
                          f"triangles: {int(self.state.alive.sum())}")
         self.logger.add_scalar("Average PSNR", float(np.mean(psnrs)), iteration)
         self.logger.add_scalar("Average SSIM", float(np.mean(ssims)), iteration)
+        if lpips_vals:
+            self.logger.add_scalar("Average LPIPS", float(np.mean(lpips_vals)), iteration)
+        self.last_eval = dict(psnr=float(np.mean(psnrs)), ssim=float(np.mean(ssims)),
+                              lpips=float(np.mean(lpips_vals)) if lpips_vals else None)
         return float(np.mean(psnrs))
+
+    def _lpips(self, img: torch.Tensor, gt: torch.Tensor) -> float:
+        """LPIPS of one view (``trainers/lpips.py``); NaN, with a warning
+        logged once, when no weights file is found. Any other fault
+        raises."""
+        from .lpips import lpips
+        try:
+            return float(lpips(img.clamp(0, 1), gt))
+        except FileNotFoundError as e:
+            self.logger.warnOnce(f"LPIPS unavailable: {e}")
+            return float("nan")
 
     def evaluate(self):
         return self._evaluate(0)
@@ -632,6 +713,8 @@ class VanillaTSTrainer(BaseTrainer):
 
         self.params = M.TriangleParams(vertex=pad(raw.vertex), opacity=pad(raw.opacity),
                                        f_dc=pad(feats[:, :1]), f_rest=pad(feats[:, 1:]))
+        if self.model_cfg.use_color_affine:
+            self.params = M.setup_color_affine(self.params, self.dataset.getTrainDatasetSize())
         self.state = M.TriangleState.create(cap, device=self.device)
         self.state.alive = torch.arange(cap, device=self.device) < n
         self.opt = M.AdamState.create(self.params)

@@ -47,6 +47,13 @@ class Logger:
     def warning(self, msg: str) -> None: self.logger.warning(msg)
     def error(self, msg: str) -> None: self.logger.error(msg)
 
+    def warnOnce(self, msg: str) -> None:
+        """A warning logged the first time its text comes, then dropped."""
+        warned = self.__dict__.setdefault("_warned", set())
+        if msg not in warned:
+            self.warning(msg)
+            warned.add(msg)
+
     def _emit(self, kind: str, tag: str, step: int, payload: dict) -> None:
         if self._events_file is not None:
             rec = {"kind": kind, "tag": tag, "step": int(step),

@@ -342,16 +342,21 @@ def make_city_scene(seed: int = 0, extent: float = 3.0, n_buildings: int = 16,
 
 def sample_surface_points(scene: dict, n_points: int, seed: int = 0):
     """``n_points`` points drawn uniformly by area on the scene's faces,
-    with their face's color and normal: (points, colors, normals)."""
+    with their face's color and normal (the scene's, else the faces' own
+    unit normals): (points, colors, normals)."""
     rng = np.random.default_rng(seed)
     v = scene["vertex"].astype(np.float64)
-    area = 0.5 * np.linalg.norm(np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]), axis=1)
+    cross = np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
+    area = 0.5 * np.linalg.norm(cross, axis=1)
+    normal = scene.get("normal")
+    if normal is None:
+        normal = (cross / np.maximum(2 * area, 1e-30)[:, None]).astype(np.float32)
     face = rng.choice(len(v), size=n_points, p=area / area.sum())
     r1, r2 = rng.uniform(size=(2, n_points))
     s = np.sqrt(r1)
     w = np.stack([1 - s, s * (1 - r2), s * r2], 1)               # uniform barycentrics
     pts = np.einsum("nk,nkd->nd", w, v[face])
-    return (pts.astype(np.float32), scene["rgb"][face], scene["normal"][face])
+    return (pts.astype(np.float32), scene["rgb"][face], normal[face])
 
 
 def rotmat2qvec(R: np.ndarray) -> np.ndarray:
@@ -456,5 +461,98 @@ def write_matrix_city(root, scene: dict, *, width: int = 1600, height: int = 900
     t0 = time.perf_counter()
     pts, cols, nrm = sample_surface_points(scene, n_points, seed=seed)
     PointCloud(pts, cols, nrm).storePly(root / "train/block_all/fused.ply")
+    secs["ply"] = time.perf_counter() - t0
+    return secs
+
+
+# ---------------------------------------------------------------------------
+# synthetic capture in the COLMAP layout
+# ---------------------------------------------------------------------------
+
+def write_points3d_binary(path, xyz: np.ndarray, rgb: np.ndarray) -> None:
+    """A COLMAP ``points3D.bin``: per point its id, float64 xyz, uint8 rgb
+    (from colors in [0, 1]), reprojection error 0 and an empty track."""
+    n = len(xyz)
+    rec = np.zeros(n, dtype=np.dtype([("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3),
+                                      ("err", "<f8"), ("track", "<u8")]))
+    rec["id"] = np.arange(1, n + 1)
+    rec["xyz"] = xyz
+    rec["rgb"] = np.clip(np.round(np.asarray(rgb) * 255), 0, 255).astype(np.uint8)
+    with open(path, "wb") as f:
+        f.write(np.uint64(n).tobytes())
+        f.write(rec.tobytes())
+
+
+def write_colmap_scene(root, scene: dict, *, width: int = 1297, height: int = 840,
+                       fovx_deg: float = 50.0, n_views: int = 16, n_points: int = 100_000,
+                       seed: int = 0, device="cuda", pairs_per_triangle: float = 6.0) -> dict:
+    """Write a triangle ``scene`` to ``root`` as a COLMAP capture, the layout
+    the COLMAP recipes read: ``sparse/0/cameras.txt`` (one PINHOLE camera),
+    ``sparse/0/images.txt`` (world-to-camera quaternions), ``n_views`` views
+    on a circle around the scene (``pose_on_circle``) rendered through this
+    package's ``rasterize`` ("2D", gamma 1, white background) on ``device``
+    as ``images/view_XXX.png``, and ``sparse/0/points3D.bin``: ``n_points``
+    points drawn on the faces with their colors. Returns host seconds of
+    the steps: dict(render, png, ply)."""
+    import math
+    import time
+    from dataclasses import replace
+    from pathlib import Path
+
+    from PIL import Image
+
+    from ..datasets.colmap_loader import qvec2rotmat
+    from ..device import resolve_device
+    from ..ops.projection import RasterSettings
+    from ..ops.rasterize import rasterize
+    from ..trainers.adc_utils import adapt_pair_budget
+
+    dev = resolve_device(device)
+    root = Path(root)
+    (root / "sparse" / "0").mkdir(parents=True, exist_ok=True)
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    fovx = math.radians(fovx_deg)
+    fx = width / (2 * math.tan(fovx / 2))
+    vertex = torch.as_tensor(scene["vertex"]).to(dev)
+    opacity = torch.as_tensor(scene["opacity"]).to(dev)
+    rgb = torch.as_tensor(scene["rgb"]).to(dev)
+    settings = RasterSettings(image_width=width, image_height=height, rich_info=False,
+                              pairs_per_triangle=pairs_per_triangle)
+    (root / "sparse" / "0" / "cameras.txt").write_text(
+        "# Camera list with one line of data per camera:\n"
+        f"1 PINHOLE {width} {height} {fx!r} {fx!r} {width / 2!r} {height / 2!r}\n")
+    secs = dict(render=0.0, png=0.0, ply=0.0)
+    lines = ["# Image list with two lines of data per image:"]
+    for i in range(n_views):
+        c2w = pose_on_circle(2 * math.pi * i / n_views, height=0.3 * math.sin(i))
+        c2w[:3, 1:3] *= -1                       # OpenGL -> COLMAP camera axes
+        w2c = np.linalg.inv(c2w)
+        q, t = rotmat2qvec(w2c[:3, :3]), w2c[:3, 3]
+        name = f"view_{i:03d}.png"
+        lines += [f"{i + 1} " + " ".join(repr(float(x)) for x in (*q, *t)) + f" 1 {name}", ""]
+        # the camera exactly as the loader rebuilds it from the text
+        cam = Camera.create(R=qvec2rotmat(q).T, T=t, fovx=fovx,
+                            fovy=2 * math.atan(height / (2 * fx)), image_width=width,
+                            image_height=height, device=dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            while True:
+                out = rasterize(vertex, opacity, None, cam, settings, gamma=1.0,
+                                background=torch.ones(3, device=dev), bg_depth=20.0,
+                                colors=rgb)
+                if not bool(out["overflow"]):            # never drop GT pairs
+                    break
+                settings = replace(settings, pairs_per_triangle=adapt_pair_budget(
+                    settings.pairs_per_triangle, None, len(vertex), True,
+                    max_ppt=max(32.0, 2 * settings.pairs_per_triangle)))
+            img = (out["render"].clamp(0, 1) * 255).to(torch.uint8).permute(1, 2, 0).cpu().numpy()
+        t1 = time.perf_counter()
+        Image.fromarray(img).save(root / "images" / name)
+        secs["render"] += t1 - t0
+        secs["png"] += time.perf_counter() - t1
+    (root / "sparse" / "0" / "images.txt").write_text("\n".join(lines) + "\n")
+    t0 = time.perf_counter()
+    pts, cols, _ = sample_surface_points(scene, n_points, seed=seed)
+    write_points3d_binary(root / "sparse" / "0" / "points3D.bin", pts, cols)
     secs["ply"] = time.perf_counter() - t0
     return secs
