@@ -128,6 +128,26 @@ Phases (any failure exits non-zero before the final line):
              loss falls, the kNN refresh on its cadence, the affine off
              identity, one step card against CPU, LPIPS on random weights
              card against CPU, eval_lpips without weights.
+20. entry  — (after gs, on the soup) ``python -m
+             triangle_splatting_tpu_torch.run_experiments --type NerfSynthetic``
+             as a subprocess, from a directory whose config is the shipped one
+             cut to 50 steps with a profile window at 20-30 (ENTRY_CUTS): exit
+             0, the loss falls, the timer's breakdown in the log, the trace
+             under profile/, TensorBoard events where it imports; the
+             pipeline's GPU count read without creating a CUDA context;
+21. render_utils — (after city) make_render_fn on the city model's test
+             views at 1600x900 and at the tour's 2160x1440, render_BEV_image
+             and tour frames at 2160x1440 (degenerate on the synthetic city:
+             an API check), a tour video where cv2 imports;
+22. facades — (after scaffold) the photo / gs models through their PLYs,
+             the mesh GLB at gamma 50 and the scaffold state through
+             VanillaTSModel / VanillaGSModel / ScaffoldGSModel: one counted
+             render each (B1 "2D" / "3D" / "GS" rich + stats, "GS" rich), bit
+             for bit with the plain form; the new forms and B3 against their
+             plain versions;
+23. viewer — run_viewer on the mesh run's directory ("3D") and the photo
+             PLY's ("2D"): 3 modes x 512 / 1024 x gamma 1 / 50 over HTTP,
+             JPEG sizes and X-Info gated, B1 rich and B3 only.
 The mesh phase's run saves the PLY (steps 10 and 50) and the GLB (step 50)
 as the recipe does at its ends; the files are read back, and the GLB is
 rendered through MeshRenderer on the card (its mask over the trained
@@ -161,6 +181,7 @@ result. It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import re
 import shutil
 import statistics
@@ -296,14 +317,17 @@ PATH_OF.update(blend_forward_3d="mesh", blend_backward_3d="mesh",
                blend_forward_3d_stats="mesh_adc", segment_reduce_stats="mesh_adc",
                blend_forward_3d_rich="city", blend_backward_3d_rich="city",
                # the VanillaGS trainer renders with statistics and without
-               # rich info: the other GS forms run in its evaluation (outside
-               # the counted steps) and in the GaussianRenderer facade
-               # (ScaffoldGS trains on B1-GS without statistics: below)
-               **{f"blend_forward_{f}": "gs" for f, _, _ in GS_FORMS if f != "gs"},
+               # rich info (ScaffoldGS trains on B1-GS without statistics:
+               # below; the rich GS forms: the facades, further below)
+               blend_forward_gs_stats="gs",
                blend_forward_gs="scaffold",
                blend_backward_gs="gs", blend_backward_gs_rich="gs",
                # the triangle renderer facade with rich info
                blend_forward_rich_stats="renderer", blend_forward_3d_rich_stats="renderer",
+               # the forms whose first user path is the inference surface:
+               # the viewer ("2D" rich), the Gaussian and Scaffold facades
+               blend_forward_rich="viewer", blend_forward_gs_rich_stats="facades",
+               blend_forward_gs_rich="facades",
                **dict.fromkeys(_PROBES, "probes"))
 RICH_FORMS = ("blend_forward_rich", "blend_backward_rich", "blend_forward_3d_rich",
               "blend_backward_3d_rich", "blend_forward_rich_stats",
@@ -2307,6 +2331,7 @@ def phase_train(dev, root: Path) -> dict:
     check_no_rich_launches(launches, "train")
     check_no_gs_launches(launches, "train")
     check(int(trainer.state.active_sh_degree) == 3, "train: SH degree did not reach 3")
+    keep_model("photo", trainer, WORK / "facades" / "photo" / "point_cloud" / "50.ply")
     say("train", ms_per_step=round(secs / TRAIN_ITERS * 1e3, 3), steps=TRAIN_ITERS,
         peak_mem_gib=round(peak / 2**30, 3),
         triangles=int(trainer.state.alive.sum()), loss_first10=first,
@@ -2455,6 +2480,7 @@ def phase_mesh_train(dev, root: Path) -> dict:
         pairs_per_triangle=trainer._ppt,
         save_seconds={k: round(v, 3) for k, v in sorted(save_secs.items())})
     check_export(trainer, dev)
+    keep_model("mesh", trainer, dir=WORK / "out_mesh")
     profile_steps(trainer, "mesh_profile")
     return launches
 
@@ -2898,6 +2924,7 @@ def phase_city(dev, root: Path, cmp=None) -> tuple[dict, dict]:
         del last, r, fwd, off, a3, a4, c4
         check_opacity_adc(trainer.params, trainer.opt, trainer.state)
     profile_steps(trainer, "city_profile", bg=torch.zeros(3, device=dev))
+    KEEP["city"] = dict(trainer=trainer, cameras=list(trainer.dataset.getTestDataset()))
     return launches, rec
 
 
@@ -3081,6 +3108,7 @@ def phase_gs(dev, root: Path) -> dict:
             b4_rel_err=c4["rel"], b5_sum_rel_err=e5, b5_max_err=em5, gaussians=P)
         del last, out, ref, out2, ref2, bw, fwd, a3, a4, a5
     profile_steps(trainer, "gs_profile")
+    keep_model("gs", trainer, WORK / "facades" / "gs.ply")
     return launches
 
 
@@ -3707,6 +3735,8 @@ def phase_scaffold(dev, root: Path) -> dict:
         resume_arrays_equal=len(want), resume_psnr=psnr2, ply_gaussians=len(ply))
     del t3
     profile_steps(trainer, "scaffold_profile")
+    KEEP["scaffold"] = dict(trainer=trainer, config=cfg.model,
+                            cameras=list(trainer.dataset.getTestDataset()))
     return launches
 
 
@@ -4064,6 +4094,424 @@ def phase_mesh_tools(dev) -> None:
     shutil.rmtree(WORK / "mesh_tools", ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# The inference surface: the facades, the viewer, the render tours and the
+# run_experiments dispatch
+# ---------------------------------------------------------------------------
+
+# what the training phases leave to the inference phases: the photo and gs
+# models' PLYs, the mesh run's output directory, and each one's test
+# cameras; the city and scaffold trainers while their data exist
+KEEP: dict = {}
+WHITE = (1.0, 1.0, 1.0)
+# the B1 form each facade renders (the JAX cores' need_stats defaults, rich
+# info on): one counted render each
+FACADE_FORMS = {"photo": "blend_forward_rich_stats", "mesh": "blend_forward_3d_rich_stats",
+                "gs": "blend_forward_gs_rich_stats", "scaffold": "blend_forward_gs_rich"}
+VIEWER_MODES = ("color", "depth", "normal")
+VIEWER_RES = (512, 1024)                 # the slider's default and its maximum
+VIEWER_GAMMAS = (1.0, 50.0)
+TOUR_SIZE = (2160, 1440)                 # render_utils' default frame
+TOUR_FRAMES = (0, 100, 200)              # of the reference tour's 300 poses
+# the entry phase's cut of config/NerfSynthetic_VanillaTS.yaml: 50 steps, a
+# loss line every 10, the PLY at the end, no checkpoint, a profile window
+ENTRY_CUTS = dict(iterations=50, log_interval_iter=10, save_iterations=[50],
+                  checkpoint_iterations=[], profile_start_iter=20, profile_end_iter=30)
+
+
+class KernelCapture:
+    """While entered, records the arguments of the first B1 call of each
+    form (keyed (variant, stats, rich)) and of the first B3 call, detached,
+    through spies on ``ops.rasterize.blend_forward`` and
+    ``ops.binning.relayout_pairs``."""
+
+    def __enter__(self):
+        import torch
+        from triangle_splatting_tpu_torch.ops import binning as BN
+        from triangle_splatting_tpu_torch.ops import rasterize as RZ
+        self.mods, self.real = (RZ, BN), (RZ.blend_forward, BN.relayout_pairs)
+        self.b1, self.b3 = {}, []
+
+        def detached(x):
+            return x.detach() if torch.is_tensor(x) else x
+
+        def b1(*a, **kw):
+            self.b1.setdefault((kw["variant"], kw["stats"], kw["rich"]), (
+                tuple(detached(x) for x in a), {k: detached(v) for k, v in kw.items()}))
+            return self.real[0](*a, **kw)
+
+        def b3(*a):
+            if not self.b3:
+                self.b3.append(tuple(detached(x) for x in a))
+            return self.real[1](*a)
+        RZ.blend_forward, BN.relayout_pairs = b1, b3
+        return self
+
+    def __exit__(self, *exc):
+        (RZ, BN), (f, r) = self.mods, self.real
+        RZ.blend_forward, BN.relayout_pairs = f, r
+        return False
+
+
+def hold_b1(call, what: str) -> dict:
+    """B1 in the form of a captured call against its plain version on the
+    call's inputs: color and final_T within TOL["b1_abs"], n_contrib exact,
+    with rich info depth and normal within TOL["rich_rel"] of their max, with
+    statistics the stream's sums within TOL["stats_sum_rel"] and its maxes
+    exact."""
+    import torch
+    from triangle_splatting_tpu_torch.ops.cuda import blend as KB
+    a, kw = call
+    geo = {k: kw[k] for k in ("image_width", "image_height", "tile_h", "tile_w", "variant")}
+    stats, rich = kw["stats"], kw["rich"]
+    with torch.no_grad():
+        out = KB.blend_forward(*a[:4], stats=stats, rich=rich, **geo)
+        ref = KB.blend_forward_plain(*a[:4], stats=stats, rich=rich, **geo)
+        torch.cuda.synchronize()
+    err = dict(color=float((out[0] - ref[0]).abs().max()),
+               final_T=float((out[3] - ref[3]).abs().max()),
+               n_contrib=int((out[4] != ref[4]).sum()))
+    ok = err["color"] <= TOL["b1_abs"] and err["final_T"] <= TOL["b1_abs"] \
+        and err["n_contrib"] == 0
+    if rich:
+        for i, k in ((1, "depth"), (2, "normal")):
+            err[k] = float((out[i] - ref[i]).abs().max()) / max(float(ref[i].abs().max()), 1e-30)
+            ok = ok and err[k] <= TOL["rich_rel"]
+    if stats:
+        err["stream_sum"] = float((out[5][0] - ref[5][0]).abs().max()) / max(
+            float(ref[5][0].abs().max()), 1e-30)
+        err["stream_max"] = float((out[5][1] - ref[5][1]).abs().max())
+        ok = ok and err["stream_sum"] <= TOL["stats_sum_rel"] and err["stream_max"] == 0.0
+    check(ok, f"{what}: B1 {geo['variant']} stats={stats} rich={rich} vs plain: {err}")
+    return err
+
+
+def keep_model(name: str, trainer, ply: Path | None = None, **extra) -> None:
+    """Leave a training phase's model for the inference phases: its PLY at
+    ``ply`` (written here when given) and its test cameras."""
+    if ply is not None:
+        trainer.savePLY(str(ply))
+    KEEP[name] = dict(cameras=list(trainer.dataset.getTestDataset()), ply=ply, **extra)
+
+
+def pose_of(camera) -> dict:
+    """The viewer's look-at pose of a camera: eye at its center, target one
+    unit along its view axis, up against its image y axis."""
+    W = camera.world_view.detach().double().cpu().numpy()
+    eye = camera.camera_center.detach().double().cpu().numpy()
+    return dict(eye=eye.tolist(), target=(eye + W[2, :3]).tolist(), up=(-W[1, :3]).tolist())
+
+
+def phase_facades(dev) -> dict:
+    """The model facades at full width: the photo and gs phases' models
+    through ``savePLY`` / ``VanillaTSModel.loadPLY`` / ``VanillaGSModel.loadPLY``
+    (SH 3), the mesh phase's ``glb/50.glb`` through ``loadGLB`` at gamma 50
+    (its recipe's "3D", STE and render_up_scale 2), each on a test view at
+    800x800, and the scaffold phase's trainer state through
+    ``ScaffoldGSModel`` at 1297x840. One counted render each: B1's "2D" and
+    "3D" rich + stats forms, "GS" rich + stats and "GS" rich once, B3 four
+    times, B5 three times, nothing else. Color, final_T and n_contrib equal
+    the plain form's (no rich info, no statistics) on the same arrays bit
+    for bit; the new forms ("GS" rich + stats, "GS" rich) and B3 are held
+    against their plain versions on the counted renders' inputs. Prints
+    ms per render (end to end, host included). Returns the launches."""
+    import dataclasses
+
+    import torch
+    from triangle_splatting_tpu_torch import ScaffoldGSModel, VanillaGSModel, VanillaTSModel
+    from triangle_splatting_tpu_torch.models.facade import _mk_settings
+    from triangle_splatting_tpu_torch.ops.cuda import reset_launches
+    from triangle_splatting_tpu_torch.utils.config import dict_to_config, loadConfig
+
+    scaffold = KEEP.pop("scaffold")
+    models = dict(
+        photo=VanillaTSModel(loadConfig(REPO / "config" / "NerfSynthetic_VanillaTS.yaml").model)
+        .loadPLY(KEEP["photo"]["ply"]),
+        mesh=VanillaTSModel(loadConfig(REPO / "config" / "NerfSynthetic_VanillaTS_mesh.yaml")
+                            .model).loadGLB(KEEP["mesh"]["dir"] / "glb" / "50.glb").set_gamma(50.0),
+        gs=VanillaGSModel(dict_to_config({"max_sh_degree": 3})).loadPLY(KEEP["gs"]["ply"]),
+        scaffold=ScaffoldGSModel(scaffold["config"]))
+    models["scaffold"].params = scaffold["trainer"].params
+    models["scaffold"].state = scaffold["trainer"].state
+    cams = dict(photo=KEEP["photo"]["cameras"][0], mesh=KEEP["mesh"]["cameras"][0],
+                gs=KEEP["gs"]["cameras"][0], scaffold=scaffold["cameras"][0])
+    with torch.no_grad(), KernelCapture() as cap:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = {n: m.forward(cams[n], WHITE) for n, m in models.items()}
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = read_launches()
+    want = dict.fromkeys(FACADE_FORMS.values(), 1)
+    want.update(relayout_pairs=4, segment_reduce_stats=3)
+    for name, n in launches.items():
+        check(n == want.get(name, 0), f"facades: kernel {name} launched {n} times, "
+              f"expected {want.get(name, 0)}")
+    for name, m in models.items():
+        o, cam = outs[name], cams[name]
+        check(not bool(o["overflow"]), f"facades {name}: pair budget overflow")
+        check(tuple(o["render"].shape) == (3, cam.image_height, cam.image_width)
+              and all(bool(torch.isfinite(o[k]).all()) for k in ("render", "depth", "normal")),
+              f"facades {name}: outputs not finite or of the wrong shape")
+        core = getattr(m, "_M", None) or getattr(m, "_G", None) or m._S
+        extra = dict(apply_color_affine=False) if name in ("photo", "mesh") else {}
+        settings = (_mk_settings(cam, m.cfg.max_sh_degree, m.cfg.rasterizer_type,
+                                 m.cfg.back_culling) if name in ("photo", "mesh")
+                    else _mk_settings(cam, getattr(m.cfg, "max_sh_degree", 0)))
+        with torch.no_grad():
+            plain = core.forward(m.params, m.state, cam, m._background(WHITE), m.cfg,
+                                 dataclasses.replace(settings, rich_info=False),
+                                 is_training=False, need_stats=False, **extra)
+        differ = [k for k in ("render", "final_T", "n_contrib") if not torch.equal(o[k], plain[k])]
+        check(not differ, f"facades {name}: {differ} differ from the plain form's")
+        count = m.point_count if hasattr(m, "point_count") else m.anchor_count
+        say("facades", model=name, form=FACADE_FORMS[name], size=list(o["render"].shape[1:]),
+            primitives=count, num_pairs=int(o["num_pairs"]), overflow=bool(o["overflow"]),
+            gamma=float(m.state.gamma) if hasattr(m.state, "gamma") else None,
+            ms_per_render=round(cuda_ms(lambda: m.forward(cam, WHITE), 5, hide_host=False), 3),
+            bit_identical_to_plain=["render", "final_T", "n_contrib"])
+    holds = {f"{v} stats={s} rich={r}": hold_b1(cap.b1[(v, s, r)], f"facades {v}")
+             for v, s, r in (("GS", True, True), ("GS", False, True))}
+    _, _, err3 = hold_relayout(cap.b3[0], "facades")
+    say("facades", counted_seconds=round(secs, 3), launches=launches, b1_vs_plain=holds,
+        b3_mismatch=err3, tol=f"B1 color / final_T {TOL['b1_abs']} abs, n_contrib exact, "
+        f"depth / normal rel {TOL['rich_rel']}, stream sums rel {TOL['stats_sum_rel']}, "
+        "maxes exact; B3 exact")
+    del models, outs, cap, scaffold
+    return launches
+
+
+def phase_viewer(dev) -> dict:
+    """The viewer on the card: ``run_viewer(port=0, block=False)`` on the
+    mesh phase's output directory ("3D", SH 0, its ``point_cloud/50.ply``)
+    and on a directory holding the photo model's PLY ("2D", SH 3). For
+    each: the three modes x resolutions 512 / 1024 x gamma 1 / 50, posed
+    at a test camera, over HTTP. Gates: each JPEG decodes at the requested
+    size, ``X-Info`` counts the PLY's triangles, the counted launches are
+    B1's "2D" rich and "3D" rich forms and B3 once a request and nothing
+    else (no B2, B4, B5 or statistics form); B1 "2D" rich and B3 held
+    against their plain versions on the first request's inputs. Prints p50
+    and max ms a request (end to end: HTTP, render, JPEG) per resolution,
+    and the pairs and overflow of every request. Returns the launches."""
+    import io
+    import json
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from triangle_splatting_tpu_torch.models.raw_triangle import RawTriangle
+    from triangle_splatting_tpu_torch.ops.cuda import reset_launches
+    from triangle_splatting_tpu_torch.viewer import run_viewer
+
+    dirs = (("photo", KEEP["photo"]["ply"].parent.parent, "point_cloud/50.ply", 3, "2D"),
+            ("mesh", KEEP["mesh"]["dir"], "point_cloud/50.ply", 0, "3D"))
+    n_req = len(VIEWER_MODES) * len(VIEWER_RES) * len(VIEWER_GAMMAS)
+    with KernelCapture() as cap:
+        reset_launches()
+        for name, root, model, sh, rtype in dirs:
+            server = run_viewer(str(root), host="127.0.0.1", port=0, max_sh_degree=sh,
+                                rasterizer_type=rtype, block=False)
+            url = f"http://127.0.0.1:{server.server_address[1]}/render"
+            try:
+                n_tri = len(RawTriangle(ply_path=root / model))
+                pose = pose_of(KEEP[name]["cameras"][0])
+                ms, pairs, overflow = {r: [] for r in VIEWER_RES}, {r: [] for r in VIEWER_RES}, []
+                for mode in VIEWER_MODES:
+                    for res in VIEWER_RES:
+                        for gamma in VIEWER_GAMMAS:
+                            body = json.dumps(dict(pose=pose, mode=mode, bg="white", res=res,
+                                                   gamma=gamma, sh=sh, model=model)).encode()
+                            t0 = time.perf_counter()
+                            with urllib.request.urlopen(urllib.request.Request(
+                                    url, data=body, method="POST"), timeout=120) as r:
+                                data, hdr = r.read(), r.headers
+                            ms[res].append((time.perf_counter() - t0) * 1e3)
+                            img = np.asarray(Image.open(io.BytesIO(data)))
+                            check(img.shape == (res, res, 3) and img.std() > 1,
+                                  f"viewer {name} {mode} {res} gamma {gamma}: frame {img.shape}")
+                            check(hdr["X-Info"] == f"{n_tri} tris @ {res}px",
+                                  f"viewer {name}: X-Info {hdr['X-Info']!r}, {n_tri} in the PLY")
+                            pairs[res].append(int(hdr["X-Num-Pairs"]))
+                            if hdr["X-Overflow"] == "1":
+                                overflow.append(f"{mode} {res} gamma {gamma}")
+                say("viewer", dir=name, variant=rtype, model=model, triangles=n_tri,
+                    requests=n_req, ms_p50={r: round(statistics.median(v), 3) for r, v in ms.items()},
+                    ms_max={r: round(max(v), 3) for r, v in ms.items()},
+                    num_pairs=pairs, overflow=overflow or None)
+            finally:
+                server.shutdown()
+                server.server_close()
+    launches = read_launches()
+    want = dict(blend_forward_rich=n_req, blend_forward_3d_rich=n_req, relayout_pairs=2 * n_req)
+    for name, n in launches.items():
+        check(n == want.get(name, 0), f"viewer: kernel {name} launched {n} times, "
+              f"expected {want.get(name, 0)}")
+    err1 = hold_b1(cap.b1[("2D", False, True)], "viewer")
+    _, _, err3 = hold_relayout(cap.b3[0], "viewer")
+    say("viewer", launches=launches, b1_2d_rich_vs_plain=err1, b3_mismatch=err3)
+    del cap
+    return launches
+
+
+def at_size(cam, size):
+    """``cam`` rendered at ``size`` (width, height): the same pose and
+    vertical field of view, the horizontal one following the new aspect
+    (row 0 of ``full_proj`` is the projection's x scale times the view's
+    row 0)."""
+    import dataclasses
+    w, h = size
+    tan_x = cam.tan_fovy * (w / h)
+    proj = cam.full_proj.clone()
+    proj[0] *= cam.tan_fovx / tan_x
+    return dataclasses.replace(cam, full_proj=proj, tan_fovx=tan_x, image_width=w,
+                               image_height=h, gt_image=None, alpha_mask=None)
+
+
+def phase_render_utils(dev) -> dict:
+    """``utils/render_utils.py`` on the city trainer's model (~992k
+    triangles, "3D"): ``make_render_fn`` on the city's test views at
+    1600x900 (B1-3D rich + stats; its PSNR the trainer's own on those
+    views within 1e-3 dB) and on the same views at the tour's 2160x1440
+    (``at_size``: the vertical field of view kept), whose time is the
+    tour-size frame time; one ``render_BEV_image`` and the tour's frames
+    0 / 100 / 200 at 2160x1440 as a check of the API only: the BEV and
+    tour poses are MatrixCity's metric ones (1200 above the center, an
+    800 x 400 orbit), so on the synthetic city (a few units wide) those
+    frames are degenerate, the city a few pixels wide: the phase prints
+    each frame's pairs and covered share. ``render_tour`` writes a 4-frame
+    video where cv2 imports (printed). Returns the launches of the counted
+    renders."""
+    import numpy as np
+    import torch
+    from triangle_splatting_tpu_torch.ops.cuda import reset_launches
+    from triangle_splatting_tpu_torch.trainers import losses as L
+    from triangle_splatting_tpu_torch.utils import render_utils as RU
+
+    city = KEEP.pop("city")
+    trainer, cams = city["trainer"], city["cameras"]
+    black = torch.zeros(3, device=dev)
+    rf = RU.make_render_fn(trainer.params, trainer.state, trainer.model_cfg, device=dev)
+    reset_launches()
+    views = []
+    for cam in cams:
+        o = rf(cam)
+        check(not bool(o["overflow"]) and bool(torch.isfinite(o["render"]).all()),
+              "render_utils: a test view overflowed or is not finite")
+        psnr = float(L.psnr(o["render"], cam.gt_image))
+        views.append(dict(size=list(o["render"].shape[1:]), psnr=psnr,
+                          num_pairs=int(o["num_pairs"])))
+    big = [at_size(cam, TOUR_SIZE) for cam in cams]
+    frames = {f"test view {i}": cam for i, cam in enumerate(big)}
+    frames["bev"] = RU.bev_camera(rf, TOUR_SIZE)
+    tour = RU.tour_cameras(rf, TOUR_SIZE, 300)
+    frames.update({f"tour {i}": tour[i] for i in TOUR_FRAMES})
+    shots = {}
+    for name, cam in frames.items():
+        o = rf(cam)
+        check(tuple(o["render"].shape) == (3, TOUR_SIZE[1], TOUR_SIZE[0])
+              and bool(torch.isfinite(o["render"]).all()), f"render_utils {name}: bad frame")
+        shots[name] = dict(num_pairs=int(o["num_pairs"]), overflow=bool(o["overflow"]),
+                           covered=float((1.0 - o["final_T"]).gt(1e-3).float().mean()))
+    bev = RU.render_BEV_image(rf, img_size=TOUR_SIZE)
+    check(isinstance(bev, np.ndarray) and bev.shape == (3, TOUR_SIZE[1], TOUR_SIZE[0]),
+          "render_utils: render_BEV_image")
+    launches = read_launches()
+    n = len(cams) + len(frames) + 1
+    form = {"2D": "blend_forward_rich_stats", "3D": "blend_forward_3d_rich_stats"}[
+        trainer.model_cfg.rasterizer_type]
+    for name, k in launches.items():
+        want = n if name in (form, "relayout_pairs", "segment_reduce_stats") else 0
+        check(k == want, f"render_utils: kernel {name} launched {k} times, expected {want}")
+    want = trainer.psnr_views(cams, black, use_mask=False)
+    check(all(abs(v["psnr"] - w) <= 1e-3 for v, w in zip(views, want)),
+          f"render_utils: PSNR {[v['psnr'] for v in views]} against the trainer's {want}")
+    timing = dict(view_ms=round(cuda_ms(lambda: rf(cams[0]), 3, hide_host=False), 3),
+                  tour_size_view_ms=round(cuda_ms(lambda: rf(big[0]), 3, hide_host=False), 3),
+                  degenerate_tour_frame_ms=round(cuda_ms(lambda: rf(tour[TOUR_FRAMES[1]]), 3,
+                                                         hide_host=False), 3))
+    try:
+        import cv2  # noqa: F401
+        path = WORK / "tour" / "tour.mp4"
+        RU.render_tour(rf, str(path), img_size=TOUR_SIZE, fps=2, duration=2)
+        written = [p.name for p in path.parent.iterdir() if p.stat().st_size > 0]
+        check(bool(written), "render_utils: render_tour wrote no video")
+        video = f"written: {written}"
+    except ImportError:
+        video = "cv2 does not import here: no video written"
+    say("render_utils", triangles=int(trainer.state.alive.sum()), views=views, frames=shots,
+        video=video, launches=launches, **timing)
+    del trainer, city, rf
+    return launches
+
+
+def phase_entry(soup: Path) -> dict:
+    """``python -m triangle_splatting_tpu_torch.run_experiments --type
+    NerfSynthetic --dataset_path <soup's parent> --scenes <soup>`` as a
+    subprocess, from a working directory whose
+    ``config/NerfSynthetic_VanillaTS.yaml`` is the shipped one with the cuts
+    of ENTRY_CUTS (50 steps, a profile window at 20-30). Gates: exit 0; the
+    logged loss falls; the timer's breakdown closes the log; the profile
+    trace lies under ``profile/``; TensorBoard events are written where
+    ``torch.utils.tensorboard`` imports (printed). A fresh process answers
+    that, so TensorFlow never loads into this one, after
+    ``pipeline_utils.visible_gpu_count`` (the fan-out's probe before it
+    spawns workers) has seen the card there and left CUDA uninitialised."""
+    import os
+
+    import yaml
+
+    work = WORK / "entry"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "config").mkdir(parents=True)
+    cfg = yaml.safe_load((REPO / "config" / "NerfSynthetic_VanillaTS.yaml").read_text())
+    cfg["trainer"].update(ENTRY_CUTS)
+    (work / "config" / "NerfSynthetic_VanillaTS.yaml").write_text(yaml.safe_dump(cfg))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "triangle_splatting_tpu_torch.run_experiments", "--type",
+         "NerfSynthetic", "--dataset_path", str(soup.parent), "--scenes", soup.name],
+        cwd=work, env=env, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"entry: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    out = work / cfg["trainer"]["output_dir"] / soup.name
+    events = [json.loads(ln) for ln in (out / "log" / "events.jsonl").read_text().splitlines()]
+    losses = [e["value"] for e in events if e["tag"] == "Loss"]
+    check(len(losses) == 5 and all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"entry: losses {losses}")
+    log = next((out / "log").glob("*_outputs.log")).read_text()
+    check("[Training] total" in log, "entry: no timer breakdown in the log")
+    timer = log[log.index("[Training] total"):].splitlines()
+    timer = [timer[0]] + [ln for ln in timer[1:] if ln.startswith("  ")]
+    trace = out / "profile" / "trace_20_30.json"
+    check(trace.exists() and trace.stat().st_size > 0, "entry: no profile trace")
+    # the GPU count, then whether torch.utils.tensorboard imports, asked in
+    # a process of its own: TensorBoard may pull in TensorFlow, which stays
+    # out of this measuring process
+    probe = subprocess.run(
+        [sys.executable, "-c", "import torch; from triangle_splatting_tpu_torch.utils."
+         "pipeline_utils import visible_gpu_count as n; print(n(), torch.cuda.is_initialized())\n"
+         "try:\n import torch.utils.tensorboard\n print(True)\n"
+         "except Exception:\n print(False)"],
+        cwd=work, env=env, capture_output=True, text=True, timeout=300)
+    check(probe.returncode == 0 and probe.stdout.split()[:2] == ["1", "False"],
+          f"entry: the GPU count probe printed {probe.stdout!r} {probe.stderr[-500:]}")
+    has_tb = probe.stdout.split()[2] == "True"
+    tb = sorted(p.name for p in (out / "tb").glob("events.out.tfevents.*")) \
+        if (out / "tb").exists() else []
+    check(bool(tb) == has_tb, f"entry: tensorboard imports: {has_tb}, events {tb}")
+    say("entry", seconds=round(secs, 3), exit=proc.returncode, cuts=ENTRY_CUTS, losses=losses,
+        gpu_probe=" ".join(probe.stdout.split()[:2]),
+        timer=[ln.strip() for ln in timer], trace_bytes=trace.stat().st_size,
+        tensorboard=f"events written ({len(tb)})" if tb else "torch.utils.tensorboard does "
+        "not import here: no events", ply=(out / "point_cloud" / "50.ply").exists())
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(seconds=secs)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4115,6 +4563,7 @@ def main(argv=None) -> int:
         soup = build_dataset(dev, "soup")
         runs["train"] = phase_train(dev, soup)
         runs["gs"] = phase_gs(dev, soup)
+        runs["entry"] = phase_entry(soup)
         shutil.rmtree(soup, ignore_errors=True)
         surface = build_dataset(dev, "surface")
         runs["mesh"] = phase_mesh_train(dev, surface)
@@ -4122,10 +4571,14 @@ def main(argv=None) -> int:
         shutil.rmtree(surface, ignore_errors=True)
         runs["city"], city_rec = phase_city(dev, build_city(dev), cmp)
         rec.update(city_rec)
+        runs["render_utils"] = phase_render_utils(dev)
         shutil.rmtree(WORK / "matrix_city", ignore_errors=True)
         colmap = build_colmap(dev)
         runs["scaffold"] = phase_scaffold(dev, colmap)
         shutil.rmtree(colmap, ignore_errors=True)
+        runs["facades"] = phase_facades(dev)
+        runs["viewer"] = phase_viewer(dev)
+        KEEP.clear()
         runs["smoke"] = phase_smoke(dev)
         phase_resume()                      # on the smoke photo run's dataset
         runs["loss_terms"] = phase_loss_terms(dev)      # on that dataset too

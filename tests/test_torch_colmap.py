@@ -216,7 +216,9 @@ def test_build_dataset_dispatch(city, tmp_path):
         with pytest.raises(FileNotFoundError, match="sparse/0"):   # the COLMAP factory
             build_dataset(dict_to_config(dict(base, type=kind)), log, "cpu")
     assert issubclass(MatrixCityDatasetFactory, ColmapDatasetFactory)
-    with pytest.raises(NotImplementedError, match="Qijing"):
+    # Qijing is served since the host-side slice: its factory looks for the
+    # sparse model under local_dir/scene_id (here none)
+    with pytest.raises(FileNotFoundError, match="Qijing"):
         build_dataset(dict_to_config(dict(base, type="Qijing")), log, "cpu")
     with pytest.raises(ValueError, match="Unknown"):
         build_dataset(dict_to_config(dict(base, type="Nope")), log, "cpu")

@@ -161,12 +161,21 @@ bad = [n for n in sys.modules
        if n in ("jax", "jaxlib", "triangle_splatting_tpu")
        or n.startswith(("jax.", "jaxlib.", "triangle_splatting_tpu."))]
 assert not bad, bad
+new = ("models.facade", "viewer", "run_experiments", "datasets.qijing",
+       "datasets.raw_gaussian_compat", "utils.timer", "utils.vis_utils", "utils.render_utils",
+       "utils.pipeline_utils", "utils.io_utils", "utils.file_handler", "utils.logger")
+missing = [m for m in new if "triangle_splatting_tpu_torch." + m not in sys.modules]
+assert not missing, missing
+for name in pkg._LAZY:
+    getattr(pkg, name)
+bad = [n for n in sys.modules if n in ("jax", "triangle_splatting_tpu")]
+assert not bad, bad
 print(len([n for n in sys.modules if n.startswith("triangle_splatting_tpu_torch")]))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25
+    assert int(out.stdout.strip()) >= 38
 
 
 def test_chip_smoke_imports_no_jax():
@@ -183,6 +192,13 @@ def test_entry_points_default_to_cuda_and_raise_without_gpu(monkeypatch):
     from triangle_splatting_tpu_torch.trainers import build_trainer
     from triangle_splatting_tpu_torch.utils.config import dict_to_config
     from triangle_splatting_tpu_torch.utils.testing import make_camera
+    from triangle_splatting_tpu_torch.models.facade import (ScaffoldGSModel, VanillaGSModel,
+                                                            VanillaTSModel)
+    from triangle_splatting_tpu_torch.run_experiments import exp
+    from triangle_splatting_tpu_torch.utils.render_utils import make_render_fn
+    from triangle_splatting_tpu_torch.viewer import ViewerState, run_viewer
+    cpu_model = create_from_points(np.zeros((4, 3), np.float32), np.zeros((4, 3), np.float32),
+                                   None, ModelConfig(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     pts = np.random.default_rng(0).normal(size=(8, 3)).astype(np.float32)
     calls = [
@@ -191,6 +207,15 @@ def test_entry_points_default_to_cuda_and_raise_without_gpu(monkeypatch):
                                    ModelConfig()),
         lambda: triangle_from_numpy({}, {}),
         lambda: build_trainer(dict_to_config({"trainer": {}, "dataset": {}})),
+        # the inference surface: the facades, the viewer, the render
+        # closure and the experiment dispatch
+        lambda: VanillaTSModel(),
+        lambda: VanillaGSModel(),
+        lambda: ScaffoldGSModel(),
+        lambda: ViewerState(REPO),
+        lambda: run_viewer(str(REPO), host="127.0.0.1", port=0, block=False),
+        lambda: make_render_fn(*cpu_model, ModelConfig()),
+        lambda: exp(str(REPO / "config" / "NerfSynthetic_VanillaTS.yaml"), "/d", "s", "s"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -6,7 +6,8 @@ ground-truth image on the factory's device. ``ColmapDatasetFactory`` reads
 the sparse model under ``sparse/0`` (``.bin`` or ``.txt``) and holds out
 every ``hold_interval``-th view (default 8) as the test split; subclasses
 (NeRF-Synthetic, MatrixCity) supply their own camera records. Point
-clouds load from COLMAP ``points3D.bin`` or PLY.
+clouds load from COLMAP ``points3D.bin``, a 3DGS Gaussian PLY or a plain
+PLY.
 """
 
 from __future__ import annotations
@@ -149,8 +150,11 @@ class ColmapDatasetFactory(BaseDatasetFactory):
             xyz, rgb, _ = read_points3D_binary(path)
             return PointCloud(xyz, rgb)
         if str(path).endswith(".ply"):
-            # a plain point cloud (the JAX loader tries a Gaussian PLY first
-            # and falls back to this; the Gaussian loader comes with the
-            # Gaussian path)
-            return PointCloud().fetchPly(path)
+            # a 3DGS Gaussian PLY first (colours from its DC band), then a
+            # plain point cloud, as the JAX loader does
+            try:
+                from .raw_gaussian_compat import load_gaussian_as_pointcloud
+                return load_gaussian_as_pointcloud(path)
+            except Exception:
+                return PointCloud().fetchPly(path)
         raise ValueError(f"Unsupported point cloud format: {path}")

@@ -36,7 +36,8 @@ def build_dataset(config: Config, logger: Logger, device):
         from ..datasets.matrix_city import MatrixCityDatasetFactory
         return MatrixCityDatasetFactory(config, logger, device)
     if dtype == "Qijing":
-        raise NotImplementedError("dataset type 'Qijing' is not ported yet")
+        from ..datasets.qijing import QijingDatasetFactory
+        return QijingDatasetFactory(config, logger, device)
     raise ValueError(f"Unknown dataset type: {dtype}")
 
 
@@ -49,15 +50,15 @@ class BaseTrainer:
         self.device = resolve_device(device)
         if config.trainer.distributed is not None:
             raise NotImplementedError("trainer.distributed is not ported yet")
-        if config.trainer.profile_start_iter:
-            raise NotImplementedError("trainer.profile_start_iter is not ported yet")
 
         out_root = config.trainer.output_dir or "outputs/exp"
         self.output_dir = str(Path(out_root) / exp_name) if exp_name else out_root
         if config.trainer.clean_output_dir and Path(self.output_dir).exists():
             shutil.rmtree(self.output_dir)
         Path(self.output_dir).mkdir(parents=True, exist_ok=True)
-        self.logger = Logger("trainer", output_dir=self.output_dir, log_file=log_file)
+        self.logger = Logger("trainer", output_dir=self.output_dir, log_file=log_file,
+                             use_tensorboard=bool(config.trainer.use_tensorboard))
+        self._profiler = None
 
         seed = config.trainer.seed
         if seed is not None:
@@ -84,6 +85,35 @@ class BaseTrainer:
         # steps since the last log step whose frame overflowed the pair
         # budget (a device counter, read at log steps)
         self._overflow_steps = 0
+
+    def _profile_hooks(self, iteration: int) -> None:
+        """Open a ``torch.profiler`` window (CPU, and CUDA on the card) at
+        ``trainer.profile_start_iter`` and close it at ``profile_end_iter``
+        (default 10 iterations later), writing its Chrome trace to
+        ``<output_dir>/profile/trace_<start>_<end>.json``; the JAX trainers
+        open a ``jax.profiler`` trace over the same iterations."""
+        cfgt = self.config.trainer
+        start = cfgt.profile_start_iter
+        if not start:
+            return
+        end = cfgt.profile_end_iter or (start + 10)
+        if iteration == start:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=acts)
+            self._profiler.start()
+            self.logger.info(f"[ITER {iteration}] profiler trace started")
+        if iteration == end and self._profiler is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._profiler.stop()
+            out = Path(self.output_dir) / "profile"
+            out.mkdir(parents=True, exist_ok=True)
+            self._profiler.export_chrome_trace(str(out / f"trace_{start}_{end}.json"))
+            self._profiler = None
+            self.logger.info(f"[ITER {iteration}] profiler trace written to {out}")
 
     def _setup_adc_schedulers(self, mu) -> None:
         """The exponential threshold schedule of each ADC block of ``mu``

@@ -23,7 +23,6 @@ pickle layout.
 
 from __future__ import annotations
 
-import time
 from dataclasses import replace
 from pathlib import Path
 
@@ -39,6 +38,7 @@ from ..utils.camera import Camera
 from ..utils.checkpoint import load_ckpt, model_blob, save_ckpt
 from ..utils.config import Config
 from ..utils.scheduler import exponential_scheduler
+from ..utils.timer import Timer
 from . import losses as L
 from .base import BaseTrainer
 
@@ -304,10 +304,13 @@ class ScaffoldGSTrainer(BaseTrainer):
             self._evaluate(0)
         self.logger.info("Training started")
         self.loss_history = []
-        t_start = time.perf_counter()
+        timer = self.timer = Timer("Training")
         for iteration in range(1, (cfgt.iterations or 30000) + 1):
+            timer.log("data loading")
             camera = self.dataset.nextTrainData()
             settings = self._settings_for(camera)
+            self._profile_hooks(iteration)
+            timer.log("train step")
             background = torch.as_tensor(get_color_tensor(
                 cfgt.train_background or "black", self._rng)).to(self.device)
             # the primitive count the step's pair budget was sized against
@@ -319,10 +322,15 @@ class ScaffoldGSTrainer(BaseTrainer):
             self._note_overflow(aux["overflow"])
             self._maintain_constraints(iteration)
             if cfgt.eval_interval_iter and iteration % cfgt.eval_interval_iter == 0:
+                timer.log("evaluation")
                 self._evaluate(iteration)
+            timer.log("statistic + anchor update")
             self._anchor_update(iteration)
             if cfgt.log_interval_iter and iteration % cfgt.log_interval_iter == 0:
+                # the loss read waits for every queued step: device time
+                timer.log("device drain")
                 loss_val = float(loss)
+                timer.log("logging")
                 anchors = int(self.state.alive.sum())
                 num_pairs, overflow = int(aux["num_pairs"]), bool(aux["overflow"])
                 self.logger.info(f"[ITER {iteration}] Loss: {loss_val:.5f}, Anchor Count: "
@@ -331,13 +339,16 @@ class ScaffoldGSTrainer(BaseTrainer):
                 self.logger.add_scalar("Loss", loss_val, iteration)
                 self.logger.add_scalar("Anchor Count", anchors, iteration)
                 self.logger.add_scalar("Training Time (min)",
-                                       (time.perf_counter() - t_start) / 60, iteration)
+                                       timer.total_duration() / 60, iteration)
                 self._resize_pair_budget(num_pairs, n_prim_step, overflow)
             if iteration in (cfgt.save_iterations or []):
+                timer.log("saving")
                 self.savePLY(f"{self.output_dir}/point_cloud/{iteration}.ply")
             if iteration in (cfgt.checkpoint_iterations or []):
                 self.save_ckpt(f"{self.output_dir}/ckpt/{iteration}.ckpt")
+            timer.stop()
         self.dataset.close()
+        self.logger.info(timer.message())
         self.logger.info("Training finished")
 
     # ------------------------------------------------------------------

@@ -28,7 +28,6 @@ format.
 
 from __future__ import annotations
 
-import time
 from dataclasses import replace
 from pathlib import Path
 
@@ -44,6 +43,7 @@ from ..utils.camera import Camera
 from ..utils.checkpoint import load_ckpt, model_blob, save_ckpt
 from ..utils.config import Config
 from ..utils.scheduler import exponential_scheduler
+from ..utils.timer import Timer
 from . import losses as L
 from .adc_utils import alive_inter_point_dist, grow_capacity, resolve_contribution_pruning
 from .base import BaseTrainer
@@ -307,10 +307,13 @@ class VanillaGSTrainer(BaseTrainer):
             self._evaluate(first_iter)
         self.logger.info("Training started")
         self.loss_history = []
-        t_start = time.perf_counter()
+        timer = self.timer = Timer("Training")
         for iteration in range(first_iter + 1, (cfgt.iterations or 30000) + 1):
+            timer.log("data loading")
             camera = self.dataset.nextTrainData()
             settings = self._settings_for(camera)
+            self._profile_hooks(iteration)
+            timer.log("train step")
             background = torch.as_tensor(get_color_tensor(
                 cfgt.train_background or "random", self._rng)).to(self.device)
             cap_step = self.params.capacity
@@ -320,11 +323,16 @@ class VanillaGSTrainer(BaseTrainer):
             self.loss_history.append(loss)
             self._note_overflow(aux["overflow"])
             if cfgt.eval_interval_iter and iteration % cfgt.eval_interval_iter == 0:
+                timer.log("evaluation")
                 self._evaluate(iteration)
+            timer.log("model update")
             self._model_update(iteration)
 
             if cfgt.log_interval_iter and iteration % cfgt.log_interval_iter == 0:
+                # the loss read waits for every queued step: device time
+                timer.log("device drain")
                 loss_val = float(loss)
+                timer.log("logging")
                 count = int(self.state.alive.sum())
                 num_pairs, overflow = int(aux["num_pairs"]), bool(aux["overflow"])
                 self.logger.info(f"[ITER {iteration}] Loss: {loss_val:.5f}, Gaussians: {count}, "
@@ -332,13 +340,16 @@ class VanillaGSTrainer(BaseTrainer):
                 self.logger.add_scalar("Loss", loss_val, iteration)
                 self.logger.add_scalar("Gaussian Count", count, iteration)
                 self.logger.add_scalar("Training Time (min)",
-                                       (time.perf_counter() - t_start) / 60, iteration)
+                                       timer.total_duration() / 60, iteration)
                 self._resize_pair_budget(num_pairs, cap_step, overflow)
             if iteration in (cfgt.save_iterations or []):
+                timer.log("saving")
                 self.savePLY(f"{self.output_dir}/point_cloud/{iteration}.ply")
             if iteration in (cfgt.checkpoint_iterations or []):
                 self.save_ckpt(f"{self.output_dir}/ckpt/{iteration}.ckpt")
+            timer.stop()
         self.dataset.close()
+        self.logger.info(timer.message())
         self.logger.info("Training finished")
 
     # ------------------------------------------------------------------

@@ -38,7 +38,6 @@ checkpoint format.
 
 from __future__ import annotations
 
-import time
 from dataclasses import replace
 
 import numpy as np
@@ -53,6 +52,7 @@ from ..convert import triangle_from_numpy, triangle_to_numpy
 from ..utils.checkpoint import load_ckpt, model_blob, save_ckpt
 from ..utils.config import Config
 from ..utils.scheduler import exponential_scheduler, exponential_step_scheduler
+from ..utils.timer import Timer
 from . import losses as L
 from .adc_utils import alive_inter_point_dist, grow_capacity, resolve_contribution_pruning
 from .base import BaseTrainer
@@ -516,13 +516,16 @@ class VanillaTSTrainer(BaseTrainer):
         self.loss_history = []
         self.geo_history = []
         self._nearest_idx = None
-        t_start = time.perf_counter()
+        timer = self.timer = Timer("Training")
         for iteration in range(first_iter + 1, (cfgt.iterations or 30000) + 1):
+            timer.log("data loading")
             camera = self.dataset.nextTrainData()
             settings = self._settings_for(camera)
             if self.model_cfg.back_culling and self.model_cfg.back_culling_prob < 1.0:
                 settings = replace(settings, back_culling=bool(
                     self._rng.random() < self.model_cfg.back_culling_prob))
+            self._profile_hooks(iteration)
+            timer.log("train step")
             bg_name = cfgt.train_background or "random"
             background = torch.as_tensor(get_color_tensor(bg_name, self._rng)).to(self.device)
             cap_step = self.params.capacity
@@ -536,11 +539,16 @@ class VanillaTSTrainer(BaseTrainer):
             self._note_overflow(aux["overflow"])
 
             if cfgt.eval_interval_iter and iteration % cfgt.eval_interval_iter == 0:
+                timer.log("evaluation")
                 self._evaluate(iteration)
+            timer.log("model update")
             self._model_update(iteration)
 
             if cfgt.log_interval_iter and iteration % cfgt.log_interval_iter == 0:
+                # the loss read waits for every queued step: device time
+                timer.log("device drain")
                 loss_val = float(loss)
+                timer.log("logging")
                 count = self.triangle_count()
                 num_pairs, overflow = int(aux["num_pairs"]), bool(aux["overflow"])
                 geo_txt = ""
@@ -555,10 +563,11 @@ class VanillaTSTrainer(BaseTrainer):
                 self.logger.add_scalar("Loss", loss_val, iteration)
                 self.logger.add_scalar("Triangle Count", count, iteration)
                 self.logger.add_scalar("Training Time (min)",
-                                       (time.perf_counter() - t_start) / 60, iteration)
+                                       timer.total_duration() / 60, iteration)
                 self._resize_pair_budget(num_pairs, cap_step, overflow)
 
             if cfgt.histogram_interval_iter and iteration % cfgt.histogram_interval_iter == 0:
+                timer.log("histogram")
                 alive = self.state.alive
                 self.logger.add_histogram(
                     "Opacity", M.get_opacity(self.params)[alive, 0].cpu().numpy(), iteration)
@@ -567,13 +576,18 @@ class VanillaTSTrainer(BaseTrainer):
 
             if iteration in (cfgt.save_iterations or []) or (
                     cfgt.save_interval_iter and iteration % cfgt.save_interval_iter == 0):
+                timer.log("point cloud saving")
                 self.savePLY(f"{self.output_dir}/point_cloud/{iteration}.ply")
             if iteration in (cfgt.checkpoint_iterations or []) or (
                     cfgt.ckpt_interval_iter and iteration % cfgt.ckpt_interval_iter == 0):
+                timer.log("checkpoint saving")
                 self.save_ckpt(f"{self.output_dir}/ckpt/{iteration}.ckpt")
             if iteration in (cfgt.save_glb_iterations or []):
+                timer.log("GLB saving")
                 self.saveGLB(f"{self.output_dir}/glb/{iteration}.glb")
+            timer.stop()
         self.dataset.close()
+        self.logger.info(timer.message())
         self.logger.info("Training finished")
 
     @torch.no_grad()

@@ -75,3 +75,17 @@ def loadConfig(path: str | Path) -> Config:
             raise ValueError(f"Unsupported config format: {path.suffix}")
     return dict_to_config(data)
 
+
+
+def saveConfig(cfg: Config, path: str | Path) -> None:
+    """Write a Config tree as YAML or JSON (by the file's suffix)."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    data = config_to_dict(cfg)
+    with open(path, "w") as f:
+        if path.suffix in (".yaml", ".yml"):
+            yaml.safe_dump(data, f, sort_keys=False)
+        elif path.suffix == ".json":
+            json.dump(data, f, indent=2)
+        else:
+            raise ValueError(f"Unsupported config format: {path.suffix}")
