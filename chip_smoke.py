@@ -148,6 +148,28 @@ Phases (any failure exits non-zero before the final line):
 23. viewer — run_viewer on the mesh run's directory ("3D") and the photo
              PLY's ("2D"): 3 modes x 512 / 1024 x gamma 1 / 50 over HTTP,
              JPEG sizes and X-Info gated, B1 rich and B3 only.
+The parallel layer's phases (cells dp-photo-800-100k-x4, dp-ranks-2x-shared,
+hybrid-2x2-800, depth-sharded-city-2):
+24. dp     — (after train, on the soup) the photo recipe at data_parallel 4,
+             this process the one rank of an NCCL group made through the
+             trainer.distributed block: the first step against its card
+             reference (four single-view gradients, their mean, one Adam
+             step, sequential statistics), 50 steps with B1 / B2 "2D", B3 and
+             B4 at 4 x 50 launches and nothing else, the DP evaluation
+             within 1e-3 dB of the sequential one, 10 profiled steps;
+25. dp_ranks — two rank processes sharing the card over Gloo (TS_*),
+             data_parallel 4 for 10 steps: step 1 within rtol 1e-6 of the
+             one-rank step, both ranks' models equal bit for bit at the end;
+26. hybrid — four rank processes (2 x 2) over Gloo: one hybrid step of the
+             dp model on two soup views against the one-rank camera-mean
+             reference (JAX's bounds);
+27. dp_gs / dp_scaffold — (after gs / scaffold) each recipe at
+             data_parallel 2 for 10 steps on its dataset: the first step
+             against its card reference, the path's kernels at 2 x 10;
+28. depth_sharded — (after city) the city model's first test view at
+             1600x900 from two depth slabs rendered by two Gloo rank
+             processes, against one rasterize: the render, n_contrib and
+             the vertex gradients.
 The mesh phase's run saves the PLY (steps 10 and 50) and the GLB (step 50)
 as the recipe does at its ends; the files are read back, and the GLB is
 rendered through MeshRenderer on the card (its mask over the trained
@@ -2280,17 +2302,15 @@ def build_dataset(dev, scene_kind: str) -> Path:
     return root
 
 
-def phase_train(dev, root: Path) -> dict:
-    import numpy as np
-    import torch
-    from triangle_splatting_tpu_torch.ops.cuda import reset_launches
-    from triangle_splatting_tpu_torch.trainers import build_trainer
+def photo_config(root: Path, out: str = "out"):
+    """config/NerfSynthetic_VanillaTS.yaml as shipped, cut to TRAIN_ITERS
+    steps with the SH bands at 10 / 20 / 30 (the photo-800-100k cell)."""
     from triangle_splatting_tpu_torch.utils.config import loadConfig
 
     cfg = loadConfig(REPO / "config" / "NerfSynthetic_VanillaTS.yaml")
     cfg.dataset.local_dir = str(root)
     t = cfg.trainer
-    t.output_dir = str(WORK / "out")
+    t.output_dir = str(WORK / out)
     t.iterations = TRAIN_ITERS
     t.log_interval_iter = 10
     t.eval_interval_iter = 0
@@ -2299,7 +2319,16 @@ def phase_train(dev, root: Path) -> dict:
     t.use_tensorboard = False
     t.seed = 0
     cfg.model.model_update.sh_schedule.one_up_iters = [10, 20, 30]
+    return cfg
 
+
+def phase_train(dev, root: Path) -> dict:
+    import numpy as np
+    import torch
+    from triangle_splatting_tpu_torch.ops.cuda import reset_launches
+    from triangle_splatting_tpu_torch.trainers import build_trainer
+
+    cfg = photo_config(root)
     trainer = build_trainer(cfg, log_file=False)
     trainer._init_model()
     train_views = [trainer.dataset.getTrainDataset()[i]
@@ -2332,6 +2361,7 @@ def phase_train(dev, root: Path) -> dict:
     check_no_gs_launches(launches, "train")
     check(int(trainer.state.active_sh_degree) == 3, "train: SH degree did not reach 3")
     keep_model("photo", trainer, WORK / "facades" / "photo" / "point_cloud" / "50.ply")
+    TRAIN_MS["photo"] = secs / TRAIN_ITERS * 1e3
     say("train", ms_per_step=round(secs / TRAIN_ITERS * 1e3, 3), steps=TRAIN_ITERS,
         peak_mem_gib=round(peak / 2**30, 3),
         triangles=int(trainer.state.alive.sum()), loss_first10=first,
@@ -2341,31 +2371,37 @@ def phase_train(dev, root: Path) -> dict:
     return launches
 
 
-def profile_steps(trainer, phase: str = "profile", steps: int = 10, bg=None) -> None:
+def profile_steps(trainer, phase: str = "profile", steps: int = 10, bg=None) -> list:
     """Where a train step's time goes at the end of a training phase:
     torch.profiler over ``steps`` more iterations, each the body of the
-    trainer's loop (next camera, train step, schedules) without its
-    logging; device time by kernel and the device's busy share of the
-    wall time (kernels run on one stream). The cameras are fetched before
-    the window (the loader re-reads its images after ``train()`` closes
-    it), and the same steps run once unprofiled for the wall time, since
-    the profiler's host-side tracing slows the host."""
+    trainer's loop (next camera or data-parallel batch, train step,
+    schedules) without its logging; device time by kernel and the device's
+    busy share of the wall time (kernels run on one stream). The cameras
+    are fetched before the window (the loader re-reads its images after
+    ``train()`` closes it), and the same steps run once unprofiled for the
+    wall time, since the profiler's host-side tracing slows the host.
+    Returns the device rows (ms, kernel, calls) of the window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from triangle_splatting_tpu_torch.parallel.multihost import global_dp_inputs
 
     if bg is None:
         bg = torch.ones(3, device=trainer.device)    # train_background "white"
-    cams = [trainer.dataset.nextTrainData() for _ in range(steps)]
+    group, per_step = trainer._dp_group, trainer._dp_n
+    cams = [trainer.dataset.nextTrainData() for _ in range(steps * per_step)]
     trainer.dataset.close()
 
     def run():
         t0 = time.perf_counter()
-        for i, camera in enumerate(cams):
+        for i in range(steps):
             it = TRAIN_ITERS + 1 + i
-            trainer.params, trainer.opt, trainer.state, _, _ = trainer._train_step(
-                trainer._settings_for(camera), trainer.params, trainer.opt,
-                trainer.state, camera, trainer._loss_weights(it), trainer._lrs(it), bg, it)
+            batch = cams[i * per_step:(i + 1) * per_step]
+            args = (trainer._settings_for(batch[0]), trainer.params, trainer.opt,
+                    trainer.state)
+            rest = (trainer._loss_weights(it), trainer._lrs(it), bg, it)
+            out = trainer._train_step_dp(*args, global_dp_inputs(group, batch)[0], *rest)
+            trainer.params, trainer.opt, trainer.state = out[:3]
             trainer._model_update(it)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
@@ -2388,6 +2424,7 @@ def profile_steps(trainer, phase: str = "profile", steps: int = 10, bg=None) -> 
         device_busy_share=round(busy_ms / wall_ms, 4),
         top=[dict(kernel=k[:80], ms_per_step=round(ms / steps, 4), calls_per_step=c / steps)
              for ms, k, c in rows[:16]])
+    return rows
 
 
 def phase_mesh_train(dev, root: Path) -> dict:
@@ -4512,6 +4549,757 @@ def phase_entry(soup: Path) -> dict:
     return dict(seconds=secs)
 
 
+# ---------------------------------------------------------------------------
+# the parallel layer: camera data parallelism, ranks, depth sharding, hybrid
+# ---------------------------------------------------------------------------
+
+DP_VIEWS = 4                 # dp-photo-800-100k-x4: photo-800-100k at data_parallel 4
+DP_SMALL_VIEWS = 2           # the gs and scaffold cells at data_parallel 2
+DP_SMALL_ITERS = 10
+DP_RANKS_ITERS = 10          # dp-ranks-2x-shared
+RANK_TIMEOUT_S = 420         # a rank that outlives this fails its phase
+TRAIN_MS: dict = {}          # the single-view photo phase's ms/step
+DP_REF: dict = {}            # the one-rank four-view first step, for dp_ranks
+# the first step against its card reference: JAX's own budget
+# (tests/test_multichip.py::test_trainer_dp_step_matches_mean_gradient)
+DP_TOL = dict(rtol=2e-5, atol=1e-6, acc_atol=1e-7)
+# step 1 of two Gloo ranks against the one-rank step: the same views summed
+# in another order, (g1+g2)+(g3+g4)
+DP_RANKS_RTOL = 1e-6
+# hybrid-2x2-800 against the one-rank camera-mean reference, JAX's bounds
+# (tests/test_multichip.py::test_hybrid_step_matches_single_device)
+HYBRID_TOL = dict(loss=1e-4, rtol=1e-4, atol=2e-5, grad_floor=1e-6, acc_rtol=1e-3)
+# and Adam's first moment (0.1 g after step 1, the gradient with its scale:
+# the update above is sign(g)-like) of every leaf: its scale fitted against
+# the reference's, <m, m_ref> / <m_ref, m_ref>, within 1e-3 of 1 (a factor
+# K or 1/K reads 2 or 0.5), and every entry within 1e-2 of the leaf's
+# largest. A sub-pixel triangle's vertex gradient scales with 1 / area, so
+# the composite's other rounding of T (T_near * T_slab against one running
+# product) moves it: measured 7.1e-4 of the largest at a 0.012 px² triangle
+# (median 19.2 px²), 291 entries above 1e-5 and none above 1e-3, while the
+# slabs' field rows equal the single pass's bits and no pixel ended early
+HYBRID_M_TOL = dict(scale=1e-3, entry=1e-2)
+HYBRID_LR = 1e-3
+# depth-sharded-city-2: the fused render against one pass, per channel
+# (JAX's stated bound, parallel/depth_sharded.py:20-24), and each slab's
+# vertex gradients against the single pass's, a share of its largest
+# (measured 8.9e-6 on the card)
+DS_RENDER_TOL = 1e-4
+DS_GRAD_TOL = 1e-4
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def tree_arrays(params, opt, state=None, fields=()) -> dict:
+    """Host copies of params, Adam moments and state fields by name."""
+    from triangle_splatting_tpu_torch.models.scaffold import ScaffoldParams
+    leaves = (lambda t: t.leaves()) if isinstance(params, ScaffoldParams) else \
+        (lambda t: t.tensors())
+    out = {f"p.{k}": v for k, v in leaves(params).items()}
+    out.update({f"m.{k}": v for k, v in leaves(opt.m).items()})
+    out.update({f"v.{k}": v for k, v in leaves(opt.v).items()})
+    out.update({f"s.{k}": getattr(state, k) for k in fields})
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+STAT_FIELDS = dict(
+    ts=("gradient_accum", "gradient_denom", "contrib_sum", "contrib_max", "contrib_denom",
+        "max_radii2d"),
+    gs=("gradient_accum", "gradient_denom", "contrib_sum", "contrib_max", "contrib_denom",
+        "max_radii2d"),
+    scaffold=("opacity_accum", "anchor_denom", "offset_grad_accum", "offset_denom"))
+
+
+def dp_first_step_check(trainer, views, kind: str, what: str, it: int = 1) -> dict:
+    """One ``_train_step_dp`` over ``views`` on the card against its card
+    reference: each view's ``_loss_and_grads``, their mean, one
+    ``adam_update`` and sequential statistics updates. Params and moments
+    within DP_TOL, view counts, radii and contribution maxima exact, the
+    accumulated gradient norms and contribution sums within DP_TOL. The
+    step's own outputs are returned on the host; the trainer is left as
+    it was."""
+    import importlib
+
+    import torch
+    M = importlib.import_module("triangle_splatting_tpu_torch.models." + dict(
+        ts="triangle", gs="gaussian_model", scaffold="scaffold")[kind])
+    dev = trainer.device
+    settings, w, lrs = trainer._settings_for(views[0]), trainer._loss_weights(it), trainer._lrs(it)
+    bg = torch.ones(3, device=dev)
+    p, o, st, loss, _ = trainer._train_step_dp(settings, trainer.params, trainer.opt,
+                                               trainer.state, views, w, lrs, bg, it)
+    grads, ref_state, ref_loss = [], trainer.state, 0.0
+    for cam in views:
+        lv, g, aux = trainer._loss_and_grads(settings, trainer.params, trainer.state, cam, bg, w)
+        grads.append(g)
+        ref_loss += float(lv)
+        if kind == "scaffold":
+            ref_state = M.update_statistics(ref_state, aux["mean2d_grad"], aux["pkg"],
+                                            trainer.model_cfg.n_offsets)
+        else:
+            ref_state = M.update_statistics(
+                ref_state, aux["center2d_grad" if kind == "ts" else "mean2d_grad"],
+                aux["radii"], aux["contrib_sum"], aux["contrib_max"], aux["visible_mask"])
+    n = len(views)
+    if kind == "scaffold":
+        mean = type(grads[0]).from_leaves({k: sum(g.leaves()[k] for g in grads) / n
+                                           for k in grads[0].leaves()})
+    else:
+        mean = type(grads[0])(**{k: sum(getattr(g, k) for g in grads) / n
+                                 for k in grads[0].tensors()})
+    ref_p, ref_o = M.adam_update(trainer.params, trainer.opt, mean, lrs)
+    fields = STAT_FIELDS[kind]
+    got = tree_arrays(p, o, st, fields)
+    want = tree_arrays(ref_p, ref_o, ref_state, fields)
+    errs = {}
+    for k, a in want.items():
+        b = got[k]
+        if k.startswith("s.") and any(x in k for x in ("denom", "radii", "contrib_max")):
+            errs[k] = float((a != b).sum())
+            check(errs[k] == 0, f"{what}: first step {k} differs from the reference in "
+                  f"{int(errs[k])} rows")
+            continue
+        atol = DP_TOL["acc_atol"] if k.startswith("s.") else DP_TOL["atol"]
+        excess = ((a - b).abs() - (atol + DP_TOL["rtol"] * a.abs())).max()
+        errs[k] = float((a - b).abs().max())
+        check(float(excess) <= 0, f"{what}: first step {k} off the reference by "
+              f"{errs[k]:.3e} (rtol {DP_TOL['rtol']}, atol {atol})")
+    e_loss = abs(float(loss) - ref_loss / n)
+    check(e_loss <= 1e-6 * abs(ref_loss), f"{what}: loss {float(loss)} vs {ref_loss / n}")
+    worst = max(errs, key=errs.get)
+    say(what, first_step="card reference", views=n, arrays=len(want), loss=float(loss),
+        loss_err=e_loss, worst=worst, worst_abs_err=errs[worst],
+        gradient_rows_visited=float(got["s." + fields[1]].sum()))
+    return got
+
+
+def dp_launch_check(launches: dict, n: int, own: tuple, what: str) -> None:
+    for name in own:
+        check(launches[name] == n, f"{what}: kernel {name} launched {launches[name]} times, "
+              f"expected {n}")
+    for name, k in launches.items():
+        if name.startswith("blend_") and name not in own:
+            check(k == 0, f"{what}: kernel {name} launched {k} times")
+    if "segment_reduce_stats" not in own:
+        check(launches["segment_reduce_stats"] == 0,
+              f"{what}: B5 launched {launches['segment_reduce_stats']} times")
+
+
+def dp_eval_check(trainer, it: int, what: str) -> tuple:
+    """The data-parallel evaluation against the sequential one: within
+    1e-3 dB."""
+    n = trainer._dp_n
+    psnr_dp = trainer._evaluate(it)
+    trainer._dp_n = 1                # no data parallelism: one view after the other
+    psnr_seq = trainer._evaluate(it)
+    trainer._dp_n = n
+    check(abs(psnr_dp - psnr_seq) < 1e-3, f"{what}: DP eval {psnr_dp} vs sequential {psnr_seq}")
+    return psnr_dp, psnr_seq
+
+
+def phase_dp(dev, root: Path):
+    """The dp-photo-800-100k-x4 cell: photo-800-100k (config as shipped,
+    TRAIN_ITERS steps) with ``data_parallel: 4`` through build_trainer,
+    its ``trainer.distributed`` block making this process the one rank of
+    an NCCL group on the card (``dp_layout(4, 1)`` = 1 rank x 4 views).
+    Gates: the first step against its card reference (statistics forced
+    on for it), the losses finite and falling, B1 / B2 "2D" plain, B3 and
+    B4 each 4 x 50 launches and nothing else, the DP evaluation within
+    1e-3 dB of the sequential one; then 10 profiled steps (NCCL kernels
+    printed, not gated). Returns (launches, trainer)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from triangle_splatting_tpu_torch.ops.cuda import reset_launches
+    from triangle_splatting_tpu_torch.parallel.multihost import LOCAL
+    from triangle_splatting_tpu_torch.trainers import build_trainer
+    from triangle_splatting_tpu_torch.utils.config import dict_to_config
+
+    n = TRAIN_ITERS
+    cfg = photo_config(root, "out_dp")
+    cfg.trainer.data_parallel = DP_VIEWS
+    cfg.trainer.distributed = dict_to_config(dict(
+        coordinator=f"127.0.0.1:{free_port()}", num_processes=1, process_id=0))
+    trainer = build_trainer(cfg, log_file=False)
+    check(dist.is_initialized() and dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          "dp: build_trainer did not join a one-rank NCCL group")
+    trainer._init_model()
+    trainer._setup_data_parallel()
+    g = trainer._dp_group
+    check((g.size, g.world, trainer._dp_b) == (1, 1, DP_VIEWS), f"dp: layout {g}")
+    say("dp", cell="dp-photo-800-100k-x4", backend=g.backend, world=g.world, ranks=g.size,
+        views_per_rank=trainer._dp_b)
+    views = [trainer.dataset.getTrainDataset()[i] for i in range(DP_VIEWS)]
+    trainer._track_stats, trainer._stat_gate = True, (lambda it: True)
+    try:
+        DP_REF.update(dp_first_step_check(trainer, views, "ts", "dp"))
+    finally:
+        trainer._track_stats = False
+        del trainer._stat_gate
+    train_views = [trainer.dataset.getTrainDataset()[i]
+                   for i in range(trainer.dataset.getTrainDatasetSize())]
+    white = torch.ones(3, device=dev)
+    psnr0 = float(np.mean(trainer.psnr_views(train_views, white)))
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    losses = torch.stack(trainer.loss_history).cpu().numpy()
+    check(len(losses) == n and bool(np.isfinite(losses).all()), "dp: losses not finite")
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    check(last < first, f"dp: loss did not fall (first10 {first:.5f}, last10 {last:.5f})")
+    dp_launch_check(launches, DP_VIEWS * n, ("blend_forward", "blend_backward", "relayout_pairs",
+                                             "segment_reduce_pairs"), "dp")
+    psnr1 = float(np.mean(trainer.psnr_views(train_views, white)))
+    psnr_dp, psnr_seq = dp_eval_check(trainer, n, "dp")
+    ms = secs / n * 1e3
+    say("dp", ms_per_step=round(ms, 3), ms_per_view=round(ms / DP_VIEWS, 3),
+        single_view_train_ms_per_step=round(TRAIN_MS.get("photo", float("nan")), 3),
+        steps=n, loss_first10=first, loss_last10=last, psnr_train_before=psnr0,
+        psnr_train_after=psnr1, psnr_test_dp=psnr_dp, psnr_test_sequential=psnr_seq,
+        launches=launches, pairs_per_triangle=trainer._ppt)
+    rows = profile_steps(trainer, "dp_profile")
+    nccl = [dict(kernel=k[:80], ms=round(ms_, 4), calls=c) for ms_, k, c in rows
+            if "nccl" in k.lower()]
+    say("dp_profile", nccl_kernels=nccl or "none recorded (a one-rank group)")
+    dist.destroy_process_group()
+    # the group is gone: the trainer is a single-view one from here on
+    trainer._dp_group, trainer._dp_n, trainer._dp_b = LOCAL, 1, 1
+    return launches, trainer
+
+
+DP_RANK_WORKER = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+from triangle_splatting_tpu_torch.ops.cuda import launch_counts, reset_launches
+from triangle_splatting_tpu_torch.parallel import multihost
+from triangle_splatting_tpu_torch.trainers import build_trainer
+from triangle_splatting_tpu_torch.utils.config import dict_to_config
+
+rank, out = int(os.environ["TS_PROCESS_ID"]), os.environ["TS_OUT"]
+cfg = dict_to_config(json.load(open(f"{out}/config.json")))
+cfg.trainer.output_dir = f"{out}/rank{rank}"
+tr = build_trainer(cfg, log_file=False)            # joins the job through TS_*
+tr._init_model()
+tr._setup_data_parallel()
+g = tr._dp_group
+views = [tr.dataset.getTrainDataset()[i] for i in range(tr._dp_n)]
+local, = multihost.global_dp_inputs(g, views)
+p, o, s, loss, _ = tr._train_step_dp(tr._settings_for(views[0]), tr.params, tr.opt, tr.state,
+                                     local, tr._loss_weights(1), tr._lrs(1),
+                                     torch.ones(3, device=tr.device), 1)
+if rank == 0:
+    step1 = {f"p.{k}": v for k, v in p.tensors().items()}
+    step1.update({f"m.{k}": v for k, v in o.m.tensors().items()})
+    step1.update({f"v.{k}": v for k, v in o.v.tensors().items()})
+    torch.save({k: v.cpu() for k, v in step1.items()}, f"{out}/step1.pt")
+del p, o, s
+torch.cuda.synchronize()
+reset_launches()
+t0 = time.perf_counter()
+tr.train()
+torch.cuda.synchronize()
+secs = time.perf_counter() - t0
+trees = [x for t in (tr.params, tr.opt.m, tr.opt.v) for x in t.tensors().values()]
+trees += [getattr(tr.state, k) for k in ("alive", "gamma", "active_sh_degree")]
+sums = g.all_gather(multihost.tree_checksum(trees).to(tr.device))
+losses = [float(x) for x in tr.loss_history]
+launches = {}
+for (k, form), n in launch_counts().items():     # chip_smoke.read_launches's names
+    suffix = "" if form is None else form.lower().replace("2d", "").strip("_")
+    launches[f"{k}_{suffix}" if suffix else k] = n
+json.dump(dict(rank=rank, world=multihost.world()[1], backend=g.backend, device=str(tr.device),
+               ranks=g.size, views_per_rank=tr._dp_b, ms_per_step=secs / len(losses) * 1e3,
+               losses=losses, same=bool((sums == sums[0]).all()), launches=launches),
+          open(f"{out}/rank{rank}.json", "w"))
+print("RANK_DONE", rank, flush=True)
+"""
+
+
+def run_ranks(worker: str, n: int, work: Path, backend: str = "gloo", what: str = "ranks") -> list:
+    """``worker`` (Python source importing only the port) as ranks 0..n-1 of
+    one job on this card through TS_COORDINATOR / TS_NUM_PROCESSES /
+    TS_PROCESS_ID / TS_BACKEND, each with RANK_TIMEOUT_S. A rank that exits
+    non-zero or times out fails the phase; every rank is stopped before
+    this returns. Returns each rank's output."""
+    import os
+    port = free_port()
+    env0 = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p),
+        TS_COORDINATOR=f"127.0.0.1:{port}", TS_NUM_PROCESSES=str(n), TS_BACKEND=backend,
+        TS_OUT=str(work))
+    procs = [subprocess.Popen([sys.executable, "-c", worker], cwd=work,
+                              env=dict(env0, TS_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    outs = []
+    try:
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        for r, p in enumerate(procs):
+            try:
+                out, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                check(False, f"{what}: rank {r} did not finish within {RANK_TIMEOUT_S} s")
+            outs.append(out)
+            check(p.returncode == 0, f"{what}: rank {r} exited {p.returncode}:\n{out[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def phase_dp_ranks(root: Path) -> dict:
+    """The dp-ranks-2x-shared cell: two rank processes sharing the card
+    over Gloo (TS_* variables, ``maybe_initialize`` through build_trainer),
+    photo-800-100k at ``data_parallel: 4`` (2 views a rank) for
+    DP_RANKS_ITERS steps. Gates: both ranks exit 0 in time; step 1 of rank
+    0 within rtol 1e-6 of the one-rank four-view step of the dp phase; the
+    two ranks' params, moments and state equal bit for bit after the run
+    (a checksum all-gathered); each rank launched B1 / B2 "2D", B3 and B4
+    2 x DP_RANKS_ITERS times."""
+    import torch
+
+    work = WORK / "dp_ranks"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = photo_config(root, "dp_ranks")
+    cfg.trainer.iterations = DP_RANKS_ITERS
+    cfg.trainer.data_parallel = DP_VIEWS
+    (work / "config.json").write_text(json.dumps(cfg.to_dict()))
+    t0 = time.perf_counter()
+    run_ranks(DP_RANK_WORKER, 2, work, what="dp_ranks")
+    secs = time.perf_counter() - t0
+    recs = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
+    for r in recs:
+        check(r["same"] and r["backend"] == "gloo" and r["world"] == 2 and r["ranks"] == 2
+              and r["views_per_rank"] == 2, f"dp_ranks: rank {r['rank']} reported {r}")
+        dp_launch_check(r["launches"], 2 * DP_RANKS_ITERS,
+                        ("blend_forward", "blend_backward", "relayout_pairs",
+                         "segment_reduce_pairs"), f"dp_ranks rank {r['rank']}")
+    step1 = torch.load(work / "step1.pt")
+    worst, worst_k = 0.0, None
+    for k, want in DP_REF.items():
+        if k.startswith("s."):
+            continue
+        got = step1[k]
+        scale = float(want.abs().max())
+        excess = float(((got - want).abs() - DP_RANKS_RTOL * (want.abs() + scale)).max())
+        err = float((got - want).abs().max()) / max(scale, 1e-30)
+        if err >= worst:
+            worst, worst_k = err, k
+        check(excess <= 0, f"dp_ranks: step 1 {k} off the one-rank step by {err:.3e} "
+              f"of its largest (rtol {DP_RANKS_RTOL})")
+    launches = recs[0]["launches"]
+    say("dp_ranks", cell="dp-ranks-2x-shared", backend="gloo", world=2, views_per_rank=2,
+        ms_per_step=[round(r["ms_per_step"], 3) for r in recs], steps=DP_RANKS_ITERS,
+        seconds=round(secs, 3), step1_worst=worst_k, step1_worst_rel=worst,
+        final_models_equal=True, losses_rank0=recs[0]["losses"], launches_rank0=launches)
+    shutil.rmtree(work, ignore_errors=True)
+    return recs[0]
+
+
+HYBRID_WORKER = r"""
+import os
+import torch
+from triangle_splatting_tpu_torch.models import triangle as M
+from triangle_splatting_tpu_torch.parallel.hybrid import make_hybrid_mesh, make_hybrid_train_step
+from triangle_splatting_tpu_torch.parallel.multihost import (maybe_initialize, rank_device,
+                                                             tree_checksum)
+from triangle_splatting_tpu_torch.trainers import losses as L
+
+rank, out = int(os.environ["TS_PROCESS_ID"]), os.environ["TS_OUT"]
+maybe_initialize(device="cuda")
+dev = rank_device(rank)
+inp = torch.load(f"{out}/inputs.pt", weights_only=False)
+params = M.TriangleParams(**{k: v.to(dev) for k, v in inp["params"].items()})
+state = M.TriangleState(**{k: v.to(dev) for k, v in inp["state"].items()})
+opt = M.AdamState.create(params)
+mesh = make_hybrid_mesh(2, 2)
+cam = inp["cameras"][mesh.data.rank]
+cam = type(cam)(**{f: (getattr(cam, f).to(dev) if torch.is_tensor(getattr(cam, f))
+                       else getattr(cam, f)) for f in cam.__dataclass_fields__})
+step = make_hybrid_train_step(mesh, inp["settings"],
+                              lambda pkg, c, p, st, w: L.l1(pkg["render"], c.gt_image))
+lrs = {k: inp["lr"] for k in ("vertex", "opacity", "f_dc", "f_rest", "affine")}
+p2, o2, s2, loss, slim = step(params, opt, state, cam, torch.ones(3, device=dev), lrs, {})
+res = dict(loss=loss, gradient_accum=s2.gradient_accum, gradient_denom=s2.gradient_denom,
+           max_radii2d=s2.max_radii2d, **{f"p.{k}": v for k, v in p2.tensors().items()},
+           **{f"m.{k}": v for k, v in o2.m.tensors().items()})
+sums = mesh.both.all_gather(tree_checksum(list(res.values())).to(dev))
+res.update(same=bool((sums == sums[0]).all()), overflow=bool(slim["overflow"]),
+           num_pairs=int(slim["num_pairs"]), shape=mesh.shape, backend=mesh.both.backend)
+torch.save({k: v.cpu() if torch.is_tensor(v) else v for k, v in res.items()},
+           f"{out}/rank{rank}.pt")
+"""
+
+
+def phase_hybrid(dev, trainer) -> dict:
+    """The hybrid-2x2-800 cell: four rank processes sharing the card over
+    Gloo run one 2 x 2 hybrid step (two cameras of the soup at 800², each
+    split into two depth slabs) of the dp phase's trained model. Gates:
+    every rank exits 0 and ends with the same model (a checksum); the step
+    against the one-rank camera-mean reference on the card by JAX's
+    bounds (HYBRID_TOL: the loss, the Adam update where the reference
+    gradient exceeds 1e-6, the summed centroid-gradient norms where a
+    view counted the row, the view counts and radii exactly), and Adam's
+    first moment of every leaf, which carries the gradient's scale, at
+    the reference's scale and entries (HYBRID_M_TOL); no overflow."""
+    import torch
+    from dataclasses import replace
+    from triangle_splatting_tpu_torch.models import triangle as M
+    from triangle_splatting_tpu_torch.ops.rasterize import rasterize
+    from triangle_splatting_tpu_torch.trainers import losses as L
+
+    work = WORK / "hybrid"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    params = M.TriangleParams(**{k: v.detach() for k, v in trainer.params.tensors().items()})
+    state = trainer.state
+    cams = [trainer.dataset.getTrainDataset()[i] for i in range(2)]
+    # a slab's pair budget is the whole scene's (near slabs cover more tiles)
+    settings = replace(trainer._settings_for(cams[0]), pairs_per_triangle=2 * trainer._ppt)
+    st = dict(alive=state.alive, gamma=state.gamma, active_sh_degree=state.active_sh_degree,
+              **{k: getattr(state, k) for k in ("gradient_accum", "gradient_denom",
+                                                "contrib_sum", "contrib_max", "contrib_denom",
+                                                "max_radii2d")})
+    host = lambda c: type(c)(**{f: (getattr(c, f).cpu() if torch.is_tensor(getattr(c, f))  # noqa: E731
+                                    else getattr(c, f)) for f in c.__dataclass_fields__})
+    torch.save(dict(params={k: v.cpu() for k, v in params.tensors().items()},
+                    state={k: v.cpu() for k, v in st.items()}, cameras=[host(c) for c in cams],
+                    settings=settings, lr=HYBRID_LR), work / "inputs.pt")
+    t0 = time.perf_counter()
+    run_ranks(HYBRID_WORKER, 4, work, what="hybrid")
+    secs = time.perf_counter() - t0
+    outs = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(4)]
+    for r, o in enumerate(outs):
+        check(o["same"] and o["shape"] == (2, 2) and o["backend"] == "gloo",
+              f"hybrid: rank {r}: same {o['same']}, shape {o['shape']}, {o['backend']}")
+        check(not o["overflow"], f"hybrid: rank {r} overflowed its pair budget")
+    h = outs[0]
+
+    # the one-rank camera-mean reference on the card
+    state0 = M.TriangleState(**st)
+    opt = M.AdamState.create(params)
+    C = params.capacity
+    budget = -(-int(trainer._ppt * C) // 128) * 128         # rasterize's own sizing
+    losses, gps, gns, vis, radii = [], [], [], [], []
+    stopped = 0                  # pixels the single pass ended at T <= 1e-4
+    for cam in cams:
+        leaves = {k: t.detach().requires_grad_(True) for k, t in params.tensors().items()}
+        c2d = torch.zeros((C, 2), device=dev, requires_grad=True)
+        p = M.TriangleParams(**leaves)
+        dist_ = M.safe_norm(cam.camera_center[None, None, :] - p.vertex)
+        bgd = torch.where(state0.alive[:, None], dist_, torch.zeros_like(dist_)).amax()
+        out = rasterize(p.vertex, M.get_opacity(p)[:, 0], M.get_features(p), cam, settings,
+                        gamma=state0.gamma, background=torch.ones(3, device=dev), bg_depth=bgd,
+                        active_sh_degree=state0.active_sh_degree, center2d_offset=c2d,
+                        alive_mask=state0.alive, max_pairs=budget)
+        loss = L.l1(out["render"], cam.gt_image)
+        gs = torch.autograd.grad(loss, [leaves[k] for k in leaves] + [c2d], allow_unused=True)
+        losses.append(float(loss.detach()))
+        gps.append({k: torch.zeros_like(leaves[k]) if g is None else g
+                    for k, g in zip(leaves, gs[:-1])})
+        gns.append(torch.linalg.vector_norm(gs[-1], dim=-1))
+        vis.append(out["visible_mask"])
+        radii.append(out["radii"])
+        stopped += int((out["final_T"] <= 1e-4).sum())
+    mean = M.TriangleParams(**{k: (gps[0][k] + gps[1][k]) / 2.0 for k in gps[0]})
+    ref_p, ref_o = M.adam_update(params, opt, mean, {k: HYBRID_LR for k in (
+        "vertex", "opacity", "f_dc", "f_rest", "affine")})
+    e_loss = abs(float(h["loss"]) - sum(losses) / 2)
+    check(e_loss < HYBRID_TOL["loss"], f"hybrid: loss {float(h['loss'])} vs {sum(losses) / 2}")
+    errs = {}
+    for k in params.tensors():
+        m = getattr(mean, k).abs() > HYBRID_TOL["grad_floor"]
+        a, b = getattr(ref_p, k)[m].cpu(), h[f"p.{k}"].to(m.device)[m].cpu()
+        excess = float(((a - b).abs() - (HYBRID_TOL["atol"] + HYBRID_TOL["rtol"] * a.abs()))
+                       .max()) if a.numel() else 0.0
+        errs[k] = float((a - b).abs().max()) if a.numel() else 0.0
+        check(excess <= 0, f"hybrid: params {k} off the reference by {errs[k]:.3e}")
+    m_errs, m_scales = {}, {}
+    for k in params.tensors():
+        rm, hm = getattr(ref_o.m, k).cpu().double(), h[f"m.{k}"].double()
+        top, norm2 = float(rm.abs().max()), float((rm * rm).sum())
+        m_errs[k] = float((hm - rm).abs().max()) / top if top > 0 else float(hm.abs().max())
+        m_scales[k] = float((hm * rm).sum()) / norm2 if norm2 > 0 else 1.0
+        check(abs(m_scales[k] - 1.0) <= HYBRID_M_TOL["scale"],
+              f"hybrid: Adam m.{k} at {m_scales[k]:.6f} times the reference's")
+        check(m_errs[k] <= HYBRID_M_TOL["entry"],
+              f"hybrid: Adam m.{k} off the reference by {m_errs[k]:.3e} of its largest")
+    # where the vertex moments differ: rows the single pass gave no gradient
+    # (triangles behind every pixel's stop) and the hybrid's far slab did
+    rm = ref_o.m.vertex.cpu().double().reshape(C, -1)
+    hm = h["m.vertex"].double().reshape(C, -1)
+    err2 = ((hm - rm) ** 2).sum(dim=1)
+    behind = (rm == 0).all(dim=1) & (hm != 0).any(dim=1)
+    behind_share = float(err2[behind].sum() / err2.sum()) if float(err2.sum()) > 0 else 0.0
+    # whether a slab's per-triangle inputs to the blend are the single pass's
+    # bits: the field rows (rasterize's own preprocess) of each slab of view 0
+    # computed over the slab against the same rows computed over all C
+    from triangle_splatting_tpu_torch.ops import sh as sh_mod
+    from triangle_splatting_tpu_torch.ops.projection import preprocess_2d
+    from triangle_splatting_tpu_torch.ops.rasterize import triangle_field_matrix
+    from triangle_splatting_tpu_torch.parallel.depth_sharded import (binning_depth_key,
+                                                                     partition_by_depth)
+
+    @torch.no_grad()
+    def field_rows(idx, cam):
+        v, o = params.vertex[idx], M.get_opacity(params)[idx, 0]
+        rgb = sh_mod.eval_sh(M.get_features(params)[idx], v.mean(dim=1), cam.camera_center,
+                             state0.active_sh_degree, settings.max_sh_degree)
+        prep = preprocess_2d(v, torch.zeros((len(idx), 2), device=dev), rgb, cam.world_view,
+                             cam.full_proj, cam.tan_fovx, cam.tan_fovy, settings,
+                             alive_mask=state0.alive[idx], opacity=o,
+                             gamma=torch.as_tensor(state0.gamma, device=dev))
+        return torch.cat([triangle_field_matrix(prep, o), v.mean(dim=1),
+                          prep.area2[:, None], prep.valid[:, None].float()], dim=1)
+
+    key = binning_depth_key(params.vertex, M.get_opacity(params)[:, 0], cams[0], settings,
+                            state0.gamma, state0.alive)
+    order = partition_by_depth(key, 2, alive=state0.alive)
+    whole = field_rows(torch.arange(C, device=dev), cams[0])
+    rows_differ = sum(int((field_rows(sl, cams[0]) != whole[sl]).any(dim=1).sum())
+                      for sl in (order[:C // 2], order[C // 2:]))
+    # the worst vertex moment entry: its row's screen area against the median
+    # (a sliver's vertex gradient scales with 1 / area: ill-conditioned)
+    worst = int((hm - rm).abs().reshape(-1).argmax())
+    w_row = worst // rm.shape[1]
+    area = (whole[:, -2].abs() / 2).cpu()
+    valid = whole[:, -1].cpu() > 0
+    worst_entry = dict(row=w_row, reference=float(rm.reshape(-1)[worst]),
+                       hybrid=float(hm.reshape(-1)[worst]), largest=float(rm.abs().max()),
+                       area_px=float(area[w_row]), valid=bool(valid[w_row]),
+                       median_area_px=float(area[valid].median()) if bool(valid.any()) else 0.0,
+                       entries_rel_over_1e3=int(((hm - rm).abs() > 1e-3 * rm.abs().max()).sum()),
+                       entries_rel_over_1e5=int(((hm - rm).abs() > 1e-5 * rm.abs().max()).sum()))
+    rec = h["gradient_denom"] > 0
+    acc_ref = (gns[0] + gns[1]).cpu()
+    e_acc = float(((h["gradient_accum"] - acc_ref).abs() / acc_ref.abs().clamp_min(1e-12))[rec]
+                  .max()) if bool(rec.any()) else 0.0
+    check(e_acc <= HYBRID_TOL["acc_rtol"] or float(
+        ((h["gradient_accum"] - acc_ref).abs() - HYBRID_TOL["acc_rtol"] * acc_ref.abs())[rec]
+        .max()) <= 1e-7, f"hybrid: gradient_accum rel err {e_acc:.3e}")
+    den_ref = (vis[0].float() + vis[1].float()).cpu()
+    check(torch.equal(h["gradient_denom"], den_ref), "hybrid: view counts differ")
+    check(torch.equal(h["max_radii2d"], torch.maximum(radii[0], radii[1]).float().cpu()),
+          "hybrid: radii differ")
+    say("hybrid", cell="hybrid-2x2-800", backend="gloo", shape=[2, 2], seconds=round(secs, 3),
+        triangles=int(state0.alive.sum()), capacity=C, loss=float(h["loss"]),
+        loss_reference=sum(losses) / 2, loss_err=e_loss, param_abs_err=errs,
+        adam_m_rel_err=m_errs, adam_m_scale=m_scales, pixels_stopped_single=stopped,
+        vertex_rows_only_hybrid=int(behind.sum()), vertex_err_share_there=behind_share,
+        slab_field_rows_differing=rows_differ, vertex_worst_entry=worst_entry,
+        gradient_accum_rel_err=e_acc, rows_counted=int(rec.sum()),
+        num_pairs_max_slab=h["num_pairs"])
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(seconds=secs)
+
+
+SHARD_WORKER = r"""
+import os, statistics, time
+import torch
+from triangle_splatting_tpu_torch.parallel import depth_sharded as D
+from triangle_splatting_tpu_torch.parallel.multihost import (make_global_mesh, maybe_initialize,
+                                                             rank_device)
+
+rank, out = int(os.environ["TS_PROCESS_ID"]), os.environ["TS_OUT"]
+maybe_initialize(device="cuda")
+dev = rank_device(rank)
+inp = torch.load(f"{out}/inputs.pt", weights_only=False)
+g = make_global_mesh()
+K = g.size
+cam = inp["camera"]
+cam = type(cam)(**{f: (getattr(cam, f).to(dev) if torch.is_tensor(getattr(cam, f))
+                       else getattr(cam, f)) for f in cam.__dataclass_fields__})
+v, o, c, alive = (inp[k].to(dev) for k in ("vertex", "opacity", "rgb", "alive"))
+settings, gamma = inp["settings"], inp["gamma"]
+P = v.shape[0]
+key = D.binning_depth_key(v, o, cam, settings, gamma, alive)
+order = D.partition_by_depth(key, K, alive=alive)
+slab = order[rank * (P // K):(rank + 1) * (P // K)]
+render = D.make_depth_sharded_render(g, settings, max_pairs=inp["max_pairs"])
+bg, bgd = inp["background"].to(dev), inp["bg_depth"]
+sv, so, sc = (x[slab].clone() for x in (v, o, c))
+with torch.no_grad():
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pkg = render(sv, so, sc, alive[slab], cam, bg, bgd, gamma, depth_key=key[slab])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+sv.requires_grad_(True)
+pkg = render(sv, so, sc, alive[slab], cam, bg, bgd, gamma, depth_key=key[slab])
+# every rank back-propagates the replicated loss: each slab gets one pass's gradient
+pkg["render"].mean().backward()
+res = dict(slab=slab.cpu(), gv=sv.grad.cpu(), ms=statistics.median(times[1:]),
+           backend=g.backend, world=g.world, overflow=bool(pkg["overflow"]),
+           num_pairs=int(pkg["num_pairs"]))
+if rank == 0:
+    res.update({k: pkg[k].detach().cpu() for k in ("render", "final_T", "depth", "normal",
+                                                   "n_contrib")})
+torch.save(res, f"{out}/rank{rank}.pt")
+"""
+
+
+def phase_depth_sharded(dev) -> dict:
+    """The depth-sharded-city-2 cell: the city phase's model (its forward
+    inputs at gamma 50: rescaled vertices, STE opacities, SH colors) and
+    its first test view at 1600x900, rendered by two rank processes
+    sharing the card over Gloo, each a depth slab keyed by the whole
+    scene's depths, through the 3D rich forms, composited on both. Gates:
+    the fused render within DS_RENDER_TOL per channel of one ``rasterize``;
+    n_contrib at least the single pass's; each slab's vertex gradients of
+    the image mean within DS_GRAD_TOL of the single pass's largest. Where
+    the contributor counts differ a slab blended on past the single pass's
+    T <= 1e-4 stop (the stop leaves T < 1e-2 with alpha at most 0.99, so
+    1e-4 is no theorem there): those pixels and their error are printed.
+    Prints ms a fused render."""
+    import torch
+    from triangle_splatting_tpu_torch.models import triangle as M
+    from triangle_splatting_tpu_torch.models.model_utils import get_color_tensor
+    from triangle_splatting_tpu_torch.ops import sh as sh_mod
+    from triangle_splatting_tpu_torch.ops.rasterize import rasterize
+
+    trainer = KEEP["city"]["trainer"]
+    cam = KEEP["city"]["cameras"][0]
+    work = WORK / "depth_sharded"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg, st = trainer.model_cfg, trainer.state
+    with torch.no_grad():
+        v = trainer.params.vertex
+        if cfg.gamma_rescale:
+            v = M.rescale_triangles(v, M.gamma_rescale_ratio(st.gamma))
+        o = M.get_opacity(trainer.params)[:, 0]
+        if cfg.ste_threshold is not None:
+            o = (o > cfg.ste_threshold).to(o.dtype)
+        rgb = sh_mod.eval_sh(M.get_features(trainer.params), v.mean(dim=1), cam.camera_center,
+                             st.active_sh_degree, cfg.max_sh_degree)
+        dist_ = M.safe_norm(cam.camera_center[None, None, :] - v)
+        bgd = float(torch.where(st.alive[:, None], dist_, torch.zeros_like(dist_)).amax())
+    settings = trainer._settings_for(cam)
+    P = v.shape[0]
+    max_pairs = -(-int(settings.pairs_per_triangle * P) // 128) * 128   # rasterize's sizing
+    bg = torch.as_tensor(get_color_tensor(trainer.config.trainer.eval_background or "black",
+                                          None), dtype=torch.float32)
+    host = type(cam)(**{f: (getattr(cam, f).cpu() if torch.is_tensor(getattr(cam, f))
+                            else getattr(cam, f)) for f in cam.__dataclass_fields__})
+    torch.save(dict(vertex=v.cpu(), opacity=o.cpu(), rgb=rgb.cpu(), alive=st.alive.cpu(),
+                    camera=host, settings=settings, gamma=float(st.gamma), bg_depth=bgd,
+                    background=bg, max_pairs=max_pairs), work / "inputs.pt")
+    t0 = time.perf_counter()
+    run_ranks(SHARD_WORKER, 2, work, what="depth_sharded")
+    secs = time.perf_counter() - t0
+    outs = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    for r, o_ in enumerate(outs):
+        check(o_["backend"] == "gloo" and o_["world"] == 2 and not o_["overflow"],
+              f"depth_sharded: rank {r}: {o_['backend']}, world {o_['world']}, "
+              f"overflow {o_['overflow']}")
+
+    # the single pass on the card, and its gradient
+    vv = v.detach().clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ref = rasterize(vv, o, None, cam, settings, gamma=st.gamma, background=bg.to(dev),
+                    bg_depth=bgd, colors=rgb, alive_mask=st.alive, max_pairs=max_pairs)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t1) * 1e3
+    check(not bool(ref["overflow"]), "depth_sharded: the single pass overflowed")
+    ref["render"].mean().backward()
+    f = outs[0]
+    d = (f["render"] - ref["render"].detach().cpu()).abs()               # (3, H, W)
+    same = f["n_contrib"] == ref["n_contrib"].cpu()
+    T = ref["final_T"].detach().cpu()
+    e_same = float(d[:, same].max()) if bool(same.any()) else 0.0
+    e_ended = float(d[:, ~same].max()) if bool((~same).any()) else 0.0
+    over_T = float((d - T[None]).max())
+    check(bool((f["n_contrib"] >= ref["n_contrib"].cpu()).all()),
+          "depth_sharded: a fused n_contrib below the single pass's")
+    check(max(e_same, e_ended) <= DS_RENDER_TOL,
+          f"depth_sharded: render off by {e_same:.3e} where the counts agree, {e_ended:.3e} "
+          f"where a slab blended past the single pass's stop (tolerance {DS_RENDER_TOL})")
+    gref = vv.grad.detach().cpu()
+    scale = float(gref.abs().max())
+    e_grad = max(float((o_["gv"] - gref[o_["slab"]]).abs().max()) for o_ in outs) / scale
+    check(e_grad <= DS_GRAD_TOL, f"depth_sharded: vertex gradients off by {e_grad:.3e} of the "
+          f"largest (tolerance {DS_GRAD_TOL})")
+    say("depth_sharded", cell="depth-sharded-city-2", backend="gloo", ranks=2,
+        triangles=int(st.alive.sum()), capacity=P, resolution=[cam.image_width,
+                                                               cam.image_height],
+        ms_fused_render=[round(o_["ms"], 3) for o_ in outs], ms_single_render=round(single_ms, 3),
+        render_err_counts_equal=e_same, render_err_ended_early=e_ended,
+        pixels_ended_early=int((~same).sum()), pixels=int(same.numel()),
+        ended_early_err_over_final_T=over_T, grad_rel_err=e_grad,
+        num_pairs_slabs=[o_["num_pairs"] for o_ in outs], num_pairs_single=int(ref["num_pairs"]),
+        seconds=round(secs, 3))
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(seconds=secs)
+
+
+def dp_small_phase(dev, kind: str, cfg) -> dict:
+    """dp-gs / dp-scaffold: the gs or scaffold cell's recipe at
+    ``data_parallel: 2`` for DP_SMALL_ITERS steps on its dataset (one
+    process, 2 views a step). Gates: the first step against its card
+    reference, finite losses, the path's kernels 2 x DP_SMALL_ITERS
+    launches and no other blend form, the statistics accumulated."""
+    import numpy as np
+    import torch
+    from triangle_splatting_tpu_torch.ops.cuda import reset_launches
+    from triangle_splatting_tpu_torch.trainers import build_trainer
+
+    what = f"dp_{kind}"
+    n = DP_SMALL_ITERS
+    t = cfg.trainer
+    t.data_parallel, t.iterations = DP_SMALL_VIEWS, n
+    t.save_iterations, t.checkpoint_iterations = [], []
+    t.output_dir = str(WORK / f"out_{what}")
+    trainer = build_trainer(cfg, log_file=False)
+    trainer._init_model()
+    trainer._setup_data_parallel()
+    views = [trainer.dataset.getTrainDataset()[i] for i in range(DP_SMALL_VIEWS)]
+    it = 6 if kind == "scaffold" else 1          # inside each recipe's statistics window
+    dp_first_step_check(trainer, views, kind, what, it)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    losses = torch.stack(trainer.loss_history).cpu().numpy()
+    check(len(losses) == n and bool(np.isfinite(losses).all()), f"{what}: losses {losses}")
+    own = ("blend_forward_gs_stats", "blend_backward_gs", "relayout_pairs",
+           "segment_reduce_pairs", "segment_reduce_stats") if kind == "gs" else \
+        ("blend_forward_gs", "blend_backward_gs", "relayout_pairs", "segment_reduce_pairs")
+    dp_launch_check(launches, DP_SMALL_VIEWS * n, own, what)
+    if kind == "scaffold":
+        # the anchor update at DP_SMALL_ITERS read the window's statistics
+        # (and reset them)
+        hist = trainer.anchor_history
+        stat = hist[-1]["grad_stat"]["examined"] if hist else 0
+    else:
+        stat = float(trainer.state.gradient_denom.sum())
+    check(stat > 0, f"{what}: no statistics accumulated")
+    say(what, ms_per_step=round(secs / n * 1e3, 3), steps=n, views_per_step=DP_SMALL_VIEWS,
+        loss_first=float(losses[0]), loss_last=float(losses[-1]), statistics=stat,
+        launches=launches)
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4537,6 +5325,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port package is missing beside this script ({e})",
               file=sys.stderr)
         return 2
+    from triangle_splatting_tpu_torch.utils.config import dict_to_config
     dev = torch.device("cuda")
     try:
         print(card_line(), flush=True)
@@ -4562,7 +5351,12 @@ def main(argv=None) -> int:
         shutil.rmtree(WORK, ignore_errors=True)
         soup = build_dataset(dev, "soup")
         runs["train"] = phase_train(dev, soup)
+        runs["dp"], dp_trainer = phase_dp(dev, soup)
+        runs["dp_ranks"] = phase_dp_ranks(soup)
+        runs["hybrid"] = phase_hybrid(dev, dp_trainer)
+        del dp_trainer
         runs["gs"] = phase_gs(dev, soup)
+        runs["dp_gs"] = dp_small_phase(dev, "gs", dict_to_config(gs_config(soup)))
         runs["entry"] = phase_entry(soup)
         shutil.rmtree(soup, ignore_errors=True)
         surface = build_dataset(dev, "surface")
@@ -4571,10 +5365,12 @@ def main(argv=None) -> int:
         shutil.rmtree(surface, ignore_errors=True)
         runs["city"], city_rec = phase_city(dev, build_city(dev), cmp)
         rec.update(city_rec)
+        runs["depth_sharded"] = phase_depth_sharded(dev)
         runs["render_utils"] = phase_render_utils(dev)
         shutil.rmtree(WORK / "matrix_city", ignore_errors=True)
         colmap = build_colmap(dev)
         runs["scaffold"] = phase_scaffold(dev, colmap)
+        runs["dp_scaffold"] = dp_small_phase(dev, "scaffold", scaffold_config(colmap))
         shutil.rmtree(colmap, ignore_errors=True)
         runs["facades"] = phase_facades(dev)
         runs["viewer"] = phase_viewer(dev)

@@ -319,6 +319,15 @@ def test_build_trainer_refuses_unported_blocks(dataset, tmp_path, path, value, b
                            device="cpu", log_file=False)
         assert tr.config.trainer.profile_start_iter == value and tr._profiler is None
         return
+    if block == "data_parallel":
+        # served since the parallel slice: 2 views a step in one process
+        tr = build_trainer(dict_to_config(gs_config(dataset, tmp_path, **{
+            path: value, "trainer.iterations": 4})), device="cpu", log_file=False)
+        tr.train()
+        losses = torch.stack(tr.loss_history).numpy()
+        assert tr._dp_b == 2 and len(losses) == 4 and np.isfinite(losses).all()
+        assert float(tr.state.gradient_denom.sum()) > 0
+        return
     with pytest.raises(NotImplementedError, match=block):
         build_trainer(dict_to_config(gs_config(dataset, tmp_path, **{path: value})),
                       device="cpu", log_file=False)

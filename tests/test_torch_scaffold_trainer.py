@@ -131,7 +131,7 @@ def both_trainers(dataset, tmp_path, jax_impl="oracle", **patch):
 def test_build_trainer_dispatch_and_shipped_config(dataset, tmp_path):
     """ScaffoldGS builds through build_trainer; the shipped COLMAP recipe
     keeps its widths (feat 32, hidden 32, k 10, voxel 0.001, capacity
-    factor 4, 8 pairs a Gaussian); data parallelism is refused by name."""
+    factor 4, 8 pairs a Gaussian); data parallelism trains."""
     from triangle_splatting_tpu_torch.trainers.scaffold_gs import LR_GROUPS, ScaffoldGSTrainer
     tr = build_trainer(dict_to_config(scaffold_config(dataset, tmp_path)), device="cpu",
                        log_file=False)
@@ -148,10 +148,15 @@ def test_build_trainer_dispatch_and_shipped_config(dataset, tmp_path):
     assert shipped._ppt == 8 and shipped._u.grad_min_view_count == 100
     shipped._init_model()
     assert shipped.params.anchor_feat.shape[1] == 32
-    with pytest.raises(NotImplementedError, match="data_parallel"):
-        build_trainer(dict_to_config(scaffold_config(dataset, tmp_path,
-                                                     **{"trainer.data_parallel": 2})),
-                      device="cpu", log_file=False)
+    # data parallelism, served since the parallel slice: 2 views a step in
+    # one process, the anchor statistics accumulated in the window (4, 6]
+    dp = build_trainer(dict_to_config(scaffold_config(dataset, tmp_path / "dp", iters=6,
+                                                      **{"trainer.data_parallel": 2})),
+                       device="cpu", log_file=False)
+    dp.train()
+    losses = torch.stack(dp.loss_history).numpy()
+    assert dp._dp_b == 2 and len(losses) == 6 and np.isfinite(losses).all()
+    assert float(dp.state.anchor_denom.sum()) > 0 and float(dp.state.offset_denom.sum()) > 0
 
 
 def jax_coins(prng, C, k, depth):

@@ -1,5 +1,5 @@
 """The port's twin of ``trainers/smoke.py``: its config against the JAX
-function's, the refusals of the parts not ported, the CPU smoke of the
+function's, ``--dp`` and the refusals of the parts not ported, the CPU smoke of the
 photo and the Gaussian recipes (48x48, 80 iterations, 120 GT triangles, 6
 views: the README's CPU quick check, on the plain kernel versions), and
 the JAX and the port trainers in lockstep up to the smoke's first
@@ -33,10 +33,17 @@ def test_smoke_config_equals_jax(kw, iters):
 
 
 def test_smoke_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="dp"):
-        smoke.main(QUICK + ["--dp", "2", "--root", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="dp"):
-        smoke.main(QUICK + ["--model", "scaffold", "--dp", "2", "--root", str(tmp_path)])
+    # --dp, served since the parallel slice: trainer.data_parallel, 2 views
+    # a step in one process, the statistics accumulated
+    quick_dp = "--res 48 --iters 8 --n_tri 120 --views 6 --device cpu --dp 2".split()
+    for model, denom in (("ts", "gradient_denom"), ("scaffold", "anchor_denom")):
+        trainer, record = smoke.run(smoke.parse_args(
+            quick_dp + ["--model", model, "--root", str(tmp_path / model)]))
+        losses = np.stack([float(x) for x in trainer.loss_history])
+        assert trainer.config.trainer.data_parallel == 2 and trainer._dp_b == 2
+        assert len(losses) == 8 and np.isfinite(losses).all()
+        assert float(getattr(trainer.state, denom).sum()) > 0
+        assert np.isfinite(record["psnr_final"])
     with pytest.raises(ValueError, match="mesh"):
         make_smoke_config("/d", "/o", 80, model="gs", mesh=True)
     with pytest.raises(ValueError, match="mesh"):

@@ -209,6 +209,17 @@ def test_unported_config_blocks_raise(dataset, tmp_path, patch):
         tr = build_trainer(dict_to_config(cfg), device="cpu", log_file=False)
         assert tr.config.trainer.profile_start_iter == 5 and tr._profiler is None
         return
+    if "data_parallel" in patch.get("trainer", {}):
+        # served since the parallel slice: 2 views a step in one process
+        # (with a statistic block, so the per-view statistics accumulate)
+        cfg["model"]["model_update"]["statistic"] = {"start_iter": 0, "end_iter": 100}
+        cfg["trainer"]["iterations"] = 4
+        tr = build_trainer(dict_to_config(cfg), device="cpu", log_file=False)
+        tr.train()
+        losses = torch.stack(tr.loss_history).numpy()
+        assert tr._dp_b == 2 and len(losses) == 4 and np.isfinite(losses).all()
+        assert float(tr.state.gradient_denom.sum()) > 0
+        return
     with pytest.raises(NotImplementedError, match=block):
         build_trainer(dict_to_config(cfg), device="cpu", log_file=False)
 

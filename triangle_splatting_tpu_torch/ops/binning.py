@@ -27,7 +27,7 @@ Binning runs without gradients; its fields are int32 (bool for the flags).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -130,8 +130,12 @@ def pair_owners(counts: torch.Tensor, starts: torch.Tensor, max_pairs: int) -> t
 
 @torch.no_grad()
 def sort_pairs(prep: Preprocessed, settings: RasterSettings,
-               max_pairs: int, align: int = ALIGN) -> SortedPairs:
-    """Expand triangles into pairs and sort them by (tile, depth)."""
+               max_pairs: int, align: int = ALIGN,
+               depth_key: Optional[torch.Tensor] = None) -> SortedPairs:
+    """Expand triangles into pairs and sort them by (tile, depth).
+    ``depth_key`` (P,) int32 replaces the depths quantized over this call's
+    triangles: a depth slab sorts by the whole scene's keys
+    (``parallel/depth_sharded.py``)."""
     dev = prep.depth.device
     i32 = torch.int32
     P = prep.depth.shape[0]
@@ -146,7 +150,8 @@ def sort_pairs(prep: Preprocessed, settings: RasterSettings,
     num_pairs = torch.clamp_max(total, max_pairs).to(i32)
     overflow = total > max_pairs
 
-    depth_q = quantize_depth(prep.depth, prep.valid, dbits)
+    depth_q = quantize_depth(prep.depth, prep.valid, dbits) if depth_key is None \
+        else depth_key.to(i32)
     rw_t = torch.clamp_min(prep.rect_max[:, 0] - prep.rect_min[:, 0], 1).to(i32)
     base = (prep.rect_min[:, 1] * grid_w + prep.rect_min[:, 0]).to(i32)
     K0_t = torch.bitwise_or(torch.bitwise_left_shift(base, dbits), depth_q)
@@ -185,11 +190,12 @@ def sort_pairs(prep: Preprocessed, settings: RasterSettings,
 
 @torch.no_grad()
 def bin_triangles(prep: Preprocessed, settings: RasterSettings,
-                  max_pairs: int, align: int = ALIGN) -> Binning:
+                  max_pairs: int, align: int = ALIGN,
+                  depth_key: Optional[torch.Tensor] = None) -> Binning:
     """Expand triangles into depth-sorted per-tile pair lists, re-laid so
     every tile's range starts on an ``align`` boundary, and the owner-order
     map of the pairs (kernel B3, one launch)."""
-    sp = sort_pairs(prep, settings, max_pairs, align)
+    sp = sort_pairs(prep, settings, max_pairs, align, depth_key)
     pair_tri, pack_perm = relayout_pairs(*sp.relayout_args())
     return Binning(pair_tri=pair_tri, pair_valid=pair_tri >= 0,
                    tri_offsets=sp.tri_offsets, tile_starts=sp.astarts,

@@ -237,7 +237,7 @@ def _oracle_result(out, prep) -> dict:
 
 def _tile_pipeline(prep, fmat: torch.Tensor, params: torch.Tensor,
                    settings: RasterSettings, variant: str, need_stats: bool,
-                   max_pairs: Optional[int]) -> dict:
+                   max_pairs: Optional[int], depth_key: Optional[torch.Tensor] = None) -> dict:
     """Stages 3-6 on a preprocess and its per-primitive field matrix
     (P, 16): binning (B3), the pack (B4 in its backward), the blend (B1/B2
     in ``variant``) and with ``need_stats`` the per-primitive statistics
@@ -246,7 +246,7 @@ def _tile_pipeline(prep, fmat: torch.Tensor, params: torch.Tensor,
     dev, dt = fmat.device, fmat.dtype
     if max_pairs is None:
         max_pairs = _round_up(int(settings.pairs_per_triangle * P), ALIGN)
-    binning = bin_triangles(prep.detach(), settings, max_pairs, align=ALIGN)
+    binning = bin_triangles(prep.detach(), settings, max_pairs, align=ALIGN, depth_key=depth_key)
     fields = pack_pair_fields(fmat, binning, LIVE_GRAD_ROWS[(variant, settings.rich_info)])
     cfg = (settings.image_width, settings.image_height, settings.tile_h,
            settings.tile_w, variant, need_stats, settings.rich_info)
@@ -272,7 +272,8 @@ def rasterize(vertex: torch.Tensor, opacity: torch.Tensor,
               colors: Optional[torch.Tensor] = None,
               alive_mask: Optional[torch.Tensor] = None,
               impl: str = "cuda", max_pairs: Optional[int] = None,
-              need_stats: bool = False) -> dict:
+              need_stats: bool = False,
+              depth_key: Optional[torch.Tensor] = None) -> dict:
     """Render triangles through a camera; differentiable w.r.t. vertex /
     opacity / shs (or colors) / center2d_offset.
 
@@ -291,6 +292,8 @@ def rasterize(vertex: torch.Tensor, opacity: torch.Tensor,
     contrib_max, without gradient; with ``need_stats=False`` they are
     zeros and B5 does not run. Rich info and statistics together run B1's
     rich form with the stream in one launch (the renderer facade's form).
+    ``depth_key`` (P,) int32 sorts the pairs by given quantized depths
+    (a depth slab keyed by the whole scene's, ``binning_depth_key``).
     """
     variant = settings.rasterizer_type
     if variant not in ("2D", "3D"):
@@ -342,7 +345,8 @@ def rasterize(vertex: torch.Tensor, opacity: torch.Tensor,
         sy = (settings.image_height / (2.0 * camera.tan_fovy)).reshape(1)
     params = torch.cat([gamma.reshape(1), background, bg_depth.reshape(1),
                         sx.to(dt), sy.to(dt), zero]).detach()
-    return _tile_pipeline(prep, fmat, params, settings, variant, need_stats, max_pairs)
+    return _tile_pipeline(prep, fmat, params, settings, variant, need_stats, max_pairs,
+                          depth_key)
 
 
 def rasterize_gaussian(xyz: torch.Tensor, scale: torch.Tensor,

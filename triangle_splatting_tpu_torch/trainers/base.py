@@ -48,8 +48,6 @@ class BaseTrainer:
             config = loadConfig(config)
         self.config = config
         self.device = resolve_device(device)
-        if config.trainer.distributed is not None:
-            raise NotImplementedError("trainer.distributed is not ported yet")
 
         out_root = config.trainer.output_dir or "outputs/exp"
         self.output_dir = str(Path(out_root) / exp_name) if exp_name else out_root
@@ -59,6 +57,18 @@ class BaseTrainer:
         self.logger = Logger("trainer", output_dir=self.output_dir, log_file=log_file,
                              use_tensorboard=bool(config.trainer.use_tensorboard))
         self._profiler = None
+
+        # Multi-process: join the torch.distributed job (the
+        # trainer.distributed block or the TS_* environment) before the first
+        # CUDA use; a CUDA rank then works on its own card
+        # (parallel/multihost.py), and the data group the trainers build
+        # spans the ranks.
+        from ..parallel.multihost import distributed_settings, maybe_initialize, rank_device
+        dist_settings = distributed_settings(config)
+        if dist_settings is not None:
+            maybe_initialize(config, self.logger, device=self.device)
+            if self.device.type == "cuda":
+                self.device = rank_device(dist_settings[2])
 
         seed = config.trainer.seed
         if seed is not None:
@@ -85,6 +95,57 @@ class BaseTrainer:
         # steps since the last log step whose frame overflowed the pair
         # budget (a device counter, read at log steps)
         self._overflow_steps = 0
+        # camera data parallelism: views a step, the data group over the
+        # ranks (built when training starts; a world of one without data
+        # parallelism) and the views of each rank
+        from ..parallel.multihost import LOCAL
+        self._dp_n = int(config.trainer.data_parallel or 1)
+        self._dp_group = LOCAL
+        self._dp_b = 1
+
+    def _setup_data_parallel(self):
+        """The data group of ``trainer.data_parallel`` > 1: ``dp_layout``
+        over the job's ranks, and a check that every rank starts from the
+        same model."""
+        from ..parallel.mesh import dp_layout, make_mesh
+        from ..parallel.multihost import check_replicated
+        n_dev, self._dp_b = dp_layout(self._dp_n)
+        self._dp_group = make_mesh(n_dev)
+        check_replicated(self._dp_group, self.params, self.opt, self.state,
+                         what="the initial models")
+        self.logger.info(
+            f"Camera-batch data parallelism: {self._dp_n} views per step over "
+            f"{n_dev} rank(s) ({self._dp_b} per rank, mean-gradient all-reduce, "
+            f"backend {self._dp_group.backend or 'none (one process)'})")
+
+    def _next_batch(self):
+        """The step's cameras: one, or the ``data_parallel`` views every
+        rank draws in the same order, and this rank's share of them
+        (``global_dp_inputs``). Returns (first camera, local views, idle
+        camera)."""
+        camera = self.dataset.nextTrainData()
+        if self._dp_n == 1:
+            return camera, [camera], None
+        from ..parallel.mesh import stack_dp_cameras
+        from ..parallel.multihost import global_dp_inputs
+        batch = stack_dp_cameras(
+            [camera] + [self.dataset.nextTrainData() for _ in range(self._dp_n - 1)])
+        return camera, global_dp_inputs(self._dp_group, batch)[0], batch[0]
+
+    def _scored_test_views(self, score, n_img: int):
+        """``(index, camera, img, scores)`` of every test view, ``score(camera)
+        -> (img, scores)``: over the data group's ranks
+        (``dp_eval_scores``, images gathered for the first ``n_img``) when
+        data parallelism is on and the test views share one resolution,
+        else one after the other on this rank."""
+        test_cams = list(self.dataset.getTestDataset())
+        if (self._dp_n > 1 and len(test_cams) > 1
+                and len({(c.image_width, c.image_height) for c in test_cams}) == 1):
+            from ..parallel.mesh import dp_eval_scores
+            yield from dp_eval_scores(self._dp_group, score, test_cams, self._dp_b, n_img)
+            return
+        for i, camera in enumerate(test_cams):
+            yield (i, camera, *score(camera))
 
     def _profile_hooks(self, iteration: int) -> None:
         """Open a ``torch.profiler`` window (CPU, and CUDA on the card) at

@@ -17,7 +17,9 @@ PLY; ``savePLY`` writes the selected neural Gaussians as a 3DGS PLY;
 ``save_ckpt`` / ``load_ckpt`` keep the whole model in the JAX trainer's
 pickle layout.
 
-``trainer.data_parallel`` > 1 and the orbax checkpoint format raise
+With ``trainer.data_parallel`` N > 1 a step averages N views' gradients
+over the ranks of a ``torch.distributed`` job (``_train_step_dp``); the
+anchor statistics are per-view sums. The orbax checkpoint format raises
 ``NotImplementedError``, naming the block.
 """
 
@@ -34,6 +36,8 @@ from ..models import scaffold as S
 from ..models.model_utils import get_color_tensor, inverse_sigmoid_np
 from ..models.raw_gaussian import RawGaussian
 from ..ops.projection import RasterSettings
+from ..parallel.mesh import dp_views
+from ..parallel.multihost import LOCAL
 from ..utils.camera import Camera
 from ..utils.checkpoint import load_ckpt, model_blob, save_ckpt
 from ..utils.config import Config
@@ -97,8 +101,6 @@ class ScaffoldGSTrainer(BaseTrainer):
 
         def refuse(what):
             raise NotImplementedError(f"{what} is not ported to triangle_splatting_tpu_torch yet")
-        if int(t.data_parallel or 0) > 1:
-            refuse("trainer.data_parallel")
         if t.ckpt_format == "orbax":
             refuse("trainer.ckpt_format 'orbax' (it needs JAX)")
 
@@ -175,10 +177,12 @@ class ScaffoldGSTrainer(BaseTrainer):
                    n_gaussians=sel.sum(), overflow=pkg["overflow"], num_pairs=pkg["num_pairs"])
         return loss, aux
 
-    def _loss_and_grads(self, settings, params, state, camera, background, weights):
+    def _loss_and_grads(self, settings, params, state, camera, background, weights,
+                        n_views: int = 1):
         """Loss, gradients (a ScaffoldParams) and aux; while statistics are
         tracked, the gradient of a zero (C*k, 2) center offset is
-        ``aux["mean2d_grad"]``."""
+        ``aux["mean2d_grad"]``. With ``n_views`` > 1 both are those of
+        loss / n_views (one view of a data-parallel batch)."""
         leaves = {n: t.detach().requires_grad_(True) for n, t in params.leaves().items()}
         wrt = list(leaves.values())
         m2d = None
@@ -189,6 +193,8 @@ class ScaffoldGSTrainer(BaseTrainer):
             wrt.append(m2d)
         loss, aux = self._camera_loss(settings, S.ScaffoldParams.from_leaves(leaves), m2d,
                                       state, camera, background, weights)
+        if n_views != 1:
+            loss = loss / n_views
         gs = torch.autograd.grad(loss, wrt, allow_unused=True)
         gs = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt, gs)]
         if m2d is not None:
@@ -202,16 +208,58 @@ class ScaffoldGSTrainer(BaseTrainer):
 
     def _train_step(self, settings, params, opt, state, camera, weights, lrs, background,
                     iteration: int):
-        """One iteration: forward, loss, backward, Adam and the statistics.
-        Returns (params, opt, state, loss, aux)."""
-        loss, grads, aux = self._loss_and_grads(settings, params, state, camera, background,
-                                                weights)
+        """One single-view iteration: ``_train_step_dp`` over ``[camera]``
+        in a world of one. Returns (params, opt, state, loss, aux)."""
+        return self._train_step_dp(settings, params, opt, state, [camera], weights, lrs,
+                                   background, iteration, group=LOCAL, n_views=1)
+
+    def _train_step_dp(self, settings, params, opt, state, cameras, weights, lrs,
+                       background, iteration: int, idle_camera=None, group=None,
+                       n_views=None):
+        """One iteration over ``group`` (``self._dp_group``) and ``n_views``
+        (``data_parallel``): the views' gradients of loss / n_views summed
+        over the views and the ranks, one replicated Adam step. Inside the
+        anchor-update window the four anchor statistics
+        (``opacity_accum``, ``anchor_denom``, ``offset_grad_accum``,
+        ``offset_denom``) are per-view sums, each view's center gradient
+        its own (times n_views); ``n_gaussians`` is the batch's mean a
+        view, ``overflow`` and ``num_pairs`` its max. One view in a world
+        of one is the single-view step."""
+        group = self._dp_group if group is None else group
+        n_views = self._dp_n if n_views is None else n_views
+        k = self.model_cfg.n_offsets
+        gate = self._track_stats and self._stat_gate(iteration)
+
+        def one_view(camera):
+            loss, grads, aux = self._loss_and_grads(settings, params, state, camera,
+                                                    background, weights, n_views=n_views)
+            sums = {"loss": loss, "n_gaussians": aux["n_gaussians"].to(torch.float32),
+                    **{f"g.{n}": g for n, g in grads.leaves().items()}}
+            if gate:
+                pkg = aux["pkg"]
+                vis_anchor, g_vis = pkg["anchor_visible_mask"], pkg["gaussian_visible_mask"]
+                gnorm = S.safe_norm((aux["mean2d_grad"] * n_views)[:, :2]).reshape(
+                    params.capacity, k)
+                zero = torch.zeros((), dtype=torch.float32, device=gnorm.device)
+                sums.update({
+                    "stat.opacity_accum": torch.where(
+                        vis_anchor, pkg["gaussian_opacity"].amax(dim=1), zero),
+                    "stat.anchor_denom": vis_anchor.to(torch.float32),
+                    "stat.offset_grad_accum": torch.where(g_vis, gnorm, zero),
+                    "stat.offset_denom": g_vis.to(torch.float32)})
+            return sums, {"overflow": aux["overflow"].to(torch.int64),
+                          "num_pairs": aux["num_pairs"].to(torch.int64)}
+
+        sums, maxes = dp_views(group, cameras, one_view, idle_camera)
+        grads = S.ScaffoldParams.from_leaves(
+            {n[2:]: g for n, g in sums.items() if n.startswith("g.")})
         params, opt = S.adam_update(params, opt, grads, lrs)
-        if self._track_stats:
-            state = S.update_statistics(state, aux["mean2d_grad"], aux["pkg"],
-                                        self.model_cfg.n_offsets,
-                                        gate=self._stat_gate(iteration))
-        return params, opt, state, loss, aux
+        if gate:
+            state = replace(state, **{f: getattr(state, f) + sums[f"stat.{f}"] for f in (
+                "opacity_accum", "anchor_denom", "offset_grad_accum", "offset_denom")})
+        return params, opt, state, sums["loss"], dict(
+            n_gaussians=sums["n_gaussians"] / n_views, overflow=maxes["overflow"] > 0,
+            num_pairs=maxes["num_pairs"])
 
     # ------------------------------------------------------------------
     # loop
@@ -300,6 +348,8 @@ class ScaffoldGSTrainer(BaseTrainer):
     def _train(self):
         cfgt = self.config.trainer
         self._init_model()
+        if self._dp_n > 1:
+            self._setup_data_parallel()
         if cfgt.initial_eval:
             self._evaluate(0)
         self.logger.info("Training started")
@@ -307,7 +357,7 @@ class ScaffoldGSTrainer(BaseTrainer):
         timer = self.timer = Timer("Training")
         for iteration in range(1, (cfgt.iterations or 30000) + 1):
             timer.log("data loading")
-            camera = self.dataset.nextTrainData()
+            camera, local_views, idle_camera = self._next_batch()
             settings = self._settings_for(camera)
             self._profile_hooks(iteration)
             timer.log("train step")
@@ -315,9 +365,10 @@ class ScaffoldGSTrainer(BaseTrainer):
                 cfgt.train_background or "black", self._rng)).to(self.device)
             # the primitive count the step's pair budget was sized against
             n_prim_step = self.params.capacity * self.model_cfg.n_offsets
-            self.params, self.opt, self.state, loss, aux = self._train_step(
-                settings, self.params, self.opt, self.state, camera,
-                self._loss_weights(iteration), self._lrs(iteration), background, iteration)
+            self.params, self.opt, self.state, loss, aux = self._train_step_dp(
+                settings, self.params, self.opt, self.state, local_views,
+                self._loss_weights(iteration), self._lrs(iteration), background,
+                iteration, idle_camera)
             self.loss_history.append(loss)
             self._note_overflow(aux["overflow"])
             self._maintain_constraints(iteration)
@@ -361,12 +412,17 @@ class ScaffoldGSTrainer(BaseTrainer):
         background = torch.as_tensor(get_color_tensor(
             cfgt.eval_background or "black", self._rng)).to(self.device)
         psnrs, ssims = [], []
-        for camera in self.dataset.getTestDataset():
+
+        def score(camera):
             pkg = S.forward(self.params, self.state, camera, background, self.model_cfg,
                             self._settings_for(camera), is_training=False, impl=self.impl)
             img = pkg["render"]
-            psnrs.append(float(L.psnr(img, camera.gt_image)))
-            ssims.append(float(L.ssim(img.clamp(0, 1), camera.gt_image)))
+            return img, torch.stack([L.psnr(img, camera.gt_image),
+                                     L.ssim(img.clamp(0, 1), camera.gt_image)])
+
+        for _, _, _, vals in self._scored_test_views(score, 0):
+            psnrs.append(float(vals[0]))
+            ssims.append(float(vals[1]))
         self.logger.info(f"[ITER {iteration}] {log_name} Eval PSNR: {np.mean(psnrs):.3f}, "
                          f"SSIM: {np.mean(ssims):.3f}")
         self.logger.add_scalar(f"{log_name} Average PSNR", float(np.mean(psnrs)), iteration)

@@ -17,8 +17,9 @@ runs the plain kernel versions (the quick check: ``--res 48 --iters 80
 
 Prints ONE JSON line at the end with psnr_init / psnr_final /
 ms_per_step_incl_compile; the exit code is 0 only if the PSNR climbed by
-``--min-gain`` dB. ``--dp`` raises ``NotImplementedError``: data
-parallelism is not ported.
+``--min-gain`` dB. ``--dp N`` sets ``trainer.data_parallel``: N views a
+step, split over the ranks of a ``torch.distributed`` job (set up by the
+``TS_*`` variables) or accumulated in one process.
 """
 
 from __future__ import annotations
@@ -174,18 +175,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--min-gain", type=float, default=2.0,
                     help="required PSNR gain (dB) for exit code 0")
     ap.add_argument("--dp", type=int, default=0,
-                    help="trainer.data_parallel (not ported)")
+                    help="trainer.data_parallel: N cameras a step, split over the ranks "
+                         "of a torch.distributed job (one process: all N on its device)")
     return ap.parse_args(argv)
 
 
 def run(args: argparse.Namespace):
     """Build the dataset, train, and return ``(trainer, record)``: the
     trained trainer and the JSON record ``main`` prints."""
-    if args.dp:
-        raise NotImplementedError(
-            "smoke --dp (trainer.data_parallel) is not ported to "
-            "triangle_splatting_tpu_torch yet")
-
     from ..utils.testing import build_synthetic_nerf_dataset
     from . import build_trainer
 
@@ -194,6 +191,8 @@ def run(args: argparse.Namespace):
     cfg = make_smoke_config(data_dir, f"{root}/out", args.iters,
                             densify=not args.no_densify, mesh=args.mesh,
                             model=args.model)
+    if args.dp:
+        cfg.trainer.data_parallel = args.dp
     print(f"[smoke] building synthetic dataset ({args.views} views @ "
           f"{args.res}x{args.res}, {args.n_tri} GT triangles) in {data_dir}", flush=True)
     build_synthetic_nerf_dataset(

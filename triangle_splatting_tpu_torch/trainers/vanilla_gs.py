@@ -21,9 +21,11 @@ at ``save_iterations`` and the whole model as a checkpoint at
 ``model.use_color_affine`` and ``trainer.eval_lpips`` are left unread, as
 the JAX VanillaGS trainer leaves them.
 
-Config blocks this port does not serve raise ``NotImplementedError`` at
-construction, naming the block: data parallelism and the orbax checkpoint
-format.
+With ``trainer.data_parallel`` N > 1 a step averages N views' gradients
+over the ranks of a ``torch.distributed`` job (``_train_step_dp``, the
+VanillaTS trainer's semantics), and evaluation scores the test views over
+the ranks. The orbax checkpoint format raises ``NotImplementedError`` at
+construction.
 """
 
 from __future__ import annotations
@@ -38,7 +40,10 @@ from ..convert import gaussian_from_numpy, gaussian_to_numpy
 from ..models import gaussian_model as G
 from ..models.model_utils import get_color_tensor
 from ..models.raw_gaussian import RawGaussian, pack_sh_features, unpack_sh_features
-from ..ops.projection import RasterSettings
+from ..ops.projection import RasterSettings, safe_norm
+from ..parallel.mesh import (apply_view_statistics, dp_views, stat_entries, stat_locals_of,
+                             view_stat_locals)
+from ..parallel.multihost import LOCAL
 from ..utils.camera import Camera
 from ..utils.checkpoint import load_ckpt, model_blob, save_ckpt
 from ..utils.config import Config
@@ -91,8 +96,6 @@ class VanillaGSTrainer(BaseTrainer):
             raise NotImplementedError(
                 f"{what} is not ported to triangle_splatting_tpu_torch yet")
 
-        if int(t.data_parallel or 0) > 1:
-            refuse("trainer.data_parallel")
         if t.ckpt_format == "orbax":
             refuse("trainer.ckpt_format 'orbax' (it needs JAX)")
 
@@ -146,10 +149,12 @@ class VanillaGSTrainer(BaseTrainer):
                        contrib_max=pkg["contrib_max"], visible_mask=pkg["visible_mask"])
         return loss, aux
 
-    def _loss_and_grads(self, settings, params, state, camera, background, weights):
+    def _loss_and_grads(self, settings, params, state, camera, background, weights,
+                        n_views: int = 1):
         """Loss, per-parameter gradients (a GaussianParams) and aux. While
         statistics are tracked, the gradient of a zero (C, 2) center offset
-        is returned as ``aux["mean2d_grad"]``."""
+        is returned as ``aux["mean2d_grad"]``. With ``n_views`` > 1 both are
+        those of loss / n_views (one view of a data-parallel batch)."""
         leaves = {k: t.detach().requires_grad_(True) for k, t in params.tensors().items()}
         wrt = [leaves[n] for n in G.GS_PARAM_GROUPS]
         m2d = None
@@ -159,6 +164,8 @@ class VanillaGSTrainer(BaseTrainer):
             wrt.append(m2d)
         loss, aux = self._camera_loss(settings, G.GaussianParams(**leaves), m2d, state,
                                       camera, background, weights)
+        if n_views != 1:
+            loss = loss / n_views
         gs = torch.autograd.grad(loss, wrt, allow_unused=True)
         gs = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt, gs)]
         if m2d is not None:
@@ -171,17 +178,47 @@ class VanillaGSTrainer(BaseTrainer):
 
     def _train_step(self, settings, params, opt, state, camera, weights, lrs,
                     background, iteration: int):
-        """One iteration: forward, loss, backward, Adam and, inside the
-        statistic window, the statistics update. Returns (params, opt,
-        state, loss, aux)."""
-        loss, grads, aux = self._loss_and_grads(settings, params, state, camera,
-                                                background, weights)
+        """One single-view iteration: ``_train_step_dp`` over ``[camera]``
+        in a world of one. Returns (params, opt, state, loss, aux)."""
+        return self._train_step_dp(settings, params, opt, state, [camera], weights, lrs,
+                                   background, iteration, group=LOCAL, n_views=1)
+
+    def _train_step_dp(self, settings, params, opt, state, cameras, weights, lrs,
+                       background, iteration: int, idle_camera=None, group=None,
+                       n_views=None):
+        """One iteration over ``group`` (``self._dp_group``) and ``n_views``
+        (``data_parallel``), the VanillaTS trainer's semantics: the views'
+        gradients of loss / n_views summed over the views and the ranks,
+        one replicated Adam step, per-VIEW statistics inside the statistic
+        window (center-gradient norms and counts summed, contribution and
+        radius maxima maxed), the batch's max ``overflow`` and
+        ``num_pairs``. One view in a world of one is the single-view
+        step."""
+        group = self._dp_group if group is None else group
+        n_views = self._dp_n if n_views is None else n_views
+        gate = self._track_stats and self._stat_gate(iteration)
+
+        def one_view(camera):
+            loss, grads, aux = self._loss_and_grads(settings, params, state, camera,
+                                                    background, weights, n_views=n_views)
+            sums = {"loss": loss, **{f"g.{n}": getattr(grads, n) for n in G.GS_PARAM_GROUPS}}
+            maxes = {"overflow": aux["overflow"].to(torch.int64),
+                     "num_pairs": aux["num_pairs"].to(torch.int64)}
+            if gate:
+                s, m = stat_entries(view_stat_locals(
+                    aux["visible_mask"], safe_norm(aux["mean2d_grad"] * n_views),
+                    aux["contrib_sum"], aux["contrib_max"], aux["radii"]))
+                sums.update(s)
+                maxes.update(m)
+            return sums, maxes
+
+        sums, maxes = dp_views(group, cameras, one_view, idle_camera)
+        grads = G.GaussianParams(**{n: sums[f"g.{n}"] for n in G.GS_PARAM_GROUPS})
         params, opt = G.adam_update(params, opt, grads, lrs)
-        if self._track_stats and self._stat_gate(iteration):
-            state = G.update_statistics(state, aux["mean2d_grad"], aux["radii"],
-                                        aux["contrib_sum"], aux["contrib_max"],
-                                        aux["visible_mask"])
-        return params, opt, state, loss, aux
+        if gate:
+            state = apply_view_statistics(state, stat_locals_of(sums, maxes))
+        return params, opt, state, sums["loss"], dict(overflow=maxes["overflow"] > 0,
+                                                      num_pairs=maxes["num_pairs"])
 
     # ------------------------------------------------------------------
     # loop
@@ -303,6 +340,8 @@ class VanillaGSTrainer(BaseTrainer):
     def _train(self):
         cfgt = self.config.trainer
         first_iter = self._init_model()
+        if self._dp_n > 1:
+            self._setup_data_parallel()
         if cfgt.initial_eval:
             self._evaluate(first_iter)
         self.logger.info("Training started")
@@ -310,16 +349,17 @@ class VanillaGSTrainer(BaseTrainer):
         timer = self.timer = Timer("Training")
         for iteration in range(first_iter + 1, (cfgt.iterations or 30000) + 1):
             timer.log("data loading")
-            camera = self.dataset.nextTrainData()
+            camera, local_views, idle_camera = self._next_batch()
             settings = self._settings_for(camera)
             self._profile_hooks(iteration)
             timer.log("train step")
             background = torch.as_tensor(get_color_tensor(
                 cfgt.train_background or "random", self._rng)).to(self.device)
             cap_step = self.params.capacity
-            self.params, self.opt, self.state, loss, aux = self._train_step(
-                settings, self.params, self.opt, self.state, camera,
-                self._loss_weights(iteration), self._lrs(iteration), background, iteration)
+            self.params, self.opt, self.state, loss, aux = self._train_step_dp(
+                settings, self.params, self.opt, self.state, local_views,
+                self._loss_weights(iteration), self._lrs(iteration), background,
+                iteration, idle_camera)
             self.loss_history.append(loss)
             self._note_overflow(aux["overflow"])
             if cfgt.eval_interval_iter and iteration % cfgt.eval_interval_iter == 0:
@@ -362,13 +402,18 @@ class VanillaGSTrainer(BaseTrainer):
         background = torch.as_tensor(get_color_tensor(
             cfgt.eval_background or "black", self._rng)).to(self.device)
         psnrs, ssims = [], []
-        for camera in self.dataset.getTestDataset():
+
+        def score(camera):
             pkg = G.forward(self.params, self.state, camera, background, self.model_cfg,
                             self._settings_for(camera), is_training=False, impl=self.impl,
                             need_stats=False)
             img = pkg["render"]
-            psnrs.append(float(L.psnr(img, camera.gt_image)))
-            ssims.append(float(L.ssim(img.clamp(0, 1), camera.gt_image)))
+            return img, torch.stack([L.psnr(img, camera.gt_image),
+                                     L.ssim(img.clamp(0, 1), camera.gt_image)])
+
+        for _, _, _, vals in self._scored_test_views(score, 0):
+            psnrs.append(float(vals[0]))
+            ssims.append(float(vals[1]))
         self.logger.info(f"[ITER {iteration}] Eval PSNR: {np.mean(psnrs):.3f}, "
                          f"SSIM: {np.mean(ssims):.3f}, views: {len(psnrs)}, "
                          f"gaussians: {int(self.state.alive.sum())}")

@@ -31,9 +31,12 @@ numbered on from there.
 
 Evaluation reports PSNR and SSIM, and with ``eval_lpips`` LPIPS
 (``trainers/lpips.py``; without a weights file it logs "LPIPS unavailable"
-once and reports NaN). Config blocks this port does not serve raise
-``NotImplementedError`` at construction: data parallelism and the orbax
-checkpoint format.
+once and reports NaN). With ``trainer.data_parallel`` N > 1 a step
+draws N cameras and averages their gradients (``_train_step_dp``): the
+views are split over the ranks of a ``torch.distributed`` job
+(``parallel/mesh.py``), B = N / ranks of them rendered one after the other
+on each rank, and evaluation scores the test views over the ranks too. The
+orbax checkpoint format raises ``NotImplementedError`` at construction.
 """
 
 from __future__ import annotations
@@ -47,6 +50,9 @@ from ..models import triangle as M
 from ..models.model_utils import get_color_tensor, grid_sampling, grid_size_search
 from ..models.raw_triangle import RawTriangle
 from ..ops.projection import RasterSettings
+from ..parallel.mesh import (apply_view_statistics, dp_views, stat_entries, stat_locals_of,
+                             view_stat_locals)
+from ..parallel.multihost import LOCAL
 from ..utils.camera import Camera
 from ..convert import triangle_from_numpy, triangle_to_numpy
 from ..utils.checkpoint import load_ckpt, model_blob, save_ckpt
@@ -137,8 +143,6 @@ class VanillaTSTrainer(BaseTrainer):
         sampling = mc.sampling or Config()
         if (sampling.sample_method or "direct") not in ("direct", "random", "grid"):
             refuse(f"model.sampling.sample_method {sampling.sample_method!r}")
-        if int(t.data_parallel or 0) > 1:
-            refuse("trainer.data_parallel")
         if t.ckpt_format == "orbax":
             refuse("trainer.ckpt_format 'orbax' (it needs JAX)")
 
@@ -269,10 +273,12 @@ class VanillaTSTrainer(BaseTrainer):
         return loss, aux
 
     def _loss_and_grads(self, settings, params, state, camera, background,
-                        weights, nearest_idx=None):
+                        weights, nearest_idx=None, n_views: int = 1):
         """Loss, per-parameter gradients (a TriangleParams) and aux. While
         statistics are tracked, the gradient of a zero (C, 2) centroid
-        offset is taken too and returned as ``aux["center2d_grad"]``."""
+        offset is taken too and returned as ``aux["center2d_grad"]``. With
+        ``n_views`` > 1 the loss and every gradient are those of
+        loss / n_views (one view of a data-parallel batch's mean)."""
         leaves = {k: t.detach().requires_grad_(True)
                   for k, t in params.tensors().items()}
         names = list(leaves)
@@ -284,6 +290,8 @@ class VanillaTSTrainer(BaseTrainer):
             wrt.append(c2d)
         loss, aux = self._camera_loss(settings, M.TriangleParams(**leaves), c2d,
                                       state, camera, background, weights, nearest_idx)
+        if n_views != 1:
+            loss = loss / n_views
         gs = torch.autograd.grad(loss, wrt, allow_unused=True)
         gs = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt, gs)]
         if c2d is not None:
@@ -297,17 +305,59 @@ class VanillaTSTrainer(BaseTrainer):
 
     def _train_step(self, settings, params, opt, state, camera, weights, lrs,
                     background, iteration: int, nearest_idx=None):
-        """One iteration: forward, loss, backward, Adam and, inside the
-        statistic window, the statistics update. Returns (params, opt,
-        state, loss, aux)."""
-        loss, grads, aux = self._loss_and_grads(settings, params, state, camera,
-                                                background, weights, nearest_idx)
+        """One single-view iteration: ``_train_step_dp`` over ``[camera]``
+        in a world of one. Returns (params, opt, state, loss, aux)."""
+        return self._train_step_dp(settings, params, opt, state, [camera], weights, lrs,
+                                   background, iteration, nearest_idx, group=LOCAL, n_views=1)
+
+    def _train_step_dp(self, settings, params, opt, state, cameras, weights, lrs,
+                       background, iteration: int, nearest_idx=None, idle_camera=None,
+                       group=None, n_views=None):
+        """One iteration over ``group`` (``self._dp_group``) and ``n_views``
+        (``data_parallel``): this rank's ``cameras`` (B of the batch's
+        views) each give the gradients of loss / n_views, summed over the
+        views and the ranks (one SUM all-reduce with the loss), then one
+        replicated Adam step, so learning rates keep their single-view
+        meaning and a step averages the batch. Inside the statistic window
+        the statistics keep per-VIEW semantics: each view's
+        centroid-gradient norm (its own gradient, times n_views) and count
+        are summed, the contribution and radius maxima maxed, as
+        sequential single-view steps would. ``overflow`` and ``num_pairs``
+        are the batch's max, the geometry and vertex terms its mean. One
+        view in a world of one is the single-view step."""
+        group = self._dp_group if group is None else group
+        n_views = self._dp_n if n_views is None else n_views
+        names = list(params.tensors())
+        gate = self._track_stats and self._stat_gate(iteration)
+
+        def one_view(camera):
+            loss, grads, aux = self._loss_and_grads(settings, params, state, camera,
+                                                    background, weights, nearest_idx,
+                                                    n_views=n_views)
+            sums = {"loss": loss, "geo_loss": aux["geo_loss"],
+                    "vertex_loss": aux["vertex_loss"],
+                    **{f"g.{n}": getattr(grads, n) for n in names}}
+            maxes = {"overflow": aux["overflow"].to(torch.int64),
+                     "num_pairs": aux["num_pairs"].to(torch.int64)}
+            if gate:
+                # the local view's own gradient (loss / n_views scaled back)
+                s, m = stat_entries(view_stat_locals(
+                    aux["visible_mask"],
+                    torch.linalg.vector_norm(aux["center2d_grad"] * n_views, dim=-1),
+                    aux["contrib_sum"], aux["contrib_max"], aux["radii"]))
+                sums.update(s)
+                maxes.update(m)
+            return sums, maxes
+
+        sums, maxes = dp_views(group, cameras, one_view, idle_camera)
+        grads = M.TriangleParams(**{n: sums[f"g.{n}"] for n in names})
         params, opt = M.adam_update(params, opt, grads, lrs)
-        if self._track_stats and self._stat_gate(iteration):
-            state = M.update_statistics(state, aux["center2d_grad"], aux["radii"],
-                                        aux["contrib_sum"], aux["contrib_max"],
-                                        aux["visible_mask"])
-        return params, opt, state, loss, aux
+        if gate:
+            state = apply_view_statistics(state, stat_locals_of(sums, maxes))
+        aux = dict(overflow=maxes["overflow"] > 0, num_pairs=maxes["num_pairs"],
+                   geo_loss=sums["geo_loss"] / n_views,
+                   vertex_loss=sums["vertex_loss"] / n_views)
+        return params, opt, state, sums["loss"], aux
 
     # ------------------------------------------------------------------
     # loop
@@ -510,6 +560,8 @@ class VanillaTSTrainer(BaseTrainer):
     def _train(self):
         cfgt = self.config.trainer
         first_iter = self._init_model()
+        if self._dp_n > 1:
+            self._setup_data_parallel()
         if cfgt.initial_eval:
             self._evaluate(first_iter)
         self.logger.info("Training started")
@@ -519,7 +571,7 @@ class VanillaTSTrainer(BaseTrainer):
         timer = self.timer = Timer("Training")
         for iteration in range(first_iter + 1, (cfgt.iterations or 30000) + 1):
             timer.log("data loading")
-            camera = self.dataset.nextTrainData()
+            camera, local_views, idle_camera = self._next_batch()
             settings = self._settings_for(camera)
             if self.model_cfg.back_culling and self.model_cfg.back_culling_prob < 1.0:
                 settings = replace(settings, back_culling=bool(
@@ -530,10 +582,10 @@ class VanillaTSTrainer(BaseTrainer):
             background = torch.as_tensor(get_color_tensor(bg_name, self._rng)).to(self.device)
             cap_step = self.params.capacity
             self._refresh_nearest(iteration)
-            self.params, self.opt, self.state, loss, aux = self._train_step(
-                settings, self.params, self.opt, self.state, camera,
+            self.params, self.opt, self.state, loss, aux = self._train_step_dp(
+                settings, self.params, self.opt, self.state, local_views,
                 self._loss_weights(iteration), self._lrs(iteration), background,
-                iteration, self._nearest_idx)
+                iteration, self._nearest_idx, idle_camera)
             self.loss_history.append(loss)
             self.geo_history.append(aux["geo_loss"])
             self._note_overflow(aux["overflow"])
@@ -628,16 +680,24 @@ class VanillaTSTrainer(BaseTrainer):
             compute_lpips = bool(cfgt.eval_lpips)
         n_img = cfgt.eval_save_img_count or 3
         psnrs, ssims, lpips_vals = [], [], []
-        for i, camera in enumerate(self.dataset.getTestDataset()):
+
+        def score(camera):
             pkg = M.forward(self.params, self.state, camera, background,
                             self.model_cfg, self._settings_for(camera),
                             is_training=False, impl=self.impl, apply_color_affine=False)
             img = pkg["render"]
             mask = camera.alpha_mask if eval_mask else None
-            psnrs.append(float(L.psnr(img, camera.gt_image, mask)))
-            ssims.append(float(L.ssim(img.clamp(0, 1), camera.gt_image)))
+            vals = [L.psnr(img, camera.gt_image, mask), L.ssim(img.clamp(0, 1), camera.gt_image)]
             if compute_lpips:
-                lpips_vals.append(self._lpips(img, camera.gt_image))
+                vals.append(torch.tensor(self._lpips(img, camera.gt_image),
+                                         dtype=torch.float32, device=img.device))
+            return img, torch.stack(vals)
+
+        for i, camera, img, vals in self._scored_test_views(score, n_img):
+            psnrs.append(float(vals[0]))
+            ssims.append(float(vals[1]))
+            if compute_lpips:
+                lpips_vals.append(float(vals[2]))
             if i < n_img:
                 self.logger.add_image(f"Pred {i}", img.cpu().numpy(), iteration)
         msg = f"[ITER {iteration}] Eval PSNR: {np.mean(psnrs):.3f}, SSIM: {np.mean(ssims):.3f}"
