@@ -307,7 +307,8 @@ def test_profile_window_writes_a_trace_as_jax(tmp_path):
     refused by the port; the JAX trainer opens a ``jax.profiler`` trace over
     the window into ``<output_dir>/profile``. The port opens a
     ``torch.profiler`` window over the same iterations and writes its Chrome
-    trace there; no trace outside the window, none without the key."""
+    trace there, with the program's spans of the window beside it; no trace
+    outside the window, none without the key."""
     from triangle_splatting_tpu.trainers.base import BaseTrainer as JBase
     from triangle_splatting_tpu.utils.config import dict_to_config as j_cfg
     from triangle_splatting_tpu_torch.trainers.base import BaseTrainer as TBase
@@ -326,9 +327,10 @@ def test_profile_window_writes_a_trace_as_jax(tmp_path):
                 torch.ones(64).sum()
         assert (out / "profile").is_dir()
         assert [ln.split("]")[0] for ln in lines[name]] == ["[ITER 3", "[ITER 5"]
-    traces = list((tmp_path / "t" / "profile").glob("*.json"))
-    assert [p.name for p in traces] == ["trace_3_5.json"]
-    assert json.loads(traces[0].read_text())["traceEvents"]
+    written = sorted((tmp_path / "t" / "profile").glob("*.json"))
+    assert [p.name for p in written] == ["spans_3_5.json", "trace_3_5.json"]
+    assert json.loads(written[1].read_text())["traceEvents"]
+    assert json.loads(written[0].read_text())["records"] == []     # no span ran in the window
     fake = types.SimpleNamespace(config=t_cfg({"trainer": {}}), output_dir=str(tmp_path / "n"),
                                  device=torch.device("cpu"), _profiler=None, logger=None)
     for it in range(1, 20):

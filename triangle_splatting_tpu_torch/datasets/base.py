@@ -15,6 +15,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from ..utils import tracing
 from ..utils.camera import Camera
 from ..utils.config import Config
 from ..utils.logger import Logger
@@ -72,8 +73,11 @@ class PrefetchLoader:
         i, fut = self._futures.get()
         if fut is None and self._cache is not None and i in self._cache:
             item = self._cache[i]
+            tracing.count("data.cache_hit", 1)
         else:
-            item = fut.result() if fut is not None else self.dataset[i]
+            with tracing.span("data.wait"):
+                item = fut.result() if fut is not None else self.dataset[i]
+            tracing.count("data.loaded", 1)
             self._maybe_cache(i, item)
         self._refill()
         return item

@@ -28,6 +28,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.projection import RasterSettings
+from ..utils import tracing
 from ..utils.config import Config
 
 
@@ -78,6 +79,8 @@ class _Facade:
         self.device = resolve_device(device)
         self.params = None
         self.state = None
+        # frames rendered: the step id of a frame's spans
+        self._frames = 0
 
     def _background(self, background) -> torch.Tensor:
         if background is None:
@@ -85,7 +88,10 @@ class _Facade:
         return torch.as_tensor(background, dtype=torch.float32).to(self.device)
 
     def _render(self, core_forward, camera, background, is_training, settings, **kw) -> dict:
-        with torch.set_grad_enabled(bool(is_training) and torch.is_grad_enabled()):
+        self._frames += 1
+        tracing.set_step(self._frames)
+        with tracing.span("render"), \
+                torch.set_grad_enabled(bool(is_training) and torch.is_grad_enabled()):
             return core_forward(self.params, self.state, camera, self._background(background),
                                 self.cfg, settings, is_training=bool(is_training),
                                 impl=self.impl, **kw)

@@ -33,6 +33,7 @@ import torch
 from ..device import resolve_device
 from ..ops.projection import RasterSettings, safe_norm
 from ..ops.rasterize import rasterize_gaussian
+from ..utils import tracing
 from ..utils.camera import Camera
 from .model_utils import get_inside_mask, inter_point_distance_np, inverse_sigmoid_np
 
@@ -219,15 +220,21 @@ def forward(params: ScaffoldParams, state: ScaffoldState, camera: Camera,
     scaling (C, k, 3), selection_mask (C, k), anchor_visible_mask (C,) and
     gaussian_visible_mask (C, k)."""
     C, k = params.capacity, cfg.n_offsets
-    anchor_visible = prefilter_voxel(params, state, camera, settings)
-    dec = generate_gaussians(params, state, cfg)
-
-    sel = (dec["opacity"] > state.opacity_threshold) \
-        & anchor_visible[:, None] & state.alive[:, None]
-    if scene_bbox is not None:
-        sel = sel & get_inside_mask(dec["xyz"].detach().reshape(-1, 3), scene_bbox).reshape(C, k)
-
+    with tracing.span("scaffold.prefilter"):
+        anchor_visible = prefilter_voxel(params, state, camera, settings)
+    with tracing.span("scaffold.decode"):
+        dec = generate_gaussians(params, state, cfg)
+        sel = (dec["opacity"] > state.opacity_threshold) \
+            & anchor_visible[:, None] & state.alive[:, None]
+        if scene_bbox is not None:
+            sel = sel & get_inside_mask(dec["xyz"].detach().reshape(-1, 3),
+                                        scene_bbox).reshape(C, k)
     N = C * k
+    if tracing.active():
+        tracing.count("scaffold.slots", N)
+        tracing.count("scaffold.selected", sel.sum())
+        tracing.count("scaffold.visible", anchor_visible.sum())
+        tracing.count("scaffold.alive", state.alive.sum())
     out = rasterize_gaussian(
         dec["xyz"].reshape(N, 3), dec["scale"].reshape(N, 3), dec["rot"].reshape(N, 4),
         dec["opacity"].reshape(N), None, camera, settings, colors=dec["color"].reshape(N, 3),

@@ -35,6 +35,7 @@ from .gaussian import blend_oracle_gs, gaussian_field_matrix, preprocess_gaussia
 from .oracle import blend_oracle, blend_oracle_3d
 from .projection import (Preprocessed, Preprocessed3D, RasterSettings,
                          preprocess_2d, preprocess_3d)
+from ..utils import tracing
 from ..utils.camera import Camera
 
 
@@ -246,14 +247,22 @@ def _tile_pipeline(prep, fmat: torch.Tensor, params: torch.Tensor,
     dev, dt = fmat.device, fmat.dtype
     if max_pairs is None:
         max_pairs = _round_up(int(settings.pairs_per_triangle * P), ALIGN)
-    binning = bin_triangles(prep.detach(), settings, max_pairs, align=ALIGN, depth_key=depth_key)
-    fields = pack_pair_fields(fmat, binning, LIVE_GRAD_ROWS[(variant, settings.rich_info)])
-    cfg = (settings.image_width, settings.image_height, settings.tile_h,
-           settings.tile_w, variant, need_stats, settings.rich_info)
-    color, depth, normal, final_T, n_contrib, pair_contrib = BlendTiles.apply(
-        fields, binning.tile_starts, binning.tile_counts, params, cfg)
+    with tracing.span("raster.binning"):
+        binning = bin_triangles(prep.detach(), settings, max_pairs, align=ALIGN,
+                                depth_key=depth_key)
+    tracing.count("raster.pairs", binning.num_pairs)
+    tracing.count("raster.overflow", binning.overflow)
+    with tracing.span("raster.blend"):
+        fields = pack_pair_fields(fmat, binning, LIVE_GRAD_ROWS[(variant, settings.rich_info)])
+        cfg = (settings.image_width, settings.image_height, settings.tile_h,
+               settings.tile_w, variant, need_stats, settings.rich_info)
+        color, depth, normal, final_T, n_contrib, pair_contrib = BlendTiles.apply(
+            fields, binning.tile_starts, binning.tile_counts, params, cfg)
+    if tracing.active():
+        tracing.count("raster.evals", n_contrib.sum())
     if need_stats:
-        contrib_sum, contrib_max = _contrib_stats(pair_contrib, binning)
+        with tracing.span("raster.stats"):
+            contrib_sum, contrib_max = _contrib_stats(pair_contrib, binning)
     else:
         contrib_sum = torch.zeros((P,), dtype=dt, device=dev)
         contrib_max = torch.zeros((P,), dtype=dt, device=dev)
@@ -311,18 +320,32 @@ def rasterize(vertex: torch.Tensor, opacity: torch.Tensor,
     if center2d_offset is None:
         center2d_offset = torch.zeros((P, 2), dtype=dt, device=dev)
 
-    if colors is not None:
-        rgb = colors
-    else:
-        center = vertex.mean(dim=1)
-        rgb = sh_mod.eval_sh(shs, center, camera.camera_center,
-                             active_sh_degree, settings.max_sh_degree)
-
     opac1 = opacity[..., 0] if opacity.dim() == 2 else opacity
-    pre_fn = preprocess_2d if variant == "2D" else preprocess_3d
-    prep = pre_fn(vertex, center2d_offset, rgb, camera.world_view,
-                  camera.full_proj, camera.tan_fovx, camera.tan_fovy,
-                  settings, alive_mask=alive_mask, opacity=opac1, gamma=gamma)
+    with tracing.span("raster.preprocess"):
+        if colors is not None:
+            rgb = colors
+        else:
+            center = vertex.mean(dim=1)
+            rgb = sh_mod.eval_sh(shs, center, camera.camera_center,
+                                 active_sh_degree, settings.max_sh_degree)
+        pre_fn = preprocess_2d if variant == "2D" else preprocess_3d
+        prep = pre_fn(vertex, center2d_offset, rgb, camera.world_view,
+                      camera.full_proj, camera.tan_fovx, camera.tan_fovy,
+                      settings, alive_mask=alive_mask, opacity=opac1, gamma=gamma)
+        if impl != "oracle":
+            zero = torch.zeros(1, dtype=dt, device=dev)
+            if variant == "2D":
+                fmat = triangle_field_matrix(prep, opac1)
+                sx = sy = zero
+            else:
+                fmat = triangle_field_matrix_3d(prep, opac1, camera.tan_fovx,
+                                                camera.tan_fovy, settings.image_width,
+                                                settings.image_height)
+                # normal reconstruction scales at the rendered size (rich info)
+                sx = (settings.image_width / (2.0 * camera.tan_fovx)).reshape(1)
+                sy = (settings.image_height / (2.0 * camera.tan_fovy)).reshape(1)
+            params = torch.cat([gamma.reshape(1), background, bg_depth.reshape(1),
+                                sx.to(dt), sy.to(dt), zero]).detach()
 
     if impl == "oracle":
         if variant == "2D":
@@ -331,20 +354,6 @@ def rasterize(vertex: torch.Tensor, opacity: torch.Tensor,
             out = blend_oracle_3d(prep, opac1, gamma, background, bg_depth,
                                   camera.tan_fovx, camera.tan_fovy, settings)
         return _oracle_result(out, prep)
-
-    zero = torch.zeros(1, dtype=dt, device=dev)
-    if variant == "2D":
-        fmat = triangle_field_matrix(prep, opac1)
-        sx = sy = zero
-    else:
-        fmat = triangle_field_matrix_3d(prep, opac1, camera.tan_fovx,
-                                        camera.tan_fovy, settings.image_width,
-                                        settings.image_height)
-        # normal reconstruction scales at the rendered size (rich info)
-        sx = (settings.image_width / (2.0 * camera.tan_fovx)).reshape(1)
-        sy = (settings.image_height / (2.0 * camera.tan_fovy)).reshape(1)
-    params = torch.cat([gamma.reshape(1), background, bg_depth.reshape(1),
-                        sx.to(dt), sy.to(dt), zero]).detach()
     return _tile_pipeline(prep, fmat, params, settings, variant, need_stats, max_pairs,
                           depth_key)
 
@@ -381,24 +390,24 @@ def rasterize_gaussian(xyz: torch.Tensor, scale: torch.Tensor,
     gamma = torch.as_tensor(gamma, dtype=dt, device=dev)
     bg_depth = torch.as_tensor(bg_depth, dtype=dt, device=dev)
 
-    if colors is not None:
-        rgb = colors
-    else:
-        rgb = sh_mod.eval_sh(shs, xyz, camera.camera_center, active_sh_degree,
-                             settings.max_sh_degree)
-
     opac1 = opacity[..., 0] if opacity.dim() == 2 else opacity
-    prep = preprocess_gaussian(xyz, scale, rotation, rgb, camera.world_view,
-                               camera.full_proj, camera.tan_fovx, camera.tan_fovy,
-                               settings, alive_mask=alive_mask, opacity=opac1,
-                               gamma=gamma, scale_modifier=scale_modifier,
-                               mean2d_offset=mean2d_offset)
+    with tracing.span("raster.preprocess"):
+        if colors is not None:
+            rgb = colors
+        else:
+            rgb = sh_mod.eval_sh(shs, xyz, camera.camera_center, active_sh_degree,
+                                 settings.max_sh_degree)
+        prep = preprocess_gaussian(xyz, scale, rotation, rgb, camera.world_view,
+                                   camera.full_proj, camera.tan_fovx, camera.tan_fovy,
+                                   settings, alive_mask=alive_mask, opacity=opac1,
+                                   gamma=gamma, scale_modifier=scale_modifier,
+                                   mean2d_offset=mean2d_offset)
+        if impl != "oracle":
+            fmat = gaussian_field_matrix(prep, opac1)
+            params = torch.cat([gamma.reshape(1), background, bg_depth.reshape(1),
+                                torch.zeros(3, dtype=dt, device=dev)]).detach()
 
     if impl == "oracle":
         return _oracle_result(
             blend_oracle_gs(prep, opac1, gamma, background, bg_depth, settings), prep)
-
-    params = torch.cat([gamma.reshape(1), background, bg_depth.reshape(1),
-                        torch.zeros(3, dtype=dt, device=dev)]).detach()
-    return _tile_pipeline(prep, gaussian_field_matrix(prep, opac1), params, settings, "GS",
-                          need_stats, max_pairs)
+    return _tile_pipeline(prep, fmat, params, settings, "GS", need_stats, max_pairs)

@@ -23,6 +23,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from ..utils import tracing
 from .multihost import DataGroup, world, world_group
 
 
@@ -94,7 +95,8 @@ def dp_views(group: DataGroup, cameras: Sequence, one_view: Callable,
     renders ``idle_camera`` for the shapes and adds zeros."""
     sums = maxes = None
     for camera in cameras:
-        s, m = one_view(camera)
+        with tracing.span("view"):
+            s, m = one_view(camera)
         if sums is None:
             sums, maxes = dict(s), dict(m)
         else:

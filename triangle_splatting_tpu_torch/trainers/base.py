@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils import tracing
 from ..utils.config import Config, loadConfig
 from ..utils.logger import Logger
 from ..utils.scheduler import exponential_scheduler
@@ -22,6 +23,11 @@ ADC_SCHEDULES = (("densification", "grad_threshold", "grad_threshold_scheduler")
                  ("opacity_pruning", "opacity_threshold", "opacity_pruning_scheduler"),
                  ("opacity_clipping", "opacity_threshold", "opacity_clipping_scheduler"),
                  ("scale_clipping", "scale_max", "scale_max_scheduler"))
+
+# the ADC block of each kind ``_log_prune`` logs
+PRUNE_BLOCKS = {"opacity": "opacity_pruning", "clipping": "opacity_clipping",
+                "scale": "scale_pruning", "scale clipping": "scale_clipping",
+                "contribution": "contribution_pruning"}
 
 
 def build_dataset(config: Config, logger: Logger, device):
@@ -118,6 +124,7 @@ class BaseTrainer:
             f"{n_dev} rank(s) ({self._dp_b} per rank, mean-gradient all-reduce, "
             f"backend {self._dp_group.backend or 'none (one process)'})")
 
+    @tracing.spanned("data")
     def _next_batch(self):
         """The step's cameras: one, or the ``data_parallel`` views every
         rank draws in the same order, and this rank's share of them
@@ -151,8 +158,10 @@ class BaseTrainer:
         """Open a ``torch.profiler`` window (CPU, and CUDA on the card) at
         ``trainer.profile_start_iter`` and close it at ``profile_end_iter``
         (default 10 iterations later), writing its Chrome trace to
-        ``<output_dir>/profile/trace_<start>_<end>.json``; the JAX trainers
-        open a ``jax.profiler`` trace over the same iterations."""
+        ``<output_dir>/profile/trace_<start>_<end>.json`` and the program's
+        spans and counters of the window (``utils/tracing.py``, on while the
+        profiler records) to ``spans_<start>_<end>.json`` beside it; read
+        both with ``python -m triangle_splatting_tpu_torch.tools.trace_report``."""
         cfgt = self.config.trainer
         start = cfgt.profile_start_iter
         if not start:
@@ -164,7 +173,9 @@ class BaseTrainer:
             if self.device.type == "cuda":
                 acts.append(ProfilerActivity.CUDA)
             self._profiler = profile(activities=acts)
+            tracing.set_step(iteration)          # seen off: the last session ends
             self._profiler.start()
+            tracing.set_step(iteration)          # seen on: the window's session starts
             self.logger.info(f"[ITER {iteration}] profiler trace started")
         if iteration == end and self._profiler is not None:
             if self.device.type == "cuda":
@@ -173,6 +184,7 @@ class BaseTrainer:
             out = Path(self.output_dir) / "profile"
             out.mkdir(parents=True, exist_ok=True)
             self._profiler.export_chrome_trace(str(out / f"trace_{start}_{end}.json"))
+            tracing.write(out / f"spans_{start}_{end}.json")
             self._profiler = None
             self.logger.info(f"[ITER {iteration}] profiler trace written to {out}")
 
@@ -198,6 +210,7 @@ class BaseTrainer:
 
     def _log_prune(self, iteration: int, kind: str, n: int, extra: str = "") -> None:
         self.prune_history.append((iteration, kind, n))
+        tracing.count(f"adc.{PRUNE_BLOCKS[kind]}.rows", n)
         what = {"clipping": "opacity clipping] clipped",
                 "scale clipping": "scale clipping] clipped"}.get(kind, f"{kind} pruning] pruned")
         self.logger.info(f"[ITER {iteration}, {what} {n}{extra}")
@@ -222,6 +235,7 @@ class BaseTrainer:
             self._grow_capacity()
         rec["capacity"] = self.params.capacity
         self.densify_history.append(rec)
+        tracing.count("adc.densification.rows", rec["placed"])
         self.logger.info(
             f"[ITER {iteration}, densification] grew {rec['grown']} points, threshold "
             f"{threshold:.3e} (grad-stat p50 {stats[0]:.2e} p99 {stats[1]:.2e} max "

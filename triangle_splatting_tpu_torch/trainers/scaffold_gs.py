@@ -41,6 +41,7 @@ from ..parallel.multihost import LOCAL
 from ..utils.camera import Camera
 from ..utils.checkpoint import load_ckpt, model_blob, save_ckpt
 from ..utils.config import Config
+from ..utils import tracing
 from ..utils.scheduler import exponential_scheduler
 from ..utils.timer import Timer
 from . import losses as L
@@ -158,19 +159,20 @@ class ScaffoldGSTrainer(BaseTrainer):
         k = self.model_cfg.n_offsets
         pkg = S.forward(p, state, camera, background, self.model_cfg, settings,
                         mean2d_offset=m2d, impl=self.impl)
-        img, gt = pkg["render"], camera.gt_image
-        if camera.alpha_mask is not None:
-            img = img * camera.alpha_mask
-            gt = gt * camera.alpha_mask
-        sel = pkg["selection_mask"]
-        n_sel = torch.clamp_min(sel.sum().to(img.dtype), 1.0)
-        scaling_reg = (pkg["scaling"] * sel[..., None]).sum() / (3.0 * n_sel)
-        vis = pkg["anchor_visible_mask"][:, None]
-        n_vis = torch.clamp_min(vis.sum().to(img.dtype) * k, 1.0)
-        op = pkg["gaussian_opacity"]
-        opacity_reg = ((0.25 - (op - 0.5) ** 2) * vis).sum() / n_vis
-        loss = weights["l1"] * L.l1(img, gt) + weights["ssim"] * L.ssim_loss(img, gt) \
-            + weights["scaling"] * scaling_reg + weights["opacity"] * opacity_reg
+        with tracing.span("loss"):
+            img, gt = pkg["render"], camera.gt_image
+            if camera.alpha_mask is not None:
+                img = img * camera.alpha_mask
+                gt = gt * camera.alpha_mask
+            sel = pkg["selection_mask"]
+            n_sel = torch.clamp_min(sel.sum().to(img.dtype), 1.0)
+            scaling_reg = (pkg["scaling"] * sel[..., None]).sum() / (3.0 * n_sel)
+            vis = pkg["anchor_visible_mask"][:, None]
+            n_vis = torch.clamp_min(vis.sum().to(img.dtype) * k, 1.0)
+            op = pkg["gaussian_opacity"]
+            opacity_reg = ((0.25 - (op - 0.5) ** 2) * vis).sum() / n_vis
+            loss = weights["l1"] * L.l1(img, gt) + weights["ssim"] * L.ssim_loss(img, gt) \
+                + weights["scaling"] * scaling_reg + weights["opacity"] * opacity_reg
         aux = dict(pkg=dict(anchor_visible_mask=pkg["anchor_visible_mask"],
                             gaussian_visible_mask=pkg["gaussian_visible_mask"],
                             gaussian_opacity=pkg["gaussian_opacity"].detach()),
@@ -195,8 +197,9 @@ class ScaffoldGSTrainer(BaseTrainer):
                                       state, camera, background, weights)
         if n_views != 1:
             loss = loss / n_views
-        gs = torch.autograd.grad(loss, wrt, allow_unused=True)
-        gs = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt, gs)]
+        with tracing.span("backward"):
+            gs = torch.autograd.grad(loss, wrt, allow_unused=True)
+            gs = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt, gs)]
         if m2d is not None:
             aux["mean2d_grad"] = gs.pop()
         return loss.detach(), S.ScaffoldParams.from_leaves(dict(zip(leaves, gs))), aux
@@ -225,41 +228,47 @@ class ScaffoldGSTrainer(BaseTrainer):
         its own (times n_views); ``n_gaussians`` is the batch's mean a
         view, ``overflow`` and ``num_pairs`` its max. One view in a world
         of one is the single-view step."""
-        group = self._dp_group if group is None else group
-        n_views = self._dp_n if n_views is None else n_views
-        k = self.model_cfg.n_offsets
-        gate = self._track_stats and self._stat_gate(iteration)
+        tracing.set_step(iteration)
+        with tracing.span("step"):
+            group = self._dp_group if group is None else group
+            n_views = self._dp_n if n_views is None else n_views
+            k = self.model_cfg.n_offsets
+            gate = self._track_stats and self._stat_gate(iteration)
 
-        def one_view(camera):
-            loss, grads, aux = self._loss_and_grads(settings, params, state, camera,
-                                                    background, weights, n_views=n_views)
-            sums = {"loss": loss, "n_gaussians": aux["n_gaussians"].to(torch.float32),
-                    **{f"g.{n}": g for n, g in grads.leaves().items()}}
+            def one_view(camera):
+                loss, grads, aux = self._loss_and_grads(settings, params, state, camera,
+                                                        background, weights, n_views=n_views)
+                sums = {"loss": loss, "n_gaussians": aux["n_gaussians"].to(torch.float32),
+                        **{f"g.{n}": g for n, g in grads.leaves().items()}}
+                if gate:
+                    with tracing.span("stats"):
+                        pkg = aux["pkg"]
+                        vis_anchor = pkg["anchor_visible_mask"]
+                        g_vis = pkg["gaussian_visible_mask"]
+                        gnorm = S.safe_norm((aux["mean2d_grad"] * n_views)[:, :2]).reshape(
+                            params.capacity, k)
+                        zero = torch.zeros((), dtype=torch.float32, device=gnorm.device)
+                        sums.update({
+                            "stat.opacity_accum": torch.where(
+                                vis_anchor, pkg["gaussian_opacity"].amax(dim=1), zero),
+                            "stat.anchor_denom": vis_anchor.to(torch.float32),
+                            "stat.offset_grad_accum": torch.where(g_vis, gnorm, zero),
+                            "stat.offset_denom": g_vis.to(torch.float32)})
+                return sums, {"overflow": aux["overflow"].to(torch.int64),
+                              "num_pairs": aux["num_pairs"].to(torch.int64)}
+
+            sums, maxes = dp_views(group, cameras, one_view, idle_camera)
+            with tracing.span("adam"):
+                grads = S.ScaffoldParams.from_leaves(
+                    {n[2:]: g for n, g in sums.items() if n.startswith("g.")})
+                params, opt = S.adam_update(params, opt, grads, lrs)
             if gate:
-                pkg = aux["pkg"]
-                vis_anchor, g_vis = pkg["anchor_visible_mask"], pkg["gaussian_visible_mask"]
-                gnorm = S.safe_norm((aux["mean2d_grad"] * n_views)[:, :2]).reshape(
-                    params.capacity, k)
-                zero = torch.zeros((), dtype=torch.float32, device=gnorm.device)
-                sums.update({
-                    "stat.opacity_accum": torch.where(
-                        vis_anchor, pkg["gaussian_opacity"].amax(dim=1), zero),
-                    "stat.anchor_denom": vis_anchor.to(torch.float32),
-                    "stat.offset_grad_accum": torch.where(g_vis, gnorm, zero),
-                    "stat.offset_denom": g_vis.to(torch.float32)})
-            return sums, {"overflow": aux["overflow"].to(torch.int64),
-                          "num_pairs": aux["num_pairs"].to(torch.int64)}
-
-        sums, maxes = dp_views(group, cameras, one_view, idle_camera)
-        grads = S.ScaffoldParams.from_leaves(
-            {n[2:]: g for n, g in sums.items() if n.startswith("g.")})
-        params, opt = S.adam_update(params, opt, grads, lrs)
-        if gate:
-            state = replace(state, **{f: getattr(state, f) + sums[f"stat.{f}"] for f in (
-                "opacity_accum", "anchor_denom", "offset_grad_accum", "offset_denom")})
-        return params, opt, state, sums["loss"], dict(
-            n_gaussians=sums["n_gaussians"] / n_views, overflow=maxes["overflow"] > 0,
-            num_pairs=maxes["num_pairs"])
+                with tracing.span("stats"):
+                    state = replace(state, **{f: getattr(state, f) + sums[f"stat.{f}"] for f in (
+                        "opacity_accum", "anchor_denom", "offset_grad_accum", "offset_denom")})
+            return params, opt, state, sums["loss"], dict(
+                n_gaussians=sums["n_gaussians"] / n_views, overflow=maxes["overflow"] > 0,
+                num_pairs=maxes["num_pairs"])
 
     # ------------------------------------------------------------------
     # loop
@@ -300,20 +309,24 @@ class ScaffoldGSTrainer(BaseTrainer):
         thr = self.grad_threshold_scheduler(iteration - (u.start_iter or 0))
         grad_stat = self._grad_stat(u.grad_min_view_count or 0)
         alive0 = self.state.alive.clone()
-        self.params, self.opt, self.state, n_add, overflow = S.grow_anchors(
-            self.params, self.opt, self.state, self.model_cfg, _f32(thr),
-            _f32(u.grad_min_view_count or 0), generator=self._gen, coins=coins)
-        placed = int((self.state.alive & ~alive0).sum())
+        with tracing.span("scaffold.grow"):
+            self.params, self.opt, self.state, n_add, overflow = S.grow_anchors(
+                self.params, self.opt, self.state, self.model_cfg, _f32(thr),
+                _f32(u.grad_min_view_count or 0), generator=self._gen, coins=coins)
+            placed = int((self.state.alive & ~alive0).sum())
         if bool(overflow):
             self.logger.warning("anchor capacity full; raise capacity_factor")
         opacity_thr = self.opacity_threshold_scheduler(iteration - (u.start_iter or 0))
-        self.params, self.opt, self.state, n_rm = S.prune_anchors(
-            self.params, self.opt, self.state, _f32(opacity_thr),
-            _f32(u.opacity_min_view_count or 0))
+        with tracing.span("scaffold.prune"):
+            self.params, self.opt, self.state, n_rm = S.prune_anchors(
+                self.params, self.opt, self.state, _f32(opacity_thr),
+                _f32(u.opacity_min_view_count or 0))
         self.anchor_history.append(dict(
             iteration=iteration, grad_threshold=float(thr), added=int(n_add), placed=placed,
             removed=int(n_rm), overflow=bool(overflow), alive=int(self.state.alive.sum()),
             grad_stat=grad_stat))
+        tracing.count("scaffold.added", int(n_add))
+        tracing.count("scaffold.removed", int(n_rm))
         self.logger.info(f"[ITER {iteration}] grad threshold: {thr:.5f}, added {int(n_add)} "
                          f"anchors, removed {int(n_rm)}")
 
@@ -332,6 +345,7 @@ class ScaffoldGSTrainer(BaseTrainer):
         at = lambda q: float(g[min(int(q * n), n - 1)])  # noqa: E731
         return dict(p50=at(0.5), p99=at(0.99), max=float(g[-1]), examined=n)
 
+    @tracing.spanned("update")
     def _model_update(self, iteration: int):
         """The host work after a step, evaluation aside: the opacity
         threshold's schedule, then the anchor update."""
@@ -376,7 +390,8 @@ class ScaffoldGSTrainer(BaseTrainer):
                 timer.log("evaluation")
                 self._evaluate(iteration)
             timer.log("statistic + anchor update")
-            self._anchor_update(iteration)
+            with tracing.span("update"):
+                self._anchor_update(iteration)
             if cfgt.log_interval_iter and iteration % cfgt.log_interval_iter == 0:
                 # the loss read waits for every queued step: device time
                 timer.log("device drain")

@@ -47,6 +47,7 @@ from ..parallel.multihost import LOCAL
 from ..utils.camera import Camera
 from ..utils.checkpoint import load_ckpt, model_blob, save_ckpt
 from ..utils.config import Config
+from ..utils import tracing
 from ..utils.scheduler import exponential_scheduler
 from ..utils.timer import Timer
 from . import losses as L
@@ -138,15 +139,16 @@ class VanillaGSTrainer(BaseTrainer):
         leaf or None."""
         pkg = G.forward(p, state, camera, background, self.model_cfg, settings,
                         mean2d_offset=m2d, impl=self.impl, need_stats=self._track_stats)
-        img, gt = pkg["render"], camera.gt_image
-        if camera.alpha_mask is not None:
-            img = img * camera.alpha_mask
-            gt = gt * camera.alpha_mask
-        loss = weights["l1"] * L.l1(img, gt) + weights["ssim"] * L.ssim_loss(img, gt)
-        aux = dict(overflow=pkg["overflow"], num_pairs=pkg["num_pairs"])
-        if self._track_stats:
-            aux.update(radii=pkg["radii"], contrib_sum=pkg["contrib_sum"],
-                       contrib_max=pkg["contrib_max"], visible_mask=pkg["visible_mask"])
+        with tracing.span("loss"):
+            img, gt = pkg["render"], camera.gt_image
+            if camera.alpha_mask is not None:
+                img = img * camera.alpha_mask
+                gt = gt * camera.alpha_mask
+            loss = weights["l1"] * L.l1(img, gt) + weights["ssim"] * L.ssim_loss(img, gt)
+            aux = dict(overflow=pkg["overflow"], num_pairs=pkg["num_pairs"])
+            if self._track_stats:
+                aux.update(radii=pkg["radii"], contrib_sum=pkg["contrib_sum"],
+                           contrib_max=pkg["contrib_max"], visible_mask=pkg["visible_mask"])
         return loss, aux
 
     def _loss_and_grads(self, settings, params, state, camera, background, weights,
@@ -166,8 +168,9 @@ class VanillaGSTrainer(BaseTrainer):
                                       camera, background, weights)
         if n_views != 1:
             loss = loss / n_views
-        gs = torch.autograd.grad(loss, wrt, allow_unused=True)
-        gs = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt, gs)]
+        with tracing.span("backward"):
+            gs = torch.autograd.grad(loss, wrt, allow_unused=True)
+            gs = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt, gs)]
         if m2d is not None:
             aux["mean2d_grad"] = gs.pop()
         return loss.detach(), G.GaussianParams(**dict(zip(G.GS_PARAM_GROUPS, gs))), aux
@@ -194,31 +197,36 @@ class VanillaGSTrainer(BaseTrainer):
         radius maxima maxed), the batch's max ``overflow`` and
         ``num_pairs``. One view in a world of one is the single-view
         step."""
-        group = self._dp_group if group is None else group
-        n_views = self._dp_n if n_views is None else n_views
-        gate = self._track_stats and self._stat_gate(iteration)
+        tracing.set_step(iteration)
+        with tracing.span("step"):
+            group = self._dp_group if group is None else group
+            n_views = self._dp_n if n_views is None else n_views
+            gate = self._track_stats and self._stat_gate(iteration)
 
-        def one_view(camera):
-            loss, grads, aux = self._loss_and_grads(settings, params, state, camera,
-                                                    background, weights, n_views=n_views)
-            sums = {"loss": loss, **{f"g.{n}": getattr(grads, n) for n in G.GS_PARAM_GROUPS}}
-            maxes = {"overflow": aux["overflow"].to(torch.int64),
-                     "num_pairs": aux["num_pairs"].to(torch.int64)}
+            def one_view(camera):
+                loss, grads, aux = self._loss_and_grads(settings, params, state, camera,
+                                                        background, weights, n_views=n_views)
+                sums = {"loss": loss, **{f"g.{n}": getattr(grads, n) for n in G.GS_PARAM_GROUPS}}
+                maxes = {"overflow": aux["overflow"].to(torch.int64),
+                         "num_pairs": aux["num_pairs"].to(torch.int64)}
+                if gate:
+                    with tracing.span("stats"):
+                        s, m = stat_entries(view_stat_locals(
+                            aux["visible_mask"], safe_norm(aux["mean2d_grad"] * n_views),
+                            aux["contrib_sum"], aux["contrib_max"], aux["radii"]))
+                        sums.update(s)
+                        maxes.update(m)
+                return sums, maxes
+
+            sums, maxes = dp_views(group, cameras, one_view, idle_camera)
+            grads = G.GaussianParams(**{n: sums[f"g.{n}"] for n in G.GS_PARAM_GROUPS})
+            with tracing.span("adam"):
+                params, opt = G.adam_update(params, opt, grads, lrs)
             if gate:
-                s, m = stat_entries(view_stat_locals(
-                    aux["visible_mask"], safe_norm(aux["mean2d_grad"] * n_views),
-                    aux["contrib_sum"], aux["contrib_max"], aux["radii"]))
-                sums.update(s)
-                maxes.update(m)
-            return sums, maxes
-
-        sums, maxes = dp_views(group, cameras, one_view, idle_camera)
-        grads = G.GaussianParams(**{n: sums[f"g.{n}"] for n in G.GS_PARAM_GROUPS})
-        params, opt = G.adam_update(params, opt, grads, lrs)
-        if gate:
-            state = apply_view_statistics(state, stat_locals_of(sums, maxes))
-        return params, opt, state, sums["loss"], dict(overflow=maxes["overflow"] > 0,
-                                                      num_pairs=maxes["num_pairs"])
+                with tracing.span("stats"):
+                    state = apply_view_statistics(state, stat_locals_of(sums, maxes))
+            return params, opt, state, sums["loss"], dict(overflow=maxes["overflow"] > 0,
+                                                          num_pairs=maxes["num_pairs"])
 
     # ------------------------------------------------------------------
     # loop
@@ -245,6 +253,7 @@ class VanillaGSTrainer(BaseTrainer):
                              f"(capacity {self.params.capacity})")
         return first_iter
 
+    @tracing.spanned("update")
     def _model_update(self, iteration: int):
         """Densification, opacity pruning, opacity clipping, scale pruning,
         scale clipping, contribution pruning and opacity reset on their
@@ -258,58 +267,66 @@ class VanillaGSTrainer(BaseTrainer):
 
         d = mu.densification
         if active(d):
-            thr = self.grad_threshold_scheduler(iteration - d.start_iter)
-            self._densify(iteration, thr, d.min_view_count, lambda: G.densify(
-                self.params, self.opt, self.state, _f32(thr), d.min_view_count,
-                _f32(d.split_scale_threshold), d.split_num or 2, generator=self._gen))
+            with tracing.span("adc.densification"):
+                thr = self.grad_threshold_scheduler(iteration - d.start_iter)
+                self._densify(iteration, thr, d.min_view_count, lambda: G.densify(
+                    self.params, self.opt, self.state, _f32(thr), d.min_view_count,
+                    _f32(d.split_scale_threshold), d.split_num or 2, generator=self._gen))
 
         op = mu.opacity_pruning
         if active(op, hold=True):
-            thr = self.opacity_pruning_scheduler(iteration - op.start_iter)
-            self.params, self.opt, self.state, n = G.opacity_pruning(
-                self.params, self.opt, self.state, _f32(thr))
-            self._log_prune(iteration, "opacity", int(n), f", threshold {thr:.5f}")
+            with tracing.span("adc.opacity_pruning"):
+                thr = self.opacity_pruning_scheduler(iteration - op.start_iter)
+                self.params, self.opt, self.state, n = G.opacity_pruning(
+                    self.params, self.opt, self.state, _f32(thr))
+                self._log_prune(iteration, "opacity", int(n), f", threshold {thr:.5f}")
         oc = mu.opacity_clipping
         if active(oc, hold=True):
-            thr = self.opacity_clipping_scheduler(iteration - oc.start_iter)
-            self.params, self.opt, self.state, n = G.opacity_clipping(
-                self.params, self.opt, self.state, _f32(thr))
-            self._log_prune(iteration, "clipping", int(n), f", threshold {thr:.5f}")
+            with tracing.span("adc.opacity_clipping"):
+                thr = self.opacity_clipping_scheduler(iteration - oc.start_iter)
+                self.params, self.opt, self.state, n = G.opacity_clipping(
+                    self.params, self.opt, self.state, _f32(thr))
+                self._log_prune(iteration, "clipping", int(n), f", threshold {thr:.5f}")
         sp = mu.scale_pruning
         if active(sp):
-            self.params, self.opt, self.state, n = G.scale_pruning(
-                self.params, self.opt, self.state, _f32(sp.radii_threshold),
-                _f32(sp.scale_threshold))
-            self._log_prune(iteration, "scale", int(n))
+            with tracing.span("adc.scale_pruning"):
+                self.params, self.opt, self.state, n = G.scale_pruning(
+                    self.params, self.opt, self.state, _f32(sp.radii_threshold),
+                    _f32(sp.scale_threshold))
+                self._log_prune(iteration, "scale", int(n))
         sc = mu.scale_clipping
         if active(sc, hold=True):
-            mx = self.scale_max_scheduler(iteration - sc.start_iter)
-            self.params, self.opt, self.state, n = G.scale_clipping(
-                self.params, self.opt, self.state, _f32(mx))
-            self._log_prune(iteration, "scale clipping", int(n), f", max {mx:.4f}")
+            with tracing.span("adc.scale_clipping"):
+                mx = self.scale_max_scheduler(iteration - sc.start_iter)
+                self.params, self.opt, self.state, n = G.scale_clipping(
+                    self.params, self.opt, self.state, _f32(mx))
+                self._log_prune(iteration, "scale clipping", int(n), f", max {mx:.4f}")
         cp = mu.contribution_pruning
         if active(cp):
-            target, ratio, prune_ratio, retain = resolve_contribution_pruning(cp, iteration)
-            if target is None:
-                raise ValueError(
-                    "model.model_update.contribution_pruning.target_point_num is null — "
-                    "set it or add a downsample schedule before contribution pruning "
-                    "activates.")
-            ipd = alive_inter_point_dist(self.params.xyz, self.state.alive) if retain > 0 else None
-            self.params, self.opt, self.state, n = G.contribution_pruning(
-                self.params, self.opt, self.state,
-                min_view_count=cp.min_view_count if cp.min_view_count is not None else 1,
-                target_point_num=int(target), prune_ratio=_f32(prune_ratio),
-                max_prune_ratio=_f32(cp.max_prune_ratio
-                                     if cp.max_prune_ratio is not None else 0.2),
-                contrib_max_ratio=_f32(ratio), scene_bbox=self.scene_bbox,
-                inter_point_dist=ipd, sparsity_retain_ratio=retain)
-            self._log_prune(iteration, "contribution", int(n))
+            with tracing.span("adc.contribution_pruning"):
+                target, ratio, prune_ratio, retain = resolve_contribution_pruning(cp, iteration)
+                if target is None:
+                    raise ValueError(
+                        "model.model_update.contribution_pruning.target_point_num is null — "
+                        "set it or add a downsample schedule before contribution pruning "
+                        "activates.")
+                ipd = (alive_inter_point_dist(self.params.xyz, self.state.alive)
+                       if retain > 0 else None)
+                self.params, self.opt, self.state, n = G.contribution_pruning(
+                    self.params, self.opt, self.state,
+                    min_view_count=cp.min_view_count if cp.min_view_count is not None else 1,
+                    target_point_num=int(target), prune_ratio=_f32(prune_ratio),
+                    max_prune_ratio=_f32(cp.max_prune_ratio
+                                         if cp.max_prune_ratio is not None else 0.2),
+                    contrib_max_ratio=_f32(ratio), scene_bbox=self.scene_bbox,
+                    inter_point_dist=ipd, sparsity_retain_ratio=retain)
+                self._log_prune(iteration, "contribution", int(n))
         orr = mu.opacity_reset
         if active(orr):
-            self.params, self.opt, self.state = G.opacity_reset(
-                self.params, self.opt, self.state, _f32(orr.reset_value))
-            self.logger.info(f"[ITER {iteration}, opacity reset] -> {orr.reset_value}")
+            with tracing.span("adc.opacity_reset"):
+                self.params, self.opt, self.state = G.opacity_reset(
+                    self.params, self.opt, self.state, _f32(orr.reset_value))
+                self.logger.info(f"[ITER {iteration}, opacity reset] -> {orr.reset_value}")
         shs = mu.sh_schedule
         if shs is not None:
             deg = min(sum(1 for it in shs.one_up_iters if iteration > it),

@@ -57,6 +57,7 @@ from ..utils.camera import Camera
 from ..convert import triangle_from_numpy, triangle_to_numpy
 from ..utils.checkpoint import load_ckpt, model_blob, save_ckpt
 from ..utils.config import Config
+from ..utils import tracing
 from ..utils.scheduler import exponential_scheduler, exponential_step_scheduler
 from ..utils.timer import Timer
 from . import losses as L
@@ -223,53 +224,54 @@ class VanillaTSTrainer(BaseTrainer):
         pkg = M.forward(p, state, camera, background, self.model_cfg, settings,
                         is_training=True, center2d_offset=c2d, impl=self.impl,
                         need_stats=self._track_stats)
-        img = pkg["render"]
-        gt = camera.gt_image
-        if camera.alpha_mask is not None:
-            img = img * camera.alpha_mask
-            gt = gt * camera.alpha_mask
-        w = weights
-        loss = w["l1"] * L.l1(img, gt)
-        loss = loss + w["ssim"] * L.ssim_loss(img, gt)
-        if self._w_dog > 0:
-            loss = loss + w["dog"] * L.dog_loss(img, gt, freq=self._dog_freq)
-        if self._w_smooth > 0:
-            loss = loss + w["smooth"] * L.smoothness_loss(img, gt)
-        if self._w_geometry > 0:
-            geo = L.depth_normal_loss(pkg["depth"], pkg["normal"], camera.tan_fovx,
-                                      camera.tan_fovy, self._geo_scale_factor)
-            loss = loss + w["geometry"] * geo
-        else:
-            geo = torch.zeros((), dtype=img.dtype, device=img.device)
-
-        alive_f = state.alive.to(img.dtype)
-        n_alive = torch.clamp_min(alive_f.sum(), 1.0)
-        loss = loss + w["scaling"] * ((pkg["scaling"] * alive_f).sum() / n_alive)
-        op = pkg["opacity"][:, 0]
-        quad = ((0.25 - (op - 0.5) ** 2) * alive_f).sum() / n_alive
-        lin = ((1.0 - op) * alive_f).sum() / n_alive
-        loss = loss + (w["opacity_quad"] * quad + w["opacity_linear"] * lin)
-
-        if self._w_vertex > 0 and nearest_idx is not None:
-            pts = p.vertex.reshape(-1, 3)
-            d2 = ((pts - pts[nearest_idx]) ** 2).sum(-1)
-            mask3 = alive_f.repeat_interleave(3)
-            vloss = (d2 * mask3).sum() / torch.clamp_min(mask3.sum(), 1.0)
-            loss = loss + w["vertex"] * vloss
-        else:
-            vloss = torch.zeros((), dtype=img.dtype, device=img.device)
-
-        if "render_original" in pkg and self._w_affine > 0:
-            orig = pkg["render_original"]
+        with tracing.span("loss"):
+            img = pkg["render"]
+            gt = camera.gt_image
             if camera.alpha_mask is not None:
-                orig = orig * camera.alpha_mask
-            loss = loss + w["affine"] * L.l1(img, orig)
-        aux = dict(overflow=pkg["overflow"], num_pairs=pkg["num_pairs"],
-                   geo_loss=geo.detach(), vertex_loss=vloss.detach())
-        if self._track_stats:
-            aux.update(radii=pkg["radii"], contrib_sum=pkg["contrib_sum"],
-                       contrib_max=pkg["contrib_max"],
-                       visible_mask=pkg["visible_mask"])
+                img = img * camera.alpha_mask
+                gt = gt * camera.alpha_mask
+            w = weights
+            loss = w["l1"] * L.l1(img, gt)
+            loss = loss + w["ssim"] * L.ssim_loss(img, gt)
+            if self._w_dog > 0:
+                loss = loss + w["dog"] * L.dog_loss(img, gt, freq=self._dog_freq)
+            if self._w_smooth > 0:
+                loss = loss + w["smooth"] * L.smoothness_loss(img, gt)
+            if self._w_geometry > 0:
+                geo = L.depth_normal_loss(pkg["depth"], pkg["normal"], camera.tan_fovx,
+                                          camera.tan_fovy, self._geo_scale_factor)
+                loss = loss + w["geometry"] * geo
+            else:
+                geo = torch.zeros((), dtype=img.dtype, device=img.device)
+
+            alive_f = state.alive.to(img.dtype)
+            n_alive = torch.clamp_min(alive_f.sum(), 1.0)
+            loss = loss + w["scaling"] * ((pkg["scaling"] * alive_f).sum() / n_alive)
+            op = pkg["opacity"][:, 0]
+            quad = ((0.25 - (op - 0.5) ** 2) * alive_f).sum() / n_alive
+            lin = ((1.0 - op) * alive_f).sum() / n_alive
+            loss = loss + (w["opacity_quad"] * quad + w["opacity_linear"] * lin)
+
+            if self._w_vertex > 0 and nearest_idx is not None:
+                pts = p.vertex.reshape(-1, 3)
+                d2 = ((pts - pts[nearest_idx]) ** 2).sum(-1)
+                mask3 = alive_f.repeat_interleave(3)
+                vloss = (d2 * mask3).sum() / torch.clamp_min(mask3.sum(), 1.0)
+                loss = loss + w["vertex"] * vloss
+            else:
+                vloss = torch.zeros((), dtype=img.dtype, device=img.device)
+
+            if "render_original" in pkg and self._w_affine > 0:
+                orig = pkg["render_original"]
+                if camera.alpha_mask is not None:
+                    orig = orig * camera.alpha_mask
+                loss = loss + w["affine"] * L.l1(img, orig)
+            aux = dict(overflow=pkg["overflow"], num_pairs=pkg["num_pairs"],
+                       geo_loss=geo.detach(), vertex_loss=vloss.detach())
+            if self._track_stats:
+                aux.update(radii=pkg["radii"], contrib_sum=pkg["contrib_sum"],
+                           contrib_max=pkg["contrib_max"],
+                           visible_mask=pkg["visible_mask"])
         return loss, aux
 
     def _loss_and_grads(self, settings, params, state, camera, background,
@@ -292,8 +294,9 @@ class VanillaTSTrainer(BaseTrainer):
                                       state, camera, background, weights, nearest_idx)
         if n_views != 1:
             loss = loss / n_views
-        gs = torch.autograd.grad(loss, wrt, allow_unused=True)
-        gs = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt, gs)]
+        with tracing.span("backward"):
+            gs = torch.autograd.grad(loss, wrt, allow_unused=True)
+            gs = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt, gs)]
         if c2d is not None:
             aux["center2d_grad"] = gs.pop()
         grads = M.TriangleParams(**dict(zip(names, gs)))
@@ -325,39 +328,44 @@ class VanillaTSTrainer(BaseTrainer):
         sequential single-view steps would. ``overflow`` and ``num_pairs``
         are the batch's max, the geometry and vertex terms its mean. One
         view in a world of one is the single-view step."""
-        group = self._dp_group if group is None else group
-        n_views = self._dp_n if n_views is None else n_views
-        names = list(params.tensors())
-        gate = self._track_stats and self._stat_gate(iteration)
+        tracing.set_step(iteration)
+        with tracing.span("step"):
+            group = self._dp_group if group is None else group
+            n_views = self._dp_n if n_views is None else n_views
+            names = list(params.tensors())
+            gate = self._track_stats and self._stat_gate(iteration)
 
-        def one_view(camera):
-            loss, grads, aux = self._loss_and_grads(settings, params, state, camera,
-                                                    background, weights, nearest_idx,
-                                                    n_views=n_views)
-            sums = {"loss": loss, "geo_loss": aux["geo_loss"],
-                    "vertex_loss": aux["vertex_loss"],
-                    **{f"g.{n}": getattr(grads, n) for n in names}}
-            maxes = {"overflow": aux["overflow"].to(torch.int64),
-                     "num_pairs": aux["num_pairs"].to(torch.int64)}
+            def one_view(camera):
+                loss, grads, aux = self._loss_and_grads(settings, params, state, camera,
+                                                        background, weights, nearest_idx,
+                                                        n_views=n_views)
+                sums = {"loss": loss, "geo_loss": aux["geo_loss"],
+                        "vertex_loss": aux["vertex_loss"],
+                        **{f"g.{n}": getattr(grads, n) for n in names}}
+                maxes = {"overflow": aux["overflow"].to(torch.int64),
+                         "num_pairs": aux["num_pairs"].to(torch.int64)}
+                if gate:
+                    with tracing.span("stats"):
+                        # the local view's own gradient (loss / n_views scaled back)
+                        s, m = stat_entries(view_stat_locals(
+                            aux["visible_mask"],
+                            torch.linalg.vector_norm(aux["center2d_grad"] * n_views, dim=-1),
+                            aux["contrib_sum"], aux["contrib_max"], aux["radii"]))
+                        sums.update(s)
+                        maxes.update(m)
+                return sums, maxes
+
+            sums, maxes = dp_views(group, cameras, one_view, idle_camera)
+            grads = M.TriangleParams(**{n: sums[f"g.{n}"] for n in names})
+            with tracing.span("adam"):
+                params, opt = M.adam_update(params, opt, grads, lrs)
             if gate:
-                # the local view's own gradient (loss / n_views scaled back)
-                s, m = stat_entries(view_stat_locals(
-                    aux["visible_mask"],
-                    torch.linalg.vector_norm(aux["center2d_grad"] * n_views, dim=-1),
-                    aux["contrib_sum"], aux["contrib_max"], aux["radii"]))
-                sums.update(s)
-                maxes.update(m)
-            return sums, maxes
-
-        sums, maxes = dp_views(group, cameras, one_view, idle_camera)
-        grads = M.TriangleParams(**{n: sums[f"g.{n}"] for n in names})
-        params, opt = M.adam_update(params, opt, grads, lrs)
-        if gate:
-            state = apply_view_statistics(state, stat_locals_of(sums, maxes))
-        aux = dict(overflow=maxes["overflow"] > 0, num_pairs=maxes["num_pairs"],
-                   geo_loss=sums["geo_loss"] / n_views,
-                   vertex_loss=sums["vertex_loss"] / n_views)
-        return params, opt, state, sums["loss"], aux
+                with tracing.span("stats"):
+                    state = apply_view_statistics(state, stat_locals_of(sums, maxes))
+            aux = dict(overflow=maxes["overflow"] > 0, num_pairs=maxes["num_pairs"],
+                       geo_loss=sums["geo_loss"] / n_views,
+                       vertex_loss=sums["vertex_loss"] / n_views)
+            return params, opt, state, sums["loss"], aux
 
     # ------------------------------------------------------------------
     # loop
@@ -435,6 +443,7 @@ class VanillaTSTrainer(BaseTrainer):
             out_n.append(n)
         return np.concatenate(out_p), np.concatenate(out_c), np.concatenate(out_n)
 
+    @tracing.spanned("update")
     def _model_update(self, iteration: int):
         """Densification, opacity pruning, opacity clipping, scale pruning,
         scale clipping, contribution pruning and opacity reset on their
@@ -449,68 +458,75 @@ class VanillaTSTrainer(BaseTrainer):
 
         d = mu.densification
         if active(d):
-            thr = self.grad_threshold_scheduler(iteration - d.start_iter)
-            self._densify(iteration, thr, d.min_view_count, lambda: M.densify(
-                self.params, self.opt, self.state, _f32(thr), d.min_view_count,
-                _f32(d.split_scale_threshold)))
+            with tracing.span("adc.densification"):
+                thr = self.grad_threshold_scheduler(iteration - d.start_iter)
+                self._densify(iteration, thr, d.min_view_count, lambda: M.densify(
+                    self.params, self.opt, self.state, _f32(thr), d.min_view_count,
+                    _f32(d.split_scale_threshold)))
 
         op = mu.opacity_pruning
         if active(op, hold=True):
-            thr = self.opacity_pruning_scheduler(iteration - op.start_iter)
-            self.params, self.opt, self.state, n = M.opacity_pruning(
-                self.params, self.opt, self.state, _f32(thr))
-            self._log_prune(iteration, "opacity", int(n), f", threshold {thr:.5f}")
+            with tracing.span("adc.opacity_pruning"):
+                thr = self.opacity_pruning_scheduler(iteration - op.start_iter)
+                self.params, self.opt, self.state, n = M.opacity_pruning(
+                    self.params, self.opt, self.state, _f32(thr))
+                self._log_prune(iteration, "opacity", int(n), f", threshold {thr:.5f}")
 
         oc = mu.opacity_clipping
         if active(oc, hold=True):
-            thr = self.opacity_clipping_scheduler(iteration - oc.start_iter)
-            self.params, self.opt, self.state, n = M.opacity_clipping(
-                self.params, self.opt, self.state, _f32(thr))
-            self._log_prune(iteration, "clipping", int(n), f", threshold {thr:.5f}")
+            with tracing.span("adc.opacity_clipping"):
+                thr = self.opacity_clipping_scheduler(iteration - oc.start_iter)
+                self.params, self.opt, self.state, n = M.opacity_clipping(
+                    self.params, self.opt, self.state, _f32(thr))
+                self._log_prune(iteration, "clipping", int(n), f", threshold {thr:.5f}")
 
         sp = mu.scale_pruning
         if active(sp):
-            self.params, self.opt, self.state, n = M.scale_pruning(
-                self.params, self.opt, self.state, _f32(sp.radii_threshold),
-                _f32(sp.scale_threshold))
-            self._log_prune(iteration, "scale", int(n))
+            with tracing.span("adc.scale_pruning"):
+                self.params, self.opt, self.state, n = M.scale_pruning(
+                    self.params, self.opt, self.state, _f32(sp.radii_threshold),
+                    _f32(sp.scale_threshold))
+                self._log_prune(iteration, "scale", int(n))
 
         sc = mu.scale_clipping
         if active(sc, hold=True):
-            mx = self.scale_max_scheduler(iteration - sc.start_iter)
-            self.params, self.opt, self.state, n = M.scale_clipping(
-                self.params, self.opt, self.state, _f32(mx))
-            self._log_prune(iteration, "scale clipping", int(n), f", max {mx:.4f}")
+            with tracing.span("adc.scale_clipping"):
+                mx = self.scale_max_scheduler(iteration - sc.start_iter)
+                self.params, self.opt, self.state, n = M.scale_clipping(
+                    self.params, self.opt, self.state, _f32(mx))
+                self._log_prune(iteration, "scale clipping", int(n), f", max {mx:.4f}")
 
         cp = mu.contribution_pruning
         if active(cp):
-            target, ratio, prune_ratio, retain = resolve_contribution_pruning(cp, iteration)
-            if target is None:
-                raise ValueError(
-                    "model.model_update.contribution_pruning.target_point_"
-                    "num is null — set it (run_experiments.py mesh presets "
-                    "provide per-scene targets, e.g. --point_num) or add a "
-                    "downsample schedule before contribution pruning "
-                    "activates.")
-            ipd = None
-            if retain > 0:
-                ipd = alive_inter_point_dist(M.get_xyz(self.params), self.state.alive)
-            self.params, self.opt, self.state, n = M.contribution_pruning(
-                self.params, self.opt, self.state,
-                min_view_count=cp.min_view_count if cp.min_view_count is not None else 1,
-                target_point_num=int(target), prune_ratio=_f32(prune_ratio),
-                max_prune_ratio=_f32(cp.max_prune_ratio
-                                     if cp.max_prune_ratio is not None else 0.2),
-                contrib_max_ratio=_f32(ratio), scene_bbox=self.scene_bbox,
-                ste_threshold=self.model_cfg.ste_threshold,
-                inter_point_dist=ipd, sparsity_retain_ratio=retain)
-            self._log_prune(iteration, "contribution", int(n))
+            with tracing.span("adc.contribution_pruning"):
+                target, ratio, prune_ratio, retain = resolve_contribution_pruning(cp, iteration)
+                if target is None:
+                    raise ValueError(
+                        "model.model_update.contribution_pruning.target_point_"
+                        "num is null — set it (run_experiments.py mesh presets "
+                        "provide per-scene targets, e.g. --point_num) or add a "
+                        "downsample schedule before contribution pruning "
+                        "activates.")
+                ipd = None
+                if retain > 0:
+                    ipd = alive_inter_point_dist(M.get_xyz(self.params), self.state.alive)
+                self.params, self.opt, self.state, n = M.contribution_pruning(
+                    self.params, self.opt, self.state,
+                    min_view_count=cp.min_view_count if cp.min_view_count is not None else 1,
+                    target_point_num=int(target), prune_ratio=_f32(prune_ratio),
+                    max_prune_ratio=_f32(cp.max_prune_ratio
+                                         if cp.max_prune_ratio is not None else 0.2),
+                    contrib_max_ratio=_f32(ratio), scene_bbox=self.scene_bbox,
+                    ste_threshold=self.model_cfg.ste_threshold,
+                    inter_point_dist=ipd, sparsity_retain_ratio=retain)
+                self._log_prune(iteration, "contribution", int(n))
 
         orr = mu.opacity_reset
         if active(orr):
-            self.params, self.opt, self.state = M.opacity_reset(
-                self.params, self.opt, self.state, _f32(orr.reset_value))
-            self.logger.info(f"[ITER {iteration}, opacity reset] -> {orr.reset_value}")
+            with tracing.span("adc.opacity_reset"):
+                self.params, self.opt, self.state = M.opacity_reset(
+                    self.params, self.opt, self.state, _f32(orr.reset_value))
+                self.logger.info(f"[ITER {iteration}, opacity reset] -> {orr.reset_value}")
 
         g = mu.gamma_schedule
         if g is not None and g.start_iter < iteration <= g.end_iter:
