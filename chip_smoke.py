@@ -4325,12 +4325,14 @@ def phase_viewer(dev) -> dict:
     and on a directory holding the photo model's PLY ("2D", SH 3). For
     each: the three modes x resolutions 512 / 1024 x gamma 1 / 50, posed
     at a test camera, over HTTP. Gates: each JPEG decodes at the requested
-    size, ``X-Info`` counts the PLY's triangles, the counted launches are
-    B1's "2D" rich and "3D" rich forms and B3 once a request and nothing
-    else (no B2, B4, B5 or statistics form); B1 "2D" rich and B3 held
-    against their plain versions on the first request's inputs. Prints p50
-    and max ms a request (end to end: HTTP, render, JPEG) per resolution,
-    and the pairs and overflow of every request. Returns the launches."""
+    size, ``X-Info`` counts the PLY's triangles, no frame is served
+    overflowed, the counted launches are B1's "2D" rich and "3D" rich
+    forms and B3 once a request and once more for each frame the viewer's
+    pair budget rendered again (``PairBudget.rerenders``), and nothing else
+    (no B2, B4, B5 or statistics form); B1 "2D" rich and B3 held against
+    their plain versions on the first request's inputs. Prints p50 and max
+    ms a request (end to end: HTTP, render, JPEG) per resolution, the pairs
+    of every request and the second renders. Returns the launches."""
     import io
     import json
     import urllib.request
@@ -4345,6 +4347,7 @@ def phase_viewer(dev) -> dict:
     dirs = (("photo", KEEP["photo"]["ply"].parent.parent, "point_cloud/50.ply", 3, "2D"),
             ("mesh", KEEP["mesh"]["dir"], "point_cloud/50.ply", 0, "3D"))
     n_req = len(VIEWER_MODES) * len(VIEWER_RES) * len(VIEWER_GAMMAS)
+    again = {}
     with KernelCapture() as cap:
         reset_launches()
         for name, root, model, sh, rtype in dirs:
@@ -4373,21 +4376,26 @@ def phase_viewer(dev) -> dict:
                             pairs[res].append(int(hdr["X-Num-Pairs"]))
                             if hdr["X-Overflow"] == "1":
                                 overflow.append(f"{mode} {res} gamma {gamma}")
+                budget = server.RequestHandlerClass.viewer.budget
+                again[rtype] = budget.rerenders
+                check(not overflow, f"viewer {name}: frames served overflowed: {overflow}")
                 say("viewer", dir=name, variant=rtype, model=model, triangles=n_tri,
                     requests=n_req, ms_p50={r: round(statistics.median(v), 3) for r, v in ms.items()},
                     ms_max={r: round(max(v), 3) for r, v in ms.items()},
-                    num_pairs=pairs, overflow=overflow or None)
+                    num_pairs=pairs, rerenders=budget.rerenders, budget=budget.max_pairs)
             finally:
                 server.shutdown()
                 server.server_close()
     launches = read_launches()
-    want = dict(blend_forward_rich=n_req, blend_forward_3d_rich=n_req, relayout_pairs=2 * n_req)
+    want = dict(blend_forward_rich=n_req + again["2D"], blend_forward_3d_rich=n_req + again["3D"],
+                relayout_pairs=2 * n_req + again["2D"] + again["3D"])
     for name, n in launches.items():
         check(n == want.get(name, 0), f"viewer: kernel {name} launched {n} times, "
               f"expected {want.get(name, 0)}")
     err1 = hold_b1(cap.b1[("2D", False, True)], "viewer")
     _, _, err3 = hold_relayout(cap.b3[0], "viewer")
-    say("viewer", launches=launches, b1_2d_rich_vs_plain=err1, b3_mismatch=err3)
+    say("viewer", launches=launches, rerenders=again, b1_2d_rich_vs_plain=err1,
+        b3_mismatch=err3)
     del cap
     return launches
 
@@ -4417,9 +4425,11 @@ def phase_render_utils(dev) -> dict:
     tour poses are MatrixCity's metric ones (1200 above the center, an
     800 x 400 orbit), so on the synthetic city (a few units wide) those
     frames are degenerate, the city a few pixels wide: the phase prints
-    each frame's pairs and covered share. ``render_tour`` writes a 4-frame
-    video where cv2 imports (printed). Returns the launches of the counted
-    renders."""
+    each frame's pairs and covered share. The counted launches are the
+    path's B1 form, B3 and B5 once a frame and once more for each frame the
+    closure's pair budget rendered again (``render_fn.budget.rerenders``).
+    ``render_tour`` writes a 4-frame video where cv2 imports (printed).
+    Returns the launches of the counted renders."""
     import numpy as np
     import torch
     from triangle_splatting_tpu_torch.ops.cuda import reset_launches
@@ -4455,7 +4465,8 @@ def phase_render_utils(dev) -> dict:
     check(isinstance(bev, np.ndarray) and bev.shape == (3, TOUR_SIZE[1], TOUR_SIZE[0]),
           "render_utils: render_BEV_image")
     launches = read_launches()
-    n = len(cams) + len(frames) + 1
+    rerenders = rf.budget.rerenders
+    n = len(cams) + len(frames) + 1 + rerenders
     form = {"2D": "blend_forward_rich_stats", "3D": "blend_forward_3d_rich_stats"}[
         trainer.model_cfg.rasterizer_type]
     for name, k in launches.items():
@@ -4478,7 +4489,7 @@ def phase_render_utils(dev) -> dict:
     except ImportError:
         video = "cv2 does not import here: no video written"
     say("render_utils", triangles=int(trainer.state.alive.sum()), views=views, frames=shots,
-        video=video, launches=launches, **timing)
+        video=video, launches=launches, rerenders=rerenders, **timing)
     del trainer, city, rf
     return launches
 

@@ -114,7 +114,7 @@ def test_triangle_renderer_matches_jax(variant, rich, gamma, seed, sh):
     widen = max(1.0, gamma / 5.0)
     for impl, grad_tol in (("pallas", 5e-3), ("oracle", 2e-3)):
         j_out, j_g = jax_render(inp, variant, rich, gamma, impl)
-        assert set(t_out) == set(j_out), (impl, set(t_out) ^ set(j_out))
+        assert set(t_out) == set(j_out) | {"pairs_needed"}, (impl, set(t_out) ^ set(j_out))
         assert rich == all(k in t_out for k in RICH_KEYS)
         np.testing.assert_array_equal(t_out["n_contrib"], j_out["n_contrib"])
         np.testing.assert_array_equal(t_out["radii"], j_out["radii"])

@@ -13,8 +13,11 @@ reference code keeps working (``model.loadPLY(...); model.forward(cam)``).
 ``forward`` renders as the JAX facade does: rich info on (the
 ``RasterSettings`` default) and the contribution statistics as each JAX
 core defaults them (triangles and Gaussians with, Scaffold without), so it
-returns the JAX facade's keys. It runs under ``torch.no_grad()`` unless
-``is_training``. The trainers do not use these wrappers.
+returns the JAX facade's keys (and ``pairs_needed``). It runs under
+``torch.no_grad()`` unless ``is_training``. Each facade bins its frames at
+its own ``PairBudget``, sized from the pairs its frames needed and kept
+when the facade loads another model, as the viewer's is; a frame that
+overflows it is rendered again. The trainers do not use these wrappers.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.projection import RasterSettings
+from ..ops.rasterize import PairBudget
 from ..utils import tracing
 from ..utils.config import Config
 
@@ -81,6 +85,7 @@ class _Facade:
         self.state = None
         # frames rendered: the step id of a frame's spans
         self._frames = 0
+        self._budget = PairBudget()
 
     def _background(self, background) -> torch.Tensor:
         if background is None:
@@ -90,11 +95,15 @@ class _Facade:
     def _render(self, core_forward, camera, background, is_training, settings, **kw) -> dict:
         self._frames += 1
         tracing.set_step(self._frames)
+        background = self._background(background)
+
+        def draw(max_pairs):
+            return core_forward(self.params, self.state, camera, background, self.cfg,
+                                settings, is_training=bool(is_training), impl=self.impl,
+                                max_pairs=max_pairs, **kw)
         with tracing.span("render"), \
                 torch.set_grad_enabled(bool(is_training) and torch.is_grad_enabled()):
-            return core_forward(self.params, self.state, camera, self._background(background),
-                                self.cfg, settings, is_training=bool(is_training),
-                                impl=self.impl, **kw)
+            return self._budget.render(draw)
 
 
 class VanillaTSModel(_Facade):

@@ -23,7 +23,8 @@ the kernels' plain PyTorch versions run instead (the tests).
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Callable, Optional
 
 import torch
 
@@ -37,6 +38,17 @@ from .projection import (Preprocessed, Preprocessed3D, RasterSettings,
                          preprocess_2d, preprocess_3d)
 from ..utils import tracing
 from ..utils.camera import Camera
+
+
+# A need-based pair budget is PAIR_MARGIN x the pairs a frame needs, and
+# shrinks only where that is below PAIR_SHRINK_IF_BELOW of the budget it had
+# (``PairBudget`` here, ``trainers/adc_utils.py:adapt_pair_budget`` per
+# primitive). A render budget shrinks only after PAIR_SHRINK_AFTER frames in
+# a row fit below that share, so callers that alternate between frame sizes
+# (a viewer's resolutions, a tour's sizes) keep the largest one's budget.
+PAIR_MARGIN = 1.3
+PAIR_SHRINK_IF_BELOW = 0.5
+PAIR_SHRINK_AFTER = 8
 
 
 def _round_up(x: int, m: int) -> int:
@@ -233,7 +245,8 @@ def _oracle_result(out, prep) -> dict:
                 contrib_sum=out.contrib_sum, contrib_max=out.contrib_max,
                 final_T=out.final_T, n_contrib=out.n_contrib,
                 overflow=torch.zeros((), dtype=torch.bool, device=dev),
-                num_pairs=torch.zeros((), dtype=torch.int32, device=dev))
+                num_pairs=torch.zeros((), dtype=torch.int32, device=dev),
+                pairs_needed=torch.zeros((), dtype=torch.int32, device=dev))
 
 
 def _tile_pipeline(prep, fmat: torch.Tensor, params: torch.Tensor,
@@ -251,6 +264,7 @@ def _tile_pipeline(prep, fmat: torch.Tensor, params: torch.Tensor,
         binning = bin_triangles(prep.detach(), settings, max_pairs, align=ALIGN,
                                 depth_key=depth_key)
     tracing.count("raster.pairs", binning.num_pairs)
+    tracing.count("raster.budget", max_pairs)
     tracing.count("raster.overflow", binning.overflow)
     with tracing.span("raster.blend"):
         fields = pack_pair_fields(fmat, binning, LIVE_GRAD_ROWS[(variant, settings.rich_info)])
@@ -270,7 +284,61 @@ def _tile_pipeline(prep, fmat: torch.Tensor, params: torch.Tensor,
                 radii=prep.radii, visible_mask=prep.radii > 0,
                 contrib_sum=contrib_sum, contrib_max=contrib_max,
                 final_T=final_T, n_contrib=n_contrib,
-                overflow=binning.overflow, num_pairs=binning.num_pairs)
+                overflow=binning.overflow, num_pairs=binning.num_pairs,
+                pairs_needed=binning.tri_offsets[-1])
+
+
+class PairBudget:
+    """The pair budget of one caller that renders frame after frame (a
+    model facade, the viewer, a tour), counted in pairs.
+
+    The first frame bins at the default budget (``max_pairs=None``:
+    ``pairs_per_triangle`` a primitive); the budget then becomes
+    ``PAIR_MARGIN`` x the pairs that frame needed (``pairs_needed``, the
+    unclamped total). It shrinks again only once ``PAIR_SHRINK_AFTER``
+    frames in a row need under ``PAIR_SHRINK_IF_BELOW`` of it, to the
+    largest of their sizes. A frame that overflows it is rendered once more
+    at ``PAIR_MARGIN`` x its need, which becomes the budget, so no image
+    with dropped pairs is returned (``rerenders`` counts them); a second
+    render that overflows too raises (a need past int32 wraps in binning's
+    offsets, as in the JAX function). The need and the overflow flag are
+    read on the host once a frame, after the blend is queued. Without
+    overflow the image does not depend on the budget: the valid pairs'
+    keys and stable order, the tile counts, the aligned tile starts and the
+    tile order are the same at any budget that holds them.
+    """
+
+    def __init__(self):
+        self.max_pairs: Optional[int] = None
+        self.rerenders = 0
+        self._below: list[int] = []    # the sizes of a run of frames below the share
+
+    def render(self, draw: Callable[[Optional[int]], dict]) -> dict:
+        """``draw(max_pairs)`` renders one frame and returns the
+        ``rasterize`` dict; this returns the frame's dict at a budget that
+        held its pairs."""
+        out = draw(self.max_pairs)
+        overflow, need = torch.stack([out["overflow"].to(torch.int64),
+                                      out["pairs_needed"].to(torch.int64)]).tolist()
+        fit = _round_up(max(math.ceil(PAIR_MARGIN * need), 1), ALIGN)
+        if overflow:
+            self.max_pairs, self._below = fit, []
+            self.rerenders += 1
+            tracing.count("raster.rerender", 1)
+            out = draw(fit)
+            if bool(out["overflow"]):
+                raise RuntimeError(f"a frame overflowed {fit:,} pairs, "
+                                   f"{PAIR_MARGIN} x the {need:,} it needed")
+            return out
+        if self.max_pairs is None:
+            self.max_pairs = fit
+        elif fit < self.max_pairs * PAIR_SHRINK_IF_BELOW:
+            self._below.append(fit)
+            if len(self._below) == PAIR_SHRINK_AFTER:
+                self.max_pairs, self._below = max(self._below), []
+        else:
+            self._below = []
+        return out
 
 
 def rasterize(vertex: torch.Tensor, opacity: torch.Tensor,
@@ -288,7 +356,8 @@ def rasterize(vertex: torch.Tensor, opacity: torch.Tensor,
 
     Returns a dict with render (3,H,W), depth (H,W), normal (3,H,W),
     radii (P,), visible_mask, contrib_sum / contrib_max (P,), final_T,
-    n_contrib, overflow, num_pairs. ``impl="cuda"`` runs the tile pipeline
+    n_contrib, overflow, num_pairs and pairs_needed (the frame's pairs,
+    unclamped; 0 from the oracle). ``impl="cuda"`` runs the tile pipeline
     through the kernel wrappers (the CUDA kernels for CUDA tensors, their
     plain versions for CPU tensors); ``impl="oracle"`` the dense oracle.
 

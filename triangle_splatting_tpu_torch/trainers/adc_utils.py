@@ -9,6 +9,8 @@ from dataclasses import fields, is_dataclass, replace
 import numpy as np
 import torch
 
+from ..ops.rasterize import PAIR_MARGIN, PAIR_SHRINK_IF_BELOW
+
 
 def resolve_contribution_pruning(cp, iteration: int):
     """Apply the downsample schedule to the contribution-pruning knobs:
@@ -36,8 +38,8 @@ def resolve_contribution_pruning(cp, iteration: int):
 
 def adapt_pair_budget(ppt: float, used: int | None, count: int,
                       overflow: bool, *, max_ppt: float = 32.0,
-                      margin: float = 1.3,
-                      shrink_if_below: float = 0.5) -> float:
+                      margin: float = PAIR_MARGIN,
+                      shrink_if_below: float = PAIR_SHRINK_IF_BELOW) -> float:
     """Need-based pair-budget adaptation shared by the trainer and benches.
 
     The pair buffer has a fixed budget per frame, re-quantized with

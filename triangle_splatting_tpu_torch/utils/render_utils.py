@@ -38,11 +38,14 @@ def image_to_cv(image) -> np.ndarray:
 def make_render_fn(params, state, cfg, rasterizer_type: str | None = None,
                    impl: str = "cuda", device="cuda"):
     """Closure camera -> forward package for triangle or Gaussian params
-    (the JAX keys: rich info and the contribution statistics on, as the JAX
-    cores default them). ``params`` and ``state`` must lie on ``device``."""
+    (the JAX keys and ``pairs_needed``: rich info and the contribution
+    statistics on, as the JAX cores default them). ``params`` and ``state``
+    must lie on ``device``. The closure's frames bin at its own
+    ``PairBudget`` (``render_fn.budget``)."""
     from ..models import gaussian_model as MG
     from ..models import triangle as MT
     from ..ops.projection import RasterSettings
+    from ..ops.rasterize import PairBudget
 
     dev = resolve_device(device)
     is_tri = isinstance(params, MT.TriangleParams)
@@ -51,6 +54,7 @@ def make_render_fn(params, state, cfg, rasterizer_type: str | None = None,
         raise ValueError(f"params lie on {lead.device}, not on {dev}")
     rtype = rasterizer_type or getattr(cfg, "rasterizer_type", "2D") or "2D"
     extra = dict(apply_color_affine=False) if is_tri else {}
+    budget = PairBudget()
 
     @torch.no_grad()
     def render_fn(camera: Camera, background: str = "black"):
@@ -60,13 +64,16 @@ def make_render_fn(params, state, cfg, rasterizer_type: str | None = None,
         bg = (torch.ones if background == "white" else torch.zeros)(
             3, dtype=torch.float32, device=dev)
         mod = MT if is_tri else MG
-        return mod.forward(params, state, camera, bg, cfg, settings, is_training=False,
-                           impl=impl, need_stats=True, **extra)
+        return budget.render(
+            lambda max_pairs: mod.forward(params, state, camera, bg, cfg, settings,
+                                          is_training=False, impl=impl, max_pairs=max_pairs,
+                                          need_stats=True, **extra))
 
     with torch.no_grad():
         xyz = MT.get_xyz(params) if is_tri else params.xyz
         render_fn.center = xyz[state.alive].cpu().numpy().mean(axis=0)
     render_fn.device = dev
+    render_fn.budget = budget
     return render_fn
 
 

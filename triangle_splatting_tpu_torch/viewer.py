@@ -13,8 +13,11 @@ thread, behind the viewer's lock. It reads only render, depth and normal,
 so it renders with rich info and without the contribution statistics
 (those three outputs are the rich + stats form's bit for bit). Besides the
 JAX viewer's ``X-Info`` line, a frame carries ``X-Num-Pairs`` and
-``X-Overflow``: a frame whose pairs overflow the budget (6 a triangle, the
-JAX default) drops them, as the JAX viewer does.
+``X-Overflow``. The frames bin at one ``PairBudget`` sized from the pairs
+the frames needed (the JAX default, 6 a triangle, at the first frame),
+across resolutions and loaded models; a frame whose pairs overflow it is
+rendered again at a budget that holds them, where the JAX viewer drops
+them.
 
     python -m triangle_splatting_tpu_torch.viewer --model_dir outputs/NerfSynthetic/VanillaTS/lego
     python -m triangle_splatting_tpu_torch.viewer --config config/NerfSynthetic_VanillaTS.yaml --scene lego
@@ -39,6 +42,7 @@ from .models import triangle as M
 from .models.facade import triangles_from_raw
 from .models.raw_triangle import RawTriangle
 from .ops.projection import RasterSettings
+from .ops.rasterize import PairBudget
 from .utils.camera import Camera
 
 _PAGE = """<!DOCTYPE html>
@@ -156,6 +160,7 @@ class ViewerState:
         self.params = None
         self.state = None
         self.last = {}          # the last frame's num_pairs and overflow
+        self.budget = PairBudget()
 
     def _discover(self):
         out = []
@@ -213,8 +218,10 @@ class ViewerState:
                 3, dtype=torch.float32, device=dev)
             cfg = M.ModelConfig(max_sh_degree=self.max_sh_degree,
                                 rasterizer_type=self.rasterizer_type)
-            pkg = M.forward(self.params, state, cam, bg, cfg, settings, is_training=False,
-                            apply_color_affine=False, need_stats=False)
+            pkg = self.budget.render(
+                lambda max_pairs: M.forward(self.params, state, cam, bg, cfg, settings,
+                                            is_training=False, max_pairs=max_pairs,
+                                            apply_color_affine=False, need_stats=False))
             mode = req.get("mode", "color")
             if mode == "depth":
                 img = _depth_to_image(pkg["depth"].cpu().numpy())
